@@ -1,23 +1,34 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: ``python3 chip_smoke.py``.
 
-Drives the port's main path, the offline SoundFont render of the bench
-workload (a 128-voice chord, 44.1 kHz, block 1024; see
-``pygmu2_tpu_torch/bench_workload.py``), through its user entry points:
+Drives the port's two main paths through their user entry points:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. builds the CUDA kernel from ``pygmu2_tpu_torch/csrc`` (build seconds);
-3. the kernel against its plain PyTorch version on the card, at the main
-   path's shapes (P=128, N=1024, B=130): rows of the small-font and the
-   large-font 3 s schedules, and a two-segment hand-off of the (4, P)
-   state; max abs error <= 1e-4 (peaks are ~11);
+2. builds every CUDA kernel from ``pygmu2_tpu_torch/csrc`` (build seconds);
+3. the offline SoundFont render's kernel against its plain PyTorch
+   version on the card, at the main path's shapes (P=128, N=1024, B=130):
+   rows of the small-font and the large-font 3 s schedules, and a
+   two-segment hand-off of the (4, P) state; max abs error <= 1e-4;
 4. end to end, ``wire="int16"``: the 3 s chord through the small and the
    large font (``render_midi_offline``) and the 60 s piece through the
    large font (``render_midi_offline_streamed``). Each must launch the
    kernel, come out finite and not silent, and match the same render with
    the plain version on the card within 1e-4 (f32 wire). Realtime factors
-   after warm-up, by wall clock and by CUDA events, beside the plain
-   version's.
+   after warm-up, by wall clock and by CUDA events;
+5. the PE graph's three serial kernels (ladder, comb, ADSR) against their
+   plain versions on the card at C in {1, 128}, T = 4096, with a two-call
+   state hand-off; the comb at a constant and a modulated frequency, the
+   ADSR gated and triggered with a gate of many edges; max abs error
+   <= 1e-5 (ladder, comb), <= 1e-6 (ADSR). At the main path's block,
+   T = 16384, each is held to its plain version again and timed with
+   CUDA events (the plain version's one call times it);
+6. end to end through ``render_to_array(device="cuda")``: the subtractive
+   patch for 60 s and the 128-channel bank for 10 s
+   (``pygmu2_tpu_torch/patch_workload.py``, default block 16384). Each
+   must launch all three kernels and come out finite and not silent; the
+   first 0.1 s (block 4096) must match the same render with the plain
+   versions on the card within 1e-4. Realtime factors after the warm-up
+   render, by wall clock and by CUDA events.
 
 Prints a JSON line of per-kernel results, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, before any result, on
@@ -35,6 +46,33 @@ import torch
 
 SR = 44100
 TOL = 1e-4
+BLOCK = 16384  # the PE graph's default render block
+
+# Bounds: the larger of the bytes a call
+# must move over the card's memory rate and the float32 operations it must
+# do over the card's non-tensor-core float32 rate (H100 SXM data sheet).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# Operations per sample, counted from each kernel's arithmetic (tanh and a
+# division count as one operation each):
+# osc_filter_gain_mix per (sample, voice): oscillator 16, biquad 9,
+#   gain ramps 12, mixdown 2
+OSC_OPS = 39
+# ladder per (sample, channel), os_n = 2, LP24: input and decay 12, then
+#   per oversampled step 35 (input interpolation 3, feedback 5, tanh 1,
+#   four stages of 6, mix 2)
+LADDER_OPS = 82
+# comb: per sample (shared by the channels) smoother, delay and position
+#   13; per (sample, channel) feedback multiply-add 2
+COMB_OPS_SAMPLE, COMB_OPS_CHANNEL = 13, 2
+# ADSR per sample: current value 6, edge logic 6, segment step 18
+ADSR_OPS = 30
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """(least ms the card could take, "bytes" or "operations")."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def fail(msg: str) -> None:
@@ -117,6 +155,7 @@ def main() -> None:
         name = "large" if large else "small"
         rows, wave, N = bench_rows(large)
         B, P = rows["ratio"].shape
+        osc_shape = (B, P, N, wave.shape[0])
         out, st = kernel(rows, wave, N)
         torch.cuda.synchronize()
         ref, st_ref = fk.osc_filter_gain_mix_ref(rows, wave, N)
@@ -201,8 +240,7 @@ def main() -> None:
               f"plain x{seconds / p_wall:.1f} wall ({p_wall * 1e3:.1f} ms), "
               f"x{seconds / p_ev:.1f} events [{card}]")
 
-    k_ms, p_ms = timings["large"]
-    print(json.dumps({"kernels": [{
+    osc_entry = {
         "name": "osc_filter_gain_mix",
         "route": "cuda",
         "source": "pygmu2_tpu_torch/csrc/osc_filter_gain_mix.cu",
@@ -210,14 +248,260 @@ def main() -> None:
                     "(and the windowed variant at :624)",
         "launches": launches,
         "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-    }]}))
+        "ms": timings["large"][0],
+        "plain_ms": timings["large"][1],
+        "library_ms": None,  # no single PyTorch call computes this function
+    }
+    B, P, N, L = osc_shape  # the large font's 3 s shapes
+    osc_entry["bound_ms"], osc_entry["bound_by"] = bound(
+        4 * (18 * B * P + L + 8 * P + 2 * B * N), OSC_OPS * B * N * P
+    )
+
+    serial = serial_kernels(dev, card, device_ms)
+    pe_launches = pe_graph(dev, card)
+    entries = [osc_entry]
+    for name, info in serial.items():
+        entries.append({"name": name, "route": "cuda", **info,
+                        "launches": pe_launches[name], "library_ms": None})
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
     }}))
+
+
+def _seeded(dev, seed, *shapes, lo=-1.0, hi=1.0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.uniform(lo, hi, s).astype(np.float32)).to(dev)
+            for s in shapes]
+
+
+def _err(got, ref) -> float:
+    return max((g.float() - r.float()).abs().max().item() for g, r in zip(got, ref))
+
+
+def serial_kernels(dev, card, device_ms) -> dict:
+    """Phase 5: the PE graph's kernels against their plain versions on the
+    card, and their times at the main path's block. Returns the kernels'
+    JSON fields but ``launches``."""
+    from pygmu2_tpu_torch.ops import adsr, comb, ladder
+
+    T, L = 4096, 2206  # L: the comb ring at 44.1 kHz, min_frequency 20 Hz
+    ladder_kw = dict(os_n=2, pbg=0.5, mode_index=0, input_threshold=1e-5,
+                     state_decay=0.95)
+    comb_kw = dict(L=L, sr=float(SR), smooth_alpha=1 / 2400)
+    adsr_kw = dict(dA=1 / (0.01 * SR), dD=(0.6 - 1) / (0.05 * SR),
+                   dR=-0.6 / (0.1 * SR), sus=0.6)
+    out = {}
+
+    def ladder_args(T, C, seed):
+        x, qa, dsc, st = _seeded(dev, seed, (T, C), (T,), (T,), (9, C))
+        (al,) = _seeded(dev, seed + 1, (T,), lo=0.05, hi=0.6)
+        (ki,) = _seeded(dev, seed + 2, (T,), lo=0.0, hi=3.2)
+        return x, al, qa * 0.1 + 1.0, ki, dsc + 1.5, st * 0.1
+
+    def comb_args(T, C, seed, modulated):
+        x, fb, buf = _seeded(dev, seed, (T, C), (T,), (L, C))
+        if modulated:
+            (freq,) = _seeded(dev, seed + 1, (T,), lo=200.0, hi=240.0)
+        else:
+            freq = torch.full((T,), 220.0, device=dev)
+        return (x, freq, fb * 0.7, buf * 0.1, torch.tensor(3, dtype=torch.int32, device=dev),
+                torch.tensor(-1.0, device=dev))
+
+    def gate_args(T, triggered):
+        g = np.zeros(T, np.float32)
+        g[100:T // 3] = 1.0
+        g[T // 2:T - 100:37] = 1.0  # many edges
+        if triggered:
+            g = (np.diff(g, prepend=0.0) > 0).astype(np.float32)
+        return torch.from_numpy(g).to(dev), torch.zeros(4, device=dev)
+
+    def timed_plain(fn):
+        """One call of a plain version (a Python loop over samples):
+        (its result, its ms by CUDA events)."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        result = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return result, start.elapsed_time(end)
+
+    def compare(name, got, ref, tol, what):
+        err = _err(got, ref)
+        print(f"{name} vs plain, {what}: max abs err {err:.3g}")
+        finite = all(torch.isfinite(g.float()).all().item() for g in got)
+        check(finite and err <= tol, f"{name} {what}: kernel disagrees with plain ({err})")
+        return err
+
+    def handoff(fn, ref_fn, args, cut, n_state, kw):
+        """Two kernel calls across ``cut`` vs one plain call."""
+        n_time = len(args) - n_state
+        first = fn(*(a[:cut] for a in args[:n_time]), *args[n_time:], **kw)
+        second = fn(*(a[cut:] for a in args[:n_time]), *first[1:], **kw)
+        got = (torch.cat([first[0], second[0]]), *second[1:])
+        return got, ref_fn(*args, **kw)
+
+    # ---- ladder ----
+    errs = []
+    for C in (1, 128):
+        args = ladder_args(T, C, seed=C)
+        got = ladder.ladder_scan(*args, **ladder_kw)
+        torch.cuda.synchronize()
+        errs.append(compare("ladder_scan", got, ladder.ladder_scan_ref(*args, **ladder_kw),
+                          1e-5, f"C={C} T={T}"))
+        got, ref = handoff(ladder.ladder_scan, ladder.ladder_scan_ref, args, T // 2, 1, ladder_kw)
+        errs.append(compare("ladder_scan", got, ref, 1e-5, f"C={C} two-call hand-off"))
+    times = {}
+    for C in (1, 128):  # the main path's block: timed, and held to plain
+        args = ladder_args(BLOCK, C, seed=10 + C)
+        ref, plain_ms = timed_plain(lambda: ladder.ladder_scan_ref(*args, **ladder_kw))
+        errs.append(compare("ladder_scan", ladder.ladder_scan(*args, **ladder_kw), ref,
+                            1e-5, f"C={C} T={BLOCK}"))
+        times[C] = (device_ms(lambda: ladder.ladder_scan(*args, **ladder_kw), 10), plain_ms)
+        print(f"ladder_scan T={BLOCK} C={C}: kernel {times[C][0]:.4f} ms, "
+              f"plain {times[C][1]:.1f} ms [{card}]")
+    C = 128
+    ms_bound, by = bound(4 * (2 * BLOCK * C + 4 * BLOCK + 18 * C), LADDER_OPS * BLOCK * C)
+    out["ladder_scan"] = {
+        "source": "pygmu2_tpu_torch/csrc/ladder_scan.cu",
+        "replaces": "pygmu2_tpu/ops/ladder_pallas.py:202",
+        "max_abs_err": max(errs), "ms": times[C][0], "plain_ms": times[C][1],
+        "bound_ms": ms_bound, "bound_by": by, "shape": f"T={BLOCK} C={C}",
+    }
+
+    # ---- comb ----
+    errs = []
+    for C in (1, 128):
+        for modulated in (False, True):
+            what = f"C={C} T={T} {'modulated' if modulated else 'constant'} frequency"
+            args = comb_args(T, C, seed=C, modulated=modulated)
+            got = comb.comb_scan(*args, **comb_kw)
+            torch.cuda.synchronize()
+            errs.append(compare("comb_scan", got, comb.comb_scan_ref(*args, **comb_kw), 1e-5, what))
+        got, ref = handoff(comb.comb_scan, comb.comb_scan_ref, args, T // 2, 3, comb_kw)
+        errs.append(compare("comb_scan", got, ref, 1e-5, f"C={C} two-call hand-off"))
+    times = {}
+    for C in (1, 128):  # the main path's block: timed, and held to plain
+        args = comb_args(BLOCK, C, seed=10 + C, modulated=True)
+        ref, plain_ms = timed_plain(lambda: comb.comb_scan_ref(*args, **comb_kw))
+        errs.append(compare("comb_scan", comb.comb_scan(*args, **comb_kw), ref, 1e-5,
+                            f"C={C} T={BLOCK}"))
+        times[C] = (device_ms(lambda: comb.comb_scan(*args, **comb_kw), 10), plain_ms)
+        print(f"comb_scan T={BLOCK} C={C} L={L}: kernel {times[C][0]:.4f} ms, "
+              f"plain {times[C][1]:.1f} ms [{card}]")
+    C = 128
+    ms_bound, by = bound(4 * (2 * BLOCK * C + 2 * BLOCK + 2 * L * C + 4),
+                         COMB_OPS_SAMPLE * BLOCK + COMB_OPS_CHANNEL * BLOCK * C)
+    out["comb_scan"] = {
+        "source": "pygmu2_tpu_torch/csrc/comb_scan.cu",
+        "replaces": "pygmu2_tpu/ops/comb_pallas.py:125",
+        "max_abs_err": max(errs), "ms": times[C][0], "plain_ms": times[C][1],
+        "bound_ms": ms_bound, "bound_by": by, "shape": f"T={BLOCK} C={C} L={L}",
+    }
+
+    # ---- ADSR ----
+    errs = []
+    for triggered in (False, True):
+        kw = dict(adsr_kw, sustain_samples=2206 if triggered else None)
+        what = "triggered" if triggered else "gated"
+        args = gate_args(T, triggered)
+        got = adsr.adsr_scan(*args, **kw)
+        torch.cuda.synchronize()
+        errs.append(compare("adsr_scan", got, adsr.adsr_scan_ref(*args, **kw), 1e-6,
+                          f"{what} T={T}"))
+        got, ref = handoff(adsr.adsr_scan, adsr.adsr_scan_ref, args, T // 3 + 50, 1, kw)
+        errs.append(compare("adsr_scan", got, ref, 1e-6, f"{what} two-call hand-off"))
+    args = gate_args(BLOCK, False)  # the main path's block: timed, and held to plain
+    ref, plain = timed_plain(lambda: adsr.adsr_scan_ref(*args, **adsr_kw))
+    errs.append(compare("adsr_scan", adsr.adsr_scan(*args, **adsr_kw), ref, 1e-6,
+                        f"gated T={BLOCK}"))
+    ms = device_ms(lambda: adsr.adsr_scan(*args, **adsr_kw), 10)
+    print(f"adsr_scan T={BLOCK}: kernel {ms:.4f} ms, plain {plain:.1f} ms [{card}]")
+    ms_bound, by = bound(4 * (2 * BLOCK + 8), ADSR_OPS * BLOCK)
+    out["adsr_scan"] = {
+        "source": "pygmu2_tpu_torch/csrc/adsr_scan.cu",
+        "replaces": "pygmu2_tpu/ops/adsr_pallas.py:268",
+        "max_abs_err": max(errs), "ms": ms, "plain_ms": plain,
+        "bound_ms": ms_bound, "bound_by": by, "shape": f"T={BLOCK}",
+    }
+    return out
+
+
+@contextlib.contextmanager
+def plain_serial_kernels():
+    """PE renders inside take the serial kernels' plain versions."""
+    from pygmu2_tpu_torch.ops import adsr, comb, ladder
+
+    swaps = [(ladder, "ladder_scan"), (comb, "comb_scan"), (adsr, "adsr_scan")]
+    kernels = [getattr(mod, name) for mod, name in swaps]
+    for mod, name in swaps:
+        setattr(mod, name, getattr(mod, name + "_ref"))
+    try:
+        yield
+    finally:
+        for (mod, name), fn in zip(swaps, kernels):
+            setattr(mod, name, fn)
+
+
+def pe_graph(dev, card) -> dict:
+    """Phase 6: the subtractive patch and the bank through
+    ``render_to_array``; returns each kernel's launches on that path."""
+    import pygmu2_tpu_torch as pg
+    from pygmu2_tpu_torch import patch_workload
+    from pygmu2_tpu_torch.ops import adsr, comb, ladder
+
+    counters = {"ladder_scan": ladder.ladder_scan, "comb_scan": comb.comb_scan,
+                "adsr_scan": adsr.adsr_scan}
+    cases = [
+        ("patch, 60 s mono", 60.0, lambda s: patch_workload.build_patch(pg, s), 1),
+        ("bank, 10 s x 128 channels", 10.0,
+         lambda s: patch_workload.build_bank(pg, s, seed=0), patch_workload.BANK_CHANNELS),
+    ]
+    graphs = [build(seconds) for _label, seconds, build, _c in cases]
+    for fn in counters.values():
+        fn.launches = 0  # the main path's run starts here
+    per_case = []
+    outs = []
+    for (label, seconds, _build, channels), graph in zip(cases, graphs):
+        before = {k: fn.launches for k, fn in counters.items()}
+        out = pg.render_to_array(graph, device=dev)
+        per_case.append({k: fn.launches - before[k] for k, fn in counters.items()})
+        outs.append(out)
+    launches = {k: fn.launches for k, fn in counters.items()}
+
+    for (label, seconds, build, channels), graph, out, n in zip(cases, graphs, outs, per_case):
+        check(out.shape == (int(round(seconds * SR)), channels) and out.dtype == np.float32,
+              f"{label}: output {out.dtype} {out.shape}")
+        check(bool(np.isfinite(out).all()) and np.abs(out).max() > 0.1,
+              f"{label}: not finite or silent")
+        for name, count in n.items():
+            check(count > 0, f"{label}: {name} was not launched")
+        # the first 0.1 s, kernels against plain versions on the card
+        got = pg.render_to_array(build(0.1), block=4096, device=dev)
+        with plain_serial_kernels():
+            ref = pg.render_to_array(build(0.1), block=4096, device=dev)
+        err = float(np.abs(got - ref).max())
+        check(err <= TOL and np.abs(ref).max() > 0.1,
+              f"{label}: first 0.1 s, kernels vs plain {err}")
+
+        # timed, after the main path's render of the same graph (warm-up)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        start.record()
+        pg.render_to_array(graph, device=dev)
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        ev = start.elapsed_time(end) / 1e3
+        print(f"{label}: launches {n}; first 0.1 s kernels vs plain max abs err "
+              f"{err:.3g}; realtime x{seconds / wall:.2f} wall ({wall * 1e3:.1f} ms), "
+              f"x{seconds / ev:.2f} by CUDA events ({ev * 1e3:.1f} ms) [{card}]")
+    return launches
 
 
 if __name__ == "__main__":

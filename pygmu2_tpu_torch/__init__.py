@@ -1,12 +1,65 @@
 """pygmu2_tpu_torch: the PyTorch + CUDA port of pygmu2_tpu.
 
-This first slice is the offline SoundFont render: a MIDI score through a
-SoundFont to stereo audio, with the audio-rate pass in a hand-written
-CUDA kernel for Hopper (``csrc/osc_filter_gain_mix.cu``). Every public
-render function takes an explicit ``device`` (default ``"cuda"``); CPU
-tensors run the kernels' plain PyTorch versions.
+Two slices so far:
+
+- the offline SoundFont render: a MIDI score through a SoundFont to
+  stereo audio, with the audio-rate pass in a hand-written CUDA kernel
+  (``csrc/osc_filter_gain_mix.cu``);
+- the PE-graph render engine (``core/``) with the PEs of a subtractive
+  patch (``models/``): LadderPE, CombPE and the ADSR pair run on
+  hand-written CUDA kernels (``csrc/ladder_scan.cu``, ``comb_scan.cu``,
+  ``adsr_scan.cu``).
+
+Every public render function takes an explicit ``device`` (default
+``"cuda"``); CPU tensors run the kernels' plain PyTorch versions.
 """
 
+from pygmu2_tpu_torch.core.config import (
+    ErrorMode,
+    get_error_mode,
+    get_sample_rate,
+    handle_error,
+    set_error_mode,
+    set_sample_rate,
+)
+from pygmu2_tpu_torch.core.engine import (
+    checkpoint_state,
+    render_scan,
+    reset_graph_states,
+    restore_state,
+)
+from pygmu2_tpu_torch.core.extent import Extent, ExtendMode
+from pygmu2_tpu_torch.core.logger import get_logger, set_global_logging
+from pygmu2_tpu_torch.core.processing_element import ProcessingElement, SourcePE
+from pygmu2_tpu_torch.core.renderer import (
+    NullRenderer,
+    PEProfile,
+    ProfileReport,
+    Renderer,
+)
+from pygmu2_tpu_torch.core.snippet import Snippet
+from pygmu2_tpu_torch.models.basic import (
+    ArrayPE,
+    ConstantPE,
+    DiracPE,
+    GainPE,
+    IdentityPE,
+    MixPE,
+    ParamPE,
+    TransformPE,
+)
+from pygmu2_tpu_torch.models.envelopes import AdsrGatedPE, AdsrTriggeredPE
+from pygmu2_tpu_torch.models.gates import (
+    GateSignal,
+    PeriodicGate,
+    PeriodicTrigger,
+    TriggerSignal,
+)
+from pygmu2_tpu_torch.models.modes import LadderMode
+from pygmu2_tpu_torch.models.osc_bandlimited import BlitSawPE
+from pygmu2_tpu_torch.models.oscillators import FunctionGenPE, SinePE
+from pygmu2_tpu_torch.models.physical import CombPE, LadderPE
+from pygmu2_tpu_torch.models.window import CropPE, SetExtentPE
 from pygmu2_tpu_torch.soundfont import (
     MidiFile,
     MidiFileSequencer,
@@ -22,8 +75,57 @@ from pygmu2_tpu_torch.soundfont.offline import (
     render_midi_offline,
     render_midi_offline_streamed,
 )
+from pygmu2_tpu_torch.utils.playback import render_to_array, render_to_file
 
 __all__ = [
+    # configuration and engine
+    "ErrorMode",
+    "get_error_mode",
+    "get_sample_rate",
+    "handle_error",
+    "set_error_mode",
+    "set_sample_rate",
+    "Extent",
+    "ExtendMode",
+    "get_logger",
+    "set_global_logging",
+    "ProcessingElement",
+    "SourcePE",
+    "Renderer",
+    "NullRenderer",
+    "PEProfile",
+    "ProfileReport",
+    "Snippet",
+    "checkpoint_state",
+    "render_scan",
+    "reset_graph_states",
+    "restore_state",
+    "render_to_array",
+    "render_to_file",
+    # PEs
+    "ArrayPE",
+    "ConstantPE",
+    "DiracPE",
+    "GainPE",
+    "IdentityPE",
+    "MixPE",
+    "ParamPE",
+    "TransformPE",
+    "CropPE",
+    "SetExtentPE",
+    "SinePE",
+    "FunctionGenPE",
+    "GateSignal",
+    "TriggerSignal",
+    "PeriodicGate",
+    "PeriodicTrigger",
+    "BlitSawPE",
+    "LadderMode",
+    "LadderPE",
+    "CombPE",
+    "AdsrGatedPE",
+    "AdsrTriggeredPE",
+    # the offline SoundFont render
     "MidiFile",
     "MidiFileSequencer",
     "SoundFont",

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into one shared library
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all
+started together, and the objects are linked into one shared library
 with a plain C interface, loaded with ``ctypes``. The build happens at
 first use, from the sources in this checkout only, into
 ``build/kernels/`` beside the package; the library's name carries a hash
@@ -16,7 +17,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent
 _BUILD_DIR = _PKG.parent / "build" / "kernels"
@@ -24,7 +28,7 @@ _BUILD_DIR = _PKG.parent / "build" / "kernels"
 # (the kernels hold parity with the plain PyTorch versions)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 
@@ -39,6 +43,21 @@ def _nvcc() -> str | None:
     toolkit = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
     default = toolkit / "bin" / "nvcc"
     return str(default) if default.exists() else None
+
+
+def _run_all(commands: list[list[str]]) -> None:
+    """Run the commands in parallel; raise with the output of any that fails."""
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for cmd in commands
+    ]
+    failed = []
+    for cmd, proc in zip(commands, procs):
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} (exit {proc.returncode}):\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
 
 
 def build() -> Path:
@@ -59,17 +78,15 @@ def build() -> Path:
     if lib.exists():
         return lib
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, lib)
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in sources]
+        _run_all([
+            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            for src, obj in zip(sources, objs)
+        ])
+        tmp_lib = Path(tmp) / lib.name
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp_lib), *map(str, objs)]])
+        os.replace(tmp_lib, lib)
     return lib
 
 
@@ -77,11 +94,41 @@ def build() -> Path:
 def load() -> ctypes.CDLL:
     """The built library with its C functions' signatures declared."""
     lib = ctypes.CDLL(str(build()))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn = lib.osc_filter_gain_mix_launch
-    # rows_f, rows_i, wave, L, state_in, out, state_out, scratch, B, P, N, stream
-    fn.argtypes = [p, p, p, i, p, p, p, p, i, i, i, p]
-    fn.restype = i
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    signatures = {
+        # rows_f, rows_i, wave, L, state_in, out, state_out, scratch, B, P, N, stream
+        "osc_filter_gain_mix_launch": [p, p, p, i, p, p, p, p, i, i, i, p],
+        # x, al, qa, ki, dsc, state_in, y, state_out, T, C, os_n, pbg,
+        # mode_index, input_threshold, state_decay, stream
+        "ladder_scan_launch": [p] * 8 + [i, i, i, f, i, f, f, p],
+        # x, freq, fb, buf_in, pos_in, sf_in, y, buf_out, pos_out, sf_out,
+        # T, C, L, sr, smooth_alpha, stream
+        "comb_scan_launch": [p] * 10 + [i, i, i, f, f, p],
+        # gate, state_in, env, state_out, T, dA, dD, dR, sus,
+        # sustain_samples (-1: gated), stream
+        "adsr_scan_launch": [p] * 4 + [i, f, f, f, f, i, p],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = i
     lib.pgt_cuda_error_string.argtypes = [i]
     lib.pgt_cuda_error_string.restype = p
     return lib
+
+
+def raise_on_error(err: int, kernel: str) -> None:
+    """Raise when a launch function returned a CUDA error code."""
+    if err != 0:
+        msg = ctypes.string_at(load().pgt_cuda_error_string(err)).decode()
+        raise RuntimeError(f"{kernel} launch failed: {msg} ({err})")
+
+
+def checked(t: torch.Tensor, name: str, shape: tuple, device) -> torch.Tensor:
+    """``t`` as a contiguous float32 tensor of ``shape`` on ``device``, or raise."""
+    if tuple(t.shape) != tuple(shape) or t.dtype != torch.float32 or t.device != device:
+        raise ValueError(
+            f"{name}: expected float32 {tuple(shape)} on {device}, got "
+            f"{t.dtype} {tuple(t.shape)} on {t.device}"
+        )
+    return t.contiguous()

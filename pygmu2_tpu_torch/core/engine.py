@@ -1,0 +1,487 @@
+"""PE-graph render engine (counterpart of ``pygmu2_tpu.core.engine``).
+
+A graph of processing elements renders block by block. For one block the
+engine walks the graph from the root: each PE's ``_trace(ctx)`` pulls its
+inputs through the :class:`TraceContext` and returns a ``(duration, C)``
+float32 tensor on the render's device. PyTorch runs eagerly, so "tracing"
+a block IS rendering it, and every block start is a host ``int``: the JAX
+package's traced-start branches collapse into its static ones.
+
+* Pure PEs are functions of the absolute sample index.
+* Stateful PEs thread a state pytree (nested dicts/tuples of tensors)
+  from block to block. Each entry carries a ``next`` cursor (the absolute
+  index one past the previous request); on a non-contiguous request the
+  state is reset to its init value.
+* Extent-driven zero-fill is applied centrally by ``TraceContext.pull``:
+  a request wholly outside a PE's extent is pruned (zeros, the PE is not
+  rendered), a partial overlap is masked.
+* Within one block, repeated pulls of the same node at the same offset
+  and duration are memoized: a shared node renders once per block.
+
+``render_scan`` renders a timeline as a Python loop over fixed blocks that
+threads the state dict, then leaves the final state on the PE instances
+(``checkpoint_state`` / ``restore_state`` save and load it, in the JAX
+package's format).
+"""
+
+from __future__ import annotations
+
+import itertools
+from typing import Any, TYPE_CHECKING
+
+import numpy as np
+import torch
+
+from pygmu2_tpu_torch.core import prec
+from pygmu2_tpu_torch.core.extent import Extent
+
+if TYPE_CHECKING:
+    from pygmu2_tpu_torch.core.processing_element import ProcessingElement
+
+# ``next`` cursor value meaning "state has never been used" — any request
+# start compares unequal, so the first render after a reset re-inits.
+FRESH = -(2**62)
+
+_uid_counter = itertools.count()
+
+
+def next_uid() -> int:
+    """Monotonic id assigned to every PE at construction (stable state keys)."""
+    return next(_uid_counter)
+
+
+def tree_map(fn, tree, *rest):
+    """Apply ``fn`` leafwise over a pytree of dicts, tuples and lists
+    (and over trees of the same structure in ``rest``)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(
+            tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)
+        )
+    return fn(tree, *rest)
+
+
+def _to_device(value, device):
+    """A state leaf as a tensor on ``device`` (numpy leaves keep their dtype)."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device)
+    return torch.as_tensor(np.asarray(value), device=device)
+
+
+class _Frame:
+    """One entry of the render stack: which PE is rendering what window."""
+
+    __slots__ = ("pe", "start", "rel", "duration")
+
+    def __init__(self, pe, start: int, rel, duration: int):
+        self.pe = pe
+        self.start = start  # absolute start (host int)
+        self.rel = rel  # offset from the block start, or None for pull_abs
+        self.duration = duration
+
+
+class TraceContext:
+    """Handed to ``ProcessingElement._trace`` while one block renders.
+
+    Provides input pulls, scalar-or-PE parameter evaluation, absolute time
+    indices, and the state protocol.
+    """
+
+    def __init__(
+        self,
+        program: "Program",
+        block_start: int,
+        states: dict | None,
+        bindings: dict | None = None,
+    ):
+        self._program = program
+        self._block_start = block_start
+        self._states_in = states  # None on the very first block
+        self._states_out: dict[str, Any] = {}
+        self._memo: dict[tuple, torch.Tensor] = {}
+        self._stack: list[_Frame] = []
+        self._bindings = bindings  # name -> value (ParamPE)
+
+    # ---- frame info -----------------------------------------------------
+
+    @property
+    def duration(self) -> int:
+        """Sample count of the current frame."""
+        return self._stack[-1].duration
+
+    @property
+    def start(self) -> int:
+        """Absolute start index of the current frame."""
+        return self._stack[-1].start
+
+    @property
+    def sample_rate(self) -> int:
+        return self._program.sample_rate
+
+    @property
+    def device(self) -> torch.device:
+        """The device every tensor of this render lives on."""
+        return self._program.device
+
+    def times(self, dtype=prec.INDEX):
+        """Absolute sample indices of the current frame, shape (duration,)."""
+        frame = self._stack[-1]
+        t = torch.arange(frame.duration, dtype=prec.INDEX, device=self.device)
+        t = t + frame.start
+        return t if dtype == prec.INDEX else t.to(dtype)
+
+    # ---- pulling inputs -------------------------------------------------
+
+    def pull(self, pe: "ProcessingElement", shift: int = 0, duration: int | None = None):
+        """Render ``pe`` for ``[frame.start + shift, + duration)``.
+
+        Returns a float32 tensor ``(duration, C)``.
+        """
+        frame = self._stack[-1]
+        if duration is None:
+            duration = frame.duration
+        rel = None if frame.rel is None else frame.rel + shift
+        return self._render_node(pe, int(frame.start) + shift, rel, duration)
+
+    def pull_abs(self, pe: "ProcessingElement", start: int, duration: int):
+        """Render ``pe`` at an absolute start index."""
+        return self._render_node(pe, int(start), None, duration)
+
+    def _render_node(self, pe, start: int, rel, duration: int):
+        if duration <= 0:
+            return self._zeros(0, pe.channel_count() or 1)
+
+        ext = pe.extent()
+        if rel is not None:
+            key = (id(pe), rel, duration)
+        else:
+            key = (id(pe), ("abs", start), duration)
+        if key in self._memo:
+            return self._memo[key]
+
+        # Edge-filling PEs (HOLD modes, ringing tails) emit meaningful
+        # samples outside their extent — never prune or shortcut them.
+        fills = pe._fills_own_edges()
+        if not fills and (
+            ext.is_empty() or not ext.intersects(Extent(start, start + duration))
+        ):
+            # Whole request outside the extent: prune.
+            out = self._zeros_like_node(pe, duration)
+        else:
+            self._stack.append(_Frame(pe, start, rel, duration))
+            try:
+                out = pe._trace(self)
+            finally:
+                self._stack.pop()
+            if out.dim() == 1:
+                out = out[:, None]
+            if out.shape[0] != duration:
+                raise RuntimeError(
+                    f"{type(pe).__name__}._trace returned {out.shape[0]} samples, "
+                    f"expected {duration}"
+                )
+            if out.dtype != prec.AUDIO:
+                out = out.to(prec.AUDIO)
+            out = self._mask_extent(pe, ext, start, duration, out)
+
+        self._memo[key] = out
+        return out
+
+    def _zeros(self, duration: int, channels: int):
+        return torch.zeros((duration, int(channels)), dtype=prec.AUDIO, device=self.device)
+
+    def _zeros_like_node(self, pe, duration: int):
+        channels = pe.channel_count()
+        if channels is None:
+            counts = [inp.channel_count() for inp in pe.inputs()]
+            counts = [c for c in counts if c is not None]
+            channels = pe.resolve_channel_count(counts) if counts else 1
+        return self._zeros(duration, channels)
+
+    def _mask_extent(self, pe, ext: Extent, start: int, duration: int, out):
+        """Zero samples outside ``ext`` (render contract 1) unless the PE
+        fills its own edges (ExtendMode HOLD variants)."""
+        if pe._fills_own_edges():
+            return out
+        if ext.start is None and ext.end is None:
+            return out
+        if ext.spans(start, duration):
+            return out
+        t = torch.arange(duration, dtype=prec.INDEX, device=self.device) + start
+        mask = torch.ones((duration,), dtype=torch.bool, device=self.device)
+        if ext.start is not None:
+            mask = mask & (t >= ext.start)
+        if ext.end is not None:
+            mask = mask & (t < ext.end)
+        return torch.where(mask[:, None], out, torch.zeros((), dtype=out.dtype, device=out.device))
+
+    # ---- scalar-or-PE parameters ---------------------------------------
+
+    def param(
+        self,
+        value,
+        channel: int = 0,
+        multichannel: bool = False,
+        channels: int | None = None,
+        dtype=prec.AUDIO,
+    ):
+        """Evaluate a scalar-or-PE parameter over the current frame.
+
+        Returns ``(duration,)`` (channel 0 of a multichannel PE by default),
+        or ``(duration, C)`` when ``multichannel`` is True.
+        """
+        from pygmu2_tpu_torch.core.processing_element import ProcessingElement
+
+        duration = self.duration
+        if isinstance(value, ProcessingElement):
+            data = self.pull(value)
+            if multichannel:
+                return data.to(dtype)
+            if channel < 0 or channel >= data.shape[1]:
+                raise ValueError(
+                    f"channel {channel} out of range for param with "
+                    f"{data.shape[1]} channels"
+                )
+            return data[:, channel].to(dtype)
+        shape = (duration, channels or 1) if multichannel else (duration,)
+        return torch.full(shape, float(value), dtype=dtype, device=self.device)
+
+    def param_is_pe(self, value) -> bool:
+        from pygmu2_tpu_torch.core.processing_element import ProcessingElement
+
+        return isinstance(value, ProcessingElement)
+
+    # ---- runtime-bindable parameters (ParamPE) ---------------------------
+
+    def binding(self, name: str, default):
+        """The bound value for ``name`` (a scalar or ``(C,)`` tensor) when
+        the render was given ``bindings={name: value}``, else ``default``."""
+        value = default
+        if self._bindings is not None and name in self._bindings:
+            value = self._bindings[name]
+        if isinstance(value, (int, float)):  # a fill, not a host-to-card copy
+            return torch.full((), float(value), dtype=prec.AUDIO, device=self.device)
+        return torch.as_tensor(value, dtype=prec.AUDIO, device=self.device)
+
+    # ---- state protocol -------------------------------------------------
+
+    def state(self, pe, init, reset_on_gap: bool = True):
+        """Fetch ``pe``'s carried state for the current frame.
+
+        ``init`` is a pytree (or zero-arg callable returning one) giving the
+        reset value; its leaf shapes/dtypes define the state layout. It is
+        evaluated only on the first request and on a gap; a callable that
+        builds its tensors on ``ctx.device`` costs no host-to-card copy,
+        which would synchronize the stream. Returns
+        ``(state, fresh)`` where ``fresh`` is True when the state was
+        (re)initialized because this is the first request or a
+        non-contiguous one.
+
+        Call :meth:`set_state` with the updated pytree before returning.
+        """
+        key = f"pe{pe._uid}"
+        dev = self.device
+
+        def init_value():
+            # only when needed: a copy to the card would synchronize
+            val = init() if callable(init) else init
+            return tree_map(lambda v: _to_device(v, dev), val)
+
+        if self._states_in is None or key not in self._states_in:
+            self._program._register_state_node(pe)
+            return init_value(), True
+
+        stored = self._states_in[key]
+        user = tree_map(lambda v: _to_device(v, dev), stored["user"])
+        if not reset_on_gap:
+            return user, stored["next"] == FRESH
+        if stored["next"] == self._stack[-1].start:
+            return user, False
+        return tree_map(lambda cur, ini: ini.to(cur.dtype), user, init_value()), True
+
+    def set_state(self, pe, new_state) -> None:
+        """Store ``pe``'s state for the next block."""
+        frame = next((fr for fr in reversed(self._stack) if fr.pe is pe), self._stack[-1])
+        self._states_out[f"pe{pe._uid}"] = {
+            "user": new_state,
+            "next": frame.start + frame.duration,
+        }
+
+    def _collect_states(self) -> dict:
+        # Carry through untouched states so a subgraph pruned this block
+        # keeps its state (its ``next`` cursor then marks the gap).
+        out = dict(self._states_out)
+        if self._states_in:
+            for key, val in self._states_in.items():
+                out.setdefault(key, val)
+        return out
+
+
+class Program:
+    """The render of one (root, block duration, device) triple."""
+
+    def __init__(self, root: "ProcessingElement", duration: int, device="cuda"):
+        self.root = root
+        self.duration = int(duration)
+        self.device = torch.device(device)
+        self.sample_rate = root.sample_rate
+        self._state_nodes: list = []
+        self._walked = _walk(root)
+
+    def _run(self, block_start: int, states: dict | None, bindings=None):
+        """Render one block from ``states``; returns (block, new states)."""
+        ctx = TraceContext(self, block_start, states, bindings)
+        out = ctx._render_node(self.root, block_start, 0, self.duration)
+        return out, ctx._collect_states()
+
+    def _register_state_node(self, pe) -> None:
+        if pe not in self._state_nodes:
+            self._state_nodes.append(pe)
+
+    def run(self, start: int):
+        """Render one block at ``start``, threading instance-held state."""
+        out, new_states = self._run(int(start), _gather_states(self.root))
+        _scatter_states(self.root, new_states)
+        return out
+
+    def run_static(self, start: int):
+        """Same as :meth:`run`: in eager PyTorch every start is static, so
+        the JAX package's per-start retrace has nothing to add."""
+        return self.run(start)
+
+
+def _walk(root) -> list:
+    """All nodes reachable from root (root included), depth-first, each once."""
+    seen: dict[int, Any] = {}
+    order = []
+
+    def visit(pe):
+        if id(pe) in seen:
+            return
+        seen[id(pe)] = pe
+        for inp in pe.inputs():
+            visit(inp)
+        order.append(pe)
+
+    visit(root)
+    return order
+
+
+def _gather_states(root) -> dict | None:
+    """Collect instance-held states for the graph; None if none initialized."""
+    states = {}
+    for pe in _walk(root):
+        st = getattr(pe, "_eng_state", None)
+        if st is not None:
+            states[f"pe{pe._uid}"] = st
+    return states or None
+
+
+def _scatter_states(root, states: dict) -> None:
+    for pe in _walk(root):
+        key = f"pe{pe._uid}"
+        if key in states:
+            pe._eng_state = states[key]
+
+
+def reset_graph_states(root) -> None:
+    """Drop all carried state in the graph (forces re-init on next render)."""
+    for pe in _walk(root):
+        pe._eng_state = None
+
+
+def get_program(root, duration: int, device="cuda") -> Program:
+    """Program cache, keyed per root instance, block duration and device."""
+    device = torch.device(device)
+    cache = root.__dict__.setdefault("_programs", {})
+    prog = cache.get((duration, device))
+    if prog is None:
+        prog = Program(root, duration, device)
+        cache[(duration, device)] = prog
+    return prog
+
+
+def render_scan(root, start: int, total: int, block: int, bindings=None, *,
+                device="cuda"):
+    """Render ``[start, start+total)`` over fixed blocks of ``block`` samples.
+
+    Returns a ``(total, C)`` float32 tensor on ``device``; the state after
+    the last block stays on the PE instances. ``bindings`` maps
+    :class:`~pygmu2_tpu_torch.models.basic.ParamPE` names to values.
+    """
+    device = torch.device(device)
+    if total <= 0:
+        return torch.zeros((0, root.channel_count() or 1), dtype=prec.AUDIO, device=device)
+    block = int(min(block, total))
+    n_blocks = -(-total // block)
+    prog = get_program(root, block, device)
+    states = _gather_states(root)
+    outs = []
+    for i in range(n_blocks):
+        out, states = prog._run(start + i * block, states, bindings)
+        outs.append(out)
+    _scatter_states(root, states)
+    return torch.cat(outs)[:total]
+
+
+# ---- checkpoint / resume -------------------------------------------------
+#
+# Snapshots are keyed structurally (walk order + class name), so they
+# restore onto a *rebuilt* graph of the same shape, and they carry the
+# JAX package's format: {"i:ClassName": {"user": numpy pytree, "next":
+# 0-d int64}}. A snapshot of either package restores in the other.
+
+
+def _structural_keys(root) -> dict:
+    return {
+        f"pe{pe._uid}": f"{i}:{type(pe).__name__}"
+        for i, pe in enumerate(_walk(root))
+    }
+
+
+def _to_numpy(value):
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu().numpy()
+    return np.asarray(value)
+
+
+def checkpoint_state(root) -> dict:
+    """Snapshot the graph's carried render state as host numpy arrays."""
+    states = _gather_states(root) or {}
+    remap = _structural_keys(root)
+    return {
+        remap[k]: {
+            "user": tree_map(_to_numpy, v["user"]),
+            "next": np.asarray(v["next"], dtype=np.int64),
+        }
+        for k, v in states.items()
+    }
+
+
+def restore_state(root, snapshot: dict) -> None:
+    """Restore a ``checkpoint_state`` snapshot (of this package or of the
+    JAX package) onto ``root``'s graph.
+
+    The graph must have the same structure (same PE classes in the same
+    walk order) as the one the snapshot was taken from.
+    """
+    reset_graph_states(root)
+    if not snapshot:
+        return
+    inv = {s: u for u, s in _structural_keys(root).items()}
+    unknown = set(snapshot) - set(inv)
+    if unknown:
+        raise ValueError(
+            f"snapshot does not match this graph's structure: {sorted(unknown)}"
+        )
+    _scatter_states(
+        root,
+        {
+            inv[k]: {
+                "user": tree_map(lambda a: torch.as_tensor(np.array(a)), v["user"]),
+                "next": int(np.asarray(v["next"])),
+            }
+            for k, v in snapshot.items()
+        },
+    )

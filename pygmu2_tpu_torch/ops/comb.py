@@ -1,0 +1,93 @@
+"""The feedback comb's per-sample recurrence over a ring buffer.
+
+Counterpart of ``pygmu2_tpu.ops.comb_pallas``: one function,
+``comb_scan``, takes the (T, C) input, (T,) frequency and feedback
+columns, the (L, C) ring buffer, its write position and the smoothed
+frequency, and returns the output and the three state pieces after the
+last sample. Each sample: the frequency is smoothed by a one-pole, the
+delay is round(sr / sf) clipped to [1, L-1], and
+``y = x + fb * buf[pos - delay]`` is written at ``pos``.
+
+- ``comb_scan`` is the wrapper. For CUDA tensors it launches the
+  hand-written kernel in ``csrc/comb_scan.cu`` and counts the launch in
+  ``comb_scan.launches``; for CPU tensors it runs the plain version.
+- ``comb_scan_ref`` is the plain PyTorch version: a per-sample loop with
+  the JAX package's ``comb_scan_ref`` op order, float32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pygmu2_tpu_torch import _ext
+
+
+def comb_scan_ref(x, freq, fb, buf, pos, sf, *, L, sr, smooth_alpha):
+    """Plain PyTorch version of :func:`comb_scan` (same arguments and
+    result). A Python loop over samples: keep T small."""
+    dev = x.device
+    buf = buf.clone()
+    p = int(pos)  # the write position advances by one per sample
+    sf = torch.as_tensor(sf, dtype=torch.float32, device=dev).reshape(())
+    sr32 = torch.tensor(sr, dtype=torch.float32, device=dev)
+    ys = []
+    for xi, fi, fbi in zip(x, freq.tolist(), fb.tolist()):
+        sf = torch.where(sf < 0.0, fi, sf + (fi - sf) * smooth_alpha)
+        delay = torch.round(sr32 / sf.clamp(min=1.0)).to(torch.int32).clamp(1, L - 1)
+        read = torch.remainder(p - delay + L, L).long()
+        out = xi + fbi * buf[read]
+        buf[p] = out
+        p = (p + 1) % L
+        ys.append(out)
+    pos_out = torch.tensor(p, dtype=torch.int32, device=dev)
+    return torch.stack(ys), buf, pos_out, sf
+
+
+def comb_scan(x, freq, fb, buf, pos, sf, *, L, sr, smooth_alpha):
+    """Feedback comb over T samples and C channels.
+
+    x: (T, C) f32; freq/fb: (T,) f32; buf: (L, C) f32; pos: () int32;
+    sf: () f32 (negative: not yet set). Returns (y (T, C), buf' (L, C),
+    pos' () int32, sf' () f32). CPU tensors take the plain version; CUDA
+    tensors launch the kernel (one count in ``comb_scan.launches`` per
+    call) or raise.
+    """
+    kw = dict(L=L, sr=sr, smooth_alpha=smooth_alpha)
+    if x.device.type == "cpu":
+        return comb_scan_ref(x, freq, fb, buf, pos, sf, **kw)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    return _launch(x, freq, fb, buf, pos, sf, **kw)
+
+
+comb_scan.launches = 0
+
+
+def _launch(x, freq, fb, buf, pos, sf, *, L, sr, smooth_alpha):
+    dev = x.device
+    if x.dim() != 2 or x.shape[0] < 1 or x.shape[1] < 1 or L < 2:
+        raise ValueError(f"unsupported shape x={tuple(x.shape)} L={L}")
+    T, C = x.shape
+    x = _ext.checked(x, "x", (T, C), dev)
+    freq = _ext.checked(freq, "freq", (T,), dev)
+    fb = _ext.checked(fb, "fb", (T,), dev)
+    buf = _ext.checked(buf, "buf", (L, C), dev)
+    sf = _ext.checked(sf.reshape(()), "sf", (), dev)
+    pos = pos.reshape(())
+    if pos.dtype != torch.int32 or pos.device != dev:
+        raise ValueError("pos must be an int32 scalar tensor on x's device")
+    y = torch.empty((T, C), dtype=torch.float32, device=dev)
+    buf_out = torch.empty((L, C), dtype=torch.float32, device=dev)
+    pos_out = torch.empty((), dtype=torch.int32, device=dev)
+    sf_out = torch.empty((), dtype=torch.float32, device=dev)
+    lib = _ext.load()
+    with torch.cuda.device(dev):
+        err = lib.comb_scan_launch(
+            x.data_ptr(), freq.data_ptr(), fb.data_ptr(), buf.data_ptr(),
+            pos.data_ptr(), sf.data_ptr(), y.data_ptr(), buf_out.data_ptr(),
+            pos_out.data_ptr(), sf_out.data_ptr(), T, C, L, float(sr),
+            float(smooth_alpha), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _ext.raise_on_error(err, "comb_scan")
+    comb_scan.launches += 1
+    return y, buf_out, pos_out, sf_out

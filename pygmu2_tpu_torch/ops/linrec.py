@@ -1,7 +1,7 @@
 """Linear recurrence over time, in plain PyTorch.
 
-Counterpart of ``pygmu2_tpu.ops.linrec.affine_scan_2``. A (possibly
-time-varying) affine recurrence
+Counterparts of ``pygmu2_tpu.ops.linrec.affine_scan_1`` and
+``affine_scan_2``. A (possibly time-varying) affine recurrence
 
     s[t] = A[t] @ s[t-1] + u[t]
 
@@ -17,6 +17,26 @@ passes, each a handful of elementwise ops over the whole (T, ...) block.
 from __future__ import annotations
 
 import torch
+
+
+def affine_scan_1(a, u, s0):
+    """First-order affine recurrence ``s[t] = a[t]*s[t-1] + u[t]``.
+
+    Counterpart of ``pygmu2_tpu.ops.linrec.affine_scan_1``. ``a`` and
+    ``u`` are (T, ...) (broadcastable), ``s0`` the (...) state before
+    step 0 or None. Returns the (T, ...) states after each step.
+    """
+    a, u = (x.clone() for x in torch.broadcast_tensors(a, u))
+    if s0 is not None:
+        u[0] += a[0] * s0
+    T = u.shape[0]
+    s = 1
+    while s < T:
+        # row t composes with row t - s (the earlier map)
+        u[s:] = a[s:] * u[:-s] + u[s:]
+        a[s:] = a[s:] * a[:-s]
+        s *= 2
+    return u
 
 
 def affine_scan_2(a11, a12, a21, a22, u1, u2, s0=None):

@@ -24,8 +24,6 @@ oscillator's last two samples.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from pygmu2_tpu_torch.ops.linrec import affine_scan_2
@@ -182,8 +180,6 @@ def _launch(rows, wave, N: int, state):
             scratch.data_ptr(), B, P, N,
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    if err != 0:
-        msg = ctypes.string_at(lib.pgt_cuda_error_string(err)).decode()
-        raise RuntimeError(f"osc_filter_gain_mix launch failed: {msg} ({err})")
+    _ext.raise_on_error(err, "osc_filter_gain_mix")
     osc_filter_gain_mix.launches += 1
     return out, state_out

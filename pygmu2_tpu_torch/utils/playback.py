@@ -1,0 +1,71 @@
+"""Offline-render conveniences (counterpart of ``pygmu2_tpu.utils.playback``).
+
+``render_to_array`` and ``render_to_file`` render a finite PE graph on a
+device (default ``"cuda"``; ``device="cpu"`` runs the kernels' plain
+PyTorch versions) block by block through
+:func:`pygmu2_tpu_torch.core.engine.render_scan`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from pygmu2_tpu_torch.core import engine
+from pygmu2_tpu_torch.core.config import get_sample_rate
+from pygmu2_tpu_torch.core.processing_element import ProcessingElement
+from pygmu2_tpu_torch.core.renderer import NullRenderer
+from pygmu2_tpu_torch.utils import wavio
+
+
+def _resolve_sample_rate(sample_rate: int | None) -> int:
+    if sample_rate is not None:
+        return int(sample_rate)
+    sr = get_sample_rate()
+    if sr is None:
+        raise RuntimeError(
+            "Sample rate not set. Call pg.set_sample_rate() or pass sample_rate."
+        )
+    return int(sr)
+
+
+def render_to_array(
+    source: ProcessingElement,
+    *,
+    extent=None,
+    block: int = 16384,
+    bindings: dict | None = None,
+    device="cuda",
+) -> np.ndarray:
+    """Render the source's full (finite) extent to a host float32 array.
+
+    Validates the graph, runs lifecycle hooks, and renders in blocks of
+    ``block`` samples on ``device``. ``bindings`` supplies values for any
+    ``ParamPE`` nodes in the graph.
+    """
+    if extent is None:
+        extent = source.extent()
+    if extent.start is None or extent.end is None:
+        raise RuntimeError("Cannot render: source has infinite extent.")
+    renderer = NullRenderer(sample_rate=source.sample_rate or 44100, device=device)
+    renderer.set_source(source)
+    with renderer:
+        renderer.start()
+        out = engine.render_scan(
+            source, extent.start, extent.end - extent.start, block,
+            bindings=bindings, device=device,
+        )
+        return out.cpu().numpy()
+
+
+def render_to_file(
+    source: ProcessingElement,
+    out_path: str,
+    *,
+    sample_rate: int | None = None,
+    extent=None,
+    device="cuda",
+) -> None:
+    """Render a finite PE graph to a float32 WAV file."""
+    sr = _resolve_sample_rate(sample_rate)
+    data = render_to_array(source, extent=extent, device=device)
+    wavio.write_wav(out_path, data, sr, fmt="float32")

@@ -1,4 +1,4 @@
-"""PyTorch port on the card: the CUDA kernel against its plain version.
+"""PyTorch port on the card: the CUDA kernels against their plain versions.
 
 Marked ``cuda``; every test skips where no CUDA device is present. On a
 machine with the card and nvcc:
@@ -73,3 +73,77 @@ def test_render_on_card_matches_cpu(cuda):
         synth, midi, SECONDS, seg_blocks=5, device=cuda
     )
     np.testing.assert_allclose(streamed, on_card, rtol=0, atol=1e-5)
+
+
+# ---- the PE-graph slice: serial kernels and the subtractive patch ----
+
+
+def _seeded(device, seed, *shapes, lo=-1.0, hi=1.0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.uniform(lo, hi, s).astype(np.float32)).to(device)
+            for s in shapes]
+
+
+@pytest.mark.parametrize("C", [1, 128])
+def test_ladder_kernel_matches_plain(cuda, C):
+    from pygmu2_tpu_torch.ops import ladder
+
+    T = 2048
+    x, al, qa, ki, dsc, st = _seeded(cuda, C, (T, C), (T,), (T,), (T,), (T,), (9, C))
+    al, ki = al.abs() * 0.5 + 0.05, ki.abs() * 3.0
+    kw = dict(os_n=2, pbg=0.5, mode_index=0, input_threshold=1e-5, state_decay=0.95)
+    before = ladder.ladder_scan.launches
+    y, s = ladder.ladder_scan(x, al, qa, ki, dsc, st, **kw)
+    torch.cuda.synchronize()
+    assert ladder.ladder_scan.launches == before + 1
+    y_ref, s_ref = ladder.ladder_scan_ref(x, al, qa, ki, dsc, st, **kw)
+    torch.testing.assert_close(y, y_ref, rtol=0, atol=1e-5)
+    torch.testing.assert_close(s, s_ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("C", [1, 128])
+def test_comb_kernel_matches_plain(cuda, C):
+    from pygmu2_tpu_torch.ops import comb
+
+    T, L = 2048, 2206
+    x, fb, buf = _seeded(cuda, C, (T, C), (T,), (L, C))
+    (freq,) = _seeded(cuda, C + 1, (T,), lo=200.0, hi=240.0)
+    pos = torch.tensor(7, dtype=torch.int32, device=cuda)
+    sf = torch.tensor(-1.0, device=cuda)
+    kw = dict(L=L, sr=44100.0, smooth_alpha=1 / 2400)
+    got = comb.comb_scan(x, freq, fb * 0.9, buf, pos, sf, **kw)
+    torch.cuda.synchronize()
+    ref = comb.comb_scan_ref(x, freq, fb * 0.9, buf, pos, sf, **kw)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("sustain_samples", [None, 300], ids=["gated", "triggered"])
+def test_adsr_kernel_matches_plain(cuda, sustain_samples):
+    from pygmu2_tpu_torch.ops import adsr
+
+    gate = np.zeros(4096, np.float32)
+    gate[100:700] = 1.0
+    gate[1500:3000:7] = 1.0  # many edges
+    gate = torch.from_numpy(gate).to(cuda)
+    kw = dict(dA=1 / 441.0, dD=-0.4 / 882.0, dR=-0.6 / 2205.0, sus=0.6,
+              sustain_samples=sustain_samples)
+    state = torch.zeros(4, device=cuda)
+    env, s = adsr.adsr_scan(gate, state, **kw)
+    torch.cuda.synchronize()
+    env_ref, s_ref = adsr.adsr_scan_ref(gate, state, **kw)
+    torch.testing.assert_close(env, env_ref, rtol=0, atol=1e-6)
+    torch.testing.assert_close(s, s_ref, rtol=0, atol=1e-6)
+
+
+def test_patch_render_on_card_matches_cpu(cuda):
+    import pygmu2_tpu_torch as pg
+    from pygmu2_tpu_torch import patch_workload
+    from pygmu2_tpu_torch.ops import adsr, comb, ladder
+
+    counters = (ladder.ladder_scan, comb.comb_scan, adsr.adsr_scan)
+    before = [fn.launches for fn in counters]
+    on_card = pg.render_to_array(patch_workload.build_patch(pg, 0.1), block=2048, device=cuda)
+    assert all(fn.launches > b for fn, b in zip(counters, before))
+    on_cpu = pg.render_to_array(patch_workload.build_patch(pg, 0.1), block=2048, device="cpu")
+    np.testing.assert_allclose(on_card, on_cpu, rtol=0, atol=1e-4)

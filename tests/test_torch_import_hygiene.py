@@ -20,11 +20,20 @@ ROOT = Path(__file__).resolve().parent.parent
 
 
 def test_port_imports_no_jax():
+    # every module of the port, found on disk
+    pkg = ROOT / "pygmu2_tpu_torch"
+    modules = sorted(
+        ".".join(path.relative_to(ROOT).with_suffix("").parts)
+        for path in pkg.rglob("*.py")
+        if path.name != "__init__.py"
+    )
+    assert "pygmu2_tpu_torch.core.engine" in modules
+    assert "pygmu2_tpu_torch.ops.ladder" in modules
     code = (
-        "import sys\n"
+        "import importlib, sys\n"
         "import pygmu2_tpu_torch\n"
-        "import pygmu2_tpu_torch.bench_workload, pygmu2_tpu_torch._ext\n"
-        "import pygmu2_tpu_torch.soundfont.offline\n"
+        f"for name in {modules!r}:\n"
+        "    importlib.import_module(name)\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'pygmu2_tpu')]\n"
         "assert not bad, bad\n"
@@ -53,6 +62,22 @@ def test_cpu_render_launches_no_kernel():
     assert fk.osc_filter_gain_mix.launches == before
     if not torch.cuda.is_available():
         assert before == 0
+
+
+def test_cpu_pe_graph_render_launches_no_kernel():
+    from pygmu2_tpu_torch import patch_workload
+    from pygmu2_tpu_torch.ops import adsr, comb, ladder
+    from pygmu2_tpu_torch.utils.playback import render_to_array
+
+    counters = (ladder.ladder_scan, comb.comb_scan, adsr.adsr_scan)
+    before = [fn.launches for fn in counters]
+    import pygmu2_tpu_torch as pg
+
+    out = render_to_array(patch_workload.build_patch(pg, 0.02), device="cpu")
+    assert out.shape == (882, 1) and abs(out).max() > 0.01
+    assert [fn.launches for fn in counters] == before
+    if not torch.cuda.is_available():
+        assert before == [0, 0, 0]
 
 
 def test_wrapper_refuses_other_devices():

@@ -1,0 +1,218 @@
+"""PyTorch port, serial kernels: each plain version against the JAX
+package's Pallas kernel run in interpret mode (as tests/test_ladder_pallas.py,
+test_comb_pallas.py and test_adsr_pallas.py run them), plus the port's
+prefix sum and first-order scan against the JAX package.
+
+Inputs come from numpy with a seed; JAX stays on the CPU. Tolerances are
+the JAX tests' own: ladder 1e-5, comb 1e-5 (smoothed frequency 1e-4),
+ADSR 1e-6.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pygmu2_tpu.ops.adsr_pallas import adsr_scan_pallas
+from pygmu2_tpu.ops.comb_pallas import comb_scan_pallas
+from pygmu2_tpu.ops.ladder_pallas import ladder_scan_pallas
+from pygmu2_tpu.ops.linrec import affine_scan_1 as jax_affine_scan_1
+from pygmu2_tpu_torch.ops import adsr, comb, ladder
+from pygmu2_tpu_torch.ops.linrec import affine_scan_1
+from pygmu2_tpu_torch.ops.phase import prefix_sum
+
+torch.set_num_threads(1)
+
+SR = 44100
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _close(got, want, atol):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=0, atol=atol)
+
+
+# (T, C): a padded T (700 % 256 != 0), one lane, a few lanes, all 128 lanes
+SHAPES = [(700, 1), (700, 3), (1024, 128)]
+
+
+@pytest.mark.parametrize("T,C", SHAPES)
+@pytest.mark.parametrize("mode_index", [0, 2, 4])
+def test_ladder_plain_matches_pallas(T, C, mode_index):
+    rng = np.random.default_rng(3 + C + mode_index)
+    x = (rng.standard_normal((T, C)) * 0.5).astype(np.float32)
+    x[100:180] = 1e-7  # quiet stretch: the state-decay branch
+    al = rng.uniform(0.1, 0.6, T).astype(np.float32)
+    qa = rng.uniform(0.9, 1.1, T).astype(np.float32)
+    ki = rng.uniform(0.0, 3.0, T).astype(np.float32)
+    dsc = rng.uniform(0.5, 1.5, T).astype(np.float32)
+    st = (rng.standard_normal((9, C)) * 0.1).astype(np.float32)
+    kw = dict(os_n=2, pbg=0.5, mode_index=mode_index, input_threshold=1e-5,
+              state_decay=0.95)
+    y_j, s_j = ladder_scan_pallas(
+        *(jnp.asarray(a) for a in (x, al, qa, ki, dsc, st)), chunk=256,
+        interpret=True, **kw,
+    )
+    y, s = ladder.ladder_scan(*(_t(a) for a in (x, al, qa, ki, dsc, st)), **kw)
+    _close(y, y_j, 1e-5)
+    _close(s, s_j, 1e-5)
+
+
+def _comb_inputs(T, C, L, modulated, seed):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((T, C)) * 0.3).astype(np.float32)
+    if modulated:
+        freq = rng.uniform(220, 880, T).astype(np.float32)
+    else:
+        freq = np.full(T, 330.0, np.float32)
+    fb = rng.uniform(-0.9, 0.9, T).astype(np.float32)
+    buf = (rng.standard_normal((L, C)) * 0.1).astype(np.float32)
+    return x, freq, fb, buf
+
+
+@pytest.mark.parametrize("T,C", SHAPES)
+@pytest.mark.parametrize("modulated", [True, False], ids=["modulated", "constant"])
+def test_comb_plain_matches_pallas(T, C, modulated):
+    L = 201  # short ring: many wraps
+    x, freq, fb, buf = _comb_inputs(T, C, L, modulated, seed=1 + C)
+    kw = dict(L=L, sr=float(SR), smooth_alpha=1 / 2400)
+    y_j, b_j, p_j, s_j = comb_scan_pallas(
+        *(jnp.asarray(a) for a in (x, freq, fb, buf)), jnp.int32(5),
+        jnp.float32(-1.0), chunk=256, interpret=True, **kw,
+    )
+    y, b, p, s = comb.comb_scan(
+        *(_t(a) for a in (x, freq, fb, buf)), torch.tensor(5, dtype=torch.int32),
+        torch.tensor(-1.0), **kw,
+    )
+    _close(y, y_j, 1e-5)
+    _close(b, b_j, 1e-5)
+    assert int(p) == int(p_j) and p.dtype == torch.int32
+    _close(s, s_j, 1e-4)
+
+
+def test_comb_state_handoff_matches_one_call():
+    T, C, L = 900, 3, 2206
+    x, freq, fb, buf = _comb_inputs(T, C, L, True, seed=7)
+    kw = dict(L=L, sr=float(SR), smooth_alpha=1 / 2400)
+    args = [_t(a) for a in (x, freq, fb)]
+    one = comb.comb_scan(*args, _t(buf), torch.tensor(3, dtype=torch.int32),
+                         torch.tensor(-1.0), **kw)
+    y1, b1, p1, s1 = comb.comb_scan(*(a[:400] for a in args), _t(buf),
+                                    torch.tensor(3, dtype=torch.int32),
+                                    torch.tensor(-1.0), **kw)
+    y2, b2, p2, s2 = comb.comb_scan(*(a[400:] for a in args), b1, p1, s1, **kw)
+    assert torch.equal(torch.cat([y1, y2]), one[0])
+    assert torch.equal(b2, one[1]) and int(p2) == int(one[2])
+    assert torch.equal(s2, one[3])
+
+
+def _adsr_params(A=0.01, D=0.02, S=0.6, R=0.05):
+    return dict(dA=1.0 / (A * SR), dD=(S - 1.0) / (D * SR), dR=-S / (R * SR), sus=S)
+
+
+def _many_edges(T, seed):
+    rng = np.random.default_rng(seed)
+    gate = np.zeros(T, np.float32)
+    edges = np.sort(rng.choice(T, size=40, replace=False))
+    for a, b in zip(edges[::2], edges[1::2]):
+        gate[a:b] = 1.0
+    return gate
+
+
+@pytest.mark.parametrize("T", [700, 2048])
+def test_adsr_gated_plain_matches_pallas(T):
+    gate = _many_edges(T, seed=T)
+    gate[50:400] = 1.0  # one long note through attack, decay and sustain
+    st = np.array([2.0, 0.8, 3.0, 1.0], np.float32)  # mid-decay, gate high
+    kw = _adsr_params()
+    y_j, s_j = adsr_scan_pallas(jnp.asarray(gate), jnp.asarray(st), chunk=512,
+                                interpret=True, **kw)
+    y, s = adsr.adsr_scan(_t(gate), _t(st), **kw)
+    _close(y, y_j, 1e-6)
+    _close(s, s_j, 1e-6)
+
+
+@pytest.mark.parametrize("T", [700, 2048])
+def test_adsr_triggered_plain_matches_pallas(T):
+    rng = np.random.default_rng(T + 1)
+    trig = np.zeros(T, np.float32)
+    trig[rng.choice(T, size=6, replace=False)] = 1.0
+    trig[20] = 1.0
+    st = np.array([3.0, 0.7, 100.0, 0.0], np.float32)  # in sustain, 100 in
+    kw = _adsr_params(A=0.002, D=0.003, S=0.7, R=0.004)
+    S = 221
+    y_j, s_j = adsr_scan_pallas(jnp.asarray(trig), jnp.asarray(st), chunk=512,
+                                sustain_samples=S, interpret=True, **kw)
+    y, s = adsr.adsr_scan(_t(trig), _t(st), sustain_samples=S, **kw)
+    _close(y, y_j, 1e-6)
+    _close(s, s_j, 1e-6)
+
+
+def test_adsr_env_of_state_matches_jax():
+    from pygmu2_tpu.ops.adsr_pallas import env_of_state as jax_env_of_state
+
+    kw = _adsr_params()
+    for st in ([0, 0.3, 5, 0], [1, 0.1, 40, 1], [2, 1.0, 30, 1], [3, 0.6, 9, 1], [4, 0.6, 70, 0]):
+        st = np.asarray(st, np.float32)
+        want = jax_env_of_state(jnp.asarray(st), **kw)
+        _close(adsr.env_of_state(_t(st), **kw), want, 1e-7)
+
+
+def test_wrappers_take_plain_version_on_cpu():
+    before = (ladder.ladder_scan.launches, comb.comb_scan.launches,
+              adsr.adsr_scan.launches)
+    y, _ = adsr.adsr_scan(torch.ones(8), torch.zeros(4), **_adsr_params())
+    assert y.device.type == "cpu"
+    assert (ladder.ladder_scan.launches, comb.comb_scan.launches,
+            adsr.adsr_scan.launches) == before
+
+
+def test_wrappers_refuse_other_devices():
+    meta = torch.zeros((4, 1), device="meta")
+    col = torch.zeros(4, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ladder.ladder_scan(meta, col, col, col, col, torch.zeros((9, 1), device="meta"),
+                           os_n=2, pbg=0.5, mode_index=0, input_threshold=1e-5,
+                           state_decay=0.95)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        comb.comb_scan(meta, col, col, meta, None, None, L=4, sr=44100.0,
+                       smooth_alpha=0.1)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        adsr.adsr_scan(col, col, **_adsr_params())
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 1000, 4410, 16384])
+def test_prefix_sum_equals_jax_cumsum_bitwise(n):
+    rng = np.random.default_rng(n)
+    for a in (rng.random(n) * 1e-2, np.full(n, 220.0 / SR)):
+        want = np.asarray(jnp.cumsum(jnp.asarray(a)))
+        assert np.array_equal(prefix_sum(_t(a)).numpy(), want)
+    a2 = rng.random((3, n)).astype(np.float32)
+    want = np.asarray(jnp.cumsum(jnp.asarray(a2), axis=1))
+    assert np.array_equal(prefix_sum(_t(a2), dim=1).numpy(), want)
+
+
+@pytest.mark.parametrize("T", [1000, 16384])
+def test_affine_scan_1_at_leak_0999(T):
+    """The leaky integrator's scan: a near-unit-radius map (leak 0.999)
+    over a full block, against the JAX scan and a float64 sequential
+    oracle."""
+    rng = np.random.default_rng(T)
+    u = (rng.standard_normal(T) * 0.05).astype(np.float32)
+    a = np.full(T, 0.999, np.float32)
+    s0 = np.float32(0.3)
+    got = affine_scan_1(_t(a), _t(u), torch.tensor(s0)).numpy()
+    want = np.asarray(
+        jax.jit(jax_affine_scan_1)(jnp.asarray(a), jnp.asarray(u), jnp.float32(s0))
+    )
+    seq = np.empty(T)
+    acc, leak = float(s0), float(a[0])  # the float32 leak, in float64
+    for i in range(T):
+        acc = leak * acc + float(u[i])
+        seq[i] = acc
+    _close(got, want, 1e-5)
+    # float32 against float64: relative 1e-5 of the output's peak
+    _close(got, seq, 1e-5 * max(1.0, np.abs(seq).max()))

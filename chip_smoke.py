@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: ``python3 chip_smoke.py``.
 
-Drives the port's two main paths through their user entry points:
+Drives the port's three main paths through their user entry points:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. builds every CUDA kernel from ``pygmu2_tpu_torch/csrc`` (build seconds);
@@ -28,7 +28,28 @@ Drives the port's two main paths through their user entry points:
    must launch all three kernels and come out finite and not silent; the
    first 0.1 s (block 4096) must match the same render with the plain
    versions on the card within 1e-4. Realtime factors after the warm-up
-   render, by wall clock and by CUDA events.
+   render, by wall clock and by CUDA events;
+7. the effects chain's four serial kernels (Karplus-Strong, envelope
+   follower, slew limiter, reverse echo) against their plain versions on
+   the card at T = 4096, with a two-call state hand-off: the string at
+   L in {7, 535}, the follower and the echo (cap 22050, 10 ms blocks) at
+   C in {1, 128}, the slew limiter in both modes. At the main path's
+   block, T = 16384, on the arguments that are timed (the string at
+   L = 535; the follower and the echo at C in {1, 128}, the echo
+   replaying a 0.3 s block from its first sample; the slew limiter in
+   both modes), each is held to its plain version again and timed (CUDA
+   events, mean of 10 after a warm-up; the plain version's one call).
+   The first three are held to their plain versions bit for bit
+   (explicitly rounded ops in the plain versions' order); the echo within
+   1e-6 (its Hann window is cosf in the kernel and torch.cos in the plain
+   version);
+8. end to end through ``render_to_array(device="cuda")``: the mono effects
+   chain for 60 s and the 128-channel fx bank for 10 s
+   (``pygmu2_tpu_torch/fx_workload.py``). Each must launch its kernels and
+   come out finite and not silent; the first 0.4 s (past the echo's first
+   0.3 s block, so its replayed and fed-back block is in it) must match
+   the same render with the plain versions on the card within 1e-4. Wall
+   time and realtime factors after the warm-up render.
 
 Prints a JSON line of per-kernel results, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, before any result, on
@@ -67,6 +88,19 @@ LADDER_OPS = 82
 COMB_OPS_SAMPLE, COMB_OPS_CHANNEL = 13, 2
 # ADSR per sample: current value 6, edge logic 6, segment step 18
 ADSR_OPS = 30
+# Karplus-Strong per sample: two-point average 3, allpass 4
+KS_OPS = 7
+# envelope follower per (sample, channel): compare, subtract, multiply, add
+ENV_OPS = 4
+# slew limiter per sample: subtract, clamp (2) or compare and multiply, add
+SLEW_OPS = 4
+# reverse echo: per sample (shared by the channels) smoother and rounding 6,
+#   pitch-line positions and taps 16, crossfade weight 4, replay index and
+#   window 8 (cos as one), advance 6: 40; per (sample, channel) two taps 6,
+#   crossfade 3, windowed replay 1, feedback write 2: 12
+ECHO_OPS_SAMPLE, ECHO_OPS_CHANNEL = 40, 12
+FX_T = 4096  # the effects kernels' comparisons with two-call hand-offs
+FX_CHECK_S = 0.4  # the effects renders' comparison: past the echo's first block
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -259,6 +293,8 @@ def main() -> None:
 
     serial = serial_kernels(dev, card, device_ms)
     pe_launches = pe_graph(dev, card)
+    serial.update(fx_kernels(dev, card, device_ms))
+    pe_launches.update(fx_graph(dev, card))
     entries = [osc_entry]
     for name, info in serial.items():
         entries.append({"name": name, "route": "cuda", **info,
@@ -279,6 +315,44 @@ def _seeded(dev, seed, *shapes, lo=-1.0, hi=1.0):
 
 def _err(got, ref) -> float:
     return max((g.float() - r.float()).abs().max().item() for g, r in zip(got, ref))
+
+
+def timed_plain(fn):
+    """One call of a plain version (a Python loop over samples): (its
+    result, its ms by CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    result = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return result, start.elapsed_time(end)
+
+
+def compare(name, got, ref, tol, what):
+    err = _err(got, ref)
+    print(f"{name} vs plain, {what}: max abs err {err:.3g}")
+    finite = all(torch.isfinite(g.float()).all().item() for g in got)
+    check(finite and err <= tol, f"{name} {what}: kernel disagrees with plain ({err})")
+    return err
+
+
+def _copies(args):
+    """Copies of a call's tensors: the echo kernel updates its block
+    buffers in place."""
+    return tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+
+
+def handoff(fn, ref_fn, args, cut, n_state, kw, ref=None):
+    """Two kernel calls across ``cut`` vs one plain call (or ``ref``, its
+    result)."""
+    n_time = len(args) - n_state
+    args, given = _copies(args), args
+    first = fn(*(a[:cut] for a in args[:n_time]), *args[n_time:], **kw)
+    second = fn(*(a[cut:] for a in args[:n_time]), *first[1:], **kw)
+    got = (torch.cat([first[0], second[0]]), *second[1:])
+    return got, ref if ref is not None else ref_fn(*given, **kw)
 
 
 def serial_kernels(dev, card, device_ms) -> dict:
@@ -317,33 +391,6 @@ def serial_kernels(dev, card, device_ms) -> dict:
         if triggered:
             g = (np.diff(g, prepend=0.0) > 0).astype(np.float32)
         return torch.from_numpy(g).to(dev), torch.zeros(4, device=dev)
-
-    def timed_plain(fn):
-        """One call of a plain version (a Python loop over samples):
-        (its result, its ms by CUDA events)."""
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        result = fn()
-        end.record()
-        torch.cuda.synchronize()
-        return result, start.elapsed_time(end)
-
-    def compare(name, got, ref, tol, what):
-        err = _err(got, ref)
-        print(f"{name} vs plain, {what}: max abs err {err:.3g}")
-        finite = all(torch.isfinite(g.float()).all().item() for g in got)
-        check(finite and err <= tol, f"{name} {what}: kernel disagrees with plain ({err})")
-        return err
-
-    def handoff(fn, ref_fn, args, cut, n_state, kw):
-        """Two kernel calls across ``cut`` vs one plain call."""
-        n_time = len(args) - n_state
-        first = fn(*(a[:cut] for a in args[:n_time]), *args[n_time:], **kw)
-        second = fn(*(a[cut:] for a in args[:n_time]), *first[1:], **kw)
-        got = (torch.cat([first[0], second[0]]), *second[1:])
-        return got, ref_fn(*args, **kw)
 
     # ---- ladder ----
     errs = []
@@ -432,11 +479,9 @@ def serial_kernels(dev, card, device_ms) -> dict:
 
 
 @contextlib.contextmanager
-def plain_serial_kernels():
-    """PE renders inside take the serial kernels' plain versions."""
-    from pygmu2_tpu_torch.ops import adsr, comb, ladder
-
-    swaps = [(ladder, "ladder_scan"), (comb, "comb_scan"), (adsr, "adsr_scan")]
+def plain_versions(swaps):
+    """PE renders inside take the plain versions of the kernels in
+    ``swaps``, a list of (module, wrapper name)."""
     kernels = [getattr(mod, name) for mod, name in swaps]
     for mod, name in swaps:
         setattr(mod, name, getattr(mod, name + "_ref"))
@@ -454,8 +499,8 @@ def pe_graph(dev, card) -> dict:
     from pygmu2_tpu_torch import patch_workload
     from pygmu2_tpu_torch.ops import adsr, comb, ladder
 
-    counters = {"ladder_scan": ladder.ladder_scan, "comb_scan": comb.comb_scan,
-                "adsr_scan": adsr.adsr_scan}
+    swaps = [(ladder, "ladder_scan"), (comb, "comb_scan"), (adsr, "adsr_scan")]
+    counters = {name: getattr(mod, name) for mod, name in swaps}
     cases = [
         ("patch, 60 s mono", 60.0, lambda s: patch_workload.build_patch(pg, s), 1),
         ("bank, 10 s x 128 channels", 10.0,
@@ -482,7 +527,7 @@ def pe_graph(dev, card) -> dict:
             check(count > 0, f"{label}: {name} was not launched")
         # the first 0.1 s, kernels against plain versions on the card
         got = pg.render_to_array(build(0.1), block=4096, device=dev)
-        with plain_serial_kernels():
+        with plain_versions(swaps):
             ref = pg.render_to_array(build(0.1), block=4096, device=dev)
         err = float(np.abs(got - ref).max())
         check(err <= TOL and np.abs(ref).max() > 0.1,
@@ -501,6 +546,217 @@ def pe_graph(dev, card) -> dict:
         print(f"{label}: launches {n}; first 0.1 s kernels vs plain max abs err "
               f"{err:.3g}; realtime x{seconds / wall:.2f} wall ({wall * 1e3:.1f} ms), "
               f"x{seconds / ev:.2f} by CUDA events ({ev * 1e3:.1f} ms) [{card}]")
+    return launches
+
+
+def fx_kernels(dev, card, device_ms) -> dict:
+    """Phase 7: the effects chain's kernels against their plain versions on
+    the card, and their times at the main path's block. Returns the
+    kernels' JSON fields but ``launches``."""
+    from pygmu2_tpu_torch.ops import envelope, ks, reverse_echo, slew
+
+    T = FX_T
+    out = {}
+
+    def held(name, fn, ref_fn, args, kw, tol, what):
+        """The plain version first (timed, one call), then the kernel on
+        copies of the same arguments: (max abs err, plain ms, plain result)."""
+        ref, plain_ms = timed_plain(lambda: ref_fn(*args, **kw))
+        got = fn(*_copies(args), **kw)
+        torch.cuda.synchronize()
+        return compare(name, got, ref, tol, what), plain_ms, ref
+
+    def timed(name, fn, ref_fn, args, kw, tol, what, errs):
+        """At the main path's block: held to plain, then timed on the same
+        arguments: (kernel ms, plain ms)."""
+        err, plain_ms, _ = held(name, fn, ref_fn, args, kw, tol, f"{what} T={BLOCK}")
+        errs.append(err)
+        ms = device_ms(lambda: fn(*args, **kw), 10)
+        print(f"{name} T={BLOCK} {what}: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms "
+              f"[{card}]")
+        return ms, plain_ms
+
+    def entry(source, replaces, errs, ms, plain_ms, nbytes, ops, shape):
+        ms_bound, by = bound(nbytes, ops)
+        return {"source": f"pygmu2_tpu_torch/csrc/{source}", "replaces": replaces,
+                "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": ms_bound, "bound_by": by, "shape": shape}
+
+    # ---- Karplus-Strong: one string (C = 1), short and long ----
+    def ks_args(n, L, seed):
+        (rho,) = _seeded(dev, seed, (n,), lo=0.99, hi=0.9999)
+        (buf,) = _seeded(dev, seed + 1, (L,), lo=-0.3, hi=0.3)
+        act = torch.arange(n, device=dev) >= 100  # the string starts mid-call
+        return (rho, act, buf, torch.tensor(3, dtype=torch.int32, device=dev),
+                torch.tensor(0.05, device=dev), torch.tensor(-0.05, device=dev))
+
+    errs = []
+    for L in (7, 535):  # 535: the low E string at 44.1 kHz
+        kw = dict(L=L, allpass_c=0.35)
+        args = ks_args(T, L, seed=L)
+        err, _plain, ref = held("ks_scan", ks.ks_scan, ks.ks_scan_ref, args, kw, 0.0,
+                                f"L={L} T={T}")
+        errs.append(err)
+        got, ref = handoff(ks.ks_scan, None, args, T // 3, 4, kw, ref)
+        errs.append(compare("ks_scan", got, ref, 0.0, f"L={L} two-call hand-off"))
+    L, kw = 535, dict(L=535, allpass_c=0.35)
+    ms, plain_ms = timed("ks_scan", ks.ks_scan, ks.ks_scan_ref, ks_args(BLOCK, L, seed=1),
+                         kw, 0.0, f"L={L}", errs)
+    out["ks_scan"] = entry(
+        "ks_scan.cu", "pygmu2_tpu/ops/ks_pallas.py:115", errs, ms, plain_ms,
+        5 * BLOCK + 4 * (2 * L + 6), KS_OPS * BLOCK, f"T={BLOCK} L={L} C=1")
+
+    # ---- envelope follower: the wah's attack and release ----
+    env_kw = dict(atk=1.0 - np.exp(-1.0 / (0.005 * SR)), rel=1.0 - np.exp(-1.0 / (0.08 * SR)))
+
+    def env_args(n, C, seed):
+        x, env0 = _seeded(dev, seed, (n, C), (C,), lo=0.0, hi=0.5)
+        x[n // 3: n // 2] *= 1e-3  # a quiet stretch: the release branch
+        return x, env0
+
+    errs, times = [], {}
+    name, fn, ref_fn = ("envelope_ar_scan", envelope.envelope_ar_scan,
+                        envelope.envelope_ar_scan_ref)
+    for C in (1, 128):
+        args = env_args(T, C, seed=C)
+        err, _plain, ref = held(name, fn, ref_fn, args, env_kw, 0.0, f"C={C} T={T}")
+        errs.append(err)
+        got, ref = handoff(fn, None, args, T // 3, 1, env_kw, ref)
+        errs.append(compare(name, got, ref, 0.0, f"C={C} two-call hand-off"))
+        times[C] = timed(name, fn, ref_fn, env_args(BLOCK, C, seed=10 + C), env_kw, 0.0,
+                         f"C={C}", errs)
+    C = 128
+    out["envelope_ar_scan"] = entry(
+        "envelope_ar_scan.cu", "pygmu2_tpu/ops/envelope_pallas.py:97", errs, *times[C],
+        4 * (2 * BLOCK * C + 2 * C), ENV_OPS * BLOCK * C, f"T={BLOCK} C={C}")
+
+    # ---- slew limiter: the wah's centre (LINEAR) and an exponential one ----
+    modes = {"linear": dict(linear=True, p_rise=40000.0 / SR, p_fall=8000.0 / SR),
+             "exponential": dict(linear=False, p_rise=0.05, p_fall=0.002)}
+
+    def slew_args(n, seed):
+        (x,) = _seeded(dev, seed, (n // 64 + 1,), lo=300.0, hi=2800.0)
+        return x.repeat_interleave(64)[:n].contiguous(), torch.tensor(300.0, device=dev)
+
+    errs, times = [], {}
+    for mode, kw in modes.items():
+        args = slew_args(T, seed=len(mode))
+        err, _plain, ref = held("slew_scan", slew.slew_scan, slew.slew_scan_ref, args, kw,
+                                0.0, f"{mode} T={T}")
+        errs.append(err)
+        got, ref = handoff(slew.slew_scan, None, args, T // 3, 1, kw, ref)
+        errs.append(compare("slew_scan", got, ref, 0.0, f"{mode} two-call hand-off"))
+        times[mode] = timed("slew_scan", slew.slew_scan, slew.slew_scan_ref,
+                            slew_args(BLOCK, seed=7), kw, 0.0, mode, errs)
+    out["slew_scan"] = entry(
+        "slew_scan.cu", "pygmu2_tpu/ops/slew_pallas.py:107", errs, *times["linear"],
+        4 * (2 * BLOCK + 2), SLEW_OPS * BLOCK, f"T={BLOCK} linear")
+
+    # ---- reverse echo: the chain's rings (0.5 s of buffer, 60 Hz line) ----
+    cap, plen = SR // 2, SR // 60
+    echo_kw = dict(sr=float(SR), plen=plen, cap=cap, min_block=64, max_block=cap - 1,
+                   smooth_alpha=1 / 2400)
+
+    def echo_args(n, C, seed, block_s, alt, replaying=False):
+        """The echo's arguments from its first state, or (``replaying``)
+        from a state with a full previous block of noise: it replays from
+        sample 0, as on the main path after its first block."""
+        (x,) = _seeded(dev, seed, (n, C), lo=-0.3, hi=0.3)
+        cols = [torch.full((n,), v, device=dev) for v in (block_s, 1.5, 0.6, alt)]
+        rings = [torch.zeros((cap, C), device=dev), torch.zeros((cap, C), device=dev),
+                 torch.zeros((plen, C), device=dev)]
+        if replaying:
+            (rings[1],) = _seeded(dev, seed + 1, (cap, C), lo=-0.3, hi=0.3)
+        first = float(round(block_s * SR))
+        misc = torch.tensor([1, 0, 0, 0, 0, first, first, first if replaying else 0, 1],
+                            dtype=torch.float32, device=dev)
+        return (x, *cols, *rings, misc)
+
+    errs, times = [], {}
+    name, fn, ref_fn = ("reverse_echo_scan", reverse_echo.reverse_echo_scan,
+                        reverse_echo.reverse_echo_scan_ref)
+    for C in (1, 128):
+        # 10 ms blocks: many swaps within T; a fifth up; alternating at C = 128
+        args = echo_args(T, C, seed=C, block_s=0.01, alt=float(C > 1))
+        err, _plain, ref = held(name, fn, ref_fn, args, echo_kw, 1e-6, f"C={C} T={T}")
+        check(ref[0].abs().max().item() > 1e-3, f"reverse echo C={C}: silent")
+        errs.append(err)
+        got, ref = handoff(fn, None, args, T // 3, 4, echo_kw, ref)
+        errs.append(compare(name, got, ref, 1e-6, f"C={C} two-call hand-off"))
+        # the chain's 0.3 s blocks, replaying a full previous block
+        times[C] = timed(name, fn, ref_fn,
+                         echo_args(BLOCK, C, seed=10 + C, block_s=0.3, alt=0.0, replaying=True),
+                         echo_kw, 1e-6, f"C={C} cap={cap} replaying", errs)
+    C = 128
+    # bytes: x and y, the controls, one block-buffer row read (every sample
+    # replays) and one written per sample, the pitch line in and out
+    out["reverse_echo_scan"] = entry(
+        "reverse_echo_scan.cu", "pygmu2_tpu/ops/reverse_echo_pallas.py:338", errs, *times[C],
+        4 * (4 * BLOCK * C + 4 * BLOCK + 2 * plen * C + 18),
+        ECHO_OPS_SAMPLE * BLOCK + ECHO_OPS_CHANNEL * BLOCK * C, f"T={BLOCK} C={C} cap={cap}")
+    return out
+
+
+def fx_graph(dev, card) -> dict:
+    """Phase 8: the effects chain and the fx bank through
+    ``render_to_array``; returns each kernel's launches on that path."""
+    import pygmu2_tpu_torch as pg
+    from pygmu2_tpu_torch import fx_workload, patch_workload
+    from pygmu2_tpu_torch.ops import envelope, ks, reverse_echo, slew
+
+    swaps = [(ks, "ks_scan"), (envelope, "envelope_ar_scan"), (slew, "slew_scan"),
+             (reverse_echo, "reverse_echo_scan")]
+    counters = {name: getattr(mod, name) for mod, name in swaps}
+    cases = [
+        ("chain, 60 s mono", 60.0, lambda s: fx_workload.build_chain(pg, s), 1,
+         tuple(counters)),
+        ("fx bank, 10 s x 128 channels", 10.0,
+         lambda s: fx_workload.build_fx_bank(pg, s, seed=0), patch_workload.BANK_CHANNELS,
+         ("envelope_ar_scan", "reverse_echo_scan")),
+    ]
+    graphs = [build(seconds) for _label, seconds, build, _c, _k in cases]
+    for fn in counters.values():
+        fn.launches = 0  # the main path's run starts here
+    per_case, outs, walls = [], [], []
+    for graph in graphs:
+        before = {k: fn.launches for k, fn in counters.items()}
+        t = time.perf_counter()
+        out = pg.render_to_array(graph, device=dev)
+        walls.append(time.perf_counter() - t)
+        per_case.append({k: fn.launches - before[k] for k, fn in counters.items()})
+        outs.append(out)
+    launches = {k: fn.launches for k, fn in counters.items()}
+
+    for (label, seconds, build, channels, used), graph, out, n, first_wall in zip(
+            cases, graphs, outs, per_case, walls):
+        check(out.shape == (int(round(seconds * SR)), channels) and out.dtype == np.float32,
+              f"{label}: output {out.dtype} {out.shape}")
+        check(bool(np.isfinite(out).all()) and np.abs(out).max() > 0.05,
+              f"{label}: not finite or silent")
+        for name in used:
+            check(n[name] > 0, f"{label}: {name} was not launched")
+        # the first 0.4 s, kernels against plain versions on the card
+        got = pg.render_to_array(build(FX_CHECK_S), block=4096, device=dev)
+        with plain_versions(swaps):
+            ref = pg.render_to_array(build(FX_CHECK_S), block=4096, device=dev)
+        err = float(np.abs(got - ref).max())
+        check(err <= TOL and np.abs(ref).max() > 0.05,
+              f"{label}: first {FX_CHECK_S} s, kernels vs plain {err}")
+
+        # timed, after the main path's render of the same graph (warm-up)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        start.record()
+        pg.render_to_array(graph, device=dev)
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        ev = start.elapsed_time(end) / 1e3
+        print(f"{label}: launches {n}; first {FX_CHECK_S} s kernels vs plain max abs "
+              f"err {err:.3g}; first render {first_wall * 1e3:.1f} ms; realtime "
+              f"x{seconds / wall:.2f} wall ({wall * 1e3:.1f} ms), x{seconds / ev:.2f} "
+              f"by CUDA events ({ev * 1e3:.1f} ms) [{card}]")
     return launches
 
 

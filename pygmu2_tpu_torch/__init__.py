@@ -8,7 +8,12 @@ Two slices so far:
 - the PE-graph render engine (``core/``) with the PEs of a subtractive
   patch (``models/``): LadderPE, CombPE and the ADSR pair run on
   hand-written CUDA kernels (``csrc/ladder_scan.cu``, ``comb_scan.cu``,
-  ``adsr_scan.cu``).
+  ``adsr_scan.cu``);
+- the effects chain: KarplusStrongPE, EnvelopePE (and with it the
+  dynamics family), SlewLimiterPE and ReversePitchEchoPE on hand-written
+  CUDA kernels (``csrc/ks_scan.cu``, ``envelope_ar_scan.cu``,
+  ``slew_scan.cu``, ``reverse_echo_scan.cu``), with the holds, CachePE,
+  BiquadPE and SVFilterPE in plain tensor ops.
 
 Every public render function takes an explicit ``device`` (default
 ``"cuda"``); CPU tensors run the kernels' plain PyTorch versions.
@@ -48,17 +53,32 @@ from pygmu2_tpu_torch.models.basic import (
     ParamPE,
     TransformPE,
 )
-from pygmu2_tpu_torch.models.envelopes import AdsrGatedPE, AdsrTriggeredPE
+from pygmu2_tpu_torch.models.dynamics import (
+    CompressorPE,
+    DynamicsPE,
+    ExpanderPE,
+    LimiterPE,
+)
+from pygmu2_tpu_torch.models.envelopes import AdsrGatedPE, AdsrTriggeredPE, EnvelopePE
+from pygmu2_tpu_torch.models.filters import BiquadPE, SVFilterPE
 from pygmu2_tpu_torch.models.gates import (
     GateSignal,
     PeriodicGate,
     PeriodicTrigger,
     TriggerSignal,
 )
-from pygmu2_tpu_torch.models.modes import LadderMode
+from pygmu2_tpu_torch.models.holds import CachePE, SampleHoldPE, SlewLimiterPE, TrackHoldPE
+from pygmu2_tpu_torch.models.modes import (
+    BiquadMode,
+    DetectionMode,
+    DynamicsMode,
+    LadderMode,
+    SlewMode,
+)
 from pygmu2_tpu_torch.models.osc_bandlimited import BlitSawPE
 from pygmu2_tpu_torch.models.oscillators import FunctionGenPE, SinePE
-from pygmu2_tpu_torch.models.physical import CombPE, LadderPE
+from pygmu2_tpu_torch.models.physical import CombPE, KarplusStrongPE, LadderPE, rho_for_decay_db
+from pygmu2_tpu_torch.models.reverse_echo import ReversePitchEchoPE
 from pygmu2_tpu_torch.models.window import CropPE, SetExtentPE
 from pygmu2_tpu_torch.soundfont import (
     MidiFile,
@@ -125,6 +145,24 @@ __all__ = [
     "CombPE",
     "AdsrGatedPE",
     "AdsrTriggeredPE",
+    "KarplusStrongPE",
+    "rho_for_decay_db",
+    "EnvelopePE",
+    "DetectionMode",
+    "DynamicsPE",
+    "CompressorPE",
+    "LimiterPE",
+    "ExpanderPE",
+    "DynamicsMode",
+    "SlewLimiterPE",
+    "SlewMode",
+    "SampleHoldPE",
+    "TrackHoldPE",
+    "CachePE",
+    "BiquadPE",
+    "SVFilterPE",
+    "BiquadMode",
+    "ReversePitchEchoPE",
     # the offline SoundFont render
     "MidiFile",
     "MidiFileSequencer",

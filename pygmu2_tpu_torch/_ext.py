@@ -107,6 +107,17 @@ def load() -> ctypes.CDLL:
         # gate, state_in, env, state_out, T, dA, dD, dR, sus,
         # sustain_samples (-1: gated), stream
         "adsr_scan_launch": [p] * 4 + [i, f, f, f, f, i, p],
+        # rho, act, buf_in, r_in, ap_in_in, ap_out_in, y, buf_out, r_out,
+        # ap_in_out, ap_out_out, T, L, allpass_c, stream
+        "ks_scan_launch": [p] * 11 + [i, i, f, p],
+        # x, env0, env, env_final, T, C, atk, rel, stream
+        "envelope_ar_scan_launch": [p] * 4 + [i, i, f, f, p],
+        # x, cur_in, y, cur_out, T, linear, p_rise, p_fall, stream
+        "slew_scan_launch": [p] * 4 + [i, i, f, f, p],
+        # x, blk, ratio, fb, alt, buf_a, buf_b, pb_in, misc_in, y, pb_out,
+        # misc_out, T, C, sr, plen, cap, min_block, max_block, smooth_alpha,
+        # inv_plen, half, inv_half, stream
+        "reverse_echo_scan_launch": [p] * 12 + [i, i, f, i, i, i, i, f, f, f, f, p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

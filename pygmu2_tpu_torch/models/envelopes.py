@@ -1,28 +1,144 @@
-"""ADSR generators: AdsrGatedPE, AdsrTriggeredPE.
+"""Envelope follower and ADSR generators.
 
-Counterpart of the ADSR pair of ``pygmu2_tpu.models.envelopes``:
+Counterpart of ``pygmu2_tpu.models.envelopes``:
+- EnvelopePE      (reference: src/pygmu2/envelope_pe.py:25-271) — causal
+  attack/release follower, PEAK or windowed-RMS detection, lookahead by
+  pulling the future.
 - AdsrGatedPE     (reference: src/pygmu2/adsr_pe.py:30-193) — gate-driven
   ADSR with linear segments, IDLE/ATTACK/DECAY/SUSTAIN/RELEASE.
 - AdsrTriggeredPE (reference: src/pygmu2/adsr_pe.py:199-335) — one-shot
   ADSR with a fixed sustain time, restarted by triggers.
 
-Both run the state machine in ``ops/adsr.adsr_scan`` (a hand-written
-kernel on the card) for any number of gate edges; the JAX package's
-edge-tiered closed form (``ops/adsr_block.py``) is a TPU workaround for
-a slow ``lax.scan`` and equals the machine to 1e-5.
+The symmetric follower (attack == release) is a linear one-pole on the
+parallel ``ops/linrec.affine_scan_1``; the asymmetric follower runs in
+``ops/envelope.envelope_ar_scan`` for any channel count. Both ADSRs run
+the state machine in ``ops/adsr.adsr_scan`` for any number of gate edges;
+the JAX package's edge-tiered closed form (``ops/adsr_block.py``) is a TPU
+workaround for a slow ``lax.scan`` and equals the machine to 1e-5. Both
+are hand-written kernels on the card.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from pygmu2_tpu_torch.core import prec
 from pygmu2_tpu_torch.core.extent import Extent
 from pygmu2_tpu_torch.core.processing_element import ProcessingElement
+from pygmu2_tpu_torch.models.modes import DetectionMode
 from pygmu2_tpu_torch.ops import adsr as _adsr
+from pygmu2_tpu_torch.ops import envelope as _envelope
+from pygmu2_tpu_torch.ops.linrec import affine_scan_1
+from pygmu2_tpu_torch.ops.phase import prefix_sum
 
 # ADSR stage codes.
 _IDLE, _ATTACK, _DECAY, _SUSTAIN, _RELEASE = 0, 1, 2, 3, 4
+
+
+class EnvelopePE(ProcessingElement):
+    """Attack/release envelope follower with optional lookahead."""
+
+    def state_decays(self) -> bool:
+        return True  # follower state converges within a few time-constants
+
+    def __init__(
+        self,
+        source: ProcessingElement,
+        attack: float = 0.01,
+        release: float = 0.1,
+        lookahead: float = 0.0,
+        mode: DetectionMode = DetectionMode.PEAK,
+    ):
+        self._source = source
+        self._attack = max(0.0, attack)
+        self._release = max(0.0, release)
+        self._lookahead = max(0.0, min(lookahead, self._attack))
+        self._mode = mode
+
+    @property
+    def source(self) -> ProcessingElement:
+        return self._source
+
+    @property
+    def attack(self) -> float:
+        return self._attack
+
+    @property
+    def release(self) -> float:
+        return self._release
+
+    @property
+    def lookahead(self) -> float:
+        return self._lookahead
+
+    @property
+    def mode(self) -> DetectionMode:
+        return self._mode
+
+    def _fills_own_edges(self) -> bool:
+        # IIR state rings past the source extent: the reference keeps
+        # filtering the zero-padded input through its carried state, so
+        # the decay tail is audible. Opt out of the engine's zero-fill.
+        return True
+
+    def inputs(self) -> list[ProcessingElement]:
+        return [self._source]
+
+    def is_pure(self) -> bool:
+        return False
+
+    def channel_count(self) -> int | None:
+        return self._source.channel_count()
+
+    def _compute_extent(self) -> Extent:
+        return self._source.extent()
+
+    @staticmethod
+    def _rms(x, window: int):
+        """Centered moving RMS over the block with edge-replicate padding
+        (scipy.ndimage.uniform_filter1d(mode='nearest')).
+
+        The mean is a difference of two prefix sums ``window`` apart, which
+        amplifies their rounding: the prefix sum is :func:`prefix_sum`,
+        the JAX package's ``jnp.cumsum`` on the CPU bit for bit."""
+        if window <= 1:
+            return x
+        left = window // 2
+        right = window - 1 - left
+        sq = x * x
+        padded = torch.cat([sq[:1].expand(left, -1), sq, sq[-1:].expand(right, -1)])
+        csum = torch.cat([torch.zeros_like(sq[:1]), prefix_sum(padded)])
+        mean = (csum[window:] - csum[:-window]) / window
+        return torch.sqrt(torch.clamp(mean, min=0.0))
+
+    def _trace(self, ctx):
+        sr = ctx.sample_rate
+        look = int(self._lookahead * sr)
+        x = torch.abs(ctx.pull(self._source, shift=look))
+        if self._mode == DetectionMode.RMS:
+            x = self._rms(x, max(1, int(min(0.01, self._attack) * sr)))
+
+        atk = 1.0 - math.exp(-1.0 / (self._attack * sr)) if self._attack > 0 else 1.0
+        rel = 1.0 - math.exp(-1.0 / (self._release * sr)) if self._release > 0 else 1.0
+        env0, _ = ctx.state(
+            self, init=lambda: torch.zeros((x.shape[1],), dtype=prec.AUDIO, device=ctx.device)
+        )
+        if atk == rel:  # a linear one-pole: parallel in time
+            y = affine_scan_1(torch.full_like(x, 1.0 - atk), atk * x, env0)
+            final = y[-1]
+        else:
+            y, final = _envelope.envelope_ar_scan(x, env0, atk=atk, rel=rel)
+        ctx.set_state(self, final)
+        return y
+
+    def __repr__(self) -> str:
+        return (
+            f"EnvelopePE(source={type(self._source).__name__}, "
+            f"attack={self._attack}, release={self._release}, "
+            f"lookahead={self._lookahead}, mode={self._mode.value})"
+        )
 
 
 class _AdsrBase(ProcessingElement):

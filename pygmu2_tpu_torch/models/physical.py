@@ -1,6 +1,6 @@
-"""Nonlinear sequential DSP: LadderPE, CombPE.
+"""Nonlinear sequential DSP: LadderPE, CombPE, KarplusStrongPE.
 
-Counterpart of the first two PEs of ``pygmu2_tpu.models.physical``:
+Counterpart of ``pygmu2_tpu.models.physical``:
 - LadderPE (reference: src/pygmu2/ladder_pe.py:31-625) — Moog ladder
   virtual-analog: 4 cascaded one-pole stages with trapezoidal
   0.769/0.231 weighting, tanh feedback saturation, polynomial
@@ -9,11 +9,14 @@ Counterpart of the first two PEs of ``pygmu2_tpu.models.physical``:
 - CombPE   (reference: src/pygmu2/comb_pe.py:26-349) — feedback comb
   ``y[n] = x[n] + fb·y[n−delay]`` with delay = one period of the target
   frequency, one-pole frequency smoothing, fb clamp ±0.995.
+- KarplusStrongPE (reference: src/pygmu2/karplus_strong_pe.py:61-220) —
+  plucked string: one-period delay line + fractional-delay first-order
+  allpass, seeded noise excitation, optional two-phase decay.
 
 The per-sample coefficient math runs as plain tensor ops; the nonlinear
-recurrences run in ``ops/ladder.ladder_scan`` and ``ops/comb.comb_scan``
-(a hand-written kernel on the card) for every channel count, modulated or
-constant parameters alike.
+recurrences run in ``ops/ladder.ladder_scan``, ``ops/comb.comb_scan`` and
+``ops/ks.ks_scan`` (a hand-written kernel on the card) for every channel
+count, modulated or constant parameters alike.
 """
 
 from __future__ import annotations
@@ -25,9 +28,10 @@ import torch
 
 from pygmu2_tpu_torch.core import prec
 from pygmu2_tpu_torch.core.extent import Extent
-from pygmu2_tpu_torch.core.processing_element import ProcessingElement
+from pygmu2_tpu_torch.core.processing_element import ProcessingElement, SourcePE
 from pygmu2_tpu_torch.models.modes import LadderMode
 from pygmu2_tpu_torch.ops import comb as _comb
+from pygmu2_tpu_torch.ops import ks as _ks
 from pygmu2_tpu_torch.ops import ladder as _ladder
 
 _LADDER_MODE_INDEX = {
@@ -38,6 +42,21 @@ _LADDER_MODE_INDEX = {
     LadderMode.HP24: 4,
     LadderMode.HP12: 5,
 }
+
+
+def rho_for_decay_db(
+    seconds: float,
+    frequency: float,
+    sample_rate: int,
+    db: float = -60.0,
+) -> float:
+    """Feedback gain rho so a Karplus-Strong pluck decays |db| dB over
+    ``seconds``. Accounts for the two-point average's cos(π/N) loss at the
+    fundamental (reference: karplus_strong_pe.py:22-58)."""
+    n = sample_rate / frequency
+    target = 10.0 ** (db / (20.0 * seconds * frequency))
+    rho = target / math.cos(math.pi / n)
+    return min(rho, 1.0)
 
 
 def _column(values, T: int) -> torch.Tensor:
@@ -276,3 +295,103 @@ class CombPE(ProcessingElement):
 
     def __repr__(self) -> str:
         return f"CombPE(source={type(self._source).__name__})"
+
+
+class KarplusStrongPE(SourcePE):
+    """Plucked string: noise-filled delay line with averaging feedback and
+    a fractional-delay allpass. Extent (0, ∞); crop to taste."""
+
+    def __init__(
+        self,
+        frequency: float,
+        rho: float = 0.996,
+        duration: int | None = None,
+        rho_damping: float | None = None,
+        amplitude: float = 0.3,
+        seed: int | None = None,
+        channels: int = 1,
+    ):
+        if frequency <= 0:
+            raise ValueError(f"frequency must be positive, got {frequency}")
+        if not (0 < rho <= 1.0):
+            raise ValueError(f"rho must be in (0, 1], got {rho}")
+        if amplitude <= 0:
+            raise ValueError(f"amplitude must be positive, got {amplitude}")
+        two_phase = duration is not None and rho_damping is not None
+        if two_phase:
+            if duration < 0:
+                raise ValueError(f"duration must be >= 0, got {duration}")
+            if not (0 < rho_damping <= 1.0):
+                raise ValueError(f"rho_damping must be in (0, 1], got {rho_damping}")
+        self._frequency = float(frequency)
+        self._rho = float(rho)
+        self._duration_param = duration if two_phase else None
+        self._rho_damping = float(rho_damping) if two_phase else None
+        self._amplitude = float(amplitude)
+        self._seed = seed
+        self._channels = channels
+
+    @property
+    def frequency(self) -> float:
+        return self._frequency
+
+    @property
+    def rho(self) -> float:
+        return self._rho
+
+    def is_pure(self) -> bool:
+        return False
+
+    def channel_count(self) -> int:
+        return self._channels
+
+    def _compute_extent(self) -> Extent:
+        return Extent(0, None)
+
+    def _excitation(self, delay_len: int) -> np.ndarray:
+        rng = np.random.default_rng(self._seed)
+        noise = rng.standard_normal(delay_len).astype(np.float32)
+        return noise * (self._amplitude / (np.max(np.abs(noise)) + 1e-9))
+
+    def _trace(self, ctx):
+        sr = ctx.sample_rate
+        delay_float = sr / self._frequency
+        delay_len = max(2, int(math.floor(delay_float)))
+        frac = min(1.0, max(0.0, delay_float - delay_len))
+        allpass_c = (1.0 - frac) / (1.0 + frac)
+        dev = ctx.device
+
+        st, _ = ctx.state(
+            self,
+            init=lambda: {
+                # one host-to-card copy, at the first request or a gap only
+                "buf": torch.from_numpy(self._excitation(delay_len)).to(dev),
+                "r": torch.zeros((), dtype=torch.int32, device=dev),
+                "ap_in": torch.zeros((), dtype=torch.float32, device=dev),
+                "ap_out": torch.zeros((), dtype=torch.float32, device=dev),
+            },
+        )
+        t = ctx.times()
+        if self._duration_param is not None:
+            rho_t = torch.where(
+                t >= self._duration_param,
+                torch.full((), self._rho_damping, dtype=torch.float32, device=dev),
+                torch.full((), self._rho, dtype=torch.float32, device=dev),
+            )
+        else:
+            rho_t = torch.full((ctx.duration,), self._rho, dtype=torch.float32, device=dev)
+        # The kernel takes every block: the JAX package's block-parallel
+        # path for fully active blocks with delay_len >= 16
+        # (ops/ks_block.py) computes the same recurrence.
+        y, buf2, r2, ai2, ao2 = _ks.ks_scan(
+            rho_t, t >= 0, st["buf"], st["r"], st["ap_in"], st["ap_out"],
+            L=delay_len, allpass_c=float(allpass_c),
+        )
+        ctx.set_state(self, {"buf": buf2, "r": r2, "ap_in": ai2, "ap_out": ao2})
+        return y[:, None].expand(-1, self._channels)
+
+    def __repr__(self) -> str:
+        return (
+            f"KarplusStrongPE(frequency={self._frequency}, rho={self._rho}, "
+            f"channels={self._channels})"
+        )

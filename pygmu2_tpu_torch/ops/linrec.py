@@ -1,7 +1,8 @@
 """Linear recurrence over time, in plain PyTorch.
 
-Counterparts of ``pygmu2_tpu.ops.linrec.affine_scan_1`` and
-``affine_scan_2``. A (possibly time-varying) affine recurrence
+Counterparts of ``pygmu2_tpu.ops.linrec.affine_scan_1``,
+``affine_scan_2``, ``affine_scan_2_seg`` and ``biquad_filter``. A
+(possibly time-varying) affine recurrence
 
     s[t] = A[t] @ s[t-1] + u[t]
 
@@ -11,7 +12,8 @@ is a composition of affine maps, and composition
 
 is associative, so the prefix states are an inclusive scan. This module
 scans by log-step doubling over the time axis (Hillis-Steele): ceil(log2 T)
-passes, each a handful of elementwise ops over the whole (T, ...) block.
+passes, each a handful of elementwise ops over the whole (T, ...) block;
+the filters' order-2 scan bounds the doubling to segments of 512 samples.
 """
 
 from __future__ import annotations
@@ -77,3 +79,107 @@ def affine_scan_2(a11, a12, a21, a22, u1, u2, s0=None):
             dst[s:] = val
         s *= 2
     return u1, u2
+
+
+def affine_scan_2_seg(a11, a12, a21, a22, u1, u2, s0=None, *, seg: int = 512):
+    """Order-2 affine scan over (T, C), segmented for accuracy.
+
+    Counterpart of ``pygmu2_tpu.ops.linrec.affine_scan_2_seg``, op for op:
+    composing many near-unit 2x2 maps in float32 loses the output (a
+    resonant biquad's poles at radius ~0.997), so every map product is
+    bounded to ``seg`` steps:
+
+    1. (T, C) -> (L, seg, C) segments, each scanned by an explicit
+       Kogge-Stone doubling (a shift of the earlier rows, identity-padded);
+    2. the segments' final maps are stitched by a length-L loop that
+       carries the state value (no long map products form);
+    3. each segment's prefix maps are applied to the state entering it.
+
+    ``s0`` is an optional pair of (C,) states before step 0. Returns the
+    two (T, C) state components after each step.
+    """
+    a11, a12, a21, a22, u1, u2 = torch.broadcast_tensors(a11, a12, a21, a22, u1, u2)
+    T, C = u1.shape
+    seg = min(seg, max(T, 1))
+    L = -(-T // seg)
+    pad = L * seg - T
+
+    def prep(x, fill):
+        if pad:
+            x = torch.cat([x, x.new_full((pad, C), fill)])
+        return x.reshape(L, seg, C)
+
+    # identity-map padding keeps the tail segment's stitch exact
+    m11, m12, m21, m22 = prep(a11, 1.0), prep(a12, 0.0), prep(a21, 0.0), prep(a22, 1.0)
+    v1, v2 = prep(u1, 0.0), prep(u2, 0.0)
+    s = 1
+    while s < seg:
+        def sh(x, fill):
+            return torch.cat([x.new_full((L, s, C), fill), x[:, :-s]], dim=1)
+
+        p11, p12, p21, p22 = sh(m11, 1.0), sh(m12, 0.0), sh(m21, 0.0), sh(m22, 1.0)
+        q1, q2 = sh(v1, 0.0), sh(v2, 0.0)
+        m11, m12, m21, m22, v1, v2 = (
+            m11 * p11 + m12 * p21,
+            m11 * p12 + m12 * p22,
+            m21 * p11 + m22 * p21,
+            m21 * p12 + m22 * p22,
+            m11 * q1 + m12 * q2 + v1,
+            m21 * q1 + m22 * q2 + v2,
+        )
+        s *= 2
+
+    zero = u1.new_zeros((C,))
+    x1, x2 = (zero, zero) if s0 is None else (zero + s0[0], zero + s0[1])
+    in1, in2 = [], []
+    for i in range(L):  # the state entering each segment
+        in1.append(x1)
+        in2.append(x2)
+        x1, x2 = (
+            m11[i, -1] * x1 + m12[i, -1] * x2 + v1[i, -1],
+            m21[i, -1] * x1 + m22[i, -1] * x2 + v2[i, -1],
+        )
+    in1, in2 = torch.stack(in1)[:, None], torch.stack(in2)[:, None]
+    s1 = (m11 * in1 + m12 * in2 + v1).reshape(L * seg, C)[:T]
+    s2 = (m21 * in1 + m22 * in2 + v2).reshape(L * seg, C)[:T]
+    return s1, s2
+
+
+def biquad_filter(x, b0, b1, b2, a1, a2, zi=None):
+    """Direct-form-I biquad over (T, C), parallel in time.
+
+    Counterpart of ``pygmu2_tpu.ops.linrec.biquad_filter``:
+
+        y[n] = b0 x[n] + b1 x[n-1] + b2 x[n-2] - a1 y[n-1] - a2 y[n-2]
+
+    The FIR half is elementwise; the feedback half is the order-2 affine
+    recurrence A[n] = [[-a1, -a2], [1, 0]], u[n] = [fir[n], 0], by
+    :func:`affine_scan_2_seg` at every width. The coefficients are
+    scalars or (T,) tensors; ``zi`` is the carried state
+    ``{"x": (2, C) [x[-1], x[-2]], "y": (2, C) [y[-1], y[-2]]}`` or None
+    for zeros. Returns (y (T, C), the state after the last sample).
+    """
+    T, C = x.shape
+
+    def tv(c):
+        c = torch.as_tensor(c, dtype=x.dtype, device=x.device)
+        return c.reshape(1, 1) if c.dim() == 0 else c.reshape(T, -1)
+
+    b0, b1, b2, a1, a2 = tv(b0), tv(b1), tv(b2), tv(a1), tv(a2)
+    if zi is None:
+        x_tail = y_tail = x.new_zeros((2, C))
+    else:
+        x_tail, y_tail = zi["x"].to(x.dtype), zi["y"].to(x.dtype)
+
+    xp = torch.cat([x_tail.flip(0), x])  # rows: x[-2], x[-1], x...
+    fir = b0 * xp[2:] + b1 * xp[1:-1] + b2 * xp[:-2]
+    zeros = x.new_zeros((T, C))
+    y, _ = affine_scan_2_seg(
+        (-a1).expand(T, C), (-a2).expand(T, C), x.new_ones((T, C)), zeros,
+        fir, zeros, s0=(y_tail[0], y_tail[1]),
+    )
+    zf = {
+        "x": torch.stack([x[-1], x[-2] if T >= 2 else x_tail[0]]),
+        "y": torch.stack([y[-1], y[-2] if T >= 2 else y_tail[0]]),
+    }
+    return y, zf

@@ -1,0 +1,204 @@
+"""The reverse pitch echo's per-sample recurrence over three rings.
+
+Counterpart of ``pygmu2_tpu.ops.reverse_echo_pallas``: one function,
+``reverse_echo_scan``, takes the (T, C) input, the (T,) per-sample
+controls (block length in seconds, pitch ratio, feedback, alternate
+direction), the two (cap, C) block buffers, the (plen, C) pitch line and
+the (9,) scalar state in :data:`MISC_FIELDS` order, and returns the wet
+output and the four state pieces after the last sample.
+
+Each sample: the block length is smoothed and rounded; the input goes
+through a two-head pitch shifter into the current block buffer, with the
+previous block replayed reversed (or alternating) under a Hann window and
+fed back; the buffers swap when the current block is full.
+
+- ``reverse_echo_scan`` is the wrapper. For CUDA tensors it launches the
+  hand-written kernel in ``csrc/reverse_echo_scan.cu``, which updates the
+  two block buffers in place, and counts the launch in
+  ``reverse_echo_scan.launches``; for CPU tensors it runs the plain
+  version.
+- ``reverse_echo_scan_ref`` is the plain PyTorch version with the JAX
+  package's ``reverse_echo_scan_ref`` op order, float32: a pass over the
+  samples that runs the control machine (it reads only the controls) in
+  float32 scalars on the host, then a per-sample loop over the (C,) rows
+  on the tensors' device, the Hann window by ``torch.cos`` there.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pygmu2_tpu_torch import _ext
+
+MISC_FIELDS = (
+    "cur_is_a", "p_wpos", "p_rpos", "w_idx", "r_idx", "smoothed",
+    "cur_block", "prev_block", "reverse",
+)
+_TWO_PI = 2.0 * 3.14159265358979323846
+
+
+def _f32(v) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.float32)
+
+
+def _control(blk, ratio, alt, misc, *, sr, plen, cap, min_block, max_block,
+             smooth_alpha):
+    """The control machine over T samples, in float32 on the host.
+
+    Returns (per-sample steps, misc after the last sample). A step holds
+    the pitch line's write slot and read taps with their float32 weights,
+    the pass-through flag, the window position, the replay row (None when
+    not playing), the write row and which buffer is current."""
+    sr32, alpha = _f32(sr), _f32(smooth_alpha)
+    inv_plen, fplen, half, inv_half = (
+        _f32(1.0 / plen), _f32(plen), _f32(plen / 2.0), _f32(1.0 / (plen / 2.0))
+    )
+    fmin, fmax, one, tol = _f32(min_block), _f32(max_block), _f32(1.0), _f32(1e-4)
+
+    def wrap(p):
+        return p - torch.floor(p * inv_plen) * fplen
+
+    def tap(p):
+        i = min(max(int(torch.floor(p)), 0), plen - 1)
+        frac = p - _f32(i)
+        return i, (i + 1) % plen, float(one - frac), float(frac)
+
+    m = misc.detach().to("cpu", torch.float32)
+    cur_is_a, p_wpos, w_idx, r_idx = int(m[0]), int(m[1]), int(m[3]), int(m[4])
+    cur_block, prev_block, reverse = int(m[6]), int(m[7]), int(m[8])
+    p_rpos, smoothed = m[2].clone(), m[5].clone()
+    steps = []
+    for b, rt, al in zip(blk.tolist(), ratio.tolist(), alt.tolist()):
+        tt = _f32(b) * sr32
+        if torch.isnan(tt):
+            tt = fmin
+        target = torch.round(torch.clamp(tt, fmin, fmax))
+        smoothed = smoothed + (target - smoothed) * alpha
+        if w_idx == 0:
+            cur_block = int(torch.clamp(torch.round(smoothed), fmin, fmax))
+
+        wslot = p_wpos
+        p_wpos = (p_wpos + 1) % plen
+        pos = wrap(p_rpos)
+        taps = tap(pos) + tap(wrap(pos + half))
+        dist = torch.abs(p_rpos - _f32(p_wpos))
+        if dist > half:
+            dist = fplen - dist
+        f = dist * inv_half
+        rt32 = _f32(rt)
+        near_unity = bool(torch.abs(rt32 - one) < tol)
+        p_rpos = wrap(p_rpos + rt32)
+
+        idx = prev_block - 1 - r_idx if reverse == 1 else r_idx
+        playing = prev_block > 0 and r_idx < prev_block and 0 <= idx < prev_block
+        wpos = _f32(r_idx) / _f32(max(prev_block - 1, 1)) if prev_block > 1 else _f32(0.0)
+        steps.append((
+            wslot, taps, float(f), float(one - f), near_unity, float(wpos),
+            min(max(idx, 0), cap - 1) if playing else None,
+            min(w_idx, cap - 1), cur_is_a == 1,
+        ))
+
+        w_idx += 1
+        r_idx += 1
+        if w_idx >= cur_block:
+            cur_is_a = 1 - cur_is_a
+            prev_block = cur_block
+            reverse = 1 - reverse if al >= 0.5 else 1
+            w_idx = r_idx = 0
+    misc_out = [cur_is_a, p_wpos, float(p_rpos), w_idx, r_idx, float(smoothed),
+                cur_block, prev_block, reverse]
+    return steps, misc_out
+
+
+def reverse_echo_scan_ref(x, blk, ratio, fb, alt, buf_a, buf_b, pitch_buf, misc,
+                          *, sr, plen, cap, min_block, max_block, smooth_alpha):
+    """Plain PyTorch version of :func:`reverse_echo_scan` (same arguments
+    and result). Python loops over samples: keep T small."""
+    dev = x.device
+    steps, misc_out = _control(
+        blk, ratio, alt, misc, sr=sr, plen=plen, cap=cap, min_block=min_block,
+        max_block=max_block, smooth_alpha=smooth_alpha,
+    )
+    wpos = torch.tensor([s[5] for s in steps], dtype=torch.float32, device=dev)
+    half_cos = 0.5 * torch.cos(torch.full((), _TWO_PI, dtype=torch.float32, device=dev) * wpos)
+    window = 0.5 - half_cos
+    x = x.to(torch.float32)
+    fb = fb.to(torch.float32)
+    ba, bb, pb = buf_a.clone(), buf_b.clone(), pitch_buf.clone()
+    y = torch.zeros_like(x)
+    for t, (wslot, taps, f, omf, near_unity, _w, rrow, wrow, write_a) in enumerate(steps):
+        i0, i1, w0, w1, i2, i3, w2, w3 = taps
+        xi = x[t]
+        pb[wslot] = xi
+        if near_unity:
+            pitched = xi
+        else:
+            s1 = w0 * pb[i0] + w1 * pb[i1]
+            s2 = w2 * pb[i2] + w3 * pb[i3]
+            pitched = f * s1 + omf * s2
+        cur, prev = (ba, bb) if write_a else (bb, ba)
+        if rrow is None:
+            cur[wrow] = pitched
+        else:
+            wet = prev[rrow] * window[t]
+            y[t] = wet
+            cur[wrow] = pitched + wet * fb[t]
+    return y, ba, bb, pb, torch.tensor(misc_out, dtype=torch.float32, device=dev)
+
+
+def reverse_echo_scan(x, blk, ratio, fb, alt, buf_a, buf_b, pitch_buf, misc, *,
+                      sr, plen, cap, min_block, max_block, smooth_alpha):
+    """Reverse pitch echo over T samples and C channels.
+
+    x: (T, C) f32; blk/ratio/fb/alt: (T,) f32 (fb pre-clipped, ratio
+    pre-floored); buf_a/buf_b: (cap, C) f32; pitch_buf: (plen, C) f32;
+    misc: (9,) f32 in MISC_FIELDS order. Returns (wet (T, C), buf_a',
+    buf_b', pitch_buf', misc'). CPU tensors take the plain version; CUDA
+    tensors launch the kernel (one count in ``reverse_echo_scan.launches``
+    per call) or raise. On the card buf_a and buf_b are consumed: the
+    kernel updates them in place and returns them as buf_a' and buf_b'.
+    """
+    kw = dict(sr=sr, plen=plen, cap=cap, min_block=min_block, max_block=max_block,
+              smooth_alpha=smooth_alpha)
+    args = (x, blk, ratio, fb, alt, buf_a, buf_b, pitch_buf, misc)
+    if x.device.type == "cpu":
+        return reverse_echo_scan_ref(*args, **kw)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    return _launch(*args, **kw)
+
+
+reverse_echo_scan.launches = 0
+
+
+def _launch(x, blk, ratio, fb, alt, buf_a, buf_b, pitch_buf, misc, *, sr, plen,
+            cap, min_block, max_block, smooth_alpha):
+    dev = x.device
+    if x.dim() != 2 or x.shape[0] < 1 or x.shape[1] < 1 or plen < 2 or cap < 2:
+        raise ValueError(f"unsupported shape x={tuple(x.shape)} plen={plen} cap={cap}")
+    T, C = x.shape
+    x = _ext.checked(x, "x", (T, C), dev)
+    blk, ratio, fb, alt = (_ext.checked(v, name, (T,), dev) for v, name in
+                           ((blk, "blk"), (ratio, "ratio"), (fb, "fb"), (alt, "alt")))
+    ba = _ext.checked(buf_a, "buf_a", (cap, C), dev)  # updated in place
+    bb = _ext.checked(buf_b, "buf_b", (cap, C), dev)
+    pitch_buf = _ext.checked(pitch_buf, "pitch_buf", (plen, C), dev)
+    misc = _ext.checked(misc, "misc", (len(MISC_FIELDS),), dev)
+    y = torch.empty((T, C), dtype=torch.float32, device=dev)
+    pb_out = torch.empty((plen, C), dtype=torch.float32, device=dev)
+    misc_out = torch.empty((len(MISC_FIELDS),), dtype=torch.float32, device=dev)
+    half = plen / 2.0
+    lib = _ext.load()
+    with torch.cuda.device(dev):
+        err = lib.reverse_echo_scan_launch(
+            x.data_ptr(), blk.data_ptr(), ratio.data_ptr(), fb.data_ptr(),
+            alt.data_ptr(), ba.data_ptr(), bb.data_ptr(), pitch_buf.data_ptr(),
+            misc.data_ptr(), y.data_ptr(), pb_out.data_ptr(), misc_out.data_ptr(),
+            T, C, float(sr), int(plen), int(cap), int(min_block), int(max_block),
+            float(smooth_alpha), 1.0 / plen, half, 1.0 / half,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _ext.raise_on_error(err, "reverse_echo_scan")
+    reverse_echo_scan.launches += 1
+    return y, ba, bb, pb_out, misc_out
+

@@ -1,8 +1,9 @@
 """Where the PE-graph render's time goes on one CUDA card:
-``python -m pygmu2_tpu_torch.profile_pe``.
+``python -m pygmu2_tpu_torch.profile_pe [name ...]``.
 
-Renders the two workloads of ``patch_workload`` (the patch for 60 s, the
-bank for 10 s) through ``render_to_array`` on the card, after a warm-up
+Renders the workloads of ``patch_workload`` (the patch for 60 s, the bank
+for 10 s) and ``fx_workload`` (the chain for 60 s, the fx bank for 10 s),
+or the ones named, through ``render_to_array`` on the card, after a warm-up
 render of the same graph: the untraced wall time (median of 3, host clock
 around a render that ends in a synchronize), then one render under
 ``torch.profiler``. Prints one JSON line per workload with the device busy
@@ -23,7 +24,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 import pygmu2_tpu_torch as pg
-from pygmu2_tpu_torch import patch_workload
+from pygmu2_tpu_torch import fx_workload, patch_workload
 
 
 def _render(graph, dev) -> float:
@@ -37,11 +38,15 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("profile_pe: needs a CUDA device")
     dev = torch.device("cuda", 0)
-    workloads = [
-        ("patch", 60.0, patch_workload.build_patch(pg, 60.0)),
-        ("bank", 10.0, patch_workload.build_bank(pg, 10.0, seed=0)),
-    ]
-    for label, seconds, graph in workloads:
+    workloads = {
+        "patch": (60.0, lambda s: patch_workload.build_patch(pg, s)),
+        "bank": (10.0, lambda s: patch_workload.build_bank(pg, s, seed=0)),
+        "chain": (60.0, lambda s: fx_workload.build_chain(pg, s)),
+        "fx_bank": (10.0, lambda s: fx_workload.build_fx_bank(pg, s, seed=0)),
+    }
+    for label in sys.argv[1:] or workloads:
+        seconds, build = workloads[label]
+        graph = build(seconds)
         _render(graph, dev)  # warm-up: kernel build, table upload
         wall = statistics.median(_render(graph, dev) for _ in range(3))
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

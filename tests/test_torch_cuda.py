@@ -147,3 +147,115 @@ def test_patch_render_on_card_matches_cpu(cuda):
     assert all(fn.launches > b for fn, b in zip(counters, before))
     on_cpu = pg.render_to_array(patch_workload.build_patch(pg, 0.1), block=2048, device="cpu")
     np.testing.assert_allclose(on_card, on_cpu, rtol=0, atol=1e-4)
+
+
+# ---- the effects-chain slice: four serial kernels and the chain ----
+
+
+def _rectified(device, seed, T, C):
+    (x,) = _seeded(device, seed, (T, C))
+    return x.abs()
+
+
+def test_ks_kernel_matches_plain(cuda):
+    from pygmu2_tpu_torch.ops import ks
+
+    T = 2048
+    for L in (7, 535):
+        (rho,) = _seeded(cuda, L, (T,), lo=0.99, hi=0.9999)
+        (buf,) = _seeded(cuda, L + 1, (L,))
+        act = torch.arange(T, device=cuda) >= 100
+        state = (torch.tensor(3, dtype=torch.int32, device=cuda),
+                 torch.tensor(0.1, device=cuda), torch.tensor(-0.2, device=cuda))
+        kw = dict(L=L, allpass_c=0.35)
+        before = ks.ks_scan.launches
+        got = ks.ks_scan(rho, act, buf, *state, **kw)
+        torch.cuda.synchronize()
+        assert ks.ks_scan.launches == before + 1
+        ref = ks.ks_scan_ref(rho, act, buf, *state, **kw)
+        for g, r in zip(got, ref):
+            torch.testing.assert_close(g, r, rtol=0, atol=0)
+    # a string too long for shared memory is refused, not run another way
+    L = ks.MAX_KERNEL_L + 1
+    with pytest.raises(ValueError):
+        ks.ks_scan(rho, act, torch.zeros(L, device=cuda), *state, L=L, allpass_c=0.35)
+
+
+@pytest.mark.parametrize("C", [1, 128])
+def test_envelope_kernel_matches_plain(cuda, C):
+    from pygmu2_tpu_torch.ops import envelope
+
+    x = _rectified(cuda, C, 2048, C)
+    env0 = torch.zeros(C, device=cuda)
+    kw = dict(atk=1 - np.exp(-1 / 220.5), rel=1 - np.exp(-1 / 3528.0))
+    before = envelope.envelope_ar_scan.launches
+    got = envelope.envelope_ar_scan(x, env0, **kw)
+    torch.cuda.synchronize()
+    assert envelope.envelope_ar_scan.launches == before + 1
+    for g, r in zip(got, envelope.envelope_ar_scan_ref(x, env0, **kw)):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("linear", [True, False], ids=["linear", "exponential"])
+def test_slew_kernel_matches_plain(cuda, linear):
+    from pygmu2_tpu_torch.ops import slew
+
+    (x,) = _seeded(cuda, 3, (2048,), lo=0.0, hi=3000.0)
+    kw = dict(linear=linear, p_rise=40000 / 44100 if linear else 0.05,
+              p_fall=8000 / 44100 if linear else 0.002)
+    cur = torch.tensor(300.0, device=cuda)
+    before = slew.slew_scan.launches
+    got = slew.slew_scan(x, cur, **kw)
+    torch.cuda.synchronize()
+    assert slew.slew_scan.launches == before + 1
+    for g, r in zip(got, slew.slew_scan_ref(x, cur, **kw)):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("C", [1, 128])
+def test_reverse_echo_kernel_matches_plain(cuda, C):
+    from pygmu2_tpu_torch.ops import reverse_echo
+
+    T, cap, plen = 2048, 22050, 735
+    (x,) = _seeded(cuda, C, (T, C))
+    cols = [torch.full((T,), v, device=cuda) for v in (0.01, 1.5, 0.6, 1.0)]
+    rings = [torch.zeros((cap, C), device=cuda), torch.zeros((cap, C), device=cuda),
+             torch.zeros((plen, C), device=cuda)]
+    misc = torch.tensor([1, 0, 0, 0, 0, 441, 441, 0, 1], dtype=torch.float32, device=cuda)
+    kw = dict(sr=44100.0, plen=plen, cap=cap, min_block=64, max_block=cap - 1,
+              smooth_alpha=1 / 2400)
+    # the plain version first: the kernel consumes the block buffers
+    ref = reverse_echo.reverse_echo_scan_ref(x, *cols, *rings, misc, **kw)
+    before = reverse_echo.reverse_echo_scan.launches
+    got = reverse_echo.reverse_echo_scan(x, *cols, *rings, misc, **kw)
+    torch.cuda.synchronize()
+    assert reverse_echo.reverse_echo_scan.launches == before + 1
+    assert got[1] is rings[0] and got[2] is rings[1]  # updated in place
+    assert ref[0].abs().max() > 1e-3
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-6)
+
+
+def test_chain_on_card_launches_kernels_and_matches_cpu(cuda, monkeypatch):
+    import pygmu2_tpu_torch as pg
+    from pygmu2_tpu_torch import fx_workload
+    from pygmu2_tpu_torch.ops import envelope, ks, reverse_echo, slew
+
+    mods = {ks: "ks_scan", envelope: "envelope_ar_scan", slew: "slew_scan",
+            reverse_echo: "reverse_echo_scan"}
+    plain_on_card = []
+    for mod, name in mods.items():  # a plain version must never see a card tensor
+        ref = getattr(mod, name + "_ref")
+
+        def guarded(*args, _ref=ref, _name=name, **kw):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                plain_on_card.append(_name)
+            return _ref(*args, **kw)
+
+        monkeypatch.setattr(mod, name + "_ref", guarded)
+    before = {name: getattr(mod, name).launches for mod, name in mods.items()}
+    on_card = pg.render_to_array(fx_workload.build_chain(pg, 0.1), block=2048, device=cuda)
+    assert all(getattr(mod, name).launches > before[name] for mod, name in mods.items())
+    assert not plain_on_card
+    on_cpu = pg.render_to_array(fx_workload.build_chain(pg, 0.1), block=2048, device="cpu")
+    np.testing.assert_allclose(on_card, on_cpu, rtol=0, atol=1e-4)

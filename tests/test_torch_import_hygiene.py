@@ -29,6 +29,10 @@ def test_port_imports_no_jax():
     )
     assert "pygmu2_tpu_torch.core.engine" in modules
     assert "pygmu2_tpu_torch.ops.ladder" in modules
+    for name in ("ops.ks", "ops.envelope", "ops.slew", "ops.reverse_echo",
+                 "models.holds", "models.dynamics", "models.filters",
+                 "models.reverse_echo", "fx_workload"):
+        assert f"pygmu2_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
         "import pygmu2_tpu_torch\n"
@@ -78,6 +82,21 @@ def test_cpu_pe_graph_render_launches_no_kernel():
     assert [fn.launches for fn in counters] == before
     if not torch.cuda.is_available():
         assert before == [0, 0, 0]
+
+
+def test_cpu_fx_chain_render_launches_no_kernel():
+    import pygmu2_tpu_torch as pg
+    from pygmu2_tpu_torch import fx_workload
+    from pygmu2_tpu_torch.ops import envelope, ks, reverse_echo, slew
+
+    counters = (ks.ks_scan, envelope.envelope_ar_scan, slew.slew_scan,
+                reverse_echo.reverse_echo_scan)
+    before = [fn.launches for fn in counters]
+    out = pg.render_to_array(fx_workload.build_chain(pg, 0.02), device="cpu")
+    assert out.shape == (882, 1) and abs(out).max() > 0.01
+    assert [fn.launches for fn in counters] == before
+    if not torch.cuda.is_available():
+        assert before == [0, 0, 0, 0]
 
 
 def test_wrapper_refuses_other_devices():

@@ -49,7 +49,26 @@ Drives the port's three main paths through their user entry points:
    come out finite and not silent; the first 0.4 s (past the echo's first
    0.3 s block, so its replayed and fed-back block is in it) must match
    the same render with the plain versions on the card within 1e-4. Wall
-   time and realtime factors after the warm-up render.
+   time and realtime factors after the warm-up render;
+9. the order-2 affine scan's kernel against its plain version on the card,
+   bit for bit: at T = 4096 with a two-call hand-off through ``s0`` (C in
+   {4, 128}, chunk 1024, and chunk 128), and at the main path's block,
+   T = 16384, C = 128, on the arguments that are timed (the SVFilterPE
+   layout: four matrix planes shared by the channels, two input planes, an
+   initial state); the unfused SoundFont pass's kernel against its plain
+   version on the high-register score's rows (3 s, large font, T =
+   133120, P = 128, N = 1024) within 2e-5 * max(1, peak), then timed;
+10. end to end through ``render_to_array(device="cuda")``: the 128-channel
+   filter bank for 10 s (``pygmu2_tpu_torch/filter_workload.py``), which
+   must launch the scan kernel (27 blocks, two filters); its first 0.4 s
+   must match the same render with the plain version on the card within
+   1e-4. Realtime after the warm-up render;
+11. the high-register score (3 s, large font) through
+   ``render_midi_offline`` and ``render_midi_offline_streamed``: each must
+   launch the unfused pass's kernel and not the fused one, and match the
+   same render with the plain version on the card within 1e-4. Realtime
+   after a warm-up; as a measurement only, the fused kernel on the same
+   rows, timed beside the unfused route, and the two outputs' difference.
 
 Prints a JSON line of per-kernel results, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, before any result, on
@@ -99,6 +118,13 @@ SLEW_OPS = 4
 #   window 8 (cos as one), advance 6: 40; per (sample, channel) two taps 6,
 #   crossfade 3, windowed replay 1, feedback write 2: 12
 ECHO_OPS_SAMPLE, ECHO_OPS_CHANNEL = 40, 12
+# order-2 affine scan per (sample, channel): per Kogge-Stone pass six
+#   2x2 products (two multiplies and an add each) and two more adds: 20;
+#   log2(chunk) passes; the entering state applied: 6
+SCAN_OPS_PASS, SCAN_OPS_APPLY = 20, 6
+SCAN_CHUNK = 1024
+# filter_gain_mix per (sample, voice): biquad 9, gain ramps 12, mixdown 2
+FGM_OPS = 23
 FX_T = 4096  # the effects kernels' comparisons with two-call hand-offs
 FX_CHECK_S = 0.4  # the effects renders' comparison: past the echo's first block
 
@@ -295,6 +321,9 @@ def main() -> None:
     pe_launches = pe_graph(dev, card)
     serial.update(fx_kernels(dev, card, device_ms))
     pe_launches.update(fx_graph(dev, card))
+    serial.update(scan_kernels(dev, card, device_ms))
+    pe_launches.update(filter_graph(dev, card))
+    pe_launches.update(high_score(dev, card, device_ms))
     entries = [osc_entry]
     for name, info in serial.items():
         entries.append({"name": name, "route": "cuda", **info,
@@ -758,6 +787,232 @@ def fx_graph(dev, card) -> dict:
               f"x{seconds / wall:.2f} wall ({wall * 1e3:.1f} ms), x{seconds / ev:.2f} "
               f"by CUDA events ({ev * 1e3:.1f} ms) [{card}]")
     return launches
+
+
+def _high_score_rows(dev, seconds):
+    """The high-register score's control rows through the large font:
+    (rows, wave, N)."""
+    from pygmu2_tpu_torch import bench_workload
+    from pygmu2_tpu_torch.soundfont import MidiFile
+    from pygmu2_tpu_torch.soundfont import offline as off
+    from pygmu2_tpu_torch.soundfont.convert import schedule_to_torch, to_torch
+
+    synth, _ = bench_workload.build_workload(True)
+    midi = MidiFile(bench_workload.build_high_midi_bytes(seconds))
+    par, ch, snap, _nb = synth.build_schedule(midi, seconds)
+    check(off._out_of_window(synth, par, ch), "high score: not out of the window")
+    planes, flags = schedule_to_torch(par, ch, snap, dev)
+    ctrl = off._control_device(*planes, synth.block_size, flags,
+                               int(synth._minimum_voice_duration), float(synth.sample_rate))
+    wave = to_torch(synth._wave, dev)
+    rows = dict(off._gain_rows(ctrl, synth.master_volume), **off._osc_rows(ctrl, wave))
+    synth.reset()
+    return rows, wave, synth.block_size
+
+
+def scan_kernels(dev, card, device_ms) -> dict:
+    """Phase 9: the order-2 affine scan's and the unfused SoundFont pass's
+    kernels against their plain versions on the card, and their times at
+    the main path's shapes. Returns the kernels' JSON fields but
+    ``launches``."""
+    from pygmu2_tpu_torch.ops import linrec_kernel as lk
+    from pygmu2_tpu_torch.soundfont import filter_kernels as fk
+
+    out = {}
+
+    def scan_args(T, C, seed, shared):
+        """Stable 2x2 maps (the SVFilterPE layout when ``shared``: the four
+        matrix planes one column for every channel), inputs, a state."""
+        mats = _seeded(dev, seed, *[(T, 1 if shared else C)] * 4, lo=-0.7, hi=0.7)
+        us = _seeded(dev, seed + 1, (T, C), (T, C))
+        s0 = tuple(_seeded(dev, seed + 2, (C,), (C,)))
+        return [m.expand(T, C) for m in mats] + us, s0
+
+    errs = []
+    for C in (4, 128):
+        for chunk in (SCAN_CHUNK, 128):
+            what = f"C={C} T={FX_T} chunk={chunk}"
+            planes, s0 = scan_args(FX_T, C, seed=C + chunk, shared=chunk == 128)
+            ref = lk.affine_scan_2_chunked_ref(*planes, s0, chunk=chunk)
+            got = lk.affine_scan_2_kernel(*planes, s0, chunk=chunk)
+            torch.cuda.synchronize()
+            errs.append(compare("affine_scan_2", got, ref, 0.0, what))
+            cut = FX_T // 3  # two calls, the state handed on through s0
+            first = lk.affine_scan_2_kernel(*(p[:cut] for p in planes), s0, chunk=chunk)
+            second = lk.affine_scan_2_kernel(*(p[cut:] for p in planes),
+                                             (first[0][-1], first[1][-1]), chunk=chunk)
+            r1 = lk.affine_scan_2_chunked_ref(*(p[:cut] for p in planes), s0, chunk=chunk)
+            r2 = lk.affine_scan_2_chunked_ref(*(p[cut:] for p in planes),
+                                              (r1[0][-1], r1[1][-1]), chunk=chunk)
+            errs.append(compare("affine_scan_2", [torch.cat(x) for x in zip(first, second)],
+                                [torch.cat(x) for x in zip(r1, r2)], 0.0,
+                                f"{what} two-call hand-off"))
+    C = 128
+    planes, s0 = scan_args(BLOCK, C, seed=11, shared=True)
+    ref, plain_ms = timed_plain(lambda: lk.affine_scan_2_chunked_ref(*planes, s0, chunk=SCAN_CHUNK))
+    errs.append(compare("affine_scan_2", lk.affine_scan_2_kernel(*planes, s0, chunk=SCAN_CHUNK),
+                        ref, 0.0, f"C={C} T={BLOCK} shared matrix planes"))
+    ms = device_ms(lambda: lk.affine_scan_2_kernel(*planes, s0, chunk=SCAN_CHUNK), 10)
+    full, _ = scan_args(BLOCK, C, seed=12, shared=False)
+    full_ms = device_ms(lambda: lk.affine_scan_2_kernel(*full, s0, chunk=SCAN_CHUNK), 10)
+    print(f"affine_scan_2 T={BLOCK} C={C} chunk={SCAN_CHUNK}: kernel {ms:.4f} ms (matrix planes "
+          f"shared), {full_ms:.4f} ms (six full planes), plain {plain_ms:.1f} ms [{card}]")
+    passes = SCAN_CHUNK.bit_length() - 1
+    ms_bound, by = bound(4 * (4 * BLOCK + 2 * BLOCK * C + 2 * C + 2 * BLOCK * C),
+                         (SCAN_OPS_PASS * passes + SCAN_OPS_APPLY) * BLOCK * C)
+    out["affine_scan_2"] = {
+        "source": "pygmu2_tpu_torch/csrc/affine_scan_2.cu",
+        "replaces": "pygmu2_tpu/ops/linrec_pallas.py:87",
+        "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "full_planes_ms": full_ms,
+        "bound_ms": ms_bound, "bound_by": by,
+        "shape": f"T={BLOCK} C={C} chunk={SCAN_CHUNK}, matrix planes shared",
+    }
+
+    # ---- the unfused SoundFont pass, on the high score's rows ----
+    rows, wave, N = _high_score_rows(dev, 3.0)
+    xt = fk._oscillator(rows, wave, N)
+    T, P = xt.shape
+    B = T // N
+    ref, plain_ms = timed_plain(lambda: fk.filter_gain_mix_ref(xt, rows, N))
+    got = fk.filter_gain_mix(xt, rows, N)
+    torch.cuda.synchronize()
+    peak = ref.abs().max().item()
+    check(peak > 0.05, "filter_gain_mix: silent rows")
+    err = compare("filter_gain_mix", [got], [ref], 2e-5 * max(1.0, peak),
+                  f"high score T={T} P={P} N={N} (peak {peak:.3g})")
+    ms = device_ms(lambda: fk.filter_gain_mix(xt, rows, N), 10)
+    print(f"filter_gain_mix T={T} P={P} N={N}: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms "
+          f"[{card}]")
+    ms_bound, by = bound(4 * (T * P + 10 * B * P + 2 * T), FGM_OPS * T * P)
+    out["filter_gain_mix"] = {
+        "source": "pygmu2_tpu_torch/csrc/filter_gain_mix.cu",
+        "replaces": "pygmu2_tpu/soundfont/filter_pallas.py:182",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": ms_bound, "bound_by": by, "shape": f"T={T} P={P} N={N}",
+    }
+    return out
+
+
+def filter_graph(dev, card) -> dict:
+    """Phase 10: the filter bank through ``render_to_array``; returns the
+    scan kernel's launches on that path."""
+    import pygmu2_tpu_torch as pg
+    from pygmu2_tpu_torch import filter_workload, patch_workload
+    from pygmu2_tpu_torch.ops import linrec
+    from pygmu2_tpu_torch.ops import linrec_kernel as lk
+
+    seconds = 10.0
+    graph = filter_workload.build_filter_bank(pg, seconds, seed=0)
+    counter = lk.affine_scan_2_kernel
+    counter.launches = 0  # the main path's run starts here
+    t = time.perf_counter()
+    out = pg.render_to_array(graph, device=dev)
+    first_wall = time.perf_counter() - t
+    launches = counter.launches
+    check(out.shape == (int(round(seconds * SR)), patch_workload.BANK_CHANNELS)
+          and out.dtype == np.float32, f"filter bank: output {out.dtype} {out.shape}")
+    check(bool(np.isfinite(out).all()) and np.abs(out).max() > 0.05,
+          "filter bank: not finite or silent")
+    check(launches > 0, "filter bank: affine_scan_2 was not launched")
+
+    # the first 0.4 s, the kernel against its plain version on the card
+    got = pg.render_to_array(filter_workload.build_filter_bank(pg, FX_CHECK_S), device=dev)
+    linrec.affine_scan_2_kernel = lk.affine_scan_2_chunked_ref
+    try:
+        ref = pg.render_to_array(filter_workload.build_filter_bank(pg, FX_CHECK_S), device=dev)
+    finally:
+        linrec.affine_scan_2_kernel = counter
+    err = float(np.abs(got - ref).max())
+    check(err <= TOL and np.abs(ref).max() > 0.05,
+          f"filter bank: first {FX_CHECK_S} s, kernel vs plain {err}")
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t = time.perf_counter()
+    start.record()
+    pg.render_to_array(graph, device=dev)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    ev = start.elapsed_time(end) / 1e3
+    print(f"filter bank, 10 s x 128 channels: affine_scan_2 launches {launches}; first "
+          f"{FX_CHECK_S} s kernel vs plain max abs err {err:.3g}; first render "
+          f"{first_wall * 1e3:.1f} ms; realtime x{seconds / wall:.2f} wall ({wall * 1e3:.1f} ms), "
+          f"x{seconds / ev:.2f} by CUDA events ({ev * 1e3:.1f} ms) [{card}]")
+    return {"affine_scan_2": launches}
+
+
+def high_score(dev, card, device_ms) -> dict:
+    """Phase 11: the high-register score through the SoundFont entry
+    points; returns the unfused pass's launches on that path."""
+    from pygmu2_tpu_torch import bench_workload
+    from pygmu2_tpu_torch.soundfont import MidiFile
+    from pygmu2_tpu_torch.soundfont import filter_kernels as fk
+    from pygmu2_tpu_torch.soundfont import offline as off
+
+    seconds = 3.0
+    data = bench_workload.build_high_midi_bytes(seconds)
+    cases = [("render_midi_offline", off.render_midi_offline),
+             ("render_midi_offline_streamed", off.render_midi_offline_streamed)]
+    unfused, fused = fk.filter_gain_mix, fk.osc_filter_gain_mix
+    fused_before = fused.launches
+    unfused.launches = 0  # the main path's run starts here
+    per_case = []
+    for label, render in cases:
+        synth, _ = bench_workload.build_workload(True)
+        before = unfused.launches
+        pcm = render(synth, MidiFile(data), seconds, wire="int16", device=dev)
+        torch.cuda.synchronize()
+        per_case.append(unfused.launches - before)
+        check(pcm.dtype == np.int16 and pcm.shape == (int(round(seconds * SR)), 2),
+              f"high score, {label}: output {pcm.dtype} {pcm.shape}")
+        check(np.abs(pcm.astype(np.int32)).max() > 0, f"high score, {label}: silent")
+        check(per_case[-1] > 0, f"high score, {label}: filter_gain_mix was not launched")
+    launches = unfused.launches
+    check(fused.launches == fused_before,
+          "high score: the fused kernel was launched on the out-of-window route")
+
+    for (label, render), n in zip(cases, per_case):
+        synth, _ = bench_workload.build_workload(True)
+        got = render(synth, MidiFile(data), seconds, device=dev)
+        fk.filter_gain_mix = fk.filter_gain_mix_ref
+        try:
+            ref = render(synth, MidiFile(data), seconds, device=dev)
+        finally:
+            fk.filter_gain_mix = unfused
+        err = float(np.abs(got - ref).max())
+        check(np.isfinite(got).all() and np.abs(got).max() > 0.05 and err <= TOL,
+              f"high score, {label}: kernel render vs plain render {err}")
+
+        def timed():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t = time.perf_counter()
+            start.record()
+            render(synth, MidiFile(data), seconds, wire="int16", device=dev)
+            end.record()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t, start.elapsed_time(end) / 1e3
+
+        timed()  # warm-up
+        wall, ev = min((timed() for _ in range(3)), key=lambda x: x[0])
+        print(f"high score, 3 s, large font, {label}: {n} filter_gain_mix launches; max abs "
+              f"err vs plain {err:.3g}; realtime x{seconds / wall:.1f} wall "
+              f"({wall * 1e3:.1f} ms), x{seconds / ev:.1f} by CUDA events ({ev * 1e3:.1f} ms) "
+              f"[{card}]")
+
+    # a measurement only: the fused kernel on the same rows
+    rows, wave, N = _high_score_rows(dev, seconds)
+    fused_out, _ = fused(rows, wave, N)
+    unfused_out = unfused(fk._oscillator(rows, wave, N), rows, N)
+    torch.cuda.synchronize()
+    diff = (fused_out - unfused_out).abs().max().item()
+    fused_ms = device_ms(lambda: fused(rows, wave, N), 10)
+    unfused_ms = device_ms(lambda: unfused(fk._oscillator(rows, wave, N), rows, N), 10)
+    print(f"high score rows: fused osc_filter_gain_mix {fused_ms:.4f} ms, unfused route "
+          f"(oscillator in torch + filter_gain_mix) {unfused_ms:.4f} ms; outputs differ by "
+          f"{diff:.3g} [{card}]")
+    return {"filter_gain_mix": launches}
 
 
 if __name__ == "__main__":

@@ -5,8 +5,8 @@ started together, and the objects are linked into one shared library
 with a plain C interface, loaded with ``ctypes``. The build happens at
 first use, from the sources in this checkout only, into
 ``build/kernels/`` beside the package; the library's name carries a hash
-of the sources and flags, so an edited source builds anew and an
-unchanged one is reused.
+of the sources (``*.cu`` and the ``*.cuh`` headers they include) and
+flags, so an edited source builds anew and an unchanged one is reused.
 """
 
 from __future__ import annotations
@@ -71,7 +71,7 @@ def build() -> Path:
         )
     sources = _sources()
     digest = hashlib.sha256("\0".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted((_PKG / "csrc").glob("*.cuh")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     lib = _BUILD_DIR / f"libpygmu2_kernels_{digest.hexdigest()[:16]}.so"
@@ -118,6 +118,10 @@ def load() -> ctypes.CDLL:
         # misc_out, T, C, sr, plen, cap, min_block, max_block, smooth_alpha,
         # inv_plen, half, inv_half, stream
         "reverse_echo_scan_launch": [p] * 12 + [i, i, f, i, i, i, i, f, f, f, f, p],
+        # a11, a12, a21, a22, u1, u2, s01, s02, s1, s2, T, C, chunk, shared, stream
+        "affine_scan_2_launch": [p] * 10 + [i, i, i, i, p],
+        # xt, rows, out, scratch, B, P, N, stream
+        "filter_gain_mix_launch": [p] * 4 + [i, i, i, p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

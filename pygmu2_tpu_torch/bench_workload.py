@@ -5,9 +5,21 @@ Copy of ``bench.py``'s ``build_font_bytes``, ``build_midi_bytes`` and
 chord over 16 channels, rendered at 44.1 kHz with block 1024, through
 the small font (1,398 samples) or the large multizone font (~1M
 samples). ``build_midi_bytes(repeats=15)`` is the 60 s piece.
+
+``build_high_midi_bytes`` is the port's copy of
+``benchmarks/benchmark_large_font_bend.py:musical_events`` (staggered
+pentatonic arpeggios over 16 channels, pitch bends, mod-wheel ramps) with
+every key four octaves up (keys 88-120): a lead or whistle line far above
+its samples' roots. Through the large font (top zone rooted at key 78) its
+notes reach ~42 semitones above their root, a pitch-ratio bound of ~11,
+beyond the JAX package's windowed kernel (8), so the audio pass is
+unfused.
 """
 
 import struct
+
+# semitones the high-register score lies above the bend benchmark's keys
+HIGH_TRANSPOSE = 48
 
 
 def build_font_bytes(large: bool = False) -> bytes:
@@ -69,6 +81,38 @@ def build_midi_bytes(repeats: int = 1, period: float = 4.0,
         for ch in range(16):
             for k in keys:
                 events.append((t0 + note_len, 0x80 | ch, k + (ch % 3), 0))
+    return _midi_bytes(events)
+
+
+def build_high_midi_bytes(seconds: float) -> bytes:
+    """The high-register score: ``musical_events(seconds)`` of
+    ``benchmarks/benchmark_large_font_bend.py`` with every key
+    ``HIGH_TRANSPOSE`` semitones higher."""
+    events = []
+    scale = [0, 2, 4, 7, 9]  # pentatonic
+    for ch in range(16):
+        # mod wheel ramp early in the piece
+        events.append((0.01 * ch, 0xB0 | ch, 0x01, 20 + ch * 6))
+    t = 0.0
+    i = 0
+    while t < seconds - 0.35:
+        ch = i % 16
+        key = HIGH_TRANSPOSE + 40 + (i * 7) % 24 + scale[i % len(scale)]
+        events.append((t, 0x90 | ch, key, 70 + (i * 13) % 50))
+        events.append((t + 0.30, 0x80 | ch, key, 0))
+        # a bend on this channel while the note sounds (14-bit center 8192)
+        bend = 8192 + ((-1) ** i) * (900 + (i * 371) % 2600)
+        events.append((t + 0.10, 0xE0 | ch, bend & 0x7F, (bend >> 7) & 0x7F))
+        events.append((t + 0.28, 0xE0 | ch, 0x00, 0x40))  # re-center
+        t += 0.045
+        i += 1
+    events.sort(key=lambda e: e[0])
+    return _midi_bytes(events)
+
+
+def _midi_bytes(events) -> bytes:
+    """A one-track MIDI file of (seconds, status, data1, data2) events at
+    480 ticks per beat and 120 bpm."""
 
     def varint(v):
         out = [v & 0x7F]

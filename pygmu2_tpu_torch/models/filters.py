@@ -10,22 +10,35 @@ Counterpart of ``pygmu2_tpu.models.filters``:
 Both filters are *linear* recurrences even with time-varying
 coefficients, so the sample-serial Numba kernels of the reference
 (biquad_pe.py:35, svfilter_pe.py:41-106) become parallel-in-time scans
-(``ops/linrec.affine_scan_2_seg``, plain PyTorch, segmented for accuracy)
-batched over channels, at every width; the JAX package runs the same
-segmented scan off the TPU.
+batched over channels, routed as the JAX package routes them on the TPU
+(``ops/linrec.affine_scan_2_auto``): 4 to 128 channels of at least 4096
+samples take the chunked scan of TPU kernel ``affine_scan_2_pallas`` (a
+hand-written kernel on the card), narrower or shorter blocks the
+segmented scan in plain PyTorch.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from pygmu2_tpu_torch.core import prec
 from pygmu2_tpu_torch.core.extent import Extent
 from pygmu2_tpu_torch.core.processing_element import ProcessingElement
 from pygmu2_tpu_torch.models.modes import BiquadMode
-from pygmu2_tpu_torch.ops.linrec import affine_scan_2_seg, biquad_filter
+from pygmu2_tpu_torch.ops.linrec import affine_scan_2_auto, biquad_filter
+from pygmu2_tpu_torch.ops.xla_math import fmaf, sincosf
+
+# the modes whose a0 is 1 + alpha
+_ALPHA_A0_MODES = (BiquadMode.LOWPASS, BiquadMode.HIGHPASS, BiquadMode.BANDPASS,
+                   BiquadMode.NOTCH, BiquadMode.ALLPASS)
+
+
+def _f32(x: float) -> float:
+    """``x`` rounded to float32 (a constant XLA folds in float32)."""
+    return float(np.float32(x))
 
 
 class _FreqQFilterPE(ProcessingElement):
@@ -121,79 +134,87 @@ class BiquadPE(_FreqQFilterPE):
         super().__init__(source, frequency, q, mode, gain_db)
 
     def _coefficients(self, ctx, freq, q):
-        """Normalized (b0, b1, b2, a1, a2), each (T,)."""
-        # one rounded multiply, as XLA folds ``2π·f / sr``; sin and cos in
-        # float64, rounded: nearer XLA's float32 sin and cos than
-        # PyTorch's own (a 1-ulp pole difference moves a resonant output)
-        omega = freq * (2.0 * math.pi / ctx.sample_rate)
-        sin_w = torch.sin(omega.to(prec.WIDE)).to(omega.dtype)
-        cos_w = torch.cos(omega.to(prec.WIDE)).to(omega.dtype)
-        alpha = sin_w / (2.0 * q)
-        A = 10.0 ** (self._gain_db / 40.0)
-        one = torch.ones_like(omega)
-        mode = self._mode
+        """Normalized (b0, b1, b2, a1, a2), each (T,).
 
-        if mode == BiquadMode.LOWPASS:
-            b0 = (1.0 - cos_w) / 2.0
-            b1 = 1.0 - cos_w
-            b2 = b0
-            a0 = 1.0 + alpha
-            a1 = -2.0 * cos_w
-            a2 = 1.0 - alpha
-        elif mode == BiquadMode.HIGHPASS:
-            b0 = (1.0 + cos_w) / 2.0
-            b1 = -(1.0 + cos_w)
-            b2 = b0
-            a0 = 1.0 + alpha
-            a1 = -2.0 * cos_w
-            a2 = 1.0 - alpha
-        elif mode == BiquadMode.BANDPASS:
-            b0 = alpha
-            b1 = torch.zeros_like(alpha)
-            b2 = -alpha
-            a0 = 1.0 + alpha
-            a1 = -2.0 * cos_w
-            a2 = 1.0 - alpha
-        elif mode == BiquadMode.NOTCH:
-            b0 = one
-            b1 = -2.0 * cos_w
-            b2 = one
-            a0 = 1.0 + alpha
-            a1 = b1
-            a2 = 1.0 - alpha
-        elif mode == BiquadMode.ALLPASS:
-            b0 = 1.0 - alpha
-            b1 = -2.0 * cos_w
-            b2 = 1.0 + alpha
-            a0 = 1.0 + alpha
-            a1 = b1
-            a2 = 1.0 - alpha
-        elif mode == BiquadMode.PEAKING:
-            b0 = 1.0 + alpha * A
-            b1 = -2.0 * cos_w
-            b2 = 1.0 - alpha * A
-            a0 = 1.0 + alpha / A
-            a1 = b1
-            a2 = 1.0 - alpha / A
-        elif mode == BiquadMode.LOWSHELF:
-            sA = math.sqrt(A)
-            b0 = A * ((A + 1.0) - (A - 1.0) * cos_w + 2.0 * sA * alpha)
-            b1 = 2.0 * A * ((A - 1.0) - (A + 1.0) * cos_w)
-            b2 = A * ((A + 1.0) - (A - 1.0) * cos_w - 2.0 * sA * alpha)
-            a0 = (A + 1.0) + (A - 1.0) * cos_w + 2.0 * sA * alpha
-            a1 = -2.0 * ((A - 1.0) + (A + 1.0) * cos_w)
-            a2 = (A + 1.0) + (A - 1.0) * cos_w - 2.0 * sA * alpha
-        elif mode == BiquadMode.HIGHSHELF:
-            sA = math.sqrt(A)
-            b0 = A * ((A + 1.0) + (A - 1.0) * cos_w + 2.0 * sA * alpha)
-            b1 = -2.0 * A * ((A - 1.0) + (A + 1.0) * cos_w)
-            b2 = A * ((A + 1.0) + (A - 1.0) * cos_w - 2.0 * sA * alpha)
-            a0 = (A + 1.0) - (A - 1.0) * cos_w + 2.0 * sA * alpha
-            a1 = 2.0 * ((A - 1.0) - (A + 1.0) * cos_w)
-            a2 = (A + 1.0) - (A - 1.0) * cos_w - 2.0 * sA * alpha
-        else:
-            raise ValueError(f"Unknown filter mode: {self._mode}")
-        return b0 / a0, b1 / a0, b2 / a0, a1 / a0, a2 / a0
+        The RBJ formulas as the JAX package's program computes them on
+        XLA's CPU backend, op for op (a 1-ulp pole difference moves a
+        resonant output): ``2*pi*f/sr`` folded into one multiply, glibc's
+        ``sinf``/``cosf`` (:mod:`pygmu2_tpu_torch.ops.xla_math`), a
+        division by a constant ``2q`` as a multiply by its float32
+        reciprocal, ``b0 = sin/(2q*a0)`` for the band-pass, and one fused
+        multiply-add wherever a product's only use within a coefficient is
+        a sum (XLA computes each coefficient in a fusion of its own, so
+        ``alpha`` fuses into ``a0`` except where that coefficient also
+        uses ``alpha`` alone).
+        """
+        omega = freq * (2.0 * math.pi / ctx.sample_rate)
+        sin_w, cos_w = sincosf(omega)
+        if self._q_is_pe:  # 2q is traced: a true division
+            two_q = 2.0 * q
+            alpha = sin_w / two_q
+
+            def alpha_k(k):  # k * alpha
+                return alpha * k
+
+            def alpha_fma(k, c):  # k * alpha + c, fused
+                return fmaf(alpha, k, c)
+        else:  # the constants fold in float32: sin * (k * rq)
+            two_q = _f32(2.0 * min(max(_f32(self._q), _f32(0.01)), 100.0))
+            rq = _f32(1.0 / two_q)
+            alpha = sin_w * rq
+
+            def alpha_k(k):
+                return sin_w * _f32(k * rq)
+
+            def alpha_fma(k, c):
+                return fmaf(sin_w, _f32(k * rq), c)
+
+        A_wide = 10.0 ** (self._gain_db / 40.0)  # a Python float, as in the JAX source
+        A = _f32(A_wide)
+        mode = self._mode
+        if mode in _ALPHA_A0_MODES:
+            a0 = alpha_fma(1.0, 1.0)
+            a1 = (cos_w * -2.0) / a0
+            a2 = (1.0 - alpha) / (alpha + 1.0)
+            if mode == BiquadMode.LOWPASS:
+                b0 = ((1.0 - cos_w) * 0.5) / a0
+                return b0, (1.0 - cos_w) / a0, b0, a1, a2
+            if mode == BiquadMode.HIGHPASS:
+                b0 = ((cos_w + 1.0) * 0.5) / a0
+                return b0, -(cos_w + 1.0) / a0, b0, a1, a2
+            if mode == BiquadMode.BANDPASS:
+                b0 = sin_w / (two_q * a0)
+                return b0, 0.0 / a0, -alpha / (alpha + 1.0), a1, a2
+            if mode == BiquadMode.NOTCH:
+                b0 = 1.0 / a0
+                return b0, a1, b0, a1, a2
+            return a2, a1, a0 / a0, a1, a2  # ALLPASS
+        if mode == BiquadMode.PEAKING:
+            inv_a = _f32(1.0 / A)  # a division by A is a multiply by f32(1/A)
+            a0 = alpha_fma(inv_a, 1.0)
+            a1 = (cos_w * -2.0) / a0
+            alpha_a = alpha_k(inv_a)
+            a2 = (1.0 - alpha_a) / (alpha_a + 1.0)
+            # at A = 1, b2's expression is a2's (XLA computes it once)
+            b2 = a2 if A == 1.0 else alpha_fma(-A, 1.0) / a0
+            return alpha_fma(A, 1.0) / a0, a1, b2, a1, a2
+        if mode in (BiquadMode.LOWSHELF, BiquadMode.HIGHSHELF):
+            s = 1.0 if mode == BiquadMode.LOWSHELF else -1.0
+            k = _f32(2.0 * math.sqrt(A_wide))
+            am, ap = _f32(A_wide - 1.0), _f32(A_wide + 1.0)
+            m = alpha_k(k)
+            base = fmaf(cos_w, s * am, ap)  # (A+1) + s(A-1)cos: a0's and a2's
+            a0 = alpha_fma(k, base)
+            a1 = fmaf(cos_w, s * ap, am) * (-2.0 * s) / a0
+            a2 = (base - m) / (base + m)
+            # b0 and b2 share (A-1)cos and k*alpha: neither fuses there
+            p = cos_w * am
+            b_den = (ap + s * p) + m
+            b0 = ((ap - s * p) + m) * A / b_den
+            b1 = fmaf(cos_w, -s * ap, am) * (s * _f32(2.0 * A_wide)) / a0
+            b2 = ((ap - s * p) - m) * A / b_den
+            return b0, b1, b2, a1, a2
+        raise ValueError(f"Unknown filter mode: {self._mode}")
 
     def _trace(self, ctx):
         x = ctx.pull(self._source)
@@ -297,7 +318,7 @@ class SVFilterPE(_FreqQFilterPE):
         s0, _ = ctx.state(
             self, init=lambda: torch.zeros((Cch, 2), dtype=prec.AUDIO, device=ctx.device)
         )
-        s1, s2 = affine_scan_2_seg(
+        s1, s2 = affine_scan_2_auto(
             *(a[:, None].expand(T, Cch) for a in A),
             B[0][:, None] * x,
             B[1][:, None] * x,

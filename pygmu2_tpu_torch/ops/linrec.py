@@ -1,7 +1,8 @@
 """Linear recurrence over time, in plain PyTorch.
 
 Counterparts of ``pygmu2_tpu.ops.linrec.affine_scan_1``,
-``affine_scan_2``, ``affine_scan_2_seg`` and ``biquad_filter``. A
+``affine_scan_2``, ``affine_scan_2_auto``, ``affine_scan_2_seg`` and
+``biquad_filter``. A
 (possibly time-varying) affine recurrence
 
     s[t] = A[t] @ s[t-1] + u[t]
@@ -13,12 +14,22 @@ is a composition of affine maps, and composition
 is associative, so the prefix states are an inclusive scan. This module
 scans by log-step doubling over the time axis (Hillis-Steele): ceil(log2 T)
 passes, each a handful of elementwise ops over the whole (T, ...) block;
-the filters' order-2 scan bounds the doubling to segments of 512 samples.
+the filters' order-2 scan bounds the doubling to segments of 512 samples,
+or, on a wide batch, takes the chunked kernel of
+:mod:`pygmu2_tpu_torch.ops.linrec_kernel`.
 """
 
 from __future__ import annotations
 
 import torch
+
+from pygmu2_tpu_torch.ops.linrec_kernel import affine_scan_2_kernel
+
+# affine_scan_2_auto's kernel route: 2-D batches of KERNEL_MIN_C..KERNEL_MAX_C
+# channels and at least KERNEL_MIN_T samples, in chunks of KERNEL_CHUNK
+KERNEL_MIN_T = 4096
+KERNEL_MIN_C, KERNEL_MAX_C = 4, 128
+KERNEL_CHUNK = 1024
 
 
 def affine_scan_1(a, u, s0):
@@ -79,6 +90,25 @@ def affine_scan_2(a11, a12, a21, a22, u1, u2, s0=None):
             dst[s:] = val
         s *= 2
     return u1, u2
+
+
+def affine_scan_2_auto(a11, a12, a21, a22, u1, u2, s0=None):
+    """:func:`affine_scan_2` routed by shape, as
+    ``pygmu2_tpu.ops.linrec.affine_scan_2_auto`` routes on the TPU.
+
+    A 2-D batch of 4 to 128 channels and at least 4096 samples takes the
+    chunked scan of :func:`~pygmu2_tpu_torch.ops.linrec_kernel.affine_scan_2_kernel`
+    at chunk 1024 (the kernel on the card, its plain version on the CPU);
+    any other 2-D batch the segmented scan, anything else the flat one.
+    The route depends on the shapes only, so the CPU and the card take the
+    same op order.
+    """
+    if u1.dim() == 2:
+        T, C = u1.shape
+        if T >= KERNEL_MIN_T and KERNEL_MIN_C <= C <= KERNEL_MAX_C:
+            return affine_scan_2_kernel(a11, a12, a21, a22, u1, u2, s0, chunk=KERNEL_CHUNK)
+        return affine_scan_2_seg(a11, a12, a21, a22, u1, u2, s0=s0)
+    return affine_scan_2(a11, a12, a21, a22, u1, u2, s0=s0)
 
 
 def affine_scan_2_seg(a11, a12, a21, a22, u1, u2, s0=None, *, seg: int = 512):
@@ -154,7 +184,8 @@ def biquad_filter(x, b0, b1, b2, a1, a2, zi=None):
 
     The FIR half is elementwise; the feedback half is the order-2 affine
     recurrence A[n] = [[-a1, -a2], [1, 0]], u[n] = [fir[n], 0], by
-    :func:`affine_scan_2_seg` at every width. The coefficients are
+    :func:`affine_scan_2_auto` (the chunked kernel for 4 to 128 channels
+    of at least 4096 samples, else the segmented scan). The coefficients are
     scalars or (T,) tensors; ``zi`` is the carried state
     ``{"x": (2, C) [x[-1], x[-2]], "y": (2, C) [y[-1], y[-2]]}`` or None
     for zeros. Returns (y (T, C), the state after the last sample).
@@ -173,9 +204,11 @@ def biquad_filter(x, b0, b1, b2, a1, a2, zi=None):
 
     xp = torch.cat([x_tail.flip(0), x])  # rows: x[-2], x[-1], x...
     fir = b0 * xp[2:] + b1 * xp[1:-1] + b2 * xp[:-2]
-    zeros = x.new_zeros((T, C))
-    y, _ = affine_scan_2_seg(
-        (-a1).expand(T, C), (-a2).expand(T, C), x.new_ones((T, C)), zeros,
+    # planes shared by the channels stay (T, 1) views: the kernel reads
+    # them once per sample
+    zeros = x.new_zeros((T, 1)).expand(T, C)
+    y, _ = affine_scan_2_auto(
+        (-a1).expand(T, C), (-a2).expand(T, C), x.new_ones((T, 1)).expand(T, C), zeros,
         fir, zeros, s0=(y_tail[0], y_tail[1]),
     )
     zf = {

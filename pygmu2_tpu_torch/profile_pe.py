@@ -2,13 +2,14 @@
 ``python -m pygmu2_tpu_torch.profile_pe [name ...]``.
 
 Renders the workloads of ``patch_workload`` (the patch for 60 s, the bank
-for 10 s) and ``fx_workload`` (the chain for 60 s, the fx bank for 10 s),
-or the ones named, through ``render_to_array`` on the card, after a warm-up
-render of the same graph: the untraced wall time (median of 3, host clock
-around a render that ends in a synchronize), then one render under
-``torch.profiler``. Prints one JSON line per workload with the device busy
-time (device-side events only: kernels and copies), the idle share against
-the traced wall, and the largest device items by name.
+for 10 s), ``fx_workload`` (the chain for 60 s, the fx bank for 10 s) and
+``filter_workload`` (the filter bank for 10 s), or the ones named, through
+``render_to_array`` on the card, after a warm-up render of the same graph:
+the untraced wall time (median of 3, host clock around a render that ends
+in a synchronize), then one render under ``torch.profiler``. Prints one
+JSON line per workload with the device busy time (device-side events
+only: kernels and copies), the idle share against the traced wall, and
+the largest device items by name.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 import pygmu2_tpu_torch as pg
-from pygmu2_tpu_torch import fx_workload, patch_workload
+from pygmu2_tpu_torch import filter_workload, fx_workload, patch_workload
 
 
 def _render(graph, dev) -> float:
@@ -43,6 +44,7 @@ def main() -> None:
         "bank": (10.0, lambda s: patch_workload.build_bank(pg, s, seed=0)),
         "chain": (60.0, lambda s: fx_workload.build_chain(pg, s)),
         "fx_bank": (10.0, lambda s: fx_workload.build_fx_bank(pg, s, seed=0)),
+        "filter_bank": (10.0, lambda s: filter_workload.build_filter_bank(pg, s, seed=0)),
     }
     for label in sys.argv[1:] or workloads:
         seconds, build = workloads[label]

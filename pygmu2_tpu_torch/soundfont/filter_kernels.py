@@ -1,7 +1,8 @@
-"""The fused audio-rate pass of the offline SoundFont render.
+"""The audio-rate pass of the offline SoundFont render.
 
-Counterpart of ``pygmu2_tpu.soundfont.filter_pallas``: one function,
-``osc_filter_gain_mix``, takes the per-(block, voice) control rows of
+Counterpart of ``pygmu2_tpu.soundfont.filter_pallas``. Two functions:
+
+``osc_filter_gain_mix`` takes the per-(block, voice) control rows of
 ``offline._gain_rows`` + ``offline._osc_rows``, a wavetable and the
 (4, P) carried state, and returns the (T, 2) stereo mix and the state
 after the last sample. It covers what the JAX package splits between
@@ -20,6 +21,19 @@ read from device memory whatever its size.
 State layout (as ``filter_pallas.osc_filter_gain_mix_pallas``): rows
 ``[y1; y2; x[-2]; x[-1]]`` — the biquad's last two outputs and the
 oscillator's last two samples.
+
+``filter_gain_mix`` is the unfused pass (``filter_gain_mix_pallas``): it
+takes (T, P) oscillator samples computed beforehand and the filter and
+gain rows, and returns the (T, 2) mix of one render from zero state.
+
+- ``filter_gain_mix`` is the wrapper: the kernel in
+  ``csrc/filter_gain_mix.cu`` for CUDA tensors (counted in
+  ``filter_gain_mix.launches``), the plain version for CPU tensors.
+- ``filter_gain_mix_ref`` is the plain PyTorch version, op for op the TPU
+  kernel's (``_make_kernel`` and ``_filter_mix_math``): chunks of 128
+  samples, a Kogge-Stone scan of the block's constant transition per
+  chunk, the epoch reset at a chunk's first sample, the filter state and
+  FIR tail carried from chunk to chunk from zero.
 """
 
 from __future__ import annotations
@@ -36,8 +50,13 @@ _OSC_F32_ROWS = (
     "b0", "b1", "b2", "a1", "a2", "freshf", "pgl", "gl", "pgr", "gr",
 )
 _OSC_I32_ROWS = ("base_int", "loop_start", "loop_len", "smp_end")
-# float planes of (B, P) scratch the kernel's three launches share
+# float planes of (B, P) scratch the kernels' three launches share
 _SCRATCH_PLANES = 10
+# Row order of the unfused pass, the kernel's ABI as well
+# (csrc/filter_gain_mix.cu); also the tail of _OSC_F32_ROWS.
+_FILTER_ROWS = ("b0", "b1", "b2", "a1", "a2", "freshf", "pgl", "gl", "pgr", "gr")
+# samples per chunk of filter_gain_mix_pallas
+FILTER_CHUNK = 128
 # the mixdown launch runs one thread per voice in one CUDA block
 _MAX_VOICES = 256
 
@@ -183,3 +202,114 @@ def _launch(rows, wave, N: int, state):
     _ext.raise_on_error(err, "osc_filter_gain_mix")
     osc_filter_gain_mix.launches += 1
     return out, state_out
+
+
+def filter_gain_mix_ref(xt, rows, N: int):
+    """Plain PyTorch version of :func:`filter_gain_mix` (same arguments and
+    result)."""
+    T, P = xt.shape
+    C = FILTER_CHUNK
+    cpb = N // C
+    n_chunks = T // C
+    dev = xt.device
+    x = xt.reshape(n_chunks, C, P)
+    r = {k: rows[k][:, None, :] for k in _FILTER_ROWS}  # (B, 1, P)
+    blk = torch.arange(n_chunks, device=dev) // cpb
+
+    # FIR inputs: the previous chunk's last two samples (zero before the
+    # first), forgotten at an epoch's first sample
+    first = (torch.arange(n_chunks, device=dev) % cpb == 0).float()[:, None, None]
+    keep = 1.0 - first * (r["freshf"] > 0.5).float()[blk]  # (n_chunks, 1, P)
+    tail = torch.cat([x.new_zeros((1, 2, P)), x[:-1, C - 2:]]) * keep
+    x1 = torch.cat([tail[:, 1:2], x[:, : C - 1]], dim=1)
+    x2 = torch.cat([tail[:, 0:2], x[:, : C - 2]], dim=1)
+    fir = r["b0"][blk] * x + r["b1"][blk] * x1 + r["b2"][blk] * x2
+
+    # the block's transition A and its squarings A^(2^s), (B, 1, P) each
+    a = [-r["a1"], -r["a2"], torch.ones_like(r["a1"]), torch.zeros_like(r["a1"])]
+    powers = []
+    s = 1
+    while s < C:
+        powers.append(a)
+        a11, a12, a21, a22 = a
+        a = [a11 * a11 + a12 * a21, a11 * a12 + a12 * a22,
+             a21 * a11 + a22 * a21, a21 * a12 + a22 * a22]
+        s *= 2
+
+    carry = xt.new_zeros((2, P))
+    ys = []
+    for i in range(n_chunks):
+        b, k = int(blk[i]), keep[i]
+        c1, c2 = carry[0:1] * k, carry[1:2] * k
+        a11, a12 = powers[0][0][b], powers[0][1][b]
+        v1 = torch.cat([fir[i, 0:1] + a11 * c1 + a12 * c2, fir[i, 1:]])
+        v2 = torch.cat([c1, x.new_zeros((C - 1, P))])
+        s = 1
+        for a11, a12, a21, a22 in (tuple(m[b] for m in pw) for pw in powers):
+            q1 = torch.cat([x.new_zeros((s, P)), v1[:-s]])
+            q2 = torch.cat([x.new_zeros((s, P)), v2[:-s]])
+            v1, v2 = a11 * q1 + a12 * q2 + v1, a21 * q1 + a22 * q2 + v2
+            s *= 2
+        carry = torch.cat([v1[C - 1:], v2[C - 1:]])
+        ys.append(v1)
+    y = torch.stack(ys)  # (n_chunks, C, P)
+
+    pos = ((torch.arange(n_chunks, device=dev) % cpb) * C)[:, None, None] \
+        + torch.arange(C, device=dev)[None, :, None]
+    ramp = pos.float() * (1.0 / N)
+
+    def gain(prev, cur):
+        prev, cur = r[prev][blk], r[cur][blk]
+        audible = torch.maximum(prev, cur) >= NON_AUDIBLE
+        const = torch.abs(cur - prev) < 1.0e-3
+        g = torch.where(const, cur, prev + (cur - prev) * ramp)
+        return torch.where(audible, g, 0.0)
+
+    left = torch.sum(gain("pgl", "gl") * y, dim=2).reshape(T)
+    right = torch.sum(gain("pgr", "gr") * y, dim=2).reshape(T)
+    return torch.stack([left, right], dim=1)
+
+
+def filter_gain_mix(xt, rows, N: int):
+    """Biquad + gain ramps + stereo mix of (T, P) oscillator samples.
+
+    xt: (T, P) f32 with T = B * N; rows: dict of (B, P) f32 planes
+    ``_FILTER_ROWS``; N a multiple of 128. Returns (T, 2) f32. CPU tensors
+    take the plain version; CUDA tensors launch the kernel (one count in
+    ``filter_gain_mix.launches`` per call) or raise.
+    """
+    if N % FILTER_CHUNK or xt.dim() != 2 or xt.shape[0] % N:
+        raise ValueError(f"need N % {FILTER_CHUNK} == 0 and T % N == 0 (N={N}, "
+                         f"xt {tuple(xt.shape)})")
+    if xt.device.type == "cpu":
+        return filter_gain_mix_ref(xt, rows, N)
+    if xt.device.type != "cuda":
+        raise ValueError(f"no kernel for device {xt.device}")
+    return _launch_filter(xt, rows, N)
+
+
+filter_gain_mix.launches = 0
+
+
+def _launch_filter(xt, rows, N: int):
+    from pygmu2_tpu_torch import _ext
+
+    dev = xt.device
+    T, P = xt.shape
+    B = T // N
+    if not 1 <= P <= _MAX_VOICES:
+        raise ValueError(f"unsupported voice count P={P}")
+    xt = _ext.checked(xt, "xt", (T, P), dev)
+    stacked = torch.stack([_ext.checked(rows[k], f"row {k!r}", (B, P), dev)
+                           for k in _FILTER_ROWS])
+    out = torch.empty((T, 2), dtype=torch.float32, device=dev)
+    scratch = torch.empty((_SCRATCH_PLANES, B, P), dtype=torch.float32, device=dev)
+    lib = _ext.load()
+    with torch.cuda.device(dev):
+        err = lib.filter_gain_mix_launch(
+            xt.data_ptr(), stacked.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            B, P, N, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _ext.raise_on_error(err, "filter_gain_mix")
+    filter_gain_mix.launches += 1
+    return out

@@ -13,7 +13,12 @@ stages:
 3. **Audio pass** (:func:`_audio_pass`): the fused oscillator + biquad +
    gain ramps + stereo mix of
    :func:`pygmu2_tpu_torch.soundfont.filter_kernels.osc_filter_gain_mix`
-   (a hand-written CUDA kernel on the card).
+   (a hand-written CUDA kernel on the card). Where the JAX package's
+   windowed kernel has no window wide enough (a wavetable of more than
+   ``OSC_KERNEL_MAX_WAVE`` samples played above ``WINDOW_RATIO_BUCKET``
+   times its rate), the audio pass is unfused as there: the oscillator in
+   plain tensor ops, then
+   :func:`~pygmu2_tpu_torch.soundfont.filter_kernels.filter_gain_mix`.
 
 Entry points: :func:`render_midi_offline` (one pass over the whole piece)
 and :func:`render_midi_offline_streamed` (segments, with the host
@@ -43,6 +48,13 @@ LOG_NON_AUDIBLE = math.log(NON_AUDIBLE)
 
 # Blocks per segment of the streamed render (~5.9 s at block 1024).
 STREAM_SEG_BLOCKS = 256
+
+# The JAX package's routing bounds (filter_pallas.OSC_KERNEL_MAX_WAVE,
+# offline.WINDOW_RATIO_BUCKET): its resident kernel holds wavetables of up
+# to OSC_KERNEL_MAX_WAVE samples, its windowed kernel pitch ratios of up to
+# WINDOW_RATIO_BUCKET; beyond both the audio pass is unfused.
+OSC_KERNEL_MAX_WAVE = 16384
+WINDOW_RATIO_BUCKET = 8
 
 # float32 constants of the JAX control pass, as Python floats (a Python
 # scalar meets a float32 tensor in float32, as a numpy float32 scalar
@@ -455,10 +467,50 @@ def _gain_rows(ctrl, master):
     }
 
 
-def _audio_pass(ctrl, wave, N: int, master: float, state=None):
-    """Control planes -> ((B·N, 2) float32 audio, (4, P) carried state)."""
+def _audio_pass(ctrl, wave, N: int, master: float, state=None, unfused=False):
+    """Control planes -> ((B·N, 2) float32 audio, (4, P) carried state).
+
+    ``unfused``: the oscillator in plain tensor ops, then
+    :func:`~pygmu2_tpu_torch.soundfont.filter_kernels.filter_gain_mix`; a
+    whole render from zero state (``state`` must be None), no state out.
+    """
     rows = dict(_gain_rows(ctrl, master), **_osc_rows(ctrl, wave))
-    return filter_kernels.osc_filter_gain_mix(rows, wave, N, state)
+    if not unfused:
+        return filter_kernels.osc_filter_gain_mix(rows, wave, N, state)
+    if state is not None:
+        raise ValueError("the unfused audio pass renders from zero state only")
+    xt = filter_kernels._oscillator(rows, wave, N)
+    return filter_kernels.filter_gain_mix(xt, rows, N), None
+
+
+def _ratio_bound(par_np, ch_np) -> float:
+    """Upper bound on any voice's pitch ratio across the schedule (vibrato,
+    mod LFO and mod envelope at full deflection, the largest channel bend
+    and modulation that ever occur); ``offline._ratio_bound`` of the JAX
+    package (numpy only; the synthesizer argument it takes is unused)."""
+    p = par_np
+    audible = p["note_gain"] >= NON_AUDIBLE
+    if not np.any(audible):
+        return 1.0
+    mod_hi = float(np.abs(ch_np["ch_mod"]).max()) if len(ch_np["ch_mod"]) else 0.0
+    bend_hi = float(np.abs(ch_np["ch_pitch"]).max()) if len(ch_np["ch_pitch"]) else 0.0
+    swing = (
+        np.abs(0.01 * mod_hi + np.abs(p["vib2pitch"]))
+        + np.abs(p["mod2pitch"])
+        + np.maximum(p["modenv2pitch"], 0.0)
+        + bend_hi
+    )
+    pitch_hi = p["key"] + swing
+    delta = p["pitch_scale"] * (pitch_hi - p["root_key"]) + p["tune"]
+    delta = np.where(audible, delta, -np.inf)
+    return float(np.max(p["srate_ratio"] * 2.0 ** (delta / 12.0)))
+
+
+def _out_of_window(synth, par_np, ch_np) -> bool:
+    """True where the JAX package's audio pass is unfused: a wavetable too
+    large for its resident kernel and pitch ratios beyond its windowed one."""
+    return (synth._wave.shape[0] > OSC_KERNEL_MAX_WAVE
+            and _ratio_bound(par_np, ch_np) > WINDOW_RATIO_BUCKET)
 
 
 def _to_wire(out, wire: str):
@@ -481,17 +533,21 @@ def render_midi_offline(synth, midi_file, seconds: float, wire: str = "f32",
 
     The host simulates the score into a schedule; control and audio run
     on the device; returns (samples, 2) float32 (``wire="int16"``: int16
-    PCM).
+    PCM). Where the JAX package's audio pass is unfused (a large font
+    played above its window, :func:`_out_of_window`) and N and the voice
+    count are multiples of 128, so is this one.
     """
     N = synth.block_size
     par_np, ch_np, snap_idx, _n_blocks = synth.build_schedule(midi_file, seconds)
+    unfused = (_out_of_window(synth, par_np, ch_np)
+               and N % 128 == 0 and synth.maximum_polyphony % 128 == 0)
     planes, flags = schedule_to_torch(par_np, ch_np, snap_idx, device)
     ctrl = _control_device(
         *planes, N, flags, int(synth._minimum_voice_duration),
         float(synth.sample_rate),
     )
     wave = to_torch(synth._wave, device)
-    out, _state = _audio_pass(ctrl, wave, N, float(synth.master_volume))
+    out, _state = _audio_pass(ctrl, wave, N, float(synth.master_volume), unfused=unfused)
     total = int(round(seconds * synth.sample_rate))
     synth.reset()
     return _to_wire(out[:total], wire).cpu().numpy()
@@ -508,7 +564,10 @@ def render_midi_offline_streamed(synth, midi_file, seconds: float,
     renders segment k; the only wait is the final download. The control
     pass threads its scan carries and the audio pass its (4, P) state
     between segments: the output equals the one-pass render up to the
-    float64 regrouping of the oscillator advance sum (<= 1e-5).
+    float64 regrouping of the oscillator advance sum (<= 1e-5). A segment
+    whose schedule is out of the JAX package's window
+    (:func:`_out_of_window`) abandons the stream for the one-pass render,
+    as the JAX package does.
     """
     N = synth.block_size
     sr = float(synth.sample_rate)
@@ -525,6 +584,8 @@ def render_midi_offline_streamed(synth, midi_file, seconds: float,
     for par_np, ch_np, snap_idx, nb in synth.build_schedule_segments(
         midi_file, seconds, seg_blocks
     ):
+        if _out_of_window(synth, par_np, ch_np):
+            return render_midi_offline(synth, midi_file, seconds, wire, device)
         planes, flags = schedule_to_torch(par_np, ch_np, snap_idx, device)
         ctrl, carry = _control_device(
             *planes, N, flags, min_dur, sr, b0=b0, carry=carry, with_carry=True

@@ -259,3 +259,57 @@ def test_chain_on_card_launches_kernels_and_matches_cpu(cuda, monkeypatch):
     assert not plain_on_card
     on_cpu = pg.render_to_array(fx_workload.build_chain(pg, 0.1), block=2048, device="cpu")
     np.testing.assert_allclose(on_card, on_cpu, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["full_planes", "shared_planes"])
+@pytest.mark.parametrize("chunk", [128, 1024])
+def test_affine_scan_2_kernel_matches_plain(cuda, shared, chunk):
+    from pygmu2_tpu_torch.ops import linrec_kernel as lk
+
+    T, C = 16384 + 37, 128
+    mats = _seeded(cuda, 31, *[(T, 1 if shared else C)] * 4, lo=-0.7, hi=0.7)
+    planes = [m.expand(T, C) for m in mats] + _seeded(cuda, 32, (T, C), (T, C))
+    s0 = tuple(_seeded(cuda, 33, (C,), (C,)))
+    before = lk.affine_scan_2_kernel.launches
+    got = lk.affine_scan_2_kernel(*planes, s0, chunk=chunk)
+    torch.cuda.synchronize()
+    assert lk.affine_scan_2_kernel.launches == before + 1
+    for g, r in zip(got, lk.affine_scan_2_chunked_ref(*planes, s0, chunk=chunk)):
+        assert torch.isfinite(g).all() and torch.equal(g, r)  # bit for bit
+
+
+def test_filter_gain_mix_kernel_matches_plain(cuda):
+    from pygmu2_tpu_torch.soundfont import MidiFile
+
+    synth, _ = bench_workload.build_workload(True)
+    midi = MidiFile(bench_workload.build_high_midi_bytes(SECONDS))
+    par, ch, snap, _nb = synth.build_schedule(midi, SECONDS)
+    assert off._out_of_window(synth, par, ch)
+    planes, flags = schedule_to_torch(par, ch, snap, cuda)
+    ctrl = off._control_device(*planes, synth.block_size, flags,
+                               int(synth._minimum_voice_duration), float(synth.sample_rate))
+    wave = to_torch(synth._wave, cuda)
+    rows = dict(off._gain_rows(ctrl, synth.master_volume), **off._osc_rows(ctrl, wave))
+    xt = fk._oscillator(rows, wave, synth.block_size)
+    before = fk.filter_gain_mix.launches
+    got = fk.filter_gain_mix(xt, rows, synth.block_size)
+    torch.cuda.synchronize()
+    assert fk.filter_gain_mix.launches == before + 1
+    ref = fk.filter_gain_mix_ref(xt, rows, synth.block_size)
+    peak = ref.abs().max().item()
+    assert peak > 0.05
+    assert (got - ref).abs().max().item() <= 2e-5 * max(1.0, peak)
+
+
+def test_filter_bank_on_card_launches_kernel_and_matches_cpu(cuda):
+    import pygmu2_tpu_torch as pg
+    from pygmu2_tpu_torch import filter_workload
+    from pygmu2_tpu_torch.ops import linrec_kernel as lk
+
+    before = lk.affine_scan_2_kernel.launches
+    on_card = pg.render_to_array(filter_workload.build_filter_bank(pg, 0.2), block=4096,
+                                 device=cuda)
+    assert lk.affine_scan_2_kernel.launches == before + 2 * 3  # 3 blocks, two filters
+    on_cpu = pg.render_to_array(filter_workload.build_filter_bank(pg, 0.2), block=4096,
+                                device="cpu")
+    np.testing.assert_allclose(on_card, on_cpu, rtol=0, atol=1e-4)

@@ -9,10 +9,13 @@ Both renders run past the echo's first 0.3 s block. The bank is compared
 whole. The chain is compared over its first 0.1 s and over 0.3-0.4 s,
 where the echo replays its first block, fed back, through the graph.
 Between the two the wah's resonant band-pass (Q = 6 on a moving centre)
-puts the port up to 2.5e-4 from the JAX render, after the compressor's
-makeup gain: fed the same inputs, the two packages' float32 band-passes
-sit 5.1e-5 (JAX) and 8.4e-5 (port) from a float64 recursion of the same
-filter and 1.2e-4 from each other. ``python tests/test_torch_fx_chain.py``
+puts the port up to 2.6e-4 from the JAX render, after the compressor's
+makeup gain. BiquadPE's coefficients equal the JAX program's bit for bit
+(tests/test_torch_linrec_kernel.py); fed the same inputs, the two
+packages' float32 band-passes still sit 5.1e-5 (JAX) and 9.6e-5 (port)
+from a float64 recursion of the same filter and 1.3e-4 from each other:
+XLA contracts the segmented scan's products into fused multiply-adds
+that the port's scan does not make. ``python tests/test_torch_fx_chain.py``
 prints these numbers.
 """
 

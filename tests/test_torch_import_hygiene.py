@@ -31,7 +31,8 @@ def test_port_imports_no_jax():
     assert "pygmu2_tpu_torch.ops.ladder" in modules
     for name in ("ops.ks", "ops.envelope", "ops.slew", "ops.reverse_echo",
                  "models.holds", "models.dynamics", "models.filters",
-                 "models.reverse_echo", "fx_workload"):
+                 "models.reverse_echo", "fx_workload", "ops.linrec_kernel",
+                 "ops.xla_math", "filter_workload"):
         assert f"pygmu2_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
@@ -103,3 +104,23 @@ def test_wrapper_refuses_other_devices():
     wave = torch.zeros(16, device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         fk.osc_filter_gain_mix({}, wave, 8)
+
+
+def test_cpu_filter_bank_and_high_score_launch_no_kernel():
+    import pygmu2_tpu_torch as pg
+    from pygmu2_tpu_torch import filter_workload
+    from pygmu2_tpu_torch.ops import linrec_kernel
+    from pygmu2_tpu_torch.soundfont import MidiFile
+
+    counters = (linrec_kernel.affine_scan_2_kernel, fk.filter_gain_mix)
+    before = [fn.launches for fn in counters]
+    out = pg.render_to_array(filter_workload.build_filter_bank(pg, 0.1), block=4096,
+                             device="cpu")
+    assert out.shape == (4410, 128) and abs(out).max() > 0.01
+    synth, _ = bench_workload.build_workload(True)
+    pcm = render_midi_offline(synth, MidiFile(bench_workload.build_high_midi_bytes(0.5)), 0.5,
+                              device="cpu")
+    assert pcm.shape == (22050, 2) and abs(pcm).max() > 0.01
+    assert [fn.launches for fn in counters] == before
+    if not torch.cuda.is_available():
+        assert before == [0, 0]

@@ -16,12 +16,15 @@ Drives the port's three main paths through their user entry points:
    the plain version on the card within 1e-4 (f32 wire). Realtime factors
    after warm-up, by wall clock and by CUDA events;
 5. the PE graph's three serial kernels (ladder, comb, ADSR) against their
-   plain versions on the card at C in {1, 128}, T = 4096, with a two-call
-   state hand-off; the comb at a constant and a modulated frequency, the
-   ADSR gated and triggered with a gate of many edges; max abs error
-   <= 1e-5 (ladder, comb), <= 1e-6 (ADSR). At the main path's block,
-   T = 16384, each is held to its plain version again and timed with
-   CUDA events (the plain version's one call times it);
+   plain versions on the card, with a two-call state hand-off: the ladder
+   bit for bit at os_n in {1, 2, 4, 3} (3 takes the kernel's generic
+   instantiation, the others their own) and C in {1, 33, 128} (33: a
+   partial warp), T = 4096 (os_n <= 2) or 2048; the comb at C in {1, 128},
+   T = 4096, at a constant and a modulated frequency, and the ADSR gated
+   and triggered with a gate of many edges; max abs error <= 1e-5
+   (comb), <= 1e-6 (ADSR). At the main path's block, T = 16384 (C in
+   {1, 128}), each is held to its plain version again and timed with CUDA
+   events (the plain version's one call times it), beside its bound;
 6. end to end through ``render_to_array(device="cuda")``: the subtractive
    patch for 60 s and the 128-channel bank for 10 s
    (``pygmu2_tpu_torch/patch_workload.py``, default block 16384). Each
@@ -32,13 +35,17 @@ Drives the port's three main paths through their user entry points:
 7. the effects chain's four serial kernels (Karplus-Strong, envelope
    follower, slew limiter, reverse echo) against their plain versions on
    the card at T = 4096, with a two-call state hand-off: the string at
-   L in {7, 535}, the follower and the echo (cap 22050, 10 ms blocks) at
-   C in {1, 128}, the slew limiter in both modes. At the main path's
-   block, T = 16384, on the arguments that are timed (the string at
+   L in {7, 535}, the follower at C in {1, 128}, the slew limiter in both
+   modes, and the echo (cap 22050) at C in {1, 128} with 10 ms blocks a
+   fifth up, alternating direction, a modulated block length, pitch and
+   feedback, 64-sample (min_block) blocks, and a call that starts
+   mid-period with a previous block and a pitch line of noise. At the
+   main path's block, T = 16384, on the arguments that are timed (the string at
    L = 535; the follower and the echo at C in {1, 128}, the echo
    replaying a 0.3 s block from its first sample; the slew limiter in
    both modes), each is held to its plain version again and timed (CUDA
-   events, mean of 10 after a warm-up; the plain version's one call).
+   events, mean of 10 after a warm-up; the plain version's one call),
+   beside its bound.
    The first three are held to their plain versions bit for bit
    (explicitly rounded ops in the plain versions' order); the echo within
    1e-6 (its Hann window is cosf in the kernel and torch.cos in the plain
@@ -421,27 +428,36 @@ def serial_kernels(dev, card, device_ms) -> dict:
             g = (np.diff(g, prepend=0.0) > 0).astype(np.float32)
         return torch.from_numpy(g).to(dev), torch.zeros(4, device=dev)
 
-    # ---- ladder ----
+    # ---- ladder: bit for bit; os_n 1, 2 and 4 take their own instantiations,
+    # 3 the generic one; C = 33 leaves a partial warp ----
     errs = []
-    for C in (1, 128):
-        args = ladder_args(T, C, seed=C)
-        got = ladder.ladder_scan(*args, **ladder_kw)
-        torch.cuda.synchronize()
-        errs.append(compare("ladder_scan", got, ladder.ladder_scan_ref(*args, **ladder_kw),
-                          1e-5, f"C={C} T={T}"))
-        got, ref = handoff(ladder.ladder_scan, ladder.ladder_scan_ref, args, T // 2, 1, ladder_kw)
-        errs.append(compare("ladder_scan", got, ref, 1e-5, f"C={C} two-call hand-off"))
+    for os_n in (1, 2, 4, 3):
+        n = T if os_n <= 2 else T // 2  # the plain version's time grows with os_n
+        kw = dict(ladder_kw, os_n=os_n, mode_index=os_n % 6)
+        for C in (1, 33, 128):
+            args = ladder_args(n, C, seed=C + os_n)
+            ref = ladder.ladder_scan_ref(*args, **kw)
+            got = ladder.ladder_scan(*args, **kw)
+            torch.cuda.synchronize()
+            errs.append(compare("ladder_scan", got, ref, 0.0, f"os_n={os_n} C={C} T={n}"))
+            got, ref = handoff(ladder.ladder_scan, None, args, n // 2 + 5, 1, kw, ref)
+            errs.append(compare("ladder_scan", got, ref, 0.0,
+                                f"os_n={os_n} C={C} two-call hand-off"))
+
+    def ladder_bound(C):
+        return bound(4 * (2 * BLOCK * C + 4 * BLOCK + 18 * C), LADDER_OPS * BLOCK * C)
+
     times = {}
     for C in (1, 128):  # the main path's block: timed, and held to plain
         args = ladder_args(BLOCK, C, seed=10 + C)
         ref, plain_ms = timed_plain(lambda: ladder.ladder_scan_ref(*args, **ladder_kw))
         errs.append(compare("ladder_scan", ladder.ladder_scan(*args, **ladder_kw), ref,
-                            1e-5, f"C={C} T={BLOCK}"))
+                            0.0, f"C={C} T={BLOCK}"))
         times[C] = (device_ms(lambda: ladder.ladder_scan(*args, **ladder_kw), 10), plain_ms)
-        print(f"ladder_scan T={BLOCK} C={C}: kernel {times[C][0]:.4f} ms, "
-              f"plain {times[C][1]:.1f} ms [{card}]")
+        print(f"ladder_scan T={BLOCK} C={C}: kernel {times[C][0]:.4f} ms, bound "
+              f"{ladder_bound(C)[0]:.4g} ms, plain {times[C][1]:.1f} ms [{card}]")
     C = 128
-    ms_bound, by = bound(4 * (2 * BLOCK * C + 4 * BLOCK + 18 * C), LADDER_OPS * BLOCK * C)
+    ms_bound, by = ladder_bound(C)
     out["ladder_scan"] = {
         "source": "pygmu2_tpu_torch/csrc/ladder_scan.cu",
         "replaces": "pygmu2_tpu/ops/ladder_pallas.py:202",
@@ -686,43 +702,66 @@ def fx_kernels(dev, card, device_ms) -> dict:
     echo_kw = dict(sr=float(SR), plen=plen, cap=cap, min_block=64, max_block=cap - 1,
                    smooth_alpha=1 / 2400)
 
-    def echo_args(n, C, seed, block_s, alt, replaying=False):
+    def echo_args(n, C, seed, block_s, alt, replaying=False, modulated=False, mid=False):
         """The echo's arguments from its first state, or (``replaying``)
         from a state with a full previous block of noise: it replays from
-        sample 0, as on the main path after its first block."""
+        sample 0, as on the main path after its first block. ``modulated``:
+        block length, pitch and feedback move per sample; ``mid``: the call
+        starts 40 samples into a block, the previous block and the pitch
+        line holding noise."""
         (x,) = _seeded(dev, seed, (n, C), lo=-0.3, hi=0.3)
         cols = [torch.full((n,), v, device=dev) for v in (block_s, 1.5, 0.6, alt)]
+        if modulated:
+            t = torch.arange(n, device=dev, dtype=torch.float32)
+            cols[:3] = [block_s + 0.5 * block_s * torch.sin(t / 211.0),
+                        torch.clamp(1.0 + 0.5 * torch.sin(t / 97.0), min=0.001),
+                        0.4 + 0.3 * torch.sin(t / 131.0)]
         rings = [torch.zeros((cap, C), device=dev), torch.zeros((cap, C), device=dev),
                  torch.zeros((plen, C), device=dev)]
+        first = float(round(block_s * SR))
+        misc = [1, 0, 0, 0, 0, first, first, first if replaying else 0, 1]
         if replaying:
             (rings[1],) = _seeded(dev, seed + 1, (cap, C), lo=-0.3, hi=0.3)
-        first = float(round(block_s * SR))
-        misc = torch.tensor([1, 0, 0, 0, 0, first, first, first if replaying else 0, 1],
-                            dtype=torch.float32, device=dev)
-        return (x, *cols, *rings, misc)
+        if mid:  # the current buffer is b: a holds the previous block
+            rings = _seeded(dev, seed + 2, (cap, C), (cap, C), (plen, C), lo=-0.3, hi=0.3)
+            misc = [0, 57, 13.7, 40, 40, first, first, first - 9, 0]
+        return (x, *cols, *rings, torch.tensor(misc, dtype=torch.float32, device=dev))
+
+    def echo_work(C):
+        """(bytes, operations) of a call at the main path's block. Bytes: x
+        and y, the controls, one block-buffer row read (every sample
+        replays) and one written per sample, the pitch line in and out."""
+        return (4 * (4 * BLOCK * C + 4 * BLOCK + 2 * plen * C + 18),
+                ECHO_OPS_SAMPLE * BLOCK + ECHO_OPS_CHANNEL * BLOCK * C)
 
     errs, times = [], {}
     name, fn, ref_fn = ("reverse_echo_scan", reverse_echo.reverse_echo_scan,
                         reverse_echo.reverse_echo_scan_ref)
+    echo_cases = {  # name: (block seconds, alternate, echo_args options)
+        "10 ms blocks, a fifth up": (0.01, 0.0, {}),
+        "alternating": (0.01, 1.0, {}),
+        "modulated block, pitch and feedback": (0.01, 0.0, dict(modulated=True)),
+        "64-sample blocks": (64 / SR, 1.0, {}),
+        "mid-period start": (0.01, 0.0, dict(mid=True)),
+    }
     for C in (1, 128):
-        # 10 ms blocks: many swaps within T; a fifth up; alternating at C = 128
-        args = echo_args(T, C, seed=C, block_s=0.01, alt=float(C > 1))
-        err, _plain, ref = held(name, fn, ref_fn, args, echo_kw, 1e-6, f"C={C} T={T}")
-        check(ref[0].abs().max().item() > 1e-3, f"reverse echo C={C}: silent")
-        errs.append(err)
-        got, ref = handoff(fn, None, args, T // 3, 4, echo_kw, ref)
-        errs.append(compare(name, got, ref, 1e-6, f"C={C} two-call hand-off"))
+        for i, (what, (block_s, alt, opts)) in enumerate(echo_cases.items()):
+            args = echo_args(T, C, seed=C + i, block_s=block_s, alt=alt, **opts)
+            err, _plain, ref = held(name, fn, ref_fn, args, echo_kw, 1e-6,
+                                    f"C={C} T={T} {what}")
+            check(ref[0].abs().max().item() > 1e-3, f"reverse echo C={C} {what}: silent")
+            errs.append(err)
+            got, ref = handoff(fn, None, args, T // 3, 4, echo_kw, ref)
+            errs.append(compare(name, got, ref, 1e-6, f"C={C} {what}, two-call hand-off"))
         # the chain's 0.3 s blocks, replaying a full previous block
         times[C] = timed(name, fn, ref_fn,
                          echo_args(BLOCK, C, seed=10 + C, block_s=0.3, alt=0.0, replaying=True),
                          echo_kw, 1e-6, f"C={C} cap={cap} replaying", errs)
+        print(f"  reverse_echo_scan C={C}: bound {bound(*echo_work(C))[0]:.4g} ms")
     C = 128
-    # bytes: x and y, the controls, one block-buffer row read (every sample
-    # replays) and one written per sample, the pitch line in and out
     out["reverse_echo_scan"] = entry(
         "reverse_echo_scan.cu", "pygmu2_tpu/ops/reverse_echo_pallas.py:338", errs, *times[C],
-        4 * (4 * BLOCK * C + 4 * BLOCK + 2 * plen * C + 18),
-        ECHO_OPS_SAMPLE * BLOCK + ECHO_OPS_CHANNEL * BLOCK * C, f"T={BLOCK} C={C} cap={cap}")
+        *echo_work(C), f"T={BLOCK} C={C} cap={cap}")
     return out
 
 

@@ -115,9 +115,9 @@ def load() -> ctypes.CDLL:
         # x, cur_in, y, cur_out, T, linear, p_rise, p_fall, stream
         "slew_scan_launch": [p] * 4 + [i, i, f, f, p],
         # x, blk, ratio, fb, alt, buf_a, buf_b, pb_in, misc_in, y, pb_out,
-        # misc_out, T, C, sr, plen, cap, min_block, max_block, smooth_alpha,
-        # inv_plen, half, inv_half, stream
-        "reverse_echo_scan_launch": [p] * 12 + [i, i, f, i, i, i, i, f, f, f, f, p],
+        # misc_out, tab, bounds, n_periods, T, C, sr, plen, cap, min_block,
+        # max_block, smooth_alpha, inv_plen, half, inv_half, stream
+        "reverse_echo_scan_launch": [p] * 15 + [i, i, f, i, i, i, i, f, f, f, f, p],
         # a11, a12, a21, a22, u1, u2, s01, s02, s1, s2, T, C, chunk, shared, stream
         "affine_scan_2_launch": [p] * 10 + [i, i, i, i, p],
         # xt, rows, out, scratch, B, P, N, stream

@@ -14,33 +14,91 @@
 // path's block (T = 16384, C = 128) it moves 17 MB (roofline 5.1 us at
 // 3.35 TB/s) and does 82 float ops per sample and channel (2.6 us at
 // 67 TFLOP/s). The bound is the dependent chain: every sample needs the
-// previous sample's 9 states, and one sample is os_n = 2 steps of input
-// interpolation and feedback (~28 cycles), tanhf (~40) and four stages of
-// five dependent float ops (~80): ~300 cycles, a serial floor of ~2.5 ms
-// per 16384 samples at 1.98 GHz whatever C. Measured on an H100 SXM
-// (700 W): 5.5 ms at C = 1, 7.3 ms at C = 128.
+// previous sample's 9 states, and one sample is the decay of the states,
+// then os_n = 2 steps of feedback (~16 cycles), tanhf (~40) and four
+// stages of five dependent float ops (~80): ~280 cycles, a serial floor
+// of ~2.3 ms per 16384 samples at 1.98 GHz whatever C, as first
+// estimated. The first design
+// (one thread per channel, each sample starting with global loads of x
+// and the four coefficient columns, all 128 channels of a bank in one
+// CUDA block) measured 5.54 ms at C = 1 and 7.36 ms at C = 128
+// (chip_smoke.py, H100 80GB HBM3, 700 W): the load latency sat on the
+// chain, because the decay that multiplies all nine states depends on
+// |x * drive|.
 //
-// What the design does about it: one thread per channel loops over T with
-// the 9 states in registers; the (T,) coefficient columns are read by
-// every thread (broadcast loads, L1-resident), and x / y are (T, C)
-// row-major, so a warp's accesses at one t are coalesced. The chain's
-// latency is not hidden: a C = 1 patch runs one thread on the whole card.
-// The arithmetic uses explicitly rounded float ops (__fmul_rn, __fadd_rn)
-// so that FMA contraction cannot change a rounding against the plain
-// PyTorch version; with tanhf, the function PyTorch's own CUDA tanh calls,
-// the kernel equals the plain version on the card bit for bit.
+// What the design does about it: the inputs are taken off the chain.
+// Each CUDA block is two warps and 32 channels, so a bank of 128 runs on
+// four SMs. The producer warp streams chunks of 32 samples of the x rows
+// and of the four (T,) columns into a ring of four shared-memory stages
+// with cp.async, each stage's arrival tracked by an mbarrier
+// (cp.async.mbarrier.arrive), and drains the y rows the consumer left in
+// the stage back to global memory once the consumer releases it (a second
+// mbarrier). The consumer warp holds one channel per lane with the nine
+// states in registers and reads only shared memory; the input, its drive
+// product and the decay of sample t + 1 are computed while sample t's
+// chain runs. The oversampling factor is a template parameter for 1, 2
+// and 4 (LadderPE's default is 2), where the interpolation weights fold
+// to constants and the loop unrolls; one generic instantiation takes any
+// other os_n >= 1. The arithmetic uses explicitly rounded float ops
+// (__fmul_rn, __fadd_rn) so that FMA contraction cannot change a rounding
+// against the plain PyTorch version; with tanhf, the function PyTorch's
+// own CUDA tanh calls, the kernel equals the plain version on the card
+// bit for bit.
+//
+// Measured (chip_smoke.py's timed case, os_n = 2; H100 80GB HBM3, 700 W):
+// 3.5541 ms at C = 1 and 3.5628 ms at C = 128 (82 registers, no spills):
+// the same at both widths, so the chain alone sets it, ~400 cycles a
+// sample. Counted again with tanhf at an estimated ~90 cycles (not ~40)
+// the chain comes to ~370; tanhf's SASS is not read. What remains is the
+// chain's own arithmetic, which parity with the plain version fixes.
 
 #include <cuda_runtime.h>
+#include <cstdint>
 
 namespace {
 
-constexpr int kThreads = 128;  // channels per CUDA block
+constexpr int kLanes = 32;   // channels per CUDA block: one consumer warp
+constexpr int kChunk = 32;   // samples per ring stage
+constexpr int kStages = 4;
 constexpr float kC1 = 0.76923077f;  // trapezoidal stage weights
 constexpr float kC2 = 0.23076923f;
+
+struct Stage {
+  float x[kChunk][kLanes];
+  float y[kChunk][kLanes];
+  float col[4][kChunk];  // al, qa, ki, dsc
+};
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+
+__device__ __forceinline__ unsigned smem(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n .reg .b64 st;\n mbarrier.arrive.shared::cta.b64 st, [%0];\n}\n"
+               ::"r"(smem(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  // labels inside braces are local to the block in PTX
+  asm volatile(
+      "{\n .reg .pred done;\n WAIT:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      " @!done bra WAIT;\n}\n" ::"r"(smem(bar)), "r"(parity) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem(dst)), "l"(src)
+               : "memory");
+}
+// the barrier counts this thread's arrival once its cp.async copies land
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem(bar))
+               : "memory");
+}
 
 __device__ __forceinline__ float mode_mix(int mode, float u, const float* s) {
   switch (mode) {
@@ -53,67 +111,122 @@ __device__ __forceinline__ float mode_mix(int mode, float u, const float* s) {
   }
 }
 
-__global__ void ladder_scan(const float* __restrict__ x,
-                            const float* __restrict__ al,
-                            const float* __restrict__ qa,
-                            const float* __restrict__ ki,
-                            const float* __restrict__ dsc,
-                            const float* __restrict__ state_in,
-                            float* __restrict__ y, float* __restrict__ state_out,
-                            int T, int C, int os_n, float pbg, int mode,
-                            float threshold, float state_decay) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  float z0[4], z1[4];
-  for (int k = 0; k < 4; ++k) {
-    z0[k] = state_in[k * C + c];
-    z1[k] = state_in[(4 + k) * C + c];
+// OS > 0: os_n is OS, folded at compile time; OS == 0: os_n at run time
+template <int OS>
+__global__ void __launch_bounds__(2 * kLanes) ladder_scan(
+    const float* __restrict__ x, const float* __restrict__ al,
+    const float* __restrict__ qa, const float* __restrict__ ki,
+    const float* __restrict__ dsc, const float* __restrict__ state_in,
+    float* __restrict__ y, float* __restrict__ state_out, int T, int C,
+    int os_n_arg, float pbg, int mode, float threshold, float state_decay) {
+  __shared__ Stage ring[kStages];
+  __shared__ uint64_t full[kStages], done[kStages];
+  const int lane = threadIdx.x & 31;
+  const int c0 = blockIdx.x * kLanes;
+  const int width = min(kLanes, C - c0);
+  const bool live = lane < width;
+  const int c = c0 + lane;
+  const int n_chunks = (T + kChunk - 1) / kChunk;
+  if (threadIdx.x == 0)
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], kLanes);  // the producer's 32 threads
+      mbar_init(&done[s], kLanes);  // the consumer's 32 threads
+    }
+  __syncthreads();
+
+  if (threadIdx.x >= kLanes) {  // ---- the producer warp ----
+    const float* cols[4] = {al, qa, ki, dsc};
+    auto drain = [&](int j) {  // chunk j's y rows, from its stage to global
+      mbar_wait(&done[j % kStages], (j / kStages) & 1);
+      const Stage& st = ring[j % kStages];
+      const int base = j * kChunk, n = min(kChunk, T - base);
+      if (live)
+        for (int i = 0; i < n; ++i) y[(long)(base + i) * C + c] = st.y[i][lane];
+    };
+    for (int j = 0; j < n_chunks; ++j) {
+      if (j >= kStages) drain(j - kStages);
+      Stage& st = ring[j % kStages];
+      const int base = j * kChunk, n = min(kChunk, T - base);
+      if (live)
+        for (int i = 0; i < n; ++i) cp_async4(&st.x[i][lane], x + (long)(base + i) * C + c);
+      for (int k = 0; k < 4; ++k)
+        for (int i = lane; i < n; i += kLanes) cp_async4(&st.col[k][i], cols[k] + base + i);
+      cp_async_arrive(&full[j % kStages]);
+    }
+    for (int j = max(n_chunks - kStages, 0); j < n_chunks; ++j) drain(j);
+    return;
   }
-  float old = state_in[8 * C + c];
+
+  // ---- the consumer warp: one channel per lane ----
+  float z0[4], z1[4], old = 0.0f;
+  if (live) {
+    for (int k = 0; k < 4; ++k) {
+      z0[k] = state_in[k * C + c];
+      z1[k] = state_in[(4 + k) * C + c];
+    }
+    old = state_in[8 * C + c];
+  } else {
+    for (int k = 0; k < 4; ++k) z0[k] = z1[k] = 0.0f;
+  }
   // the plain version's Python doubles: os_recip = 1/os_n,
   // interp = s * os_recip and 1 - interp, each rounded to float once
+  const int os_n = OS > 0 ? OS : os_n_arg;
   const double recip = 1.0 / os_n;
   const float os_recip = (float)recip;
 
-  for (int t = 0; t < T; ++t) {
-    const long row = (long)t * C;
-    const float a = al[t], q = qa[t], k = ki[t];
-    const float in_s = mul(x[row + c], dsc[t]);
-    const float decay = fabsf(in_s) < threshold ? state_decay : 1.0f;
+  for (int j = 0; j < n_chunks; ++j) {
+    Stage& st = ring[j % kStages];
+    mbar_wait(&full[j % kStages], (j / kStages) & 1);
+    const int n = min(kChunk, T - j * kChunk);
+    // sample i's input and decay, computed one sample ahead of the chain
+    float in_s = mul(st.x[0][lane], st.col[3][0]);
+    float decay = fabsf(in_s) < threshold ? state_decay : 1.0f;
+    for (int i = 0; i < n; ++i) {
+      const float a = st.col[0][i], q = st.col[1][i], k = st.col[2][i];
+      const int nx = i + 1 < n ? i + 1 : i;
+      const float in_next = mul(st.x[nx][lane], st.col[3][nx]);
+      const float decay_next = fabsf(in_next) < threshold ? state_decay : 1.0f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      z0[i] = mul(z0[i], decay);
-      z1[i] = mul(z1[i], decay);
-    }
-    old = mul(old, decay);
-
-    float total = 0.0f;
-    for (int s = 0; s < os_n; ++s) {
-      const float interp = (float)(s * recip);
-      const float one_minus = (float)(1.0 - s * recip);
-      const float in_i = add(mul(interp, old), mul(one_minus, in_s));
-      const float u = tanhf(sub(in_i, mul(mul(sub(z1[3], mul(pbg, in_i)), k), q)));
-      float stages[4];
-      float prev = u;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float ft = sub(add(mul(prev, kC1), mul(kC2, z0[i])), z1[i]);
-        ft = add(mul(ft, a), z1[i]);
-        z1[i] = ft;
-        z0[i] = prev;
-        stages[i] = ft;
-        prev = ft;
+      for (int s = 0; s < 4; ++s) {
+        z0[s] = mul(z0[s], decay);
+        z1[s] = mul(z1[s], decay);
       }
-      total = add(total, mul(mode_mix(mode, u, stages), os_recip));
+      old = mul(old, decay);
+
+      float total = 0.0f;
+#pragma unroll
+      for (int s = 0; s < os_n; ++s) {
+        const float interp = (float)(s * recip);
+        const float one_minus = (float)(1.0 - s * recip);
+        const float in_i = add(mul(interp, old), mul(one_minus, in_s));
+        const float u = tanhf(sub(in_i, mul(mul(sub(z1[3], mul(pbg, in_i)), k), q)));
+        float stages[4];
+        float prev = u;
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          float ft = sub(add(mul(prev, kC1), mul(kC2, z0[m])), z1[m]);
+          ft = add(mul(ft, a), z1[m]);
+          z1[m] = ft;
+          z0[m] = prev;
+          stages[m] = ft;
+          prev = ft;
+        }
+        total = add(total, mul(mode_mix(mode, u, stages), os_recip));
+      }
+      st.y[i][lane] = total;
+      old = in_s;
+      in_s = in_next;
+      decay = decay_next;
     }
-    y[row + c] = total;
-    old = in_s;
+    mbar_arrive(&done[j % kStages]);
   }
-  for (int k = 0; k < 4; ++k) {
-    state_out[k * C + c] = z0[k];
-    state_out[(4 + k) * C + c] = z1[k];
+  if (live) {
+    for (int k = 0; k < 4; ++k) {
+      state_out[k * C + c] = z0[k];
+      state_out[(4 + k) * C + c] = z1[k];
+    }
+    state_out[8 * C + c] = old;
   }
-  state_out[8 * C + c] = old;
 }
 
 }  // namespace
@@ -129,10 +242,28 @@ int ladder_scan_launch(const float* x, const float* al, const float* qa,
                        int T, int C, int os_n, float pbg, int mode_index,
                        float input_threshold, float state_decay,
                        cudaStream_t stream) {
-  const int block = C < kThreads ? C : kThreads;
-  ladder_scan<<<(C + block - 1) / block, block, 0, stream>>>(
-      x, al, qa, ki, dsc, state_in, y, state_out, T, C, os_n, pbg, mode_index,
-      input_threshold, state_decay);
+  const dim3 grid((C + kLanes - 1) / kLanes), block(2 * kLanes);
+  switch (os_n) {
+    case 1:
+      ladder_scan<1><<<grid, block, 0, stream>>>(x, al, qa, ki, dsc, state_in, y, state_out,
+                                                 T, C, os_n, pbg, mode_index,
+                                                 input_threshold, state_decay);
+      break;
+    case 2:
+      ladder_scan<2><<<grid, block, 0, stream>>>(x, al, qa, ki, dsc, state_in, y, state_out,
+                                                 T, C, os_n, pbg, mode_index,
+                                                 input_threshold, state_decay);
+      break;
+    case 4:
+      ladder_scan<4><<<grid, block, 0, stream>>>(x, al, qa, ki, dsc, state_in, y, state_out,
+                                                 T, C, os_n, pbg, mode_index,
+                                                 input_threshold, state_decay);
+      break;
+    default:
+      ladder_scan<0><<<grid, block, 0, stream>>>(x, al, qa, ki, dsc, state_in, y, state_out,
+                                                 T, C, os_n, pbg, mode_index,
+                                                 input_threshold, state_decay);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -24,6 +24,13 @@ from __future__ import annotations
 import torch
 
 from pygmu2_tpu_torch.ops.linrec_kernel import affine_scan_2_kernel
+from pygmu2_tpu_torch.ops.xla_math import fmaf
+
+# affine_scan_2_seg's pass over the stacked planes (m11, m12, m21, m22, v1,
+# v2): row r is m[a]·p[b] + m[c]·p[d] for (a, b, c, d) = _PASS_ROWS[r], p
+# the planes shifted (p11, p12, p21, p22, q1, q2); rows 4 and 5 add v
+_PASS_ROWS = ((0, 0, 1, 2), (0, 1, 1, 3), (2, 0, 3, 2), (2, 1, 3, 3), (0, 4, 1, 5),
+              (2, 4, 3, 5))
 
 # affine_scan_2_auto's kernel route: 2-D batches of KERNEL_MIN_C..KERNEL_MAX_C
 # channels and at least KERNEL_MIN_T samples, in chunks of KERNEL_CHUNK
@@ -92,7 +99,7 @@ def affine_scan_2(a11, a12, a21, a22, u1, u2, s0=None):
     return u1, u2
 
 
-def affine_scan_2_auto(a11, a12, a21, a22, u1, u2, s0=None):
+def affine_scan_2_auto(a11, a12, a21, a22, u1, u2, s0=None, *, xla_fma: bool = False):
     """:func:`affine_scan_2` routed by shape, as
     ``pygmu2_tpu.ops.linrec.affine_scan_2_auto`` routes on the TPU.
 
@@ -101,17 +108,18 @@ def affine_scan_2_auto(a11, a12, a21, a22, u1, u2, s0=None):
     at chunk 1024 (the kernel on the card, its plain version on the CPU);
     any other 2-D batch the segmented scan, anything else the flat one.
     The route depends on the shapes only, so the CPU and the card take the
-    same op order.
+    same op order. ``xla_fma`` goes to the segmented scan.
     """
     if u1.dim() == 2:
         T, C = u1.shape
         if T >= KERNEL_MIN_T and KERNEL_MIN_C <= C <= KERNEL_MAX_C:
             return affine_scan_2_kernel(a11, a12, a21, a22, u1, u2, s0, chunk=KERNEL_CHUNK)
-        return affine_scan_2_seg(a11, a12, a21, a22, u1, u2, s0=s0)
+        return affine_scan_2_seg(a11, a12, a21, a22, u1, u2, s0=s0, xla_fma=xla_fma)
     return affine_scan_2(a11, a12, a21, a22, u1, u2, s0=s0)
 
 
-def affine_scan_2_seg(a11, a12, a21, a22, u1, u2, s0=None, *, seg: int = 512):
+def affine_scan_2_seg(a11, a12, a21, a22, u1, u2, s0=None, *, seg: int = 512,
+                      xla_fma: bool = False):
     """Order-2 affine scan over (T, C), segmented for accuracy.
 
     Counterpart of ``pygmu2_tpu.ops.linrec.affine_scan_2_seg``, op for op:
@@ -127,7 +135,19 @@ def affine_scan_2_seg(a11, a12, a21, a22, u1, u2, s0=None, *, seg: int = 512):
 
     ``s0`` is an optional pair of (C,) states before step 0. Returns the
     two (T, C) state components after each step.
+
+    ``xla_fma`` rounds as XLA's CPU program of ``biquad_filter`` does (its
+    optimised HLO and LLVM IR): the backend fuses a product whose one use
+    is a sum into a multiply-add, so each ``a·b + c·d`` is
+    ``fma(a, b, c·d)`` in the passes, the stitch and the apply, except the
+    first pass's row of ``a11``, ``a12``: those enter as the negations
+    ``-a1``, ``-a2``, which LLVM folds into a subtraction,
+    ``m12·p - a1·q``, fusing the other product. Without it every product
+    and sum is rounded alone.
     """
+    def fma2(a, b, c, d):  # a·b + c·d
+        return fmaf(a, b, c * d) if xla_fma else a * b + c * d
+
     a11, a12, a21, a22, u1, u2 = torch.broadcast_tensors(a11, a12, a21, a22, u1, u2)
     T, C = u1.shape
     seg = min(seg, max(T, 1))
@@ -139,40 +159,43 @@ def affine_scan_2_seg(a11, a12, a21, a22, u1, u2, s0=None, *, seg: int = 512):
             x = torch.cat([x, x.new_full((pad, C), fill)])
         return x.reshape(L, seg, C)
 
-    # identity-map padding keeps the tail segment's stitch exact
-    m11, m12, m21, m22 = prep(a11, 1.0), prep(a12, 0.0), prep(a21, 0.0), prep(a22, 1.0)
-    v1, v2 = prep(u1, 0.0), prep(u2, 0.0)
+    # The six planes stacked, (6, L, seg, C): m11, m12, m21, m22, v1, v2,
+    # so that a pass is a handful of batched ops (on the card each op is a
+    # launch the host enqueues). Identity-map padding keeps the tail
+    # segment's stitch exact.
+    m = torch.stack([prep(a11, 1.0), prep(a12, 0.0), prep(a21, 0.0), prep(a22, 1.0),
+                     prep(u1, 0.0), prep(u2, 0.0)])
+    ident = u1.new_zeros((6, L, 1, C))  # the shift's fill: the identity map
+    ident[0] = 1.0
+    ident[3] = 1.0
     s = 1
     while s < seg:
-        def sh(x, fill):
-            return torch.cat([x.new_full((L, s, C), fill), x[:, :-s]], dim=1)
-
-        p11, p12, p21, p22 = sh(m11, 1.0), sh(m12, 0.0), sh(m21, 0.0), sh(m22, 1.0)
-        q1, q2 = sh(v1, 0.0), sh(v2, 0.0)
-        m11, m12, m21, m22, v1, v2 = (
-            m11 * p11 + m12 * p21,
-            m11 * p12 + m12 * p22,
-            m21 * p11 + m22 * p21,
-            m21 * p12 + m22 * p22,
-            m11 * q1 + m12 * q2 + v1,
-            m21 * q1 + m22 * q2 + v2,
-        )
+        p = torch.cat([ident.expand(6, L, s, C), m[:, :, :-s]], dim=2)  # p11 .. q2
+        rows = _PASS_ROWS
+        if s == 1 and xla_fma:  # the row of the negated coefficients
+            rows = [row[2:] + row[:2] if i in (0, 1, 4) else row for i, row in enumerate(rows)]
+        a, b, c, d = (torch.stack([src[row[k]] for row in rows])
+                      for k, src in enumerate((m, p, m, p)))
+        r = fma2(a, b, c, d)
+        r[4:] += m[4:]
+        m = r
         s *= 2
 
+    # the stitch: the state entering each segment, from the segments' final
+    # maps; both components from the same (x1, x2)
+    fin = m[:, :, -1]  # (6, L, C)
+    fa, fc = torch.stack([fin[0], fin[2]]), torch.stack([fin[1], fin[3]])
     zero = u1.new_zeros((C,))
-    x1, x2 = (zero, zero) if s0 is None else (zero + s0[0], zero + s0[1])
-    in1, in2 = [], []
-    for i in range(L):  # the state entering each segment
-        in1.append(x1)
-        in2.append(x2)
-        x1, x2 = (
-            m11[i, -1] * x1 + m12[i, -1] * x2 + v1[i, -1],
-            m21[i, -1] * x1 + m22[i, -1] * x2 + v2[i, -1],
-        )
-    in1, in2 = torch.stack(in1)[:, None], torch.stack(in2)[:, None]
-    s1 = (m11 * in1 + m12 * in2 + v1).reshape(L * seg, C)[:T]
-    s2 = (m21 * in1 + m22 * in2 + v2).reshape(L * seg, C)[:T]
-    return s1, s2
+    x = u1.new_zeros((2, C)) if s0 is None else torch.stack([zero + s0[0], zero + s0[1]])
+    ins = []
+    for i in range(L):
+        ins.append(x)
+        x = fma2(fa[:, i], x[:1], fc[:, i], x[1:]) + fin[4:, i]
+    xin = torch.stack(ins, dim=1)[:, :, None]  # (2, L, 1, C)
+    # each segment's prefix maps applied to its entering state
+    out = fma2(torch.stack([m[0], m[2]]), xin[:1], torch.stack([m[1], m[3]]), xin[1:]) + m[4:]
+    out = out.reshape(2, L * seg, C)[:, :T]
+    return out[0], out[1]
 
 
 def biquad_filter(x, b0, b1, b2, a1, a2, zi=None):
@@ -203,13 +226,14 @@ def biquad_filter(x, b0, b1, b2, a1, a2, zi=None):
         x_tail, y_tail = zi["x"].to(x.dtype), zi["y"].to(x.dtype)
 
     xp = torch.cat([x_tail.flip(0), x])  # rows: x[-2], x[-1], x...
-    fir = b0 * xp[2:] + b1 * xp[1:-1] + b2 * xp[:-2]
+    # as XLA's CPU program fuses it (see affine_scan_2_seg's xla_fma)
+    fir = fmaf(b2, xp[:-2], fmaf(b0, xp[2:], b1 * xp[1:-1]))
     # planes shared by the channels stay (T, 1) views: the kernel reads
     # them once per sample
     zeros = x.new_zeros((T, 1)).expand(T, C)
     y, _ = affine_scan_2_auto(
         (-a1).expand(T, C), (-a2).expand(T, C), x.new_ones((T, 1)).expand(T, C), zeros,
-        fir, zeros, s0=(y_tail[0], y_tail[1]),
+        fir, zeros, s0=(y_tail[0], y_tail[1]), xla_fma=True,
     )
     zf = {
         "x": torch.stack([x[-1], x[-2] if T >= 2 else x_tail[0]]),

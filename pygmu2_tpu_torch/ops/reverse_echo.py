@@ -13,15 +13,20 @@ previous block replayed reversed (or alternating) under a Hann window and
 fed back; the buffers swap when the current block is full.
 
 - ``reverse_echo_scan`` is the wrapper. For CUDA tensors it launches the
-  hand-written kernel in ``csrc/reverse_echo_scan.cu``, which updates the
-  two block buffers in place, and counts the launch in
-  ``reverse_echo_scan.launches``; for CPU tensors it runs the plain
-  version.
+  hand-written kernel in ``csrc/reverse_echo_scan.cu`` (two launches: a
+  serial control pass shared by the channels, then an audio pass parallel
+  within each block period), which updates the two block buffers in
+  place, and counts the call in ``reverse_echo_scan.launches``; for CPU
+  tensors it runs the plain version.
 - ``reverse_echo_scan_ref`` is the plain PyTorch version with the JAX
   package's ``reverse_echo_scan_ref`` op order, float32: a pass over the
   samples that runs the control machine (it reads only the controls) in
   float32 scalars on the host, then a per-sample loop over the (C,) rows
   on the tensors' device, the Hann window by ``torch.cos`` there.
+- ``reverse_echo_scan_periods`` computes the same in the kernel's order,
+  in torch ops: the control table, then period by period a gather from
+  the pitch line and the input and a write of the current block (tests
+  hold it to ``reverse_echo_scan_ref`` bit for bit).
 """
 
 from __future__ import annotations
@@ -146,6 +151,66 @@ def reverse_echo_scan_ref(x, blk, ratio, fb, alt, buf_a, buf_b, pitch_buf, misc,
     return y, ba, bb, pb, torch.tensor(misc_out, dtype=torch.float32, device=dev)
 
 
+def reverse_echo_scan_periods(x, blk, ratio, fb, alt, buf_a, buf_b, pitch_buf, misc,
+                              *, sr, plen, cap, min_block, max_block, smooth_alpha):
+    """:func:`reverse_echo_scan_ref` in the order of the kernel's two passes
+    (same arguments and result), for the tests.
+
+    The control table comes from :func:`_control`. A period is a run of
+    samples between two swaps: it writes only the current block and reads
+    only the previous one, which the period before it completed, so its
+    samples are independent and are computed together. The pitch line
+    holds only input samples: at time t slot i holds
+    ``x[t - ((wslot_t - i) mod plen)]``, or the line handed in when that
+    index is negative, so each tap is a gather from ``[pitch_buf ; x]``."""
+    dev = x.device
+    steps, misc_out = _control(
+        blk, ratio, alt, misc, sr=sr, plen=plen, cap=cap, min_block=min_block,
+        max_block=max_block, smooth_alpha=smooth_alpha,
+    )
+    T, C = x.shape
+    x = x.to(torch.float32)
+    fb = fb.to(torch.float32)
+    ba, bb = buf_a.clone(), buf_b.clone()
+    y = torch.zeros_like(x)
+    f32 = dict(dtype=torch.float32, device=dev)
+    wslot = torch.tensor([s[0] for s in steps], device=dev)
+    taps = torch.tensor([[s[1][k] for k in (0, 1, 4, 5)] for s in steps], device=dev)
+    wts = torch.tensor([[s[1][k] for k in (2, 3, 6, 7)] for s in steps], **f32)
+    f, omf = (torch.tensor([s[k] for s in steps], **f32) for k in (2, 3))
+    near_unity = torch.tensor([s[4] for s in steps], device=dev)
+    wpos = torch.tensor([s[5] for s in steps], **f32)
+    window = 0.5 - 0.5 * torch.cos(torch.full((), _TWO_PI, **f32) * wpos)
+    rrow = torch.tensor([-1 if s[6] is None else s[6] for s in steps], device=dev)
+    wrow = torch.tensor([s[7] for s in steps], device=dev)
+    write_a = [s[8] for s in steps]
+    line = torch.cat([pitch_buf.to(torch.float32), x])  # slot i, then x[t] at plen + t
+
+    def slot(t, ws, i):
+        """Rows of ``line`` that hold slot i at time t (write slot ws)."""
+        src = t - (ws - i) % plen
+        return torch.where(src >= 0, plen + src, i)
+
+    starts = [0] + [t for t in range(1, T) if write_a[t] != write_a[t - 1]] + [T]
+    for a, b in zip(starts[:-1], starts[1:]):
+        t = torch.arange(a, b, device=dev)
+        ws = wslot[a:b]
+        p = [line[slot(t, ws, taps[a:b, k])] for k in range(4)]
+        w = [wts[a:b, k, None] for k in range(4)]
+        s1 = w[0] * p[0] + w[1] * p[1]
+        s2 = w[2] * p[2] + w[3] * p[3]
+        pitched = torch.where(near_unity[a:b, None], x[a:b],
+                              f[a:b, None] * s1 + omf[a:b, None] * s2)
+        cur, prev = (ba, bb) if write_a[a] else (bb, ba)
+        play = rrow[a:b] >= 0
+        wet = prev[rrow[a:b].clamp(min=0)] * window[a:b, None]
+        y[a:b] = torch.where(play[:, None], wet, y[a:b])
+        cur[wrow[a:b]] = torch.where(play[:, None], pitched + wet * fb[a:b, None], pitched)
+    last = torch.full((plen,), T - 1, device=dev)
+    pb = line[slot(last, wslot[-1], torch.arange(plen, device=dev))]
+    return y, ba, bb, pb, torch.tensor(misc_out, dtype=torch.float32, device=dev)
+
+
 def reverse_echo_scan(x, blk, ratio, fb, alt, buf_a, buf_b, pitch_buf, misc, *,
                       sr, plen, cap, min_block, max_block, smooth_alpha):
     """Reverse pitch echo over T samples and C channels.
@@ -155,8 +220,9 @@ def reverse_echo_scan(x, blk, ratio, fb, alt, buf_a, buf_b, pitch_buf, misc, *,
     misc: (9,) f32 in MISC_FIELDS order. Returns (wet (T, C), buf_a',
     buf_b', pitch_buf', misc'). CPU tensors take the plain version; CUDA
     tensors launch the kernel (one count in ``reverse_echo_scan.launches``
-    per call) or raise. On the card buf_a and buf_b are consumed: the
-    kernel updates them in place and returns them as buf_a' and buf_b'.
+    per call, which is two launches: the control pass and the audio pass)
+    or raise. On the card buf_a and buf_b are consumed: the kernel updates
+    them in place and returns them as buf_a' and buf_b'.
     """
     kw = dict(sr=sr, plen=plen, cap=cap, min_block=min_block, max_block=max_block,
               smooth_alpha=smooth_alpha)
@@ -176,6 +242,10 @@ def _launch(x, blk, ratio, fb, alt, buf_a, buf_b, pitch_buf, misc, *, sr, plen,
     dev = x.device
     if x.dim() != 2 or x.shape[0] < 1 or x.shape[1] < 1 or plen < 2 or cap < 2:
         raise ValueError(f"unsupported shape x={tuple(x.shape)} plen={plen} cap={cap}")
+    if not 1 <= min_block <= max_block <= cap - 1:
+        # a period writes rows 0 .. block - 1 of the current buffer, each once
+        raise ValueError(f"need 1 <= min_block <= max_block <= cap - 1, got "
+                         f"{min_block}, {max_block}, cap={cap}")
     T, C = x.shape
     x = _ext.checked(x, "x", (T, C), dev)
     blk, ratio, fb, alt = (_ext.checked(v, name, (T,), dev) for v, name in
@@ -187,6 +257,10 @@ def _launch(x, blk, ratio, fb, alt, buf_a, buf_b, pitch_buf, misc, *, sr, plen,
     y = torch.empty((T, C), dtype=torch.float32, device=dev)
     pb_out = torch.empty((plen, C), dtype=torch.float32, device=dev)
     misc_out = torch.empty((len(MISC_FIELDS),), dtype=torch.float32, device=dev)
+    # scratch of the two passes: the per-sample table, the period bounds
+    tab = torch.empty((T, 16), dtype=torch.float32, device=dev)
+    bounds = torch.empty((T + 1,), dtype=torch.int32, device=dev)
+    n_periods = torch.empty((1,), dtype=torch.int32, device=dev)
     half = plen / 2.0
     lib = _ext.load()
     with torch.cuda.device(dev):
@@ -194,6 +268,7 @@ def _launch(x, blk, ratio, fb, alt, buf_a, buf_b, pitch_buf, misc, *, sr, plen,
             x.data_ptr(), blk.data_ptr(), ratio.data_ptr(), fb.data_ptr(),
             alt.data_ptr(), ba.data_ptr(), bb.data_ptr(), pitch_buf.data_ptr(),
             misc.data_ptr(), y.data_ptr(), pb_out.data_ptr(), misc_out.data_ptr(),
+            tab.data_ptr(), bounds.data_ptr(), n_periods.data_ptr(),
             T, C, float(sr), int(plen), int(cap), int(min_block), int(max_block),
             float(smooth_alpha), 1.0 / plen, half, 1.0 / half,
             torch.cuda.current_stream(dev).cuda_stream,

@@ -69,8 +69,8 @@ def fmaf(a, b, c):
     # midpoint (its low 29 mantissa bits 1000...0) that p + c is not on: step
     # s one float64 ulp towards p + c there
     mid = (s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000
-    towards = torch.where(err > 0, torch.inf, -torch.inf).double()
-    s = torch.where(mid & (err != 0), torch.nextafter(s, towards), s)
+    # err * inf is +-inf where err is not 0 (the only places it is used)
+    s = torch.where(mid & (err != 0), torch.nextafter(s, err * torch.inf), s)
     return s.float()
 
 

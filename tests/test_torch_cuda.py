@@ -101,6 +101,22 @@ def test_ladder_kernel_matches_plain(cuda, C):
     torch.testing.assert_close(s, s_ref, rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("os_n", [1, 3, 4])
+def test_ladder_kernel_instantiations_match_plain(cuda, os_n):
+    """os_n 1 and 4 take their own instantiations, 3 the generic one; C = 33
+    leaves a partial warp. Bit for bit."""
+    from pygmu2_tpu_torch.ops import ladder
+
+    T, C = 1024, 33
+    x, al, qa, ki, dsc, st = _seeded(cuda, os_n, (T, C), (T,), (T,), (T,), (T,), (9, C))
+    al, ki = al.abs() * 0.5 + 0.05, ki.abs() * 3.0
+    kw = dict(os_n=os_n, pbg=0.5, mode_index=os_n, input_threshold=1e-5, state_decay=0.95)
+    got = ladder.ladder_scan(x, al, qa, ki, dsc, st, **kw)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ladder.ladder_scan_ref(x, al, qa, ki, dsc, st, **kw)):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("C", [1, 128])
 def test_comb_kernel_matches_plain(cuda, C):
     from pygmu2_tpu_torch.ops import comb

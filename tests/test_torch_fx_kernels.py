@@ -156,11 +156,11 @@ ECHO_KW = dict(sr=float(ECHO_SR), plen=ECHO_PLEN, cap=ECHO_CAP, min_block=64,
                max_block=ECHO_CAP - 1, smooth_alpha=1 / 2400)
 
 
-def _echo_inputs(T, C, ratio, alt, seed, modulated=False):
+def _echo_inputs(T, C, ratio, alt, seed, modulated=False, block_s=0.02):
     rng = np.random.default_rng(seed)
     x = (rng.standard_normal((T, C)) * 0.3).astype(np.float32)
     t = np.arange(T, dtype=np.float32)
-    blk = np.full(T, 0.02, np.float32)  # 160-sample blocks
+    blk = np.full(T, block_s, np.float32)  # 0.02: 160-sample blocks
     if modulated:  # block length, pitch and feedback move per sample
         blk = (0.02 + 0.01 * np.sin(t / 211.0)).astype(np.float32)
         ratio = np.maximum(1.0 + 0.5 * np.sin(t / 97.0), 0.001).astype(np.float32)
@@ -170,7 +170,7 @@ def _echo_inputs(T, C, ratio, alt, seed, modulated=False):
         fb = np.full(T, 0.6, np.float32)
     alt = np.full(T, alt, np.float32)
     misc = np.zeros(9, np.float32)
-    init_block = float(min(max(0.02 * ECHO_SR, 64), ECHO_CAP - 1))
+    init_block = float(min(max(block_s * ECHO_SR, 64), ECHO_CAP - 1))
     misc[0], misc[5], misc[6], misc[8] = 1, init_block, int(init_block), 1
     rings = [np.zeros((ECHO_CAP, C), np.float32), np.zeros((ECHO_CAP, C), np.float32),
              np.zeros((ECHO_PLEN, C), np.float32)]
@@ -202,6 +202,48 @@ def test_reverse_echo_plain_matches_jax(case, C):
 def test_reverse_echo_state_handoff_matches_one_call():
     args = [_t(a) for a in _echo_inputs(900, 2, ratio=1.5, alt=1.0, seed=4)]
     _equal(*_handoff(reverse_echo.reverse_echo_scan, 5, args, 333, ECHO_KW))
+
+
+def _mid_period(args, seed):
+    """``args`` with a call that starts mid-period: a state part way into a
+    block, with the previous block and the pitch line holding audio."""
+    rng = np.random.default_rng(seed)
+    for k in (5, 6, 7):  # buf_a, buf_b, the pitch line
+        args[k] = (rng.standard_normal(args[k].shape) * 0.3).astype(np.float32)
+    # cur_is_a, p_wpos, p_rpos, w_idx, r_idx, smoothed, cur_block,
+    # prev_block, reverse
+    args[8] = np.array([0, 57, 13.7, 40, 40, 160, 160, 150, 0], np.float32)
+    return args
+
+
+# the kernel's period decomposition: (T, C, inputs) beside ECHO_CASES
+ECHO_PERIOD_CASES = {
+    **{f"{name}_C{C}": (1200 if C == 1 else 700, C, kw, False)
+       for name, kw in ECHO_CASES.items() for C in (1, 3)},
+    # min_block: 64-sample periods
+    "min_block_C1": (1200, 1, dict(ratio=1.5, alt=1.0, block_s=64 / ECHO_SR), False),
+    "min_block_C3": (700, 3, dict(ratio=1.0, alt=0.0, block_s=64 / ECHO_SR), False),
+    "mid_period_C1": (1200, 1, dict(ratio=1.5, alt=1.0), True),
+    "mid_period_C3": (700, 3, dict(ratio=1.0, alt=0.0, modulated=True), True),
+    # fewer samples than the pitch line's slots
+    "short_C3": (ECHO_PLEN - 33, 3, dict(ratio=0.75, alt=0.0), True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ECHO_PERIOD_CASES))
+def test_reverse_echo_periods_equal_plain(case):
+    """The kernel's order (a control table, then each block period's
+    samples together, the pitch line gathered from the input) equals the
+    plain per-sample loop bit for bit."""
+    T, C, kw, mid = ECHO_PERIOD_CASES[case]
+    args = _echo_inputs(T, C, seed=C + 7, **kw)
+    if mid:
+        args = _mid_period(args, seed=C)
+    args = [_t(a) for a in args]
+    want = reverse_echo.reverse_echo_scan_ref(*args, **ECHO_KW)
+    got = reverse_echo.reverse_echo_scan_periods(*args, **ECHO_KW)
+    assert want[0].abs().max() > 1e-3  # the echo fired
+    _equal(got, want)
 
 
 # ---- the filters' order-2 scan at near-unit poles ----------------------------

@@ -19,12 +19,15 @@ Drives the port's three main paths through their user entry points:
    plain versions on the card, with a two-call state hand-off: the ladder
    bit for bit at os_n in {1, 2, 4, 3} (3 takes the kernel's generic
    instantiation, the others their own) and C in {1, 33, 128} (33: a
-   partial warp), T = 4096 (os_n <= 2) or 2048; the comb at C in {1, 128},
-   T = 4096, at a constant and a modulated frequency, and the ADSR gated
-   and triggered with a gate of many edges; max abs error <= 1e-5
-   (comb), <= 1e-6 (ADSR). At the main path's block, T = 16384 (C in
-   {1, 128}), each is held to its plain version again and timed with CUDA
-   events (the plain version's one call times it), beside its bound;
+   partial warp), T = 4096 (os_n <= 2) or 2048; the comb bit for bit at
+   C in {1, 23, 128}, T = 4096, at a constant and a modulated frequency, a
+   delay that jumps across window edges, and delays of 1, 2 and 7 samples;
+   the ADSR gated and triggered (sustain counts 2206, 1 and 2**24) with a
+   gate of many edges, within 1e-6, and its absolute-clock machine at
+   sustain_samples 0 and 2**24 - 1 bit for bit (from the first state and
+   mid-sustain). At the main path's block, T = 16384 (C in {1, 128}), each
+   is held to its plain version again and timed with CUDA events (the
+   plain version's one call times it), beside its bound;
 6. end to end through ``render_to_array(device="cuda")``: the subtractive
    patch for 60 s and the 128-channel bank for 10 s
    (``pygmu2_tpu_torch/patch_workload.py``, default block 16384). Each
@@ -35,13 +38,15 @@ Drives the port's three main paths through their user entry points:
 7. the effects chain's four serial kernels (Karplus-Strong, envelope
    follower, slew limiter, reverse echo) against their plain versions on
    the card at T = 4096, with a two-call state hand-off: the string at
-   L in {7, 535}, the follower at C in {1, 128}, the slew limiter in both
+   L in {2, 7, 133, 535, 51201} (51201: longer than shared memory holds)
+   with act starting mid-call, all set, none set and with gaps, handed
+   off at a window's edge; the follower at C in {1, 128}, the slew limiter in both
    modes, and the echo (cap 22050) at C in {1, 128} with 10 ms blocks a
    fifth up, alternating direction, a modulated block length, pitch and
    feedback, 64-sample (min_block) blocks, and a call that starts
    mid-period with a previous block and a pitch line of noise. At the
    main path's block, T = 16384, on the arguments that are timed (the string at
-   L = 535; the follower and the echo at C in {1, 128}, the echo
+   L = 535 and 133; the follower and the echo at C in {1, 128}, the echo
    replaying a 0.3 s block from its first sample; the slew limiter in
    both modes), each is held to its plain version again and timed (CUDA
    events, mean of 10 after a warm-up; the plain version's one call),
@@ -411,12 +416,18 @@ def serial_kernels(dev, card, device_ms) -> dict:
         (ki,) = _seeded(dev, seed + 2, (T,), lo=0.0, hi=3.2)
         return x, al, qa * 0.1 + 1.0, ki, dsc + 1.5, st * 0.1
 
-    def comb_args(T, C, seed, modulated):
+    def comb_args(T, C, seed, modulated=False, jumps=False, delay=None):
+        """Constant 220 Hz, or ``modulated`` (200-240 Hz noise), or ``jumps``
+        (150 and 300 Hz alternating every 500 samples: with a fast smoother
+        the delay halves and doubles within a window), or a constant
+        ``delay`` in samples."""
         x, fb, buf = _seeded(dev, seed, (T, C), (T,), (L, C))
         if modulated:
             (freq,) = _seeded(dev, seed + 1, (T,), lo=200.0, hi=240.0)
+        elif jumps:
+            freq = 150.0 + 150.0 * ((torch.arange(T, device=dev) // 500) % 2).float()
         else:
-            freq = torch.full((T,), 220.0, device=dev)
+            freq = torch.full((T,), SR / delay if delay else 220.0, device=dev)
         return (x, freq, fb * 0.7, buf * 0.1, torch.tensor(3, dtype=torch.int32, device=dev),
                 torch.tensor(-1.0, device=dev))
 
@@ -465,22 +476,29 @@ def serial_kernels(dev, card, device_ms) -> dict:
         "bound_ms": ms_bound, "bound_by": by, "shape": f"T={BLOCK} C={C}",
     }
 
-    # ---- comb ----
+    # ---- comb: bit for bit; windows of ~200 samples (modulated), a delay
+    # that jumps across window edges, and delays 1, 2, 7 (the serial walk) ----
     errs = []
-    for C in (1, 128):
-        for modulated in (False, True):
-            what = f"C={C} T={T} {'modulated' if modulated else 'constant'} frequency"
-            args = comb_args(T, C, seed=C, modulated=modulated)
-            got = comb.comb_scan(*args, **comb_kw)
+    for C in (1, 23, 128):
+        cases = {"constant frequency": dict(modulated=False),
+                 "modulated": dict(modulated=True),
+                 "jumping delay": dict(jumps=True)}
+        cases.update({f"delay {d}": dict(delay=d) for d in (1, 2, 7)})
+        for what, opts in cases.items():
+            args = comb_args(T, C, seed=C, **opts)
+            kw = dict(comb_kw, smooth_alpha=0.5) if "jumps" in opts else comb_kw
+            got = comb.comb_scan(*args, **kw)
             torch.cuda.synchronize()
-            errs.append(compare("comb_scan", got, comb.comb_scan_ref(*args, **comb_kw), 1e-5, what))
+            errs.append(compare("comb_scan", got, comb.comb_scan_ref(*args, **kw), 0.0,
+                                f"C={C} T={T} {what}"))
+        args = comb_args(T, C, seed=C, modulated=True)
         got, ref = handoff(comb.comb_scan, comb.comb_scan_ref, args, T // 2, 3, comb_kw)
-        errs.append(compare("comb_scan", got, ref, 1e-5, f"C={C} two-call hand-off"))
+        errs.append(compare("comb_scan", got, ref, 0.0, f"C={C} two-call hand-off"))
     times = {}
     for C in (1, 128):  # the main path's block: timed, and held to plain
         args = comb_args(BLOCK, C, seed=10 + C, modulated=True)
         ref, plain_ms = timed_plain(lambda: comb.comb_scan_ref(*args, **comb_kw))
-        errs.append(compare("comb_scan", comb.comb_scan(*args, **comb_kw), ref, 1e-5,
+        errs.append(compare("comb_scan", comb.comb_scan(*args, **comb_kw), ref, 0.0,
                             f"C={C} T={BLOCK}"))
         times[C] = (device_ms(lambda: comb.comb_scan(*args, **comb_kw), 10), plain_ms)
         print(f"comb_scan T={BLOCK} C={C} L={L}: kernel {times[C][0]:.4f} ms, "
@@ -497,28 +515,62 @@ def serial_kernels(dev, card, device_ms) -> dict:
 
     # ---- ADSR ----
     errs = []
-    for triggered in (False, True):
-        kw = dict(adsr_kw, sustain_samples=2206 if triggered else None)
-        what = "triggered" if triggered else "gated"
-        args = gate_args(T, triggered)
+    for S in (None, 2206, 1, 1 << 24):  # gated, then triggered: sustain counts
+        kw = dict(adsr_kw, sustain_samples=S)
+        what = "gated" if S is None else f"triggered, sustain_samples={S}"
+        args = gate_args(T, S is not None)
         got = adsr.adsr_scan(*args, **kw)
         torch.cuda.synchronize()
         errs.append(compare("adsr_scan", got, adsr.adsr_scan_ref(*args, **kw), 1e-6,
                           f"{what} T={T}"))
         got, ref = handoff(adsr.adsr_scan, adsr.adsr_scan_ref, args, T // 3 + 50, 1, kw)
         errs.append(compare("adsr_scan", got, ref, 1e-6, f"{what} two-call hand-off"))
+    # the absolute-clock machine (AdsrTriggeredPE at sustain_samples + 1 of
+    # 1 and 2**24): bit for bit, from the first state and mid-sustain
+    def clock_args(n, stage, env, ends):
+        trig, _ = gate_args(n, True)
+        return (trig, torch.full((), stage, dtype=torch.int32, device=dev),
+                torch.full((), env, dtype=torch.float64, device=dev),
+                torch.full((), ends, dtype=torch.int64, device=dev))
+
+    for S in (1, 1 << 24):
+        kw = dict(adsr_kw, t0=5000, sustain_samples=S - 1)
+        for start, state in (("first state", (0, 0.0, 0)),
+                             ("mid-sustain", (3, 0.6, 5000 + 700))):
+            args = clock_args(T, *state)
+            got = adsr.adsr_clock_scan(*args, **kw)
+            torch.cuda.synchronize()
+            ref = adsr.adsr_clock_scan_ref(*args, **kw)
+            errs.append(compare("adsr_clock_scan", [got[0], *got[1]], [ref[0], *ref[1]], 0.0,
+                                f"sustain_samples={S - 1} T={T} from the {start}"))
+        first = adsr.adsr_clock_scan(*(a[:T // 3] if a.dim() else a for a in args), **kw)
+        second = adsr.adsr_clock_scan(args[0][T // 3:], *first[1],
+                                      **dict(kw, t0=kw["t0"] + T // 3))
+        errs.append(compare("adsr_clock_scan", [torch.cat([first[0], second[0]]), *second[1]],
+                            [ref[0], *ref[1]], 0.0,
+                            f"sustain_samples={S - 1} two-call hand-off"))
     args = gate_args(BLOCK, False)  # the main path's block: timed, and held to plain
     ref, plain = timed_plain(lambda: adsr.adsr_scan_ref(*args, **adsr_kw))
     errs.append(compare("adsr_scan", adsr.adsr_scan(*args, **adsr_kw), ref, 1e-6,
                         f"gated T={BLOCK}"))
     ms = device_ms(lambda: adsr.adsr_scan(*args, **adsr_kw), 10)
     print(f"adsr_scan T={BLOCK}: kernel {ms:.4f} ms, plain {plain:.1f} ms [{card}]")
+    args = clock_args(BLOCK, 0, 0.0, 0)
+    kw = dict(adsr_kw, t0=0, sustain_samples=0)
+    ref, clock_plain = timed_plain(lambda: adsr.adsr_clock_scan_ref(*args, **kw))
+    got = adsr.adsr_clock_scan(*args, **kw)
+    errs.append(compare("adsr_clock_scan", [got[0], *got[1]], [ref[0], *ref[1]], 0.0,
+                        f"sustain_samples=0 T={BLOCK}"))
+    clock_ms = device_ms(lambda: adsr.adsr_clock_scan(*args, **kw), 10)
+    print(f"adsr_clock_scan T={BLOCK}: kernel {clock_ms:.4f} ms, plain {clock_plain:.1f} ms "
+          f"[{card}]")
     ms_bound, by = bound(4 * (2 * BLOCK + 8), ADSR_OPS * BLOCK)
     out["adsr_scan"] = {
         "source": "pygmu2_tpu_torch/csrc/adsr_scan.cu",
         "replaces": "pygmu2_tpu/ops/adsr_pallas.py:268",
         "max_abs_err": max(errs), "ms": ms, "plain_ms": plain,
         "bound_ms": ms_bound, "bound_by": by, "shape": f"T={BLOCK}",
+        "clock_ms": clock_ms, "clock_plain_ms": clock_plain,
     }
     return out
 
@@ -627,29 +679,43 @@ def fx_kernels(dev, card, device_ms) -> dict:
                 "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": ms_bound, "bound_by": by, "shape": shape}
 
-    # ---- Karplus-Strong: one string (C = 1), short and long ----
-    def ks_args(n, L, seed):
+    # ---- Karplus-Strong: one string (C = 1), from 2 samples (one thread
+    # per sample) to longer than shared memory holds ----
+    def ks_args(n, L, seed, act="start"):
+        """act: the string starts mid-call ("start", as on the main path),
+        "all", "none", or "gaps" (a random third of the samples inactive)."""
         (rho,) = _seeded(dev, seed, (n,), lo=0.99, hi=0.9999)
         (buf,) = _seeded(dev, seed + 1, (L,), lo=-0.3, hi=0.3)
-        act = torch.arange(n, device=dev) >= 100  # the string starts mid-call
-        return (rho, act, buf, torch.tensor(3, dtype=torch.int32, device=dev),
+        t = torch.arange(n, device=dev)
+        (u,) = _seeded(dev, seed + 2, (n,), lo=0.0, hi=1.0)
+        mask = {"start": t >= 100, "all": t >= 0, "none": t < 0, "gaps": u < 2 / 3}[act]
+        return (rho, mask, buf, torch.tensor(3 % L, dtype=torch.int32, device=dev),
                 torch.tensor(0.05, device=dev), torch.tensor(-0.05, device=dev))
 
     errs = []
-    for L in (7, 535):  # 535: the low E string at 44.1 kHz
+    # 535: the low E string at 44.1 kHz; 133: the chain's highest
+    for L in (2, 7, 133, 535, ks.MAX_KERNEL_L + 1):
         kw = dict(L=L, allpass_c=0.35)
+        for act in ("start", "all", "none", "gaps"):
+            args = ks_args(T, L, seed=L, act=act)
+            err, _plain, ref = held("ks_scan", ks.ks_scan, ks.ks_scan_ref, args, kw, 0.0,
+                                    f"L={L} T={T} act {act}")
+            errs.append(err)
+        # the hand-off at a window's edge: the string starts at 100, and
+        # windows hold window_length(L) active samples
         args = ks_args(T, L, seed=L)
-        err, _plain, ref = held("ks_scan", ks.ks_scan, ks.ks_scan_ref, args, kw, 0.0,
-                                f"L={L} T={T}")
-        errs.append(err)
-        got, ref = handoff(ks.ks_scan, None, args, T // 3, 4, kw, ref)
-        errs.append(compare("ks_scan", got, ref, 0.0, f"L={L} two-call hand-off"))
+        cut = 100 + 3 * max(1, ks.window_length(L))
+        got, ref = handoff(ks.ks_scan, ks.ks_scan_ref, args, cut, 4, kw)
+        errs.append(compare("ks_scan", got, ref, 0.0, f"L={L} two-call hand-off at {cut}"))
+    ms_133, _ = timed("ks_scan", ks.ks_scan, ks.ks_scan_ref, ks_args(BLOCK, 133, seed=2),
+                      dict(L=133, allpass_c=0.35), 0.0, "L=133", errs)
     L, kw = 535, dict(L=535, allpass_c=0.35)
     ms, plain_ms = timed("ks_scan", ks.ks_scan, ks.ks_scan_ref, ks_args(BLOCK, L, seed=1),
                          kw, 0.0, f"L={L}", errs)
     out["ks_scan"] = entry(
         "ks_scan.cu", "pygmu2_tpu/ops/ks_pallas.py:115", errs, ms, plain_ms,
         5 * BLOCK + 4 * (2 * L + 6), KS_OPS * BLOCK, f"T={BLOCK} L={L} C=1")
+    out["ks_scan"]["ms_L133"] = ms_133
 
     # ---- envelope follower: the wah's attack and release ----
     env_kw = dict(atk=1.0 - np.exp(-1.0 / (0.005 * SR)), rel=1.0 - np.exp(-1.0 / (0.08 * SR)))

@@ -95,6 +95,7 @@ def load() -> ctypes.CDLL:
     """The built library with its C functions' signatures declared."""
     lib = ctypes.CDLL(str(build()))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    q, d = ctypes.c_longlong, ctypes.c_double
     signatures = {
         # rows_f, rows_i, wave, L, state_in, out, state_out, scratch, B, P, N, stream
         "osc_filter_gain_mix_launch": [p, p, p, i, p, p, p, p, i, i, i, p],
@@ -102,14 +103,17 @@ def load() -> ctypes.CDLL:
         # mode_index, input_threshold, state_decay, stream
         "ladder_scan_launch": [p] * 8 + [i, i, i, f, i, f, f, p],
         # x, freq, fb, buf_in, pos_in, sf_in, y, buf_out, pos_out, sf_out,
-        # T, C, L, sr, smooth_alpha, stream
-        "comb_scan_launch": [p] * 10 + [i, i, i, f, f, p],
+        # delay, bounds, n_windows, T, C, L, sr, smooth_alpha, stream
+        "comb_scan_launch": [p] * 13 + [i, i, i, f, f, p],
         # gate, state_in, env, state_out, T, dA, dD, dR, sus,
         # sustain_samples (-1: gated), stream
         "adsr_scan_launch": [p] * 4 + [i, f, f, f, f, i, p],
+        # trig, stage_in, env_in, ends_in, y, stage_out, env_out, ends_out,
+        # T, t0, dA, dD, dR, sus, sustain_samples, stream
+        "adsr_clock_launch": [p] * 8 + [i, q, d, d, d, d, q, p],
         # rho, act, buf_in, r_in, ap_in_in, ap_out_in, y, buf_out, r_out,
-        # ap_in_out, ap_out_out, T, L, allpass_c, stream
-        "ks_scan_launch": [p] * 11 + [i, i, f, p],
+        # ap_in_out, ap_out_out, idx, rho_c, T, L, allpass_c, stream
+        "ks_scan_launch": [p] * 13 + [i, i, f, p],
         # x, env0, env, env_final, T, C, atk, rel, stream
         "envelope_ar_scan_launch": [p] * 4 + [i, i, f, f, p],
         # x, cur_in, y, cur_out, T, linear, p_rise, p_fall, stream

@@ -24,6 +24,17 @@
 // candidate envelope that decides a transition uses explicitly rounded
 // float ops (__fmul_rn, __fadd_rn): a contracted FMA could move a
 // transition by a sample against the plain PyTorch version.
+//
+// A second kernel, adsr_clock, runs the triggered machine where a float32
+// sustain count cannot (a sustain of 0 samples, or 2**24 - 1 and more):
+// the JAX AdsrTriggeredPE's lax.scan branch (pygmu2_tpu/models/
+// envelopes.py:420-435). Per sample it outputs the envelope before the
+// update; a trigger restarts the attack from the current value; one
+// linear step in float64 (attack clips at 1, decay at sus, release at 0);
+// entering SUSTAIN from DECAY arms an absolute deadline, now +
+// sustain_samples, in int64 samples; SUSTAIN at now >= deadline becomes
+// RELEASE. One thread, float64 state in registers (the card's float64
+// adds are exact IEEE operations, as the plain version's Python floats).
 
 #include <cuda_runtime.h>
 
@@ -86,6 +97,50 @@ __global__ void adsr_scan(const float* __restrict__ gate,
   state_out[3] = pg;
 }
 
+__global__ void adsr_clock(const float* __restrict__ trig,
+                           const int* __restrict__ stage_in,
+                           const double* __restrict__ env_in,
+                           const long long* __restrict__ ends_in,
+                           float* __restrict__ y, int* __restrict__ stage_out,
+                           double* __restrict__ env_out,
+                           long long* __restrict__ ends_out, int T, long long t0,
+                           double dA, double dD, double dR, double sus,
+                           long long sustain_samples) {
+  enum { kI = 0, kA = 1, kD = 2, kS = 3, kR = 4 };
+  int stage = *stage_in;
+  double env = *env_in;
+  long long ends = *ends_in;
+#pragma unroll 4
+  for (int t = 0; t < T; ++t) {
+    const long long now = t0 + t;
+    y[t] = __double2float_rn(env);
+    if (trig[t] > 0.0f) stage = kA;
+    double env2 = env;
+    int stage2 = stage;
+    if (stage == kI) {
+      env2 = 0.0;
+    } else if (stage == kA) {
+      env2 = __dadd_rn(env, dA);
+      if (env2 >= 1.0) { env2 = 1.0; stage2 = kD; }
+    } else if (stage == kD) {
+      env2 = __dadd_rn(env, dD);
+      if (env2 <= sus) { env2 = sus; stage2 = kS; }
+    } else if (stage == kS) {
+      env2 = sus;
+    } else {
+      env2 = __dadd_rn(env, dR);
+      if (env2 <= 0.0) { env2 = 0.0; stage2 = kI; }
+    }
+    if (stage == kD && stage2 == kS) ends = now + sustain_samples;
+    if (stage2 == kS && now >= ends) stage2 = kR;
+    stage = stage2;
+    env = env2;
+  }
+  *stage_out = stage;
+  *env_out = env;
+  *ends_out = ends;
+}
+
 }  // namespace
 
 extern "C" {
@@ -98,6 +153,21 @@ int adsr_scan_launch(const float* gate, const float* state_in, float* env,
                      float sus, int sustain_samples, cudaStream_t stream) {
   adsr_scan<<<1, 1, 0, stream>>>(gate, state_in, env, state_out, T, dA, dD, dR,
                                  sus, sustain_samples);
+  return (int)cudaGetLastError();
+}
+
+// Enqueues one launch of the absolute-clock machine (one thread); returns
+// its cudaError_t. Device pointers: trig / y (T,) f32, stage () i32, env
+// () f64, ends () i64, in and out. t0: the absolute index of trig[0].
+int adsr_clock_launch(const float* trig, const int* stage_in,
+                      const double* env_in, const long long* ends_in, float* y,
+                      int* stage_out, double* env_out, long long* ends_out,
+                      int T, long long t0, double dA, double dD, double dR,
+                      double sus, long long sustain_samples,
+                      cudaStream_t stream) {
+  adsr_clock<<<1, 1, 0, stream>>>(trig, stage_in, env_in, ends_in, y, stage_out,
+                                  env_out, ends_out, T, t0, dA, dD, dR, sus,
+                                  sustain_samples);
   return (int)cudaGetLastError();
 }
 

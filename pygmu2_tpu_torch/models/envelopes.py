@@ -14,8 +14,10 @@ parallel ``ops/linrec.affine_scan_1``; the asymmetric follower runs in
 ``ops/envelope.envelope_ar_scan`` for any channel count. Both ADSRs run
 the state machine in ``ops/adsr.adsr_scan`` for any number of gate edges;
 the JAX package's edge-tiered closed form (``ops/adsr_block.py``) is a TPU
-workaround for a slow ``lax.scan`` and equals the machine to 1e-5. Both
-are hand-written kernels on the card.
+workaround for a slow ``lax.scan`` and equals the machine to 1e-5.
+AdsrTriggeredPE with a sustain outside 1 .. 2**24 - 2 samples runs, as the
+JAX PE does, the absolute-clock machine of its ``lax.scan`` branch
+(``ops/adsr.adsr_clock_scan``). All are hand-written kernels on the card.
 """
 
 from __future__ import annotations
@@ -261,13 +263,17 @@ class AdsrTriggeredPE(_AdsrBase):
         # output lands at entry + S + 2. The count-based expiry fires one
         # sample earlier; S + 1 aligns them.
         S = self._sustain_samples + 1
-        if not 1 < S < (1 << 24):
-            raise NotImplementedError(
-                f"AdsrTriggeredPE with {self._sustain_samples} sustain samples: "
-                "the port runs sustain times of 1 .. 2**24 - 2 samples"
-            )
         kw = self._slopes()
         t0 = ctx.start
+        if not 1 < S < (1 << 24):
+            # outside the float32 count's range, the JAX PE's lax.scan
+            # branch: an absolute clock, its state carried as it is
+            y, (stage, env, ends) = _adsr.adsr_clock_scan(
+                trig.to(torch.float32).contiguous(), st["stage"], st["env"],
+                st["sustain_ends_at"], t0=t0, sustain_samples=self._sustain_samples, **kw,
+            )
+            ctx.set_state(self, {"stage": stage, "env": env, "sustain_ends_at": ends})
+            return y[:, None]
         # the absolute sustain deadline as a samples-since-entry count:
         # n_pre(t0) = S - 1 - (ends_at - t0), clamped into [0, S-1]
         n0 = torch.where(

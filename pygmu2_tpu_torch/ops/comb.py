@@ -13,6 +13,10 @@ delay is round(sr / sf) clipped to [1, L-1], and
   ``comb_scan.launches``; for CPU tensors it runs the plain version.
 - ``comb_scan_ref`` is the plain PyTorch version: a per-sample loop with
   the JAX package's ``comb_scan_ref`` op order, float32.
+- ``comb_scan_windows`` computes the same in the kernel's order (tests
+  only): the smoother alone, serially; every sample's delay from it;
+  windows cut greedily so that no sample of a window reads a value the
+  window writes; then each window's samples and channels at once.
 """
 
 from __future__ import annotations
@@ -43,14 +47,48 @@ def comb_scan_ref(x, freq, fb, buf, pos, sf, *, L, sr, smooth_alpha):
     return torch.stack(ys), buf, pos_out, sf
 
 
+def comb_scan_windows(x, freq, fb, buf, pos, sf, *, L, sr, smooth_alpha):
+    """:func:`comb_scan_ref` in the kernel's order (same arguments and
+    result, equal bit for bit)."""
+    dev = x.device
+    T = x.shape[0]
+    # the control pass: only the smoother is serial
+    sf = torch.as_tensor(sf, dtype=torch.float32, device=dev).reshape(())
+    sfs = []
+    for fi in freq.tolist():
+        sf = torch.where(sf < 0.0, fi, sf + (fi - sf) * smooth_alpha)
+        sfs.append(sf)
+    sr32 = torch.tensor(sr, dtype=torch.float32, device=dev)
+    smoothed = torch.stack(sfs) if sfs else torch.zeros((0,), device=dev)
+    delay = torch.round(sr32 / smoothed.clamp(min=1.0)).to(torch.int32).clamp(1, L - 1)
+    # the tape: Y[q] = buf[(p0 + q) % L] for q < L, Y[L + t] = y[t]; sample t
+    # reads Y[L + t - delay[t]]
+    p0 = int(pos)
+    tape = torch.cat([torch.roll(buf, -p0, dims=0), torch.empty_like(x)])
+    src = torch.arange(T, device=dev) - delay + L
+    # greedy windows: one that starts at t0 runs to the first t with
+    # t - delay[t] >= t0, so each of its samples reads a value written before it
+    bounds, t0 = [0], 0
+    for t, d in enumerate(delay.tolist()):
+        if t - d >= t0:
+            bounds.append(t)
+            t0 = t
+    bounds.append(T)
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        tape[L + a:L + b] = x[a:b] + fb[a:b, None] * tape[src[a:b]]
+    buf_out = torch.roll(tape[T:], (p0 + T) % L, dims=0)
+    pos_out = torch.tensor((p0 + T) % L, dtype=torch.int32, device=dev)
+    return tape[L:], buf_out, pos_out, sf
+
+
 def comb_scan(x, freq, fb, buf, pos, sf, *, L, sr, smooth_alpha):
     """Feedback comb over T samples and C channels.
 
     x: (T, C) f32; freq/fb: (T,) f32; buf: (L, C) f32; pos: () int32;
     sf: () f32 (negative: not yet set). Returns (y (T, C), buf' (L, C),
     pos' () int32, sf' () f32). CPU tensors take the plain version; CUDA
-    tensors launch the kernel (one count in ``comb_scan.launches`` per
-    call) or raise.
+    tensors launch the kernel (its two passes, one count in
+    ``comb_scan.launches`` per call) or raise.
     """
     kw = dict(L=L, sr=sr, smooth_alpha=smooth_alpha)
     if x.device.type == "cpu":
@@ -80,12 +118,17 @@ def _launch(x, freq, fb, buf, pos, sf, *, L, sr, smooth_alpha):
     buf_out = torch.empty((L, C), dtype=torch.float32, device=dev)
     pos_out = torch.empty((), dtype=torch.int32, device=dev)
     sf_out = torch.empty((), dtype=torch.float32, device=dev)
+    # scratch: the control pass's per-sample delays and window starts
+    delay = torch.empty((T,), dtype=torch.int32, device=dev)
+    bounds = torch.empty((T + 1,), dtype=torch.int32, device=dev)
+    n_windows = torch.empty((1,), dtype=torch.int32, device=dev)
     lib = _ext.load()
     with torch.cuda.device(dev):
         err = lib.comb_scan_launch(
             x.data_ptr(), freq.data_ptr(), fb.data_ptr(), buf.data_ptr(),
             pos.data_ptr(), sf.data_ptr(), y.data_ptr(), buf_out.data_ptr(),
-            pos_out.data_ptr(), sf_out.data_ptr(), T, C, L, float(sr),
+            pos_out.data_ptr(), sf_out.data_ptr(), delay.data_ptr(), bounds.data_ptr(),
+            n_windows.data_ptr(), T, C, L, float(sr),
             float(smooth_alpha), torch.cuda.current_stream(dev).cuda_stream,
         )
     _ext.raise_on_error(err, "comb_scan")

@@ -134,6 +134,25 @@ def test_comb_kernel_matches_plain(cuda, C):
         torch.testing.assert_close(g, r, rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("delay,C", [(1, 1), (1, 23), (2, 23), (220, 23)])
+def test_comb_kernel_short_delays_and_odd_width(cuda, delay, C):
+    """Delay 1 (every window one sample: the serial walk) and C = 23 (a
+    partial channel group); bit for bit."""
+    from pygmu2_tpu_torch.ops import comb
+
+    T, L = 2048, 2206
+    x, fb, buf = _seeded(cuda, delay + C, (T, C), (T,), (L, C))
+    freq = torch.full((T,), 44100.0 / delay, device=cuda)
+    state = (torch.tensor(2200, dtype=torch.int32, device=cuda), torch.tensor(-1.0, device=cuda))
+    kw = dict(L=L, sr=44100.0, smooth_alpha=1 / 2400)
+    before = comb.comb_scan.launches
+    got = comb.comb_scan(x, freq, fb * 0.9, buf, *state, **kw)
+    torch.cuda.synchronize()
+    assert comb.comb_scan.launches == before + 1
+    for g, r in zip(got, comb.comb_scan_ref(x, freq, fb * 0.9, buf, *state, **kw)):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("sustain_samples", [None, 300], ids=["gated", "triggered"])
 def test_adsr_kernel_matches_plain(cuda, sustain_samples):
     from pygmu2_tpu_torch.ops import adsr
@@ -150,6 +169,25 @@ def test_adsr_kernel_matches_plain(cuda, sustain_samples):
     env_ref, s_ref = adsr.adsr_scan_ref(gate, state, **kw)
     torch.testing.assert_close(env, env_ref, rtol=0, atol=1e-6)
     torch.testing.assert_close(s, s_ref, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("sustain_samples", [0, 2**24 - 1])
+def test_adsr_clock_kernel_matches_plain(cuda, sustain_samples):
+    from pygmu2_tpu_torch.ops import adsr
+
+    trig = torch.zeros(4096, device=cuda)
+    trig[[10, 900, 905, 3000]] = 1.0
+    state = (torch.tensor(3, dtype=torch.int32, device=cuda),
+             torch.tensor(0.6, dtype=torch.float64, device=cuda),
+             torch.tensor(12345 + 5, dtype=torch.int64, device=cuda))
+    kw = dict(t0=12345, dA=1 / 441.0, dD=-0.4 / 882.0, dR=-0.6 / 2205.0, sus=0.6,
+              sustain_samples=sustain_samples)
+    before = adsr.adsr_clock_scan.launches
+    y, st = adsr.adsr_clock_scan(trig, *state, **kw)
+    torch.cuda.synchronize()
+    assert adsr.adsr_clock_scan.launches == before + 1
+    y_ref, st_ref = adsr.adsr_clock_scan_ref(trig, *state, **kw)
+    assert torch.equal(y, y_ref) and all(torch.equal(a, b) for a, b in zip(st, st_ref))
 
 
 def test_patch_render_on_card_matches_cpu(cuda):
@@ -191,10 +229,12 @@ def test_ks_kernel_matches_plain(cuda):
         ref = ks.ks_scan_ref(rho, act, buf, *state, **kw)
         for g, r in zip(got, ref):
             torch.testing.assert_close(g, r, rtol=0, atol=0)
-    # a string too long for shared memory is refused, not run another way
+    # a string too long for shared memory runs from global memory, bit for bit
     L = ks.MAX_KERNEL_L + 1
-    with pytest.raises(ValueError):
-        ks.ks_scan(rho, act, torch.zeros(L, device=cuda), *state, L=L, allpass_c=0.35)
+    (buf,) = _seeded(cuda, 5, (L,))
+    got = ks.ks_scan(rho, act, buf, *state, L=L, allpass_c=0.35)
+    for g, r in zip(got, ks.ks_scan_ref(rho, act, buf, *state, L=L, allpass_c=0.35)):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("C", [1, 128])

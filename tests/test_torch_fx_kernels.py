@@ -75,6 +75,52 @@ def test_ks_plain_matches_jax(T, L):
     assert got[2].dtype == torch.int32 and int(got[2]) == int(want[2])
 
 
+# the kernel's windows: the strings of the card's cases (2 and 7: one
+# thread per sample; 133 and 535: the chain's highest and lowest; one
+# longer than shared memory holds), each with four activity masks
+KS_WINDOW_LENGTHS = [2, 7, 133, 535, ks.MAX_KERNEL_L + 1]
+KS_MASKS = ["start", "all", "none", "gaps"]
+
+
+def _ks_window_inputs(L, mask, T=2000):
+    rho, act, buf = _ks_inputs(T, L, seed=L)
+    act = {"start": act, "all": np.ones(T, bool), "none": np.zeros(T, bool),
+           "gaps": np.random.default_rng(L + 1).random(T) < 2 / 3}[mask]
+    return rho, act, buf
+
+
+@pytest.mark.parametrize("mask", KS_MASKS)
+@pytest.mark.parametrize("L", KS_WINDOW_LENGTHS)
+def test_ks_windows_equal_plain_and_jax(L, mask):
+    """The kernel's order (the active samples compacted, a window's
+    averages at once, then the allpass's serial chain) equals the plain
+    per-sample loop bit for bit, and the JAX reference within 1e-5."""
+    rho, act, buf = _ks_window_inputs(L, mask)
+    kw = dict(L=L, allpass_c=0.35)
+    r = 3 % L
+    args = (_t(rho), _t(act), _t(buf), torch.tensor(r, dtype=torch.int32),
+            torch.tensor(0.1), torch.tensor(-0.2))
+    want = ks.ks_scan_ref(*args, **kw)
+    _equal(ks.ks_scan_windows(*args, **kw), want)
+    jax_want = jax.jit(jax_ks_ref, static_argnames=("L", "allpass_c"))(
+        jnp.asarray(rho), jnp.asarray(act), jnp.asarray(buf), jnp.int32(r),
+        jnp.float32(0.1), jnp.float32(-0.2), **kw,
+    )
+    for g, w in zip(want, jax_want):
+        _close(g, w, 1e-5)
+
+
+@pytest.mark.parametrize("L", KS_WINDOW_LENGTHS)
+def test_ks_windows_handoff_at_a_window_edge(L):
+    """Two calls cut at a window's edge (the string starts at 37) equal one."""
+    rho, act, buf = _ks_window_inputs(L, "start")
+    args = (_t(rho), _t(act), _t(buf), torch.tensor(0, dtype=torch.int32),
+            torch.tensor(0.0), torch.tensor(0.0))
+    cut = 37 + 3 * max(1, ks.window_length(L))
+    got, _ = _handoff(ks.ks_scan_windows, 2, args, cut, dict(L=L, allpass_c=0.6))
+    _equal(got, ks.ks_scan_ref(*args, L=L, allpass_c=0.6))
+
+
 @pytest.mark.parametrize("L", [7, 171])
 def test_ks_state_handoff_matches_one_call(L):
     rho, act, buf = _ks_inputs(900, L, seed=L)

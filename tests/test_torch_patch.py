@@ -82,10 +82,40 @@ def test_pe_matches_jax(name):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
 
+# AdsrTriggeredPE outside the float32 count's range (a sustain of 0
+# samples, or 2**24 - 1 and more): the JAX PE's lax.scan branch in both
+CLOCK_PES = {
+    "sustain_0_periodic": lambda pg: pg.CropPE(
+        pg.AdsrTriggeredPE(pg.PeriodicTrigger(hz=5.0), 0.005, 0.01, 0.0, 0.7, 0.01), 0, 3000
+    ),
+    # one trigger, A = D = 1 ms, R = 10 ms: the JAX render peaks at 1.0
+    "sustain_0_one_trigger": lambda pg: pg.AdsrTriggeredPE(
+        pg.ArrayPE(np.array([1.0] + [0.0] * 999, np.float32)),
+        attack_time=0.001, decay_time=0.001, sustain_time=0.0, release_time=0.01,
+    ),
+    "sustain_2_24_minus_1": lambda pg: pg.CropPE(
+        pg.AdsrTriggeredPE(pg.PeriodicTrigger(hz=30.0), 0.002, 0.003, (2**24 - 1) / 44100,
+                           0.6, 0.01), 0, 3000,
+    ),
+}
+
+
+def _clock_case(name, block):
+    want = _render(jpg, CLOCK_PES[name](jpg), block)
+    got = _render(tpg, CLOCK_PES[name](tpg), block)
+    assert got.shape == want.shape and np.abs(want).max() == 1.0
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
 def test_adsr_triggered_outside_the_kernels_range_raises():
-    graph = tpg.CropPE(tpg.AdsrTriggeredPE(tpg.PeriodicTrigger(hz=5.0), sustain_time=0.0), 0, 64)
-    with pytest.raises(NotImplementedError, match="sustain samples"):
-        tpg.render_to_array(graph, device="cpu")
+    """Once refused; now a sustain of 0 samples renders as the JAX PE's."""
+    _clock_case("sustain_0_periodic", 1024)
+
+
+@pytest.mark.parametrize("name", ["sustain_0_one_trigger", "sustain_2_24_minus_1"])
+def test_adsr_triggered_clock_matches_jax(name):
+    assert round((2**24 - 1) / 44100 * 44100) == 2**24 - 1  # the case's sustain samples
+    _clock_case(name, 1024)
 
 
 def _build(pg, which):

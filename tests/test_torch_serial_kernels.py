@@ -109,6 +109,66 @@ def test_comb_state_handoff_matches_one_call():
     assert torch.equal(s2, one[3])
 
 
+# the kernel's windows: (frequency kind, smoothing) beside the card's
+# cases, each at C = 1, 23 (a partial channel group) and 128
+COMB_WINDOW_CASES = {
+    "modulated": ("modulated", 1 / 2400),
+    "jumping_delay": ("jumps", 0.5),  # the delay halves and doubles mid-window
+    "delay_1": (1, 1 / 2400),
+    "delay_2": (2, 1 / 2400),
+    "delay_7": (7, 1 / 2400),
+}
+
+
+def _comb_window_inputs(case, C, T=1500, L=2206):
+    kind, alpha = COMB_WINDOW_CASES[case]
+    x, freq, fb, buf = _comb_inputs(T, C, L, True, seed=C + len(case))
+    if kind == "modulated":
+        freq = np.random.default_rng(C).uniform(200, 240, T).astype(np.float32)
+    elif kind == "jumps":
+        freq = np.where((np.arange(T) // 300) % 2 == 1, 300.0, 150.0).astype(np.float32)
+    else:
+        freq = np.full(T, SR / kind, np.float32)
+    return (x, freq, fb, buf), dict(L=L, sr=float(SR), smooth_alpha=alpha)
+
+
+@pytest.mark.parametrize("C", [1, 23, 128])
+@pytest.mark.parametrize("case", sorted(COMB_WINDOW_CASES))
+def test_comb_windows_equal_plain_and_jax(case, C):
+    """The kernel's order (the smoother alone, every delay from it, greedy
+    windows, then each window's samples and channels at once) equals the
+    plain per-sample loop bit for bit, and the JAX reference within the
+    file's tolerances."""
+    from pygmu2_tpu.ops.comb_pallas import comb_scan_ref as jax_comb_ref
+
+    arrays, kw = _comb_window_inputs(case, C)
+    state = (torch.tensor(2200, dtype=torch.int32), torch.tensor(-1.0))
+    args = (*(_t(a) for a in arrays), *state)
+    want = comb.comb_scan_ref(*args, **kw)
+    got = comb.comb_scan_windows(*args, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    j = jax.jit(jax_comb_ref, static_argnames=("L", "sr", "smooth_alpha"))(
+        *(jnp.asarray(a) for a in arrays), jnp.int32(2200), jnp.float32(-1.0), **kw
+    )
+    _close(want[0], j[0], 1e-5)
+    _close(want[1], j[1], 1e-5)
+    assert int(want[2]) == int(j[2])
+    _close(want[3], j[3], 1e-4)
+
+
+def test_comb_windows_state_handoff_matches_one_call():
+    arrays, kw = _comb_window_inputs("jumping_delay", 23)
+    args = [_t(a) for a in arrays]
+    state = (torch.tensor(5, dtype=torch.int32), torch.tensor(-1.0))
+    one = comb.comb_scan_ref(*args, *state, **kw)
+    first = comb.comb_scan_windows(*(a[:700] for a in args[:3]), args[3], *state, **kw)
+    second = comb.comb_scan_windows(*(a[700:] for a in args[:3]), *first[1:], **kw)
+    assert torch.equal(torch.cat([first[0], second[0]]), one[0])
+    for g, w in zip(second[1:], one[1:]):
+        assert torch.equal(g, w)
+
+
 def _adsr_params(A=0.01, D=0.02, S=0.6, R=0.05):
     return dict(dA=1.0 / (A * SR), dD=(S - 1.0) / (D * SR), dR=-S / (R * SR), sus=S)
 
@@ -151,6 +211,22 @@ def test_adsr_triggered_plain_matches_pallas(T):
     _close(s, s_j, 1e-6)
 
 
+@pytest.mark.parametrize("S", [1, 1 << 24])
+def test_adsr_triggered_count_limits_match_pallas(S):
+    """Sustain counts at the float32 count's ends, which the card's kernel
+    no longer refuses: the plain version against the JAX kernel."""
+    trig = np.zeros(2048, np.float32)
+    trig[[20, 700, 705, 1500]] = 1.0
+    st = np.array([0.0, 0.0, 0.0, 0.0], np.float32)
+    kw = _adsr_params(A=0.002, D=0.003, S=0.7, R=0.004)
+    y_j, s_j = adsr_scan_pallas(jnp.asarray(trig), jnp.asarray(st), chunk=512,
+                                sustain_samples=S, interpret=True, **kw)
+    y, s = adsr.adsr_scan(_t(trig), _t(st), sustain_samples=S, **kw)
+    assert np.abs(np.asarray(y_j)).max() > 0.5
+    _close(y, y_j, 1e-6)
+    _close(s, s_j, 1e-6)
+
+
 def test_adsr_env_of_state_matches_jax():
     from pygmu2_tpu.ops.adsr_pallas import env_of_state as jax_env_of_state
 
@@ -161,13 +237,20 @@ def test_adsr_env_of_state_matches_jax():
         _close(adsr.env_of_state(_t(st), **kw), want, 1e-7)
 
 
+def _clock_state(device="cpu"):
+    return (torch.zeros((), dtype=torch.int32, device=device),
+            torch.zeros((), dtype=torch.float64, device=device),
+            torch.zeros((), dtype=torch.int64, device=device))
+
+
 def test_wrappers_take_plain_version_on_cpu():
-    before = (ladder.ladder_scan.launches, comb.comb_scan.launches,
-              adsr.adsr_scan.launches)
+    counters = (ladder.ladder_scan, comb.comb_scan, adsr.adsr_scan, adsr.adsr_clock_scan)
+    before = [fn.launches for fn in counters]
     y, _ = adsr.adsr_scan(torch.ones(8), torch.zeros(4), **_adsr_params())
-    assert y.device.type == "cpu"
-    assert (ladder.ladder_scan.launches, comb.comb_scan.launches,
-            adsr.adsr_scan.launches) == before
+    y2, _ = adsr.adsr_clock_scan(torch.ones(8), *_clock_state(), t0=0, sustain_samples=0,
+                                 **_adsr_params())
+    assert y.device.type == y2.device.type == "cpu"
+    assert [fn.launches for fn in counters] == before
 
 
 def test_wrappers_refuse_other_devices():
@@ -182,6 +265,9 @@ def test_wrappers_refuse_other_devices():
                        smooth_alpha=0.1)
     with pytest.raises(ValueError, match="no kernel for device"):
         adsr.adsr_scan(col, col, **_adsr_params())
+    with pytest.raises(ValueError, match="no kernel for device"):
+        adsr.adsr_clock_scan(col, *_clock_state("meta"), t0=0, sustain_samples=0,
+                             **_adsr_params())
 
 
 @pytest.mark.parametrize("n", [1, 15, 16, 17, 1000, 4410, 16384])

@@ -23,11 +23,15 @@ Drives the port's three main paths through their user entry points:
    C in {1, 23, 128}, T = 4096, at a constant and a modulated frequency, a
    delay that jumps across window edges, and delays of 1, 2 and 7 samples;
    the ADSR gated and triggered (sustain counts 2206, 1 and 2**24) with a
-   gate of many edges, within 1e-6, and its absolute-clock machine at
-   sustain_samples 0 and 2**24 - 1 bit for bit (from the first state and
-   mid-sustain). At the main path's block, T = 16384 (C in {1, 128}), each
-   is held to its plain version again and timed with CUDA events (the
-   plain version's one call times it), beside its bound;
+   gate of many edges and one with an edge every sample, on its
+   edge-parallel passes and on its per-sample walk, bit for bit, and its
+   absolute-clock machine at sustain_samples 0 and 2**24 - 1 bit for bit
+   (from the first state and mid-sustain). At the main path's block,
+   T = 16384 (C in {1, 128}), each is held to its plain version again and
+   timed with CUDA events (the plain version's one call times it), beside
+   its bound: the ADSR on the first block of the patch's own gate and
+   trigger (its two PEs' parameters), on the many-edges gate and on the
+   every-sample gate, its kernel alone by torch.profiler's device events;
 6. end to end through ``render_to_array(device="cuda")``: the subtractive
    patch for 60 s and the 128-channel bank for 10 s
    (``pygmu2_tpu_torch/patch_workload.py``, default block 16384). Each
@@ -40,7 +44,7 @@ Drives the port's three main paths through their user entry points:
    the card at T = 4096, with a two-call state hand-off: the string at
    L in {2, 7, 133, 535, 51201} (51201: longer than shared memory holds)
    with act starting mid-call, all set, none set and with gaps, handed
-   off at a window's edge; the follower at C in {1, 128}, the slew limiter in both
+   off at a window's edge; the follower at C in {1, 33, 128}, the slew limiter in both
    modes, and the echo (cap 22050) at C in {1, 128} with 10 ms blocks a
    fifth up, alternating direction, a modulated block length, pitch and
    feedback, 64-sample (min_block) blocks, and a call that starts
@@ -50,7 +54,9 @@ Drives the port's three main paths through their user entry points:
    replaying a 0.3 s block from its first sample; the slew limiter in
    both modes), each is held to its plain version again and timed (CUDA
    events, mean of 10 after a warm-up; the plain version's one call),
-   beside its bound.
+   beside its bound; the follower also alone, by torch.profiler's device
+   events, as the ADSR in phase 5 (their calls are short enough that
+   events around back-to-back calls also count the host's enqueue).
    The first three are held to their plain versions bit for bit
    (explicitly rounded ops in the plain versions' order); the echo within
    1e-6 (its Hann window is cosf in the kernel and torch.cos in the plain
@@ -371,6 +377,26 @@ def timed_plain(fn):
     return result, start.elapsed_time(end)
 
 
+def kernel_ms(fn, key: str, reps: int = 10) -> float:
+    """Mean time on the card of the kernels whose name holds ``key`` over
+    ``reps`` calls, from torch.profiler's device events: the kernel alone,
+    where CUDA events around back-to-back calls would also count the
+    host's enqueue of a short kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [(e.time_range.end - e.time_range.start) / 1e3 for e in prof.events()
+             if e.device_type == DeviceType.CUDA and key in e.name]
+    check(len(times) > 0, f"kernel_ms: no {key} kernel traced")
+    return sum(times) / len(times)
+
+
 def compare(name, got, ref, tol, what):
     err = _err(got, ref)
     print(f"{name} vs plain, {what}: max abs err {err:.3g}")
@@ -391,7 +417,7 @@ def handoff(fn, ref_fn, args, cut, n_state, kw, ref=None):
     n_time = len(args) - n_state
     args, given = _copies(args), args
     first = fn(*(a[:cut] for a in args[:n_time]), *args[n_time:], **kw)
-    second = fn(*(a[cut:] for a in args[:n_time]), *first[1:], **kw)
+    second = fn(*(a[cut:] for a in args[:n_time]), *first[1:1 + n_state], **kw)
     got = (torch.cat([first[0], second[0]]), *second[1:])
     return got, ref if ref is not None else ref_fn(*given, **kw)
 
@@ -431,11 +457,15 @@ def serial_kernels(dev, card, device_ms) -> dict:
         return (x, freq, fb * 0.7, buf * 0.1, torch.tensor(3, dtype=torch.int32, device=dev),
                 torch.tensor(-1.0, device=dev))
 
-    def gate_args(T, triggered):
+    def gate_args(T, triggered, every=False):
+        """Many edges, or an edge every sample (gated: alternating levels;
+        triggered: a trigger every sample)."""
         g = np.zeros(T, np.float32)
         g[100:T // 3] = 1.0
         g[T // 2:T - 100:37] = 1.0  # many edges
-        if triggered:
+        if every:
+            g = np.ones(T, np.float32) if triggered else (np.arange(T) % 2).astype(np.float32)
+        elif triggered:
             g = (np.diff(g, prepend=0.0) > 0).astype(np.float32)
         return torch.from_numpy(g).to(dev), torch.zeros(4, device=dev)
 
@@ -513,18 +543,21 @@ def serial_kernels(dev, card, device_ms) -> dict:
         "bound_ms": ms_bound, "bound_by": by, "shape": f"T={BLOCK} C={C} L={L}",
     }
 
-    # ---- ADSR ----
+    # ---- ADSR: bit for bit (env, state and the carried envelope), on the
+    # edge walk (many edges) and, past 2816 edges a tile, on the per-sample
+    # walk (an edge every sample) ----
     errs = []
     for S in (None, 2206, 1, 1 << 24):  # gated, then triggered: sustain counts
         kw = dict(adsr_kw, sustain_samples=S)
         what = "gated" if S is None else f"triggered, sustain_samples={S}"
-        args = gate_args(T, S is not None)
-        got = adsr.adsr_scan(*args, **kw)
-        torch.cuda.synchronize()
-        errs.append(compare("adsr_scan", got, adsr.adsr_scan_ref(*args, **kw), 1e-6,
-                          f"{what} T={T}"))
-        got, ref = handoff(adsr.adsr_scan, adsr.adsr_scan_ref, args, T // 3 + 50, 1, kw)
-        errs.append(compare("adsr_scan", got, ref, 1e-6, f"{what} two-call hand-off"))
+        for gate, path in (("many edges", "edge walk"), ("an edge every sample", "per-sample walk")):
+            args = gate_args(T, S is not None, every=path == "per-sample walk")
+            ref = adsr.adsr_scan_ref(*args, **kw)
+            got = adsr.adsr_scan(*args, **kw)
+            torch.cuda.synchronize()
+            errs.append(compare("adsr_scan", got, ref, 0.0, f"{what}, {gate} T={T} ({path})"))
+            got, _ = handoff(adsr.adsr_scan, None, args, T // 3 + 50, 1, kw, ref)
+            errs.append(compare("adsr_scan", got, ref, 0.0, f"{what}, {gate}, two-call hand-off"))
     # the absolute-clock machine (AdsrTriggeredPE at sustain_samples + 1 of
     # 1 and 2**24): bit for bit, from the first state and mid-sustain
     def clock_args(n, stage, env, ends):
@@ -549,12 +582,20 @@ def serial_kernels(dev, card, device_ms) -> dict:
         errs.append(compare("adsr_clock_scan", [torch.cat([first[0], second[0]]), *second[1]],
                             [ref[0], *ref[1]], 0.0,
                             f"sustain_samples={S - 1} two-call hand-off"))
-    args = gate_args(BLOCK, False)  # the main path's block: timed, and held to plain
-    ref, plain = timed_plain(lambda: adsr.adsr_scan_ref(*args, **adsr_kw))
-    errs.append(compare("adsr_scan", adsr.adsr_scan(*args, **adsr_kw), ref, 1e-6,
-                        f"gated T={BLOCK}"))
-    ms = device_ms(lambda: adsr.adsr_scan(*args, **adsr_kw), 10)
-    print(f"adsr_scan T={BLOCK}: kernel {ms:.4f} ms, plain {plain:.1f} ms [{card}]")
+    # the main path's block, timed and held to plain: a block of the patch's
+    # own gate and trigger with its two ADSRs' parameters, the many-edges
+    # gate, and an edge every sample
+    times, cases = {}, patch_adsr_blocks(dev)
+    cases["many edges"] = (gate_args(BLOCK, False), adsr_kw)
+    cases["an edge every sample"] = (gate_args(BLOCK, False, every=True), adsr_kw)
+    for what, (args, kw) in cases.items():
+        ref, plain = timed_plain(lambda: adsr.adsr_scan_ref(*args, **kw))
+        errs.append(compare("adsr_scan", adsr.adsr_scan(*args, **kw), ref, 0.0,
+                            f"{what} T={BLOCK}"))
+        times[what] = (kernel_ms(lambda: adsr.adsr_scan(*args, **kw), "adsr_scan"), plain,
+                       device_ms(lambda: adsr.adsr_scan(*args, **kw), 10))
+        print(f"adsr_scan T={BLOCK} {what}: kernel {times[what][0]:.4f} ms (CUDA events over "
+              f"calls: {times[what][2]:.4f} ms), plain {plain:.1f} ms [{card}]")
     args = clock_args(BLOCK, 0, 0.0, 0)
     kw = dict(adsr_kw, t0=0, sustain_samples=0)
     ref, clock_plain = timed_plain(lambda: adsr.adsr_clock_scan_ref(*args, **kw))
@@ -565,13 +606,39 @@ def serial_kernels(dev, card, device_ms) -> dict:
     print(f"adsr_clock_scan T={BLOCK}: kernel {clock_ms:.4f} ms, plain {clock_plain:.1f} ms "
           f"[{card}]")
     ms_bound, by = bound(4 * (2 * BLOCK + 8), ADSR_OPS * BLOCK)
+    ms, plain, events_ms = times["the patch's gate"]
     out["adsr_scan"] = {
         "source": "pygmu2_tpu_torch/csrc/adsr_scan.cu",
         "replaces": "pygmu2_tpu/ops/adsr_pallas.py:268",
         "max_abs_err": max(errs), "ms": ms, "plain_ms": plain,
-        "bound_ms": ms_bound, "bound_by": by, "shape": f"T={BLOCK}",
+        "bound_ms": ms_bound, "bound_by": by, "shape": f"T={BLOCK}, the patch's gate",
+        "ms_trigger": times["the patch's trigger"][0],
+        "ms_many_edges": times["many edges"][0],
+        "ms_every_sample": times["an edge every sample"][0],
+        "events_ms": events_ms,
         "clock_ms": clock_ms, "clock_plain_ms": clock_plain,
     }
+    return out
+
+
+def patch_adsr_blocks(dev) -> dict:
+    """The first block of the patch's two ADSRs: the gate and trigger as
+    the patch renders them, and each PE's own parameters; (args, kwargs)
+    of ``adsr_scan`` from the first state."""
+    import pygmu2_tpu_torch as pg
+    from pygmu2_tpu_torch import patch_workload
+
+    pg.set_sample_rate(SR)
+    out = {}
+    gated, trig = patch_workload.patch_envelopes(pg)
+    for what, pe, src in (("the patch's gate", gated, gated._gate),
+                          ("the patch's trigger", trig, trig._trigger)):
+        g = pg.render_to_array(pg.CropPE(src, 0, BLOCK), block=BLOCK, device=dev)[:, 0]
+        kw = pe._slopes()
+        if pe is trig:
+            kw["sustain_samples"] = pe._sustain_samples + 1  # as AdsrTriggeredPE passes it
+        out[what] = ((torch.from_numpy(np.ascontiguousarray(g)).to(dev),
+                      torch.zeros(4, device=dev)), kw)
     return out
 
 
@@ -728,18 +795,25 @@ def fx_kernels(dev, card, device_ms) -> dict:
     errs, times = [], {}
     name, fn, ref_fn = ("envelope_ar_scan", envelope.envelope_ar_scan,
                         envelope.envelope_ar_scan_ref)
-    for C in (1, 128):
+    for C in (1, 33, 128):  # 33: a partial warp, and a block of one channel 33
+        # apart (4-byte copies); a hand-off's second call has x unaligned
         args = env_args(T, C, seed=C)
         err, _plain, ref = held(name, fn, ref_fn, args, env_kw, 0.0, f"C={C} T={T}")
         errs.append(err)
         got, ref = handoff(fn, None, args, T // 3, 1, env_kw, ref)
         errs.append(compare(name, got, ref, 0.0, f"C={C} two-call hand-off"))
-        times[C] = timed(name, fn, ref_fn, env_args(BLOCK, C, seed=10 + C), env_kw, 0.0,
-                         f"C={C}", errs)
+        if C != 33:
+            args = env_args(BLOCK, C, seed=10 + C)
+            events_ms, plain_ms = timed(name, fn, ref_fn, args, env_kw, 0.0, f"C={C}", errs)
+            ms = kernel_ms(lambda: fn(*args, **env_kw), name)
+            print(f"{name} T={BLOCK} C={C}: kernel alone {ms:.4f} ms [{card}]")
+            times[C] = (ms, plain_ms, events_ms)
     C = 128
     out["envelope_ar_scan"] = entry(
-        "envelope_ar_scan.cu", "pygmu2_tpu/ops/envelope_pallas.py:97", errs, *times[C],
+        "envelope_ar_scan.cu", "pygmu2_tpu/ops/envelope_pallas.py:97", errs, *times[C][:2],
         4 * (2 * BLOCK * C + 2 * C), ENV_OPS * BLOCK * C, f"T={BLOCK} C={C}")
+    out["envelope_ar_scan"].update(ms_C1=times[1][0], events_ms=times[C][2],
+                                   events_ms_C1=times[1][2])
 
     # ---- slew limiter: the wah's centre (LINEAR) and an exponential one ----
     modes = {"linear": dict(linear=True, p_rise=40000.0 / SR, p_fall=8000.0 / SR),

@@ -105,9 +105,9 @@ def load() -> ctypes.CDLL:
         # x, freq, fb, buf_in, pos_in, sf_in, y, buf_out, pos_out, sf_out,
         # delay, bounds, n_windows, T, C, L, sr, smooth_alpha, stream
         "comb_scan_launch": [p] * 13 + [i, i, i, f, f, p],
-        # gate, state_in, env, state_out, T, dA, dD, dR, sus,
+        # gate, state_in, env, state_out, env_next, T, dA, dD, dR, sus,
         # sustain_samples (-1: gated), stream
-        "adsr_scan_launch": [p] * 4 + [i, f, f, f, f, i, p],
+        "adsr_scan_launch": [p] * 5 + [i, f, f, f, f, i, p],
         # trig, stage_in, env_in, ends_in, y, stage_out, env_out, ends_out,
         # T, t0, dA, dD, dR, sus, sustain_samples, stream
         "adsr_clock_launch": [p] * 8 + [i, q, d, d, d, d, q, p],

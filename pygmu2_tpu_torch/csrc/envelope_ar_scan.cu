@@ -13,43 +13,184 @@
 // What bounds it on this card: the dependent chain. At the main path's
 // block (T = 16384) it moves 8 bytes per sample and channel (16.8 MB at
 // C = 128: roofline 5.0 us at 3.35 TB/s) and does 4 ops per sample and
-// channel. Each sample's compare, select, subtract, multiply and add
-// depend on the previous sample's envelope: ~20 cycles, a serial floor of
-// ~0.17 ms per 16384 samples at 1.98 GHz, whatever C. Measured
-// (chip_smoke.py, H100 80GB HBM3, 700 W): 0.47 ms at C = 1, 0.54 ms at
-// C = 128.
+// channel. The coefficient switches on x > e, so the recurrence is not
+// linear and no parallel scan reproduces its roundings: each sample's
+// compare, select, subtract, multiply and add wait for the previous
+// sample's envelope, a serial floor of ~0.16 ms per 16384 samples at
+// 1.98 GHz, whatever C. The first design (one thread per channel reading
+// x from global memory in an unrolled loop, a 64-bit index and a scalar
+// store a sample) measured 0.4755 ms at C = 1 and 0.5497 ms at C = 128
+// (chip_smoke.py, H100 80GB HBM3, 700 W): ~57-66 cycles a sample.
 //
-// What the design does about it: one thread per channel with the
-// envelope in a register; neighbouring threads read neighbouring
-// channels, so each sample's row is one coalesced load, and the loads do
-// not depend on the chain, so the unrolled loop issues them ahead of it.
-// Blocks of 32 channels spread a wide batch over SMs. Explicitly rounded
-// float ops keep the kernel equal to the plain PyTorch version bit for bit
-// (the coefficient switches on x > e: one ulp can flip a sample).
+// What the design does about it: nothing but the chain in the thread that
+// runs it. Each CUDA block is two warps and 32 channels (a bank of 128 on
+// four SMs), as in ladder_scan.cu. The producer warp streams chunks of 64
+// samples of the x rows into a ring of four shared-memory stages with
+// cp.async, each arrival tracked by an mbarrier, and drains the env rows
+// the consumer wrote over them back to global memory once the consumer
+// releases the stage (a second mbarrier), 16 bytes a lane where the rows
+// allow it (see Layout): with 4-byte copies a row the producer, not the
+// chain, set the pace (~35 cycles a row). The consumer warp holds one
+// channel per lane and reads and writes only shared memory: a chunk's 64
+// inputs into registers, then the chain (loads behind stores to a
+// run-time row stride would each wait on the chain).
+//
+// Measured (chip_smoke.py and cycle_probe.py, H100 80GB HBM3, 700 W):
+// ~0.20 ms at C = 1 and at C = 128, ~24.5 cycles a sample in the consumer;
+// the chain's compare, select, subtract, multiply and add take 19.4
+// (cycle_probe: both updates formed and one selected 18.9, about the same;
+// both products formed and one selected, or picked by a mask, 22.4-23.9).
+// Explicitly rounded float ops keep the kernel equal to the plain PyTorch
+// version bit for bit (the coefficient switches on x > e: one ulp can flip
+// a sample).
 
 #include <cuda_runtime.h>
+#include <cstdint>
 
 namespace {
 
-constexpr int kThreads = 32;
+constexpr int kLanes = 32;   // channels per CUDA block: one consumer warp
+constexpr int kChunk = 64;   // samples per ring stage
+constexpr int kStages = 4;
 
-__global__ void envelope_ar_scan(const float* __restrict__ x,
-                                 const float* __restrict__ env0,
-                                 float* __restrict__ env,
-                                 float* __restrict__ env_final, int T, int C,
-                                 float atk, float rel) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  float e = env0[c];
-#pragma unroll 8
-  for (int t = 0; t < T; ++t) {
-    const long i = (long)t * C + c;
-    const float xi = x[i];
-    const float coeff = xi > e ? atk : rel;
-    e = __fadd_rn(e, __fmul_rn(coeff, __fsub_rn(xi, e)));
-    env[i] = e;
+struct Stage {
+  float v[kChunk * kLanes];  // x rows in, env rows out (in place)
+};
+
+__device__ __forceinline__ float step(float e, float x, float atk, float rel) {
+  const float coeff = x > e ? atk : rel;
+  return __fadd_rn(e, __fmul_rn(coeff, __fsub_rn(x, e)));
+}
+
+__device__ __forceinline__ unsigned smem(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n .reg .b64 st;\n mbarrier.arrive.shared::cta.b64 st, [%0];\n}\n"
+               ::"r"(smem(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n .reg .pred done;\n WAIT:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      " @!done bra WAIT;\n}\n" ::"r"(smem(bar)), "r"(parity) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem(bar))
+               : "memory");
+}
+
+// How a chunk's rows move between global and shared memory (each stage
+// holds them `width` floats a row, in the order of global memory):
+// kFlat: the block's channels are all of them, so the chunk is one run of
+// n * C floats; kRows: rows of `width` floats, C apart. The 4 variants move
+// 16 bytes a lane (x and env 16-byte aligned; kRows4 takes rows of 32
+// channels with C % 4 == 0).
+enum Layout { kFlat, kFlat4, kRows, kRows4 };
+
+__global__ void __launch_bounds__(2 * kLanes)
+    envelope_ar_scan(const float* __restrict__ x, const float* __restrict__ env0,
+                     float* __restrict__ env, float* __restrict__ env_final, int T, int C,
+                     float atk, float rel) {
+  __shared__ __align__(16) Stage ring[kStages];
+  __shared__ uint64_t full[kStages], done[kStages];
+  const int lane = threadIdx.x & 31;
+  const int c0 = blockIdx.x * kLanes;
+  const int width = min(kLanes, C - c0);
+  const bool live = lane < width;
+  const int c = c0 + lane;
+  const int n_chunks = (T + kChunk - 1) / kChunk;
+  const bool aligned =
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(env)) & 15) == 0;
+  const Layout layout = width == C ? (aligned ? kFlat4 : kFlat)
+                                   : (aligned && width == kLanes && C % 4 == 0 ? kRows4 : kRows);
+  if (threadIdx.x == 0)
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], kLanes);  // the producer's 32 threads
+      mbar_init(&done[s], kLanes);  // the consumer's 32 threads
+    }
+  __syncthreads();
+
+  if (threadIdx.x >= kLanes) {  // ---- the producer warp ----
+    auto drain = [&](int j) {  // chunk j's env rows, from its stage to global
+      mbar_wait(&done[j % kStages], (j / kStages) & 1);
+      const float* v = ring[j % kStages].v;
+      const int base = j * kChunk, n = min(kChunk, T - base);
+      float* out = env + (long)base * C;
+      if (layout == kFlat4) {
+        const int m = n * C, m4 = m & ~3;
+#pragma unroll 4  // the loads of a batch before its stores
+        for (int f = 4 * lane; f < m4; f += 4 * kLanes)
+          *reinterpret_cast<float4*>(out + f) = *reinterpret_cast<const float4*>(v + f);
+        for (int f = m4 + lane; f < m; f += kLanes) out[f] = v[f];
+      } else if (layout == kFlat) {
+        for (int f = lane; f < n * C; f += kLanes) out[f] = v[f];
+      } else if (layout == kRows4) {
+#pragma unroll 4
+        for (int q = lane; q < n * 8; q += kLanes) {
+          const int row = q >> 3, col = (q & 7) * 4;
+          *reinterpret_cast<float4*>(out + (long)row * C + c0 + col) =
+              *reinterpret_cast<const float4*>(v + row * kLanes + col);
+        }
+      } else if (live) {
+        for (int row = 0; row < n; ++row) out[(long)row * C + c] = v[row * width + lane];
+      }
+    };
+    for (int j = 0; j < n_chunks; ++j) {
+      if (j >= kStages) drain(j - kStages);
+      float* v = ring[j % kStages].v;
+      const int base = j * kChunk, n = min(kChunk, T - base);
+      const float* in = x + (long)base * C;
+      if (layout == kFlat4) {
+        const int m = n * C, m4 = m & ~3;
+        for (int f = 4 * lane; f < m4; f += 4 * kLanes) cp_async16(v + f, in + f);
+        for (int f = m4 + lane; f < m; f += kLanes) cp_async4(v + f, in + f);
+      } else if (layout == kFlat) {
+        for (int f = lane; f < n * C; f += kLanes) cp_async4(v + f, in + f);
+      } else if (layout == kRows4) {
+        for (int q = lane; q < n * 8; q += kLanes) {
+          const int row = q >> 3, col = (q & 7) * 4;
+          cp_async16(v + row * kLanes + col, in + (long)row * C + c0 + col);
+        }
+      } else if (live) {
+        for (int row = 0; row < n; ++row) cp_async4(v + row * width + lane, in + (long)row * C + c);
+      }
+      cp_async_arrive(&full[j % kStages]);
+    }
+    for (int j = max(n_chunks - kStages, 0); j < n_chunks; ++j) drain(j);
+    return;
   }
-  env_final[c] = e;
+
+  // ---- the consumer warp: one channel per lane ----
+  float e = live ? env0[c] : 0.0f;
+  for (int j = 0; j < n_chunks; ++j) {
+    float* v = ring[j % kStages].v + lane;
+    mbar_wait(&full[j % kStages], (j / kStages) & 1);
+    const int n = min(kChunk, T - j * kChunk);
+    if (live && n == kChunk) {
+      // the whole chunk's inputs first: the stores below may not pass them
+      float xs[kChunk];
+#pragma unroll
+      for (int i = 0; i < kChunk; ++i) xs[i] = v[i * width];
+#pragma unroll
+      for (int i = 0; i < kChunk; ++i) v[i * width] = e = step(e, xs[i], atk, rel);
+    } else if (live) {  // the last chunk
+      for (int i = 0; i < n; ++i) v[i * width] = e = step(e, v[i * width], atk, rel);
+    }
+    mbar_arrive(&done[j % kStages]);
+  }
+  if (live) env_final[c] = e;
 }
 
 }  // namespace
@@ -62,8 +203,7 @@ extern "C" {
 int envelope_ar_scan_launch(const float* x, const float* env0, float* env,
                             float* env_final, int T, int C, float atk,
                             float rel, cudaStream_t stream) {
-  const int block = C < kThreads ? C : kThreads;
-  envelope_ar_scan<<<(C + block - 1) / block, block, 0, stream>>>(
+  envelope_ar_scan<<<(C + kLanes - 1) / kLanes, 2 * kLanes, 0, stream>>>(
       x, env0, env, env_final, T, C, atk, rel);
   return (int)cudaGetLastError();
 }

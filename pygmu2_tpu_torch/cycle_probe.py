@@ -1,19 +1,34 @@
-"""Cycle counts of the serial threads in the comb and string kernels, on one
-CUDA card: ``python -m pygmu2_tpu_torch.cycle_probe``.
+"""Cycle counts of the serial threads in the comb, string and follower
+kernels, on one CUDA card: ``python -m pygmu2_tpu_torch.cycle_probe``.
 
-Two measurements, each printed as one JSON line with the card's name:
+Four measurements, each printed as one JSON line with the card's name:
 
 1. ``chains``: one thread, ``clock64()`` around 2**20 steps of a dependent
    chain, in cycles a step: the string's allpass (a multiply and a
    subtract), the comb's smoother without its select, with the select as
-   ``setp``/``selp``, and as a C conditional; and the smoother walking a
+   ``setp``/``selp``, and as a C conditional; the smoother walking a
    512-sample chunk in shared memory with bounds-tested scalar loads eight
    ahead and register moves between batches, against the 16-byte vector
-   walk the kernels use.
+   walk the kernels use; and the envelope follower's step with its
+   coefficient selected before the multiply (its first design), with the
+   two products formed and one selected (in C, and by ``setp``/``selp``),
+   with the attack coefficient alone (its chain without a select), with
+   the products or the coefficient picked by a mask in a register
+   (``set``, ``lop3``: no predicate), and with both updates formed and one
+   selected or picked last.
 2. ``roles``: copies of ``csrc/comb_scan.cu`` and ``csrc/ks_scan.cu`` with
    ``clock64()`` stamps around each role's work in the pipelined loop
    (busy) and around its barrier (wait), run at T = 16384: the comb at
    C = 1 with a 200-240 Hz sweep, the string at L = 133 and 535.
+
+3. ``follower roles``: a copy of ``csrc/envelope_ar_scan.cu`` with
+   ``clock64()`` around each warp's whole run and its mbarrier waits, at
+   T = 16384 and C = 1 and 128.
+4. ``adsr passes``: copies of ``csrc/adsr_scan.cu`` with ``clock64()``
+   around its set-up, each tile's three passes and the whole kernel, at
+   T = 16384 on the patch's gate, the many-edges gate, an edge every eight
+   samples and every sample; as built, and with the tile's path forced to
+   the edge walk and to the per-sample walk (``ADSR_PATHS``).
 
 Builds into ``build/cycle_probe/`` beside the package with ``nvcc``; the
 kernels' own library is untouched.
@@ -23,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import re
 import subprocess
 from pathlib import Path
 
@@ -45,6 +61,53 @@ __device__ __forceinline__ float smooth_selp(float sf, float f, float a) {
 }
 __device__ __forceinline__ float step(float sf, float f, float a) {
   return __fadd_rn(sf, __fmul_rn(__fsub_rn(f, sf), a));
+}
+// the follower's step, e + coeff * (x - e) with coeff = x > e ? atk : rel
+__device__ __forceinline__ float follow_coeff(float e, float x, float atk, float rel) {
+  const float coeff = x > e ? atk : rel;
+  return __fadd_rn(e, __fmul_rn(coeff, __fsub_rn(x, e)));
+}
+__device__ __forceinline__ float follow_products(float e, float x, float atk, float rel) {
+  const float d = __fsub_rn(x, e);
+  const float up = __fmul_rn(atk, d), down = __fmul_rn(rel, d);
+  return __fadd_rn(e, x > e ? up : down);
+}
+__device__ __forceinline__ float follow_selp(float e, float x, float atk, float rel) {
+  const float d = __fsub_rn(x, e);
+  const float up = __fmul_rn(atk, d), down = __fmul_rn(rel, d);
+  float s;
+  asm("{\n\t.reg .pred p;\n\tsetp.gt.f32 p, %1, %2;\n\tselp.f32 %0, %3, %4, p;\n\t}"
+      : "=f"(s) : "f"(x), "f"(e), "f"(up), "f"(down));
+  return __fadd_rn(e, s);
+}
+// x > e as an all-ones mask in a register (no predicate), and a bitwise pick
+__device__ __forceinline__ unsigned gt_mask(float x, float e) {
+  unsigned m;
+  asm("set.gt.u32.f32 %0, %1, %2;" : "=r"(m) : "f"(x), "f"(e));
+  return m;
+}
+__device__ __forceinline__ float pick(unsigned m, float a, float b) {  // m ? a : b
+  unsigned r;
+  asm("lop3.b32 %0, %1, %2, %3, 0xE4;"
+      : "=r"(r) : "r"(__float_as_uint(a)), "r"(__float_as_uint(b)), "r"(m));
+  return __uint_as_float(r);
+}
+__device__ __forceinline__ float follow_products_lop3(float e, float x, float atk, float rel) {
+  const float d = __fsub_rn(x, e);
+  return __fadd_rn(e, pick(gt_mask(x, e), __fmul_rn(atk, d), __fmul_rn(rel, d)));
+}
+__device__ __forceinline__ float follow_coeff_lop3(float e, float x, float atk, float rel) {
+  return __fadd_rn(e, __fmul_rn(pick(gt_mask(x, e), atk, rel), __fsub_rn(x, e)));
+}
+// both updates formed, one picked last: the compare off the chain's path
+__device__ __forceinline__ float follow_results(float e, float x, float atk, float rel) {
+  const float d = __fsub_rn(x, e);
+  const float up = __fadd_rn(e, __fmul_rn(atk, d)), down = __fadd_rn(e, __fmul_rn(rel, d));
+  return x > e ? up : down;
+}
+__device__ __forceinline__ float follow_results_lop3(float e, float x, float atk, float rel) {
+  const float d = __fsub_rn(x, e);
+  return pick(gt_mask(x, e), __fadd_rn(e, __fmul_rn(atk, d)), __fadd_rn(e, __fmul_rn(rel, d)));
 }
 constexpr int kN = 512;
 __global__ void chains(const float* in, float* out, long long* cyc, int n, int m, float a,
@@ -87,6 +150,30 @@ __global__ void chains(const float* in, float* out, long long* cyc, int n, int m
         }
       }
     }
+  } else if (mode == 6) {
+#pragma unroll 8
+    for (int i = 0; i < n; ++i) x = follow_coeff(x, in[i & 7], a, a * 0.0625f);
+  } else if (mode == 7) {
+#pragma unroll 8
+    for (int i = 0; i < n; ++i) x = follow_products(x, in[i & 7], a, a * 0.0625f);
+  } else if (mode == 8) {
+#pragma unroll 8
+    for (int i = 0; i < n; ++i) x = follow_selp(x, in[i & 7], a, a * 0.0625f);
+  } else if (mode == 9) {
+#pragma unroll 8
+    for (int i = 0; i < n; ++i) x = __fadd_rn(x, __fmul_rn(a, __fsub_rn(in[i & 7], x)));
+  } else if (mode == 10) {
+#pragma unroll 8
+    for (int i = 0; i < n; ++i) x = follow_products_lop3(x, in[i & 7], a, a * 0.0625f);
+  } else if (mode == 11) {
+#pragma unroll 8
+    for (int i = 0; i < n; ++i) x = follow_coeff_lop3(x, in[i & 7], a, a * 0.0625f);
+  } else if (mode == 12) {
+#pragma unroll 8
+    for (int i = 0; i < n; ++i) x = follow_results(x, in[i & 7], a, a * 0.0625f);
+  } else if (mode == 13) {
+#pragma unroll 8
+    for (int i = 0; i < n; ++i) x = follow_results_lop3(x, in[i & 7], a, a * 0.0625f);
   } else {  // the kernels' walk: 16-byte vectors, two batches a turn
     const float4* in4 = reinterpret_cast<const float4*>(s_in);
     float4* out4 = reinterpret_cast<float4*>(s_out);
@@ -172,10 +259,16 @@ def chains(card: str) -> dict:
     n = 1 << 20
     names = ["allpass chain", "smoother, no select", "smoother, setp/selp",
              "smoother, C conditional", "smoother walk, bounds-tested scalar loads",
-             "smoother walk, 16-byte vectors"]
+             "smoother walk, 16-byte vectors", "follower, coefficient selected",
+             "follower, products selected", "follower, products selected by setp/selp",
+             "follower, attack alone (no select)",
+             "follower, products picked by a mask (set, lop3)",
+             "follower, coefficient picked by a mask (set, lop3)",
+             "follower, both updates formed, one selected",
+             "follower, both updates formed, one picked by a mask (set, lop3)"]
     result = {"probe": "chains", "card": card, "cycles_per_step": {}}
     for mode, name in enumerate(names):
-        a = 0.35 if mode == 0 else 1.0 / 2400
+        a = 0.35 if mode == 0 else (0.0045 if mode >= 6 else 1.0 / 2400)
         for _ in range(2):  # the second launch is the one kept
             err = lib.chains_launch(vals.data_ptr(), out.data_ptr(), cyc.data_ptr(), n, 512, a,
                                     mode)
@@ -183,6 +276,23 @@ def chains(card: str) -> dict:
                 raise RuntimeError(f"cycle_probe: chains launch failed ({err})")
         result["cycles_per_step"][name] = cyc.item() / n
     return result
+
+
+def comb_roles_source() -> str:
+    return _instrumented(
+        "comb_scan.cu", "for (int j = 0; j <= n_chunks + 1; ++j) {",
+        "    unsafe = __syncthreads_or(bad);", "  // chunk j + 1's",
+        "  float sf = *sf_in;  // thread 0", "  if (tid == 0) {\n    *sf_out = sf;",
+        (0, 32, 64))
+
+
+def ks_roles_source() -> str:
+    return _instrumented(
+        "ks_scan.cu", "for (int j = 0; j <= n_win; ++j) {", "__syncthreads();",
+        "\n    }\n#pragma unroll 4\n    for (int k = tid; k < K;",
+        "    // ---- 2. windows of W active samples, pipelined ----",
+        "#pragma unroll 4\n    for (int k = tid; k < K; k += kThreads) y[idx[k]] = rho_c[k];",
+        (0, 32))
 
 
 def roles(card: str) -> dict:
@@ -193,11 +303,7 @@ def roles(card: str) -> dict:
     cycles = (ctypes.c_longlong * 8)()
     result = {"probe": "roles", "card": card, "T": T}
 
-    comb = _build("comb_roles", _instrumented(
-        "comb_scan.cu", "for (int j = 0; j <= n_chunks + 1; ++j) {",
-        "    unsafe = __syncthreads_or(bad);", "  // chunk j + 1's",
-        "  float sf = *sf_in;  // thread 0", "  if (tid == 0) {\n    *sf_out = sf;",
-        (0, 32, 64)))
+    comb = _build("comb_roles", comb_roles_source())
     comb.comb_scan_launch.argtypes = [p] * 13 + [i, i, i, f, f, p]
     C, L = 1, 2206
     x = torch.from_numpy(rng.uniform(-1, 1, (T, C)).astype(np.float32)).to(dev)
@@ -220,12 +326,7 @@ def roles(card: str) -> dict:
                                   "warps 2-7: staging, delays"))}
     result["comb C=1"]["windows"] = int(outs[6])
 
-    ks = _build("ks_roles", _instrumented(
-        "ks_scan.cu", "for (int j = 0; j <= n_win; ++j) {", "__syncthreads();",
-        "\n    }\n#pragma unroll 4\n    for (int k = tid; k < K;",
-        "    // ---- 2. windows of W active samples, pipelined ----",
-        "#pragma unroll 4\n    for (int k = tid; k < K; k += kThreads) y[idx[k]] = rho_c[k];",
-        (0, 32)))
+    ks = _build("ks_roles", ks_roles_source())
     ks.ks_scan_launch.argtypes = [p] * 13 + [i, i, f, p]
     for L in (133, 535):
         ins = [torch.full((T,), 0.995, device=dev), torch.arange(T, device=dev) >= 100,
@@ -245,6 +346,137 @@ def roles(card: str) -> dict:
     return result
 
 
+def follower_roles_source() -> str:
+    """``csrc/envelope_ar_scan.cu`` with ``clock64()`` around each role's
+    whole run and around its mbarrier waits: lane 0 of the consumer and of
+    the producer warp."""
+    s = (_PKG / "csrc" / "envelope_ar_scan.cu").read_text()
+    s = _replace(s, "namespace {", _READ + "namespace {")
+    s = _replace(s, "  __syncthreads();\n", "  __syncthreads();\n  long long waited = 0;\n"
+                 "  const long long t_start = clock64();\n")
+    for bar in ("full", "done"):
+        wait = f"mbar_wait(&{bar}[j % kStages], (j / kStages) & 1);"
+        s = _replace(s, wait, "{ const long long w0 = clock64(); " + wait
+                     + " waited += clock64() - w0; }")
+    record = ("if ((threadIdx.x & 31) == 0 && blockIdx.x == 0) {{ g_cycles[{k}] = "
+              "clock64() - t_start; g_cycles[{k} + 1] = waited; }}\n")
+    s = _replace(s, "    return;\n", "    " + record.format(k=2) + "    return;\n")
+    return _replace(s, "  if (live) env_final[c] = e;",
+                    "  " + record.format(k=0) + "  if (live) env_final[c] = e;")
+
+
+def follower_roles(card: str) -> dict:
+    """The follower's roles at T = 16384 and C = 1, 128."""
+    lib = _build("follower_roles", follower_roles_source())
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.envelope_ar_scan_launch.argtypes = [p] * 4 + [i, i, f, f, p]
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    T = 16384
+    cycles = (ctypes.c_longlong * 8)()
+    result = {"probe": "follower roles", "card": card, "T": T}
+    for C in (1, 128):
+        x = torch.from_numpy(rng.uniform(0.0, 0.5, (T, C)).astype(np.float32)).to(dev)
+        env0, env = torch.zeros(C, device=dev), torch.empty((T, C), device=dev)
+        final = torch.empty(C, device=dev)
+        for _ in range(2):  # the second launch is the one kept
+            lib.envelope_ar_scan_launch(x.data_ptr(), env0.data_ptr(), env.data_ptr(),
+                                        final.data_ptr(), T, C, 0.0045, 0.00028,
+                                        torch.cuda.current_stream().cuda_stream)
+            torch.cuda.synchronize()
+        lib.read_cycles(cycles)
+        result[f"C={C}"] = {
+            role: {"total": cycles[k], "waiting": cycles[k + 1]}
+            for role, k in (("consumer", 0), ("producer", 2))}
+    return result
+
+
+# the ADSR's tile paths: as built (past kSerialAbove edges a tile the
+# per-sample walk), the edge walk at any edge count, the per-sample walk always
+ADSR_PATHS = {"as built": None, "edge walk": 1 << 30, "per-sample walk": -1}
+
+
+def adsr_passes_source(serial_above=None) -> str:
+    """``csrc/adsr_scan.cu`` with ``clock64()`` stamps (thread 0) around the
+    chain set-up, each tile's three passes (summed over the tiles) and the
+    whole kernel; ``serial_above`` replaces ``kSerialAbove`` (None: as
+    built)."""
+    s = (_PKG / "csrc" / "adsr_scan.cu").read_text()
+    s = _replace(s, "namespace {", _READ + "namespace {")
+    if serial_above is not None:
+        built = re.findall(r"constexpr int kSerialAbove = \d+;", s)
+        if len(built) != 1:
+            raise RuntimeError("cycle_probe: the kernel source changed; no kSerialAbove")
+        s = _replace(s, built[0], f"constexpr int kSerialAbove = {serial_above};")
+    s = _replace(s, "  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;\n",
+                 "  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;\n"
+                 "  const long long t_begin = clock64();\n"
+                 "  long long t_mark = t_begin, t_set = 0, t_a = 0, t_b = 0, t_c = 0;\n")
+    s = _replace(s, "  const Chain c = s_chain;\n",
+                 "  const Chain c = s_chain;\n  t_set = clock64() - t_mark;\n")
+    s = _replace(s, "  for (int t0 = 0; t0 < T; t0 += kTile) {\n",
+                 "  for (int t0 = 0; t0 < T; t0 += kTile) {\n    t_mark = clock64();\n")
+    s = _replace(s, "    const int K = s_count;\n    __syncthreads();\n",
+                 "    const int K = s_count;\n    __syncthreads();\n"
+                 "    t_a += clock64() - t_mark;\n    t_mark = clock64();\n")
+    s = _replace(s, "    // ---- C. every sample from its segment ----\n",
+                 "    t_b += clock64() - t_mark;\n    t_mark = clock64();\n")
+    s = _replace(s, "    __syncthreads();  // the next tile reuses the shared arrays\n",
+                 "    __syncthreads();\n    t_c += clock64() - t_mark;\n")
+    return _replace(s, "    for (int i = 0; i < 4; ++i) state_out[i] = s_state[i];\n",
+                    "    for (int i = 0; i < 4; ++i) state_out[i] = s_state[i];\n"
+                    "    g_cycles[0] = t_set, g_cycles[1] = t_a, g_cycles[2] = t_b,"
+                    " g_cycles[3] = t_c, g_cycles[4] = clock64() - t_begin;\n")
+
+
+def adsr_passes(card: str) -> dict:
+    """The ADSR's passes at T = 16384 (two tiles) on each path of
+    ``ADSR_PATHS``: the patch's gate (two edges), the many-edges gate of
+    chip_smoke.py (440), an edge every eight samples and every sample.
+    B and C stay 0 on the per-sample walk, which ``total`` holds."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    dev = torch.device("cuda")
+    T, sr = 16384, 44100
+    gates = {"the patch's gate": (np.arange(T) < 22050 // 2).astype(np.float32)}
+    g = np.zeros(T, np.float32)
+    g[100:T // 3] = 1.0
+    g[T // 2:T - 100:37] = 1.0
+    gates["many edges"] = g
+    gates["an edge every 8 samples"] = ((np.arange(T) // 8) % 2).astype(np.float32)
+    gates["an edge every sample"] = (np.arange(T) % 2).astype(np.float32)
+    cycles = (ctypes.c_longlong * 8)()
+    result = {"probe": "adsr passes", "card": card, "T": T}
+    for k, (path, above) in enumerate(ADSR_PATHS.items()):
+        lib = _build(f"adsr_passes_{k}", adsr_passes_source(above))
+        lib.adsr_scan_launch.argtypes = [p] * 5 + [i, f, f, f, f, i, p]
+        for name, gate in gates.items():
+            gd = torch.from_numpy(gate).to(dev)
+            state, env, out, nxt = (torch.zeros(4, device=dev), torch.empty(T, device=dev),
+                                    torch.empty(4, device=dev), torch.empty((), device=dev))
+            for _ in range(2):  # the second launch is the one kept
+                err = lib.adsr_scan_launch(gd.data_ptr(), state.data_ptr(), env.data_ptr(),
+                                           out.data_ptr(), nxt.data_ptr(), T, 1 / (0.01 * sr),
+                                           -0.4 / (0.05 * sr), -0.6 / (0.1 * sr), 0.6, -1,
+                                           torch.cuda.current_stream().cuda_stream)
+                torch.cuda.synchronize()
+                if err:
+                    raise RuntimeError(f"cycle_probe: adsr launch failed ({err})")
+            lib.read_cycles(cycles)
+            result[f"{path}, {name}"] = {
+                "edges": int(np.count_nonzero(np.diff(gate, prepend=0.0))),
+                **{k: cycles[n] for n, k in enumerate(("set-up", "A", "B", "C", "total"))}}
+    return result
+
+
+def instrumented_sources() -> dict:
+    """Every instrumented copy's source text (no build): each raises if a
+    line it stamps is gone from its kernel."""
+    out = {"comb roles": comb_roles_source(), "ks roles": ks_roles_source(),
+           "follower roles": follower_roles_source()}
+    out.update({f"adsr passes, {k}": adsr_passes_source(v) for k, v in ADSR_PATHS.items()})
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("cycle_probe: needs a CUDA device")
@@ -253,6 +485,8 @@ def main() -> None:
     card = smi.splitlines()[0]
     print(json.dumps(chains(card)))
     print(json.dumps(roles(card)))
+    print(json.dumps(follower_roles(card)))
+    print(json.dumps(adsr_passes(card)))
 
 
 if __name__ == "__main__":

@@ -13,8 +13,9 @@ The symmetric follower (attack == release) is a linear one-pole on the
 parallel ``ops/linrec.affine_scan_1``; the asymmetric follower runs in
 ``ops/envelope.envelope_ar_scan`` for any channel count. Both ADSRs run
 the state machine in ``ops/adsr.adsr_scan`` for any number of gate edges;
-the JAX package's edge-tiered closed form (``ops/adsr_block.py``) is a TPU
-workaround for a slow ``lax.scan`` and equals the machine to 1e-5.
+its kernel takes the edge-parallel order of the JAX package's closed form
+(``ops/adsr_block.py``), serial over the edges only, and equals the
+per-sample machine bit for bit.
 AdsrTriggeredPE with a sustain outside 1 .. 2**24 - 2 samples runs, as the
 JAX PE does, the absolute-clock machine of its ``lax.scan`` branch
 (``ops/adsr.adsr_clock_scan``). All are hand-written kernels on the card.
@@ -207,12 +208,12 @@ class AdsrGatedPE(_AdsrBase):
             torch.zeros((), dtype=torch.float32, device=ctx.device),
             st["prev_gate"].to(torch.float32),
         ])
-        y, ns = _adsr.adsr_scan(gate.to(torch.float32).contiguous(), kst, **kw)
+        y, ns, env_next = _adsr.adsr_scan(gate.to(torch.float32).contiguous(), kst, **kw)
         ctx.set_state(
             self,
             {
                 "stage": ns[0].to(torch.int32),
-                "env": _adsr.env_of_state(ns, **kw).to(prec.WIDE),
+                "env": env_next.to(prec.WIDE),
                 "prev_gate": ns[3].to(prec.AUDIO),
             },
         )
@@ -287,7 +288,7 @@ class AdsrTriggeredPE(_AdsrBase):
             n0,
             torch.zeros((), dtype=torch.float32, device=ctx.device),
         ])
-        y, ns = _adsr.adsr_scan(
+        y, ns, env_next = _adsr.adsr_scan(
             trig.to(torch.float32).contiguous(), kst, sustain_samples=S, **kw
         )
         t_next = t0 + trig.shape[0]
@@ -300,7 +301,7 @@ class AdsrTriggeredPE(_AdsrBase):
             self,
             {
                 "stage": ns[0].to(torch.int32),
-                "env": _adsr.env_of_state(ns, **kw).to(prec.WIDE),
+                "env": env_next.to(prec.WIDE),
                 "sustain_ends_at": ends.to(prec.INDEX),
             },
         )

@@ -3,16 +3,36 @@
 Counterpart of ``pygmu2_tpu.ops.adsr_pallas``: one function,
 ``adsr_scan``, takes a (T,) gate (gate levels, or trigger magnitudes for
 the triggered variant, selected by ``sustain_samples``) and the (4,)
-state ``[stage, e0, n, prev_gate]``, and returns the (T,) envelope and
-the state after the last sample. The envelope is recomputed fresh as
-``env = e0 + n * slope`` (one float32 rounding whatever the segment
-length), as the JAX package's kernel does.
+state ``[stage, e0, n, prev_gate]``, and returns the (T,) envelope, the
+state after the last sample and the envelope the next sample would emit
+(``env_of_state`` of that state: the value the PEs carry into their next
+block, as the JAX PEs carry ``env_of_state``). The envelope is recomputed fresh as
+``env = e0 + n * slope`` in one fused multiply-add (one float32 rounding
+whatever the segment length), and the step that decides a transition
+computes its candidate ``e0 + (n + 1) * slope`` the same way: XLA
+contracts both products into their sums on the CPU, so the JAX package's
+``adsr_scan_ref`` and ``adsr_closed_form`` round them once.
 
 - ``adsr_scan`` is the wrapper. For CUDA tensors it launches the
   hand-written kernel in ``csrc/adsr_scan.cu`` and counts the launch in
   ``adsr_scan.launches``; for CPU tensors it runs the plain version.
 - ``adsr_scan_ref`` is the plain PyTorch version: a per-sample loop with
   the JAX package's ``adsr_scan_ref`` op order, float32.
+- ``adsr_scan_phases`` is the kernel's order in torch ops: the gate's
+  edges, a walk over the edges that gives each segment between two edges
+  its phase table, then every sample evaluated from its segment's table.
+  It equals ``adsr_scan_ref`` bit for bit.
+
+The machine's transitions depend on the gate, which is known for the
+whole call, and on where linear ramps cross their clip levels, never on
+the output. Between two edges a segment runs a fixed chain of phases: its
+entering stage, then DECAY from 1 (after ATTACK), SUSTAIN, RELEASE from
+``sus`` (triggered: after ``sustain_samples`` steps) and IDLE. A
+crossing is the first count ``n1`` whose rounded candidate passes the
+clip level; rounding is monotone, so the candidate is monotone in ``n1``
+and a window around the real crossing, with a bisection where it misses,
+finds it exactly. Counts are float32: ``fl(2**24 + 1) = 2**24``, so a
+count stops at 2**24 and a ramp that has not crossed by then never does.
 
 The triggered variant counts its sustain in float32 samples, exact for
 ``sustain_samples`` up to 2**24. ``AdsrTriggeredPE`` takes it for
@@ -29,22 +49,30 @@ Stage codes match models.envelopes: IDLE/ATTACK/DECAY/SUSTAIN/RELEASE.
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 from pygmu2_tpu_torch import _ext
+from pygmu2_tpu_torch.ops.xla_math import fmaf
 
 _IDLE, _ATTACK, _DECAY, _SUSTAIN, _RELEASE = 0.0, 1.0, 2.0, 3.0, 4.0
 _I, _A, _D, _S, _R = 0, 1, 2, 3, 4  # the clock machine's int32 stages
+N_MAX = 1 << 24  # a float32 count stops here: fl(2**24 + 1) = 2**24
+_NEVER = 1 << 40  # a phase that never ends (beyond any call's length)
 
 
 def env_of_state(state, *, dA, dD, dR, sus):
-    """The envelope value implied by a [stage, e0, n, pg] state vector."""
+    """The envelope value implied by a [stage, e0, n, pg] state vector:
+    what the machine emits next, ``e0 + n * d`` in one rounding as the
+    JAX package's XLA program rounds it. The plain versions' ``env_next``;
+    the kernel computes it on the card."""
     stage, e0, n = state[0], state[1], state[2]
-    # fills, not copies: a host-to-card copy would synchronize the stream
     f = lambda v: torch.full((), v, dtype=torch.float32, device=state.device)  # noqa: E731
     d = torch.where(stage == _ATTACK, f(dA), torch.where(stage == _DECAY, f(dD), f(dR)))
     return torch.where(
-        stage == _IDLE, f(0.0), torch.where(stage == _SUSTAIN, f(sus), e0 + n * d)
+        stage == _IDLE, f(0.0), torch.where(stage == _SUSTAIN, f(sus), fmaf(n, d, e0))
     )
 
 
@@ -68,7 +96,7 @@ def adsr_scan_ref(gate, state, *, dA, dD, dR, sus, sustain_samples=None):
     for g in gate.tolist():
         d = torch.where(stage == _ATTACK, cA, torch.where(stage == _DECAY, cD, cR))
         env = torch.where(
-            stage == _IDLE, c0, torch.where(stage == _SUSTAIN, csus, e0 + n * d)
+            stage == _IDLE, c0, torch.where(stage == _SUSTAIN, csus, fmaf(n, d, e0))
         )
         envs.append(env)
         if gated:
@@ -88,7 +116,7 @@ def adsr_scan_ref(gate, state, *, dA, dD, dR, sus, sustain_samples=None):
 
         d2 = torch.where(stage == _ATTACK, cA, torch.where(stage == _DECAY, cD, cR))
         n1 = n + 1.0
-        cand = e0 + n1 * d2
+        cand = fmaf(n1, d2, e0)
         hit_a = (stage == _ATTACK) & (cand >= c1)
         hit_d = (stage == _DECAY) & (cand <= csus)
         hit_r = (stage == _RELEASE) & (cand <= c0)
@@ -107,7 +135,171 @@ def adsr_scan_ref(gate, state, *, dA, dD, dR, sus, sustain_samples=None):
         stage = stage2
         pg = g
     new_state = torch.stack([stage, e0, n, f(pg)])
-    return torch.stack(envs), new_state
+    return torch.stack(envs), new_state, env_of_state(new_state, dA=dA, dD=dD, dR=dR, sus=sus)
+
+
+# ---- the kernel's order: edges, a walk over the edges, every sample ----
+
+
+class _Chain:
+    """A call's constants: the slopes and ``sus`` as float32 values, the
+    float32 sustain count, and where each phase of the chain that follows
+    a segment's entering stage starts: DECAY from 1 at 0, SUSTAIN at
+    ``c_s``, RELEASE from ``sus`` at ``c_r``, IDLE at ``c_i``. A segment
+    joins the chain, after its entering stage, at ``join[stage]``."""
+
+    def __init__(self, dA, dD, dR, sus, sustain_samples):
+        f32 = lambda v: float(np.float32(v))  # noqa: E731
+        self.dA, self.dD, self.dR, self.sus = f32(dA), f32(dD), f32(dR), f32(sus)
+        self.S = None if sustain_samples is None else int(np.float32(sustain_samples))
+        one = torch.tensor(1.0)
+        decay = _crossing(one, 0, self.dD, self.sus, ge=False)
+        release = _crossing(torch.tensor(self.sus), 0, self.dR, 0.0, ge=False)
+        hold = _NEVER if self.S is None or self.S > N_MAX else max(self.S, 1)
+        self.c_s = _NEVER if decay is None else decay
+        self.c_r = self.c_s + hold
+        self.c_i = self.c_r + (_NEVER if release is None else release)
+        self.join = torch.tensor([0, 0, self.c_s, self.c_r, self.c_i])
+
+    def first_phase(self, stage: int, e0, n0: int) -> int:
+        """Samples a segment entering ``stage`` with (e0, n0) spends in it
+        (at least 1), or ``_NEVER``."""
+        if stage == _A:
+            m = _crossing(e0, n0, self.dA, 1.0, ge=True)
+        elif stage == _D:
+            m = _crossing(e0, n0, self.dD, self.sus, ge=False)
+        elif stage == _R:
+            m = _crossing(e0, n0, self.dR, 0.0, ge=False)
+        elif stage == _S and self.S is not None:
+            m = self.S if self.S <= N_MAX else None  # n1 >= S expires
+        else:
+            return _NEVER
+        return _NEVER if m is None else max(m - n0, 1)
+
+    def eval(self, stage, e0, n0, r1, rel):
+        """The envelope emitted ``rel`` samples into segments entering
+        ``stage`` with (e0, n0) and a first phase of ``r1`` samples, and
+        the machine's state there: (env, stage, e0, n). Tensors of one
+        shape: int64 but e0 (float32)."""
+        first = rel < r1
+        n = torch.clamp(n0 + rel, max=N_MAX)
+        d = torch.where(stage == _A, self.dA, torch.where(stage == _D, self.dD, self.dR))
+        env0 = torch.where(stage == _I, 0.0, torch.where(
+            stage == _S, self.sus, fmaf(n.float(), d.float(), e0)))
+        q = self.join[stage] + rel - r1  # the position in the chain
+        p = ((q >= self.c_s).long() + (q >= self.c_r).long() + (q >= self.c_i).long())
+        q = torch.clamp(q - torch.tensor([0, self.c_s, self.c_r, self.c_i])[p], max=N_MAX)
+        base = torch.tensor([1.0, self.sus, self.sus, 0.0])[p]
+        slope = torch.tensor([self.dD, 0.0, self.dR, 0.0])[p]
+        env1 = torch.where((p == 0) | (p == 2), fmaf(q.float(), slope, base), base)
+        return (
+            torch.where(first, env0, env1).float(),
+            torch.where(first, stage, torch.tensor([_D, _S, _R, _I])[p]),
+            torch.where(first, e0, torch.tensor([1.0, self.sus, self.sus, 0.0])[p]),
+            torch.where(first, n, q),
+        )
+
+
+def _crossing(e0, n0: int, d: float, th: float, *, ge: bool):
+    """The first count ``n1`` in [min(n0 + 1, 2**24), 2**24] whose
+    candidate ``fmaf(n1, d, e0)`` is >= th (``ge``) or <= th, or None.
+
+    The candidate is monotone in ``n1``. Where it moves away from ``th``
+    (or stays), only the first count can pass; else a window of 32 counts
+    around the real crossing ``(th - e0) / d`` holds it unless the float
+    estimate is far off, and a bisection finds it where the window
+    misses."""
+    lo = min(n0 + 1, N_MAX)
+
+    def passes(m0, m1):  # the counts m0 .. m1 - 1
+        v = fmaf(torch.arange(m0, m1).float(), d, e0)
+        return (v >= th) if ge else (v <= th)
+
+    if not (d > 0.0 if ge else d < 0.0):
+        return lo if bool(passes(lo, lo + 1)) else None
+    est = (th - float(e0)) / d
+    base = max(lo, math.floor(est) - 15) if math.isfinite(est) and est < N_MAX else lo
+    base = min(base, max(lo, N_MAX - 31))
+    top = min(base + 32, N_MAX + 1)
+    hit = passes(base, top)
+    if bool(hit.any()) and (base == lo or not bool(hit[0])):
+        return base + int(hit.int().argmax())
+    if bool(hit[0]):  # below the window
+        a, b = lo, base
+    elif top <= N_MAX and bool(passes(N_MAX, N_MAX + 1)):  # above it
+        a, b = top, N_MAX
+    else:
+        return None
+    while a < b:  # b passes; the first that does is in [a, b]
+        mid = (a + b) // 2
+        if bool(passes(mid, mid + 1)):
+            b = mid
+        else:
+            a = mid + 1
+    return b
+
+
+def in_closed_form(state) -> bool:
+    """Whether the incoming state is one the machine produces: a stage
+    code and an integer count in [0, 2**24]. The kernel runs any other
+    per sample, as the plain version does."""
+    stage, n0 = float(state[0]), float(state[2])
+    return stage in (0.0, 1.0, 2.0, 3.0, 4.0) and n0 == math.floor(n0) and 0 <= n0 <= N_MAX
+
+
+def adsr_scan_phases(gate, state, *, dA, dD, dR, sus, sustain_samples=None):
+    """:func:`adsr_scan` in the kernel's order, in torch ops on the CPU
+    (same arguments and result; bit for bit the plain version's):
+
+    1. the gate's edges (gated: 0 -> 1 rising, 1 -> 0 falling, against the
+       previous sample or ``state[3]``; triggered: g > 0);
+    2. a walk over the edges: a segment starts at each, entering ATTACK
+       (rising, or a trigger) or RELEASE with ``e0`` the envelope emitted
+       there by the segment before and a count of 0; each gets the length
+       of its entering stage (a crossing, or the sustain count), and the
+       chain that follows is the same for every segment;
+    3. every sample evaluated from its segment (the edges strictly before
+       it): an edge's own sample still emits the segment before.
+
+    An incoming state outside :func:`in_closed_form` takes the plain
+    version, as the kernel takes its per-sample loop.
+    """
+    state = state.to(torch.float32)
+    if not in_closed_form(state):
+        return adsr_scan_ref(gate, state, dA=dA, dD=dD, dR=dR, sus=sus,
+                             sustain_samples=sustain_samples)
+    c = _Chain(dA, dD, dR, sus, sustain_samples)
+    g = gate.to(torch.float32)
+    T = g.shape[0]
+    if sustain_samples is None:
+        pgv = torch.cat([state[3:4], g[:-1]])
+        rising = (pgv == 0.0) & (g == 1.0)
+        edge = rising | ((pgv == 1.0) & (g == 0.0))
+    else:
+        rising = edge = g > 0.0
+    edges = torch.nonzero(edge)[:, 0]
+
+    # each segment's start, entering stage, e0 and count, first-phase length
+    starts, stages, e0s, n0s = [0], [int(state[0])], [state[1]], [int(state[2])]
+    r1s = [c.first_phase(stages[0], e0s[0], n0s[0])]
+    for p in edges.tolist():  # 2. serial over the edges only
+        one = lambda v: torch.tensor([v])  # noqa: E731
+        env = c.eval(one(stages[-1]), e0s[-1].reshape(1), one(n0s[-1]), one(r1s[-1]),
+                     one(p - starts[-1]))[0][0]
+        stage = _A if bool(rising[p]) else _R
+        starts.append(p), stages.append(stage), e0s.append(env), n0s.append(0)
+        r1s.append(c.first_phase(stage, env, 0))
+    start, stage, n0, r1 = (torch.tensor(v) for v in (starts, stages, n0s, r1s))
+    e0 = torch.stack(e0s).float()
+
+    t = torch.arange(T)
+    sid = torch.searchsorted(edges, t)  # edges strictly before t
+    env = c.eval(stage[sid], e0[sid], n0[sid], r1[sid], t - start[sid])[0]
+    k = len(starts) - 1
+    _, st, e, n = c.eval(stage[k:], e0[k:], n0[k:], r1[k:], T - start[k:])
+    new_state = torch.stack([st[0].float(), e[0], n[0].float(), g[T - 1]]).to(gate.device)
+    return (env.to(gate.device), new_state,
+            env_of_state(new_state, dA=dA, dD=dD, dR=dR, sus=sus))
 
 
 def adsr_scan(gate, state, *, dA, dD, dR, sus, sustain_samples=None):
@@ -115,7 +307,8 @@ def adsr_scan(gate, state, *, dA, dD, dR, sus, sustain_samples=None):
 
     gate: (T,) f32 (gate levels, or trigger magnitudes for the triggered
     variant — ``sustain_samples`` not None selects it); state: (4,) f32
-    [stage, e0, n, prev_gate]. Returns (env (T,) f32, new_state (4,) f32).
+    [stage, e0, n, prev_gate]. Returns (env (T,) f32, new_state (4,) f32,
+    env_next () f32: :func:`env_of_state` of new_state).
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (one count in ``adsr_scan.launches`` per call) or raise.
     """
@@ -139,17 +332,18 @@ def _launch(gate, state, *, dA, dD, dR, sus, sustain_samples):
     state = _ext.checked(state, "state", (4,), dev)
     env = torch.empty((T,), dtype=torch.float32, device=dev)
     state_out = torch.empty((4,), dtype=torch.float32, device=dev)
+    env_next = torch.empty((), dtype=torch.float32, device=dev)
     lib = _ext.load()
     with torch.cuda.device(dev):
         err = lib.adsr_scan_launch(
             gate.data_ptr(), state.data_ptr(), env.data_ptr(), state_out.data_ptr(),
-            T, float(dA), float(dD), float(dR), float(sus),
+            env_next.data_ptr(), T, float(dA), float(dD), float(dR), float(sus),
             -1 if sustain_samples is None else _count_limit(sustain_samples),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _ext.raise_on_error(err, "adsr_scan")
     adsr_scan.launches += 1
-    return env, state_out
+    return env, state_out, env_next
 
 
 def _count_limit(sustain_samples) -> int:

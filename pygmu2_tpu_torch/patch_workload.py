@@ -26,15 +26,20 @@ def _swept(pg, center: float, hz: float, depth: float):
     return pg.MixPE(pg.ConstantPE(center), pg.SinePE(hz, amplitude=depth))
 
 
+def patch_envelopes(pg):
+    """The patch's two envelopes: (the lead's gated ADSR, the pluck's
+    triggered one)."""
+    return (pg.AdsrGatedPE(pg.PeriodicGate(2.0), 0.01, 0.05, 0.6, 0.1),
+            pg.AdsrTriggeredPE(pg.PeriodicTrigger(hz=3), 0.01, 0.05, 0.2, 0.6, 0.1))
+
+
 def build_patch(pg, seconds: float):
     """The mono patch, cropped to ``seconds`` at 44.1 kHz."""
     pg.set_sample_rate(SR)
+    gated, triggered = patch_envelopes(pg)
     lead = pg.LadderPE(pg.BlitSawPE(110.0, amplitude=0.8), _swept(pg, 1500.0, 0.25, 1200.0), 0.45)
-    lead = pg.GainPE(lead, pg.AdsrGatedPE(pg.PeriodicGate(2.0), 0.01, 0.05, 0.6, 0.1))
-    pluck = pg.GainPE(
-        pg.BlitSawPE(220.0),
-        pg.AdsrTriggeredPE(pg.PeriodicTrigger(hz=3), 0.01, 0.05, 0.2, 0.6, 0.1),
-    )
+    lead = pg.GainPE(lead, gated)
+    pluck = pg.GainPE(pg.BlitSawPE(220.0), triggered)
     comb = pg.CombPE(pg.MixPE(lead, pluck), _swept(pg, 220.0, 0.5, 20.0), feedback=0.6)
     return pg.CropPE(comb, 0, int(round(seconds * SR)))
 

@@ -5,6 +5,9 @@ machine with the card and nvcc:
 ``python -m pytest tests/test_torch_cuda.py --noconftest`` (no JAX needed).
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -153,22 +156,103 @@ def test_comb_kernel_short_delays_and_odd_width(cuda, delay, C):
         torch.testing.assert_close(g, r, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("sustain_samples", [None, 300], ids=["gated", "triggered"])
-def test_adsr_kernel_matches_plain(cuda, sustain_samples):
+def _adsr_switch():
+    """The kernel's kSerialAbove: the most edges a tile takes on the edge
+    walk; past it, the per-sample walk."""
+    src = Path(__file__).resolve().parents[1] / "pygmu2_tpu_torch" / "csrc" / "adsr_scan.cu"
+    return int(re.search(r"constexpr int kSerialAbove = (\d+);", src.read_text())[1])
+
+
+def _adsr_gate(kind, T, triggered):
+    """One edge, many, one every sample, or the first kSerialAbove (or 2
+    more) samples an edge each."""
+    g = np.zeros(T, np.float32)
+    if kind == "every_sample":
+        return np.ones(T, np.float32) if triggered else (np.arange(T) % 2).astype(np.float32)
+    if kind in ("edges_at_switch", "edges_past_switch"):
+        n = _adsr_switch() + (2 if kind == "edges_past_switch" else 0)  # even: n edges
+        g[:n] = 1.0 if triggered else (np.arange(n) + 1) % 2
+        return g
+    g[100:700] = 1.0
+    if kind == "many_edges":
+        g[1500:3000:7] = 1.0
+    return (np.diff(g, prepend=0.0) > 0).astype(np.float32) if triggered else g
+
+
+_ADSR_KW = dict(dA=1 / 441.0, dD=-0.4 / 882.0, dR=-0.6 / 2205.0, sus=0.6)
+
+
+def _adsr_equals_plain(gate, state, **kw):
+    """One kernel call, env, state and env_next bit for bit against the
+    plain version on the CPU."""
     from pygmu2_tpu_torch.ops import adsr
 
-    gate = np.zeros(4096, np.float32)
-    gate[100:700] = 1.0
-    gate[1500:3000:7] = 1.0  # many edges
-    gate = torch.from_numpy(gate).to(cuda)
-    kw = dict(dA=1 / 441.0, dD=-0.4 / 882.0, dR=-0.6 / 2205.0, sus=0.6,
-              sustain_samples=sustain_samples)
-    state = torch.zeros(4, device=cuda)
-    env, s = adsr.adsr_scan(gate, state, **kw)
+    want = adsr.adsr_scan_ref(gate.cpu(), state.cpu(), **kw)
+    before = adsr.adsr_scan.launches
+    got = adsr.adsr_scan(gate, state, **kw)
     torch.cuda.synchronize()
-    env_ref, s_ref = adsr.adsr_scan_ref(gate, state, **kw)
-    torch.testing.assert_close(env, env_ref, rtol=0, atol=1e-6)
-    torch.testing.assert_close(s, s_ref, rtol=0, atol=1e-6)
+    assert adsr.adsr_scan.launches == before + 1
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("gate", ["one_edge", "many_edges", "edges_at_switch",
+                                  "edges_past_switch", "every_sample"])
+@pytest.mark.parametrize("sustain_samples", [None, 300], ids=["gated", "triggered"])
+def test_adsr_kernel_matches_plain(cuda, sustain_samples, gate):
+    """The edge walk (up to kSerialAbove edges a tile) and the per-sample
+    walk (2 more, an edge every sample)."""
+    g = torch.from_numpy(_adsr_gate(gate, 4096, sustain_samples is not None)).to(cuda)
+    _adsr_equals_plain(g, torch.zeros(4, device=cuda), sustain_samples=sustain_samples,
+                       **_ADSR_KW)
+
+
+@pytest.mark.parametrize("sustain_samples", [None, 1, 300, 2**24, 2**24 + 1])
+def test_adsr_kernel_states_and_call_shapes(cuda, sustain_samples):
+    """Every incoming stage, SUSTAIN 100 samples in, a slow release near the
+    count's 2**24 and states the machine does not produce (the per-sample
+    walk); calls of 1, 3 and 5 samples, an unaligned gate, three tiles
+    (20000 samples), and an edge every sample from each state."""
+    trig = sustain_samples is not None
+    g = torch.from_numpy(_adsr_gate("many_edges", 4096, trig)).to(cuda)
+    every = torch.from_numpy(_adsr_gate("every_sample", 2500, trig)).to(cuda)
+    for st, dR in (([0, 0.0, 0, 0], None), ([1, 0.3, 5, 1], None), ([2, 0.9, 10, 1], None),
+                   ([3, 0.6, 100, 1], None), ([4, 0.5, 7, 0], None),
+                   ([4, 0.5, 2**24 - 3, 0], -1e-9), ([5, 0.5, 3, 0], None),
+                   ([2, 0.9, 2.5, 1], None)):
+        kw = dict(_ADSR_KW, sustain_samples=sustain_samples)
+        if dR is not None:
+            kw["dR"] = dR
+        state = torch.tensor(st, dtype=torch.float32, device=cuda)
+        _adsr_equals_plain(g[:700], state, **kw)
+        _adsr_equals_plain(every, state, **kw)
+    kw = dict(_ADSR_KW, sustain_samples=sustain_samples)
+    for n in (1, 3, 5):
+        _adsr_equals_plain(g[99:99 + n], torch.zeros(4, device=cuda), **kw)
+    _adsr_equals_plain(g[3:], torch.zeros(4, device=cuda), **kw)
+    long = torch.from_numpy(np.tile(_adsr_gate("many_edges", 4000, trig), 5)).to(cuda)
+    _adsr_equals_plain(long, torch.zeros(4, device=cuda), **kw)
+
+
+@pytest.mark.parametrize("sustain_samples", [None, 300], ids=["gated", "triggered"])
+def test_adsr_kernel_state_handoffs(cuda, sustain_samples):
+    """Two kernel calls cut at the first attack's crossing (the first DECAY
+    sample emits exactly 1), next to it, and at an edge equal one plain
+    call."""
+    from pygmu2_tpu_torch.ops import adsr
+
+    kw = dict(_ADSR_KW, sustain_samples=sustain_samples)
+    g = torch.from_numpy(_adsr_gate("many_edges", 4096, sustain_samples is not None))
+    want = adsr.adsr_scan_ref(g, torch.zeros(4), **kw)
+    c = int(np.argmax(want[0].numpy() == 1.0))
+    g = g.to(cuda)
+    for cut in (c - 1, c, c + 1, 100, 101, 1500):
+        first = adsr.adsr_scan(g[:cut], torch.zeros(4, device=cuda), **kw)
+        second = adsr.adsr_scan(g[cut:], first[1], **kw)
+        assert torch.equal(torch.cat([first[0], second[0]]).cpu(), want[0])
+        assert torch.equal(second[1].cpu(), want[1])
+        assert torch.equal(second[2].cpu(), want[2])
 
 
 @pytest.mark.parametrize("sustain_samples", [0, 2**24 - 1])
@@ -237,19 +321,29 @@ def test_ks_kernel_matches_plain(cuda):
         torch.testing.assert_close(g, r, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("C", [1, 128])
+@pytest.mark.parametrize("C", [1, 33, 128])
 def test_envelope_kernel_matches_plain(cuda, C):
+    """Bit for bit, T not a multiple of 8, with two-call hand-offs (one cut
+    leaves the second call's x unaligned: C = 1 then takes the staged path)."""
     from pygmu2_tpu_torch.ops import envelope
 
-    x = _rectified(cuda, C, 2048, C)
-    env0 = torch.zeros(C, device=cuda)
+    T = 2045
+    x = _rectified(cuda, C, T, C)
+    x[T // 3:T // 2] *= 1e-3  # a quiet stretch: the release coefficient
+    env0 = torch.full((C,), 0.1, device=cuda)
     kw = dict(atk=1 - np.exp(-1 / 220.5), rel=1 - np.exp(-1 / 3528.0))
     before = envelope.envelope_ar_scan.launches
     got = envelope.envelope_ar_scan(x, env0, **kw)
     torch.cuda.synchronize()
     assert envelope.envelope_ar_scan.launches == before + 1
-    for g, r in zip(got, envelope.envelope_ar_scan_ref(x, env0, **kw)):
+    want = envelope.envelope_ar_scan_ref(x, env0, **kw)
+    for g, r in zip(got, want):
         torch.testing.assert_close(g, r, rtol=0, atol=0)
+    for cut in (T // 3, 1024):
+        first = envelope.envelope_ar_scan(x[:cut], env0, **kw)
+        second = envelope.envelope_ar_scan(x[cut:], first[1], **kw)
+        torch.testing.assert_close(torch.cat([first[0], second[0]]), want[0], rtol=0, atol=0)
+        torch.testing.assert_close(second[1], want[1], rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("linear", [True, False], ids=["linear", "exponential"])

@@ -5,7 +5,10 @@ prefix sum and first-order scan against the JAX package.
 
 Inputs come from numpy with a seed; JAX stays on the CPU. Tolerances are
 the JAX tests' own: ladder 1e-5, comb 1e-5 (smoothed frequency 1e-4),
-ADSR 1e-6.
+ADSR 1e-6. The kernels' own orders (``comb_scan_windows``,
+``adsr_scan_phases``) are held to the plain loops bit for bit, and the
+ADSR's to the JAX package's ``adsr_scan_ref`` and ``adsr_closed_form`` bit
+for bit as well.
 """
 
 import jax
@@ -14,7 +17,9 @@ import numpy as np
 import pytest
 import torch
 
+from pygmu2_tpu.ops.adsr_block import adsr_closed_form
 from pygmu2_tpu.ops.adsr_pallas import adsr_scan_pallas
+from pygmu2_tpu.ops.adsr_pallas import adsr_scan_ref as adsr_scan_ref_jax
 from pygmu2_tpu.ops.comb_pallas import comb_scan_pallas
 from pygmu2_tpu.ops.ladder_pallas import ladder_scan_pallas
 from pygmu2_tpu.ops.linrec import affine_scan_1 as jax_affine_scan_1
@@ -190,7 +195,7 @@ def test_adsr_gated_plain_matches_pallas(T):
     kw = _adsr_params()
     y_j, s_j = adsr_scan_pallas(jnp.asarray(gate), jnp.asarray(st), chunk=512,
                                 interpret=True, **kw)
-    y, s = adsr.adsr_scan(_t(gate), _t(st), **kw)
+    y, s, _ = adsr.adsr_scan(_t(gate), _t(st), **kw)
     _close(y, y_j, 1e-6)
     _close(s, s_j, 1e-6)
 
@@ -206,7 +211,7 @@ def test_adsr_triggered_plain_matches_pallas(T):
     S = 221
     y_j, s_j = adsr_scan_pallas(jnp.asarray(trig), jnp.asarray(st), chunk=512,
                                 sustain_samples=S, interpret=True, **kw)
-    y, s = adsr.adsr_scan(_t(trig), _t(st), sustain_samples=S, **kw)
+    y, s, _ = adsr.adsr_scan(_t(trig), _t(st), sustain_samples=S, **kw)
     _close(y, y_j, 1e-6)
     _close(s, s_j, 1e-6)
 
@@ -221,20 +226,184 @@ def test_adsr_triggered_count_limits_match_pallas(S):
     kw = _adsr_params(A=0.002, D=0.003, S=0.7, R=0.004)
     y_j, s_j = adsr_scan_pallas(jnp.asarray(trig), jnp.asarray(st), chunk=512,
                                 sustain_samples=S, interpret=True, **kw)
-    y, s = adsr.adsr_scan(_t(trig), _t(st), sustain_samples=S, **kw)
+    y, s, _ = adsr.adsr_scan(_t(trig), _t(st), sustain_samples=S, **kw)
     assert np.abs(np.asarray(y_j)).max() > 0.5
     _close(y, y_j, 1e-6)
     _close(s, s_j, 1e-6)
 
 
+# ---- the ADSR kernel's order: edges, a walk over the edges, every sample ----
+
+_jax_adsr_ref = jax.jit(adsr_scan_ref_jax, static_argnames=("dA", "dD", "dR", "sus",
+                                                           "sustain_samples"))
+_PHASE_T = 1024
+# incoming states [stage, e0, n, prev_gate] as the machine leaves them, with
+# parameter overrides: every stage, SUSTAIN 100 samples in, and a release
+# so slow that its count reaches 2**24 and stops there
+PHASE_STATES = {
+    "idle": ([0, 0.0, 0, 0], {}),
+    "attack": ([1, 0.3, 5, 1], {}),
+    "decay": ([2, 0.9, 10, 1], {}),
+    "sustain_n100": ([3, 0.6, 100, 1], {}),
+    "release": ([4, 0.5, 7, 0], {}),
+    "slow_release_near_2_24": ([4, 0.5, 2**24 - 3, 0], {"dR": -1e-9}),
+}
+
+
+def _phase_gate(kind, triggered, T=_PHASE_T):
+    """No edge, one edge, chip_smoke.py's many-edges gate, or an edge every
+    sample (gated: alternating levels; triggered: a trigger every sample)."""
+    g = np.zeros(T, np.float32)
+    if kind == "every_sample":
+        return np.ones(T, np.float32) if triggered else (np.arange(T) % 2).astype(np.float32)
+    if kind == "one":
+        g[57:] = 1.0
+    elif kind == "many":
+        g[100:T // 3] = 1.0
+        g[T // 2:T - 100:37] = 1.0
+    return (np.diff(g, prepend=0.0) > 0).astype(np.float32) if triggered else g
+
+
+def _equal(got, want):
+    for g, w in zip(got, want):
+        g, w = np.asarray(g), np.asarray(w)
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+
+
+@pytest.mark.parametrize("state", sorted(PHASE_STATES))
+@pytest.mark.parametrize("gate", ["none", "one", "many", "every_sample"])
+def test_adsr_phases_equal_plain_and_jax(gate, state):
+    """The kernel's order equals the plain per-sample loop, the JAX
+    package's adsr_scan_ref and its edge-parallel adsr_closed_form bit for
+    bit (env and state), gated and at sustain counts 1, 2206, 2**24 and
+    2**24 + 1 (which rounds to 2**24 in float32)."""
+    st, over = PHASE_STATES[state]
+    kw = dict(_adsr_params(), **over)
+    st = np.asarray(st, np.float32)
+    for S in (None, 1, 2206, 1 << 24, (1 << 24) + 1):
+        g = _phase_gate(gate, S is not None)
+        want = adsr.adsr_scan_ref(_t(g), _t(st), sustain_samples=S, **kw)
+        _equal(adsr.adsr_scan_phases(_t(g), _t(st), sustain_samples=S, **kw), want)
+        jax_in = (jnp.asarray(g), jnp.asarray(st))
+        _equal(want, _jax_adsr_ref(*jax_in, sustain_samples=S, **kw))
+        if state != "slow_release_near_2_24":
+            # the closed form counts on past 2**24 (n0 + tau rounds to
+            # even where the machine's count stops): outside its domain of
+            # segments shorter than 2**24 samples
+            _equal(want, adsr_closed_form(*jax_in, sustain_samples=S, K_cap=_PHASE_T, **kw))
+
+
+@pytest.mark.parametrize("S", [None, 2206], ids=["gated", "triggered"])
+@pytest.mark.parametrize("at", ["crossing", "edge"])
+def test_adsr_phases_state_handoff(at, S):
+    """Two calls cut next to the first attack's crossing (the first DECAY
+    sample emits exactly 1) or its edge equal one call of the plain loop."""
+    g = _phase_gate("many", S is not None, T=2048)
+    kw = dict(_adsr_params(), sustain_samples=S)
+    st = torch.zeros(4)
+    one = adsr.adsr_scan_ref(_t(g), st, **kw)
+    c = int(np.argmax(one[0].numpy() == 1.0)) if at == "crossing" else 100
+    assert c > 100 or at == "edge"
+    for cut in (c - 1, c, c + 1):
+        first = adsr.adsr_scan_phases(_t(g[:cut]), st, **kw)
+        second = adsr.adsr_scan_phases(_t(g[cut:]), first[1], **kw)
+        _equal((torch.cat([first[0], second[0]]), second[1], second[2]), one)
+
+
+@pytest.mark.parametrize("T", [1, 3, 6, 1027])
+def test_adsr_phases_short_and_odd_calls(T):
+    rng = np.random.default_rng(T)
+    levels = (rng.random(T) < 0.3).astype(np.float32)
+    for S, g in ((None, np.cumsum(levels) % 2), (300, levels)):
+        g = g.astype(np.float32)
+        for st in ([0, 0.0, 0, 0], [1, 0.7, 3, 1], [4, 0.2, 2, 1]):
+            st = torch.tensor(st, dtype=torch.float32)
+            kw = dict(_adsr_params(A=0.0002, D=0.0003, R=0.0004), sustain_samples=S)
+            _equal(adsr.adsr_scan_phases(_t(g), st, **kw), adsr.adsr_scan_ref(_t(g), st, **kw))
+
+
+def test_adsr_phases_take_plain_version_outside_machine_states():
+    """A stage code the machine does not have, or a count that is not an
+    integer in [0, 2**24], runs per sample, in the kernel as here."""
+    g = _phase_gate("many", False, T=400)
+    for st in ([5, 0.5, 3, 0], [2, 0.9, 2.5, 1], [1, 0.2, -1, 0], [4, 0.5, 2**25, 0]):
+        st = torch.tensor(st, dtype=torch.float32)
+        assert not adsr.in_closed_form(st)
+        _equal(adsr.adsr_scan_phases(_t(g), st, **_adsr_params()),
+               adsr.adsr_scan_ref(_t(g), st, **_adsr_params()))
+    assert adsr.in_closed_form(torch.tensor([4, 0.5, 2**24, 0], dtype=torch.float32))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_adsr_phases_random_machines(seed):
+    """Random gates, densities, parameters (sustain 0 and 1 included),
+    stages and counts (0, small, at and near 2**24)."""
+    rng = np.random.default_rng(seed)
+    for it in range(30):
+        T = int(rng.integers(1, 300))
+        A, D, R = rng.uniform(0.00005, 0.002, 3)
+        sus = float(rng.choice([rng.uniform(0.0, 1.0), 0.0, 1.0]))
+        kw = dict(dA=1 / (A * SR), dD=(sus - 1) / (D * SR), dR=-max(sus, 0.01) / (R * SR), sus=sus)
+        S = None if it % 2 == 0 else int(rng.choice([0, 1, 2, int(rng.integers(1, 300)), 1 << 24]))
+        p = [0.02, 0.3, 0.6][it % 3]
+        if S is None:
+            g = (np.cumsum(rng.random(T) < p) % 2).astype(np.float32)
+            g[rng.random(T) < 0.05] = 0.5  # neither level: no edge
+        else:
+            g = ((rng.random(T) < p) * rng.uniform(0.1, 1.0)).astype(np.float32)
+        stage = int(rng.integers(0, 5))
+        n0 = float(rng.choice([0, int(rng.integers(0, 200)), 2**24 - int(rng.integers(0, 5))]))
+        e0 = {0: 0.0, 1: rng.uniform(0, 1), 2: rng.uniform(sus, 1), 3: sus,
+              4: rng.uniform(0, sus)}[stage]
+        st = torch.tensor([stage, e0, n0, float(rng.integers(0, 2))], dtype=torch.float32)
+        _equal(adsr.adsr_scan_phases(_t(g), st, sustain_samples=S, **kw),
+               adsr.adsr_scan_ref(_t(g), st, sustain_samples=S, **kw))
+
+
 def test_adsr_env_of_state_matches_jax():
+    """The carried envelope: ``env_of_state`` and every wrapper's
+    ``env_next`` equal the JAX PE's ``env_of_state`` bit for bit (XLA
+    rounds ``e0 + n * d`` once), mid-ramp as at a block's end."""
     from pygmu2_tpu.ops.adsr_pallas import env_of_state as jax_env_of_state
 
     kw = _adsr_params()
-    for st in ([0, 0.3, 5, 0], [1, 0.1, 40, 1], [2, 1.0, 30, 1], [3, 0.6, 9, 1], [4, 0.6, 70, 0]):
+    jax_env = jax.jit(jax_env_of_state, static_argnames=("dA", "dD", "dR", "sus"))
+    states = [[0, 0.3, 5, 0], [1, 0.1, 40, 1], [2, 1.0, 30, 1], [3, 0.6, 9, 1], [4, 0.6, 70, 0]]
+    rng = np.random.default_rng(7)
+    states += [[st, rng.uniform(0, 1), int(rng.integers(0, 4000)), 0]
+               for st in (1, 2, 4) for _ in range(30)]
+    for st in states:
         st = np.asarray(st, np.float32)
-        want = jax_env_of_state(jnp.asarray(st), **kw)
-        _close(adsr.env_of_state(_t(st), **kw), want, 1e-7)
+        _equal([adsr.env_of_state(_t(st), **kw)], [jax_env(jnp.asarray(st), **kw)])
+    g = _phase_gate("many", False, T=2048)
+    for cut in range(1, 2048, 97):  # ends of calls in every stage
+        _, st, nxt = adsr.adsr_scan_ref(_t(g[:cut]), torch.zeros(4), **kw)
+        want = jax_env(jnp.asarray(st.numpy()), **kw)
+        _equal([nxt], [want])
+        _equal([adsr.adsr_scan_phases(_t(g[:cut]), torch.zeros(4), **kw)[2]], [want])
+
+
+@pytest.mark.parametrize("pe", ["gated", "triggered"])
+def test_adsr_pe_blocks_equal_jax(pe):
+    """Both ADSR PEs rendered in short blocks, each block ending mid-ramp
+    somewhere, equal the JAX PEs bit for bit: the carried envelope is
+    rounded as the JAX PE rounds it."""
+    import pygmu2_tpu as jpg
+    import pygmu2_tpu_torch as tpg
+
+    def build(pg):
+        pg.set_sample_rate(SR)
+        if pe == "gated":
+            env = pg.AdsrGatedPE(pg.PeriodicGate(60.0, duty_cycle=0.4), 0.003, 0.004, 0.6, 0.005)
+        else:
+            env = pg.AdsrTriggeredPE(pg.PeriodicTrigger(hz=45.0), 0.003, 0.004, 0.003, 0.6,
+                                     0.005)
+        return pg.CropPE(env, 0, 3000)
+
+    want = np.asarray(jpg.render_to_array(build(jpg), block=500))
+    got = tpg.render_to_array(build(tpg), block=500, device="cpu")
+    assert np.abs(want).max() > 0.5
+    _equal([got], [want])
 
 
 def _clock_state(device="cpu"):
@@ -246,7 +415,7 @@ def _clock_state(device="cpu"):
 def test_wrappers_take_plain_version_on_cpu():
     counters = (ladder.ladder_scan, comb.comb_scan, adsr.adsr_scan, adsr.adsr_clock_scan)
     before = [fn.launches for fn in counters]
-    y, _ = adsr.adsr_scan(torch.ones(8), torch.zeros(4), **_adsr_params())
+    y, _, _ = adsr.adsr_scan(torch.ones(8), torch.zeros(4), **_adsr_params())
     y2, _ = adsr.adsr_clock_scan(torch.ones(8), *_clock_state(), t0=0, sustain_samples=0,
                                  **_adsr_params())
     assert y.device.type == y2.device.type == "cpu"

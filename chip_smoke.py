@@ -6,9 +6,16 @@ Drives the port's three main paths through their user entry points:
 1. the card's name and power limit (``nvidia-smi``);
 2. builds every CUDA kernel from ``pygmu2_tpu_torch/csrc`` (build seconds);
 3. the offline SoundFont render's kernel against its plain PyTorch
-   version on the card, at the main path's shapes (P=128, N=1024, B=130):
-   rows of the small-font and the large-font 3 s schedules, and a
-   two-segment hand-off of the (4, P) state; max abs error <= 1e-4;
+   version and against its own order in torch ops
+   (``osc_filter_gain_mix_cut``) on the card, at the main path's shapes
+   (P=128, N=1024): rows of the small-font and the large-font 3 s
+   schedules (B=130) and of the 60 s piece's first streamed segment
+   (B=256, large font), and a two-segment hand-off of the (4, P) state;
+   max abs error <= 1e-4; two calls on the same rows equal bit for bit.
+   Each timed beside its plain version: the kernel alone and every device
+   item of a call (torch.profiler's device events: the wrapper's row
+   stacks, the int scratch's memset, the kernel), and CUDA events around 20
+   back-to-back calls (these also count the wrapper's host enqueue);
 4. end to end, ``wire="int16"``: the 3 s chord through the small and the
    large font (``render_midi_offline``) and the 60 s piece through the
    large font (``render_midi_offline_streamed``). Each must launch the
@@ -54,9 +61,10 @@ Drives the port's three main paths through their user entry points:
    replaying a 0.3 s block from its first sample; the slew limiter in
    both modes), each is held to its plain version again and timed (CUDA
    events, mean of 10 after a warm-up; the plain version's one call),
-   beside its bound; the follower also alone, by torch.profiler's device
-   events, as the ADSR in phase 5 (their calls are short enough that
-   events around back-to-back calls also count the host's enqueue).
+   beside its bound; the follower and the slew limiter also alone, by
+   torch.profiler's device events, as the ADSR in phase 5 (their calls are
+   short enough that events around back-to-back calls also count the
+   host's enqueue).
    The first three are held to their plain versions bit for bit
    (explicitly rounded ops in the plain versions' order); the echo within
    1e-6 (its Hann window is cosf in the kernel and torch.cos in the plain
@@ -171,7 +179,6 @@ def main() -> None:
     from pygmu2_tpu_torch.soundfont import MidiFile
     from pygmu2_tpu_torch.soundfont import filter_kernels as fk
     from pygmu2_tpu_torch.soundfont import offline as off
-    from pygmu2_tpu_torch.soundfont.convert import schedule_to_torch, to_torch
 
     kernel = fk.osc_filter_gain_mix
     dev = torch.device("cuda", 0)
@@ -200,20 +207,13 @@ def main() -> None:
     print(f"kernel build+load: {time.perf_counter() - t0:.2f} s")
 
     # ---- 3. kernel vs plain at the main path's shapes ----
-    def bench_rows(large: bool):
+    def bench_rows(large: bool, seconds: float):
+        """The control rows of the bench's chord (3 s) or of the first
+        ``seconds`` of its 60 s piece."""
         synth, midi = bench_workload.build_workload(large)
-        par, ch, snap, _nb = synth.build_schedule(midi, 3.0)
-        planes, flags = schedule_to_torch(par, ch, snap, dev)
-        ctrl = off._control_device(
-            *planes, synth.block_size, flags,
-            int(synth._minimum_voice_duration), float(synth.sample_rate),
-        )
-        wave = to_torch(synth._wave, dev)
-        rows = dict(
-            off._gain_rows(ctrl, synth.master_volume), **off._osc_rows(ctrl, wave)
-        )
-        synth.reset()
-        return rows, wave, synth.block_size
+        if seconds != 3.0:
+            midi = MidiFile(bench_workload.build_midi_bytes(repeats=15))
+        return bench_workload.audio_pass_rows(synth, midi, seconds, dev)
 
     def device_ms(fn, reps: int) -> float:
         fn()
@@ -229,27 +229,39 @@ def main() -> None:
 
     max_err = 0.0
     timings = {}
-    for large in (False, True):
-        name = "large" if large else "small"
-        rows, wave, N = bench_rows(large)
+    # the 60 s piece streams in segments of STREAM_SEG_BLOCKS blocks of 1024
+    segment_s = (off.STREAM_SEG_BLOCKS - 0.5) * 1024 / SR
+    shapes = [("small", False, 3.0), ("large", True, 3.0), ("60 s segment", True, segment_s)]
+    for name, large, seconds in shapes:
+        rows, wave, N = bench_rows(large, seconds)
         B, P = rows["ratio"].shape
-        osc_shape = (B, P, N, wave.shape[0])
+        if name == "large":
+            osc_shape = (B, P, N, wave.shape[0])
         out, st = kernel(rows, wave, N)
+        again, st_again = kernel(rows, wave, N)
         torch.cuda.synchronize()
+        check(torch.equal(out, again) and torch.equal(st, st_again),
+              f"{name}: two calls on the same rows differ")
         ref, st_ref = fk.osc_filter_gain_mix_ref(rows, wave, N)
+        mirror, st_mirror = fk.osc_filter_gain_mix_cut(rows, wave, N)
         err = max((out - ref).abs().max().item(), (st - st_ref).abs().max().item())
+        err_cut = max((out - mirror).abs().max().item(), (st - st_mirror).abs().max().item())
         peak = ref.abs().max().item()
-        print(f"kernel vs plain, {name} font (B={B} P={P} N={N}): "
-              f"max abs err {err:.3g} (peak {peak:.3g})")
+        print(f"kernel vs plain, {name} (B={B} P={P} N={N}): max abs err {err:.3g}; vs its "
+              f"order in torch ops {err_cut:.3g} (peak {peak:.3g}); two calls bit for bit")
         check(torch.isfinite(out).all().item() and peak > 1.0, f"{name}: degenerate")
-        check(err <= TOL, f"{name} font: kernel disagrees with plain ({err})")
-        max_err = max(max_err, err)
-        k_ms = device_ms(lambda: kernel(rows, wave, N), 20)
+        check(err <= TOL, f"{name}: kernel disagrees with plain ({err})")
+        check(err_cut <= TOL, f"{name}: kernel disagrees with its order in torch ops ({err_cut})")
+        max_err = max(max_err, err, err_cut)
+        events_ms = device_ms(lambda: kernel(rows, wave, N), 20)
         p_ms = device_ms(lambda: fk.osc_filter_gain_mix_ref(rows, wave, N), 5)
-        timings[name] = (k_ms, p_ms)
-        print(f"  {name} font: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
-              f"per 3 s call [{card}]")
-        if large:  # streamed hand-off of the (4, P) state
+        split = launch_split(lambda: kernel(rows, wave, N), key="osc_filter_gain_mix")
+        k_ms = next(v for k, v in split.items() if "osc_filter_gain_mix" in k)
+        timings[name] = (k_ms, p_ms, split, events_ms)
+        print(f"  {name}: kernel alone {k_ms:.4f} ms (CUDA events over calls {events_ms:.4f} ms), "
+              f"plain {p_ms:.4f} ms per call; a call's device items: "
+              + ", ".join(f"{k[:40]} {v:.4f} ms" for k, v in split.items()) + f" [{card}]")
+        if name == "large":  # streamed hand-off of the (4, P) state
             cut = B // 2
             o1, s1 = kernel({k: v[:cut] for k, v in rows.items()}, wave, N)
             o2, s2 = kernel({k: v[cut:] for k, v in rows.items()}, wave, N, s1)
@@ -329,6 +341,12 @@ def main() -> None:
         "ms": timings["large"][0],
         "plain_ms": timings["large"][1],
         "library_ms": None,  # no single PyTorch call computes this function
+        "ms_small": timings["small"][0],
+        "ms_60s_segment": timings["60 s segment"][0],
+        "plain_ms_60s_segment": timings["60 s segment"][1],
+        "events_ms": {k: v[3] for k, v in timings.items()},
+        "by_launch_ms": {k: {name[:40]: ms for name, ms in v[2].items()}
+                         for k, v in timings.items()},
     }
     B, P, N, L = osc_shape  # the large font's 3 s shapes
     osc_entry["bound_ms"], osc_entry["bound_by"] = bound(
@@ -377,24 +395,48 @@ def timed_plain(fn):
     return result, start.elapsed_time(end)
 
 
-def kernel_ms(fn, key: str, reps: int = 10) -> float:
-    """Mean time on the card of the kernels whose name holds ``key`` over
-    ``reps`` calls, from torch.profiler's device events: the kernel alone,
-    where CUDA events around back-to-back calls would also count the
-    host's enqueue of a short kernel."""
+def device_events(fn, reps: int = 10, key: str = "") -> dict:
+    """{name: [ms, ...]} of the device events of ``reps`` calls of ``fn``
+    (after a warm-up call), from torch.profiler. A session that traced no
+    device event whose name holds ``key`` is run again, at most twice more
+    (one run of this script saw a session trace no kernel it launched)."""
+    from collections import defaultdict
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    times = [(e.time_range.end - e.time_range.start) / 1e3 for e in prof.events()
-             if e.device_type == DeviceType.CUDA and key in e.name]
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = defaultdict(list)
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                events[e.name].append((e.time_range.end - e.time_range.start) / 1e3)
+        if any(key in name for name in events):
+            return events
+        print(f"device_events: session {attempt + 1} traced no device event named {key!r}: "
+              f"{sorted(events)[:4]}")
+    fail(f"device_events: no device event named {key!r} in three sessions")
+
+
+def kernel_ms(fn, key: str, reps: int = 10) -> float:
+    """Mean time on the card of the kernels whose name holds ``key`` over
+    ``reps`` calls, from torch.profiler's device events: the kernel alone,
+    where CUDA events around back-to-back calls would also count the
+    host's enqueue of a short kernel."""
+    times = [t for name, ts in device_events(fn, reps, key).items() if key in name for t in ts]
     check(len(times) > 0, f"kernel_ms: no {key} kernel traced")
     return sum(times) / len(times)
+
+
+def launch_split(fn, reps: int = 10, key: str = "") -> dict:
+    """Mean device ms a call of ``fn`` spends in each item it enqueues, by
+    name (torch.profiler's device events)."""
+    return {name: sum(ts) / reps for name, ts in device_events(fn, reps, key).items()}
 
 
 def compare(name, got, ref, tol, what):
@@ -831,11 +873,18 @@ def fx_kernels(dev, card, device_ms) -> dict:
         errs.append(err)
         got, ref = handoff(slew.slew_scan, None, args, T // 3, 1, kw, ref)
         errs.append(compare("slew_scan", got, ref, 0.0, f"{mode} two-call hand-off"))
-        times[mode] = timed("slew_scan", slew.slew_scan, slew.slew_scan_ref,
-                            slew_args(BLOCK, seed=7), kw, 0.0, mode, errs)
+        args = slew_args(BLOCK, seed=7)
+        events_ms, plain_ms = timed("slew_scan", slew.slew_scan, slew.slew_scan_ref, args, kw,
+                                    0.0, mode, errs)
+        ms = kernel_ms(lambda: slew.slew_scan(*args, **kw), "slew_scan")
+        print(f"slew_scan T={BLOCK} {mode}: kernel alone {ms:.4f} ms [{card}]")
+        times[mode] = (ms, plain_ms, events_ms)
     out["slew_scan"] = entry(
-        "slew_scan.cu", "pygmu2_tpu/ops/slew_pallas.py:107", errs, *times["linear"],
+        "slew_scan.cu", "pygmu2_tpu/ops/slew_pallas.py:107", errs, *times["linear"][:2],
         4 * (2 * BLOCK + 2), SLEW_OPS * BLOCK, f"T={BLOCK} linear")
+    out["slew_scan"].update(ms_exponential=times["exponential"][0],
+                            events_ms=times["linear"][2],
+                            events_ms_exponential=times["exponential"][2])
 
     # ---- reverse echo: the chain's rings (0.5 s of buffer, 60 Hz line) ----
     cap, plen = SR // 2, SR // 60
@@ -974,19 +1023,12 @@ def _high_score_rows(dev, seconds):
     from pygmu2_tpu_torch import bench_workload
     from pygmu2_tpu_torch.soundfont import MidiFile
     from pygmu2_tpu_torch.soundfont import offline as off
-    from pygmu2_tpu_torch.soundfont.convert import schedule_to_torch, to_torch
 
     synth, _ = bench_workload.build_workload(True)
     midi = MidiFile(bench_workload.build_high_midi_bytes(seconds))
-    par, ch, snap, _nb = synth.build_schedule(midi, seconds)
+    par, ch, _snap, _nb = synth.build_schedule(midi, seconds)
     check(off._out_of_window(synth, par, ch), "high score: not out of the window")
-    planes, flags = schedule_to_torch(par, ch, snap, dev)
-    ctrl = off._control_device(*planes, synth.block_size, flags,
-                               int(synth._minimum_voice_duration), float(synth.sample_rate))
-    wave = to_torch(synth._wave, dev)
-    rows = dict(off._gain_rows(ctrl, synth.master_volume), **off._osc_rows(ctrl, wave))
-    synth.reset()
-    return rows, wave, synth.block_size
+    return bench_workload.audio_pass_rows(synth, midi, seconds, dev)
 
 
 def scan_kernels(dev, card, device_ms) -> dict:

@@ -97,8 +97,9 @@ def load() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     q, d = ctypes.c_longlong, ctypes.c_double
     signatures = {
-        # rows_f, rows_i, wave, L, state_in, out, state_out, scratch, B, P, N, stream
-        "osc_filter_gain_mix_launch": [p, p, p, i, p, p, p, p, i, i, i, p],
+        # rows_f, rows_i, wave, L, state_in, out, state_out, scratch_f, n_f,
+        # scratch_i, n_i, B, P, N, stream
+        "osc_filter_gain_mix_launch": [p, p, p, i, p, p, p, p, q, p, q, i, i, i, p],
         # x, al, qa, ki, dsc, state_in, y, state_out, T, C, os_n, pbg,
         # mode_index, input_threshold, state_decay, stream
         "ladder_scan_launch": [p] * 8 + [i, i, i, f, i, f, f, p],

@@ -157,3 +157,21 @@ def build_workload(large_font: bool = False):
         ),
     )
     return synth, midi
+
+
+def audio_pass_rows(synth, midi, seconds: float, device):
+    """The fused audio pass's (B, P) control rows for the first ``seconds``
+    of ``midi`` through ``synth`` (the control pass on ``device``), as
+    ``offline.render_midi_offline`` forms them: (rows, wave, N). Resets the
+    synth."""
+    from pygmu2_tpu_torch.soundfont import offline as off
+    from pygmu2_tpu_torch.soundfont.convert import schedule_to_torch, to_torch
+
+    par, ch, snap, _nb = synth.build_schedule(midi, seconds)
+    planes, flags = schedule_to_torch(par, ch, snap, device)
+    ctrl = off._control_device(*planes, synth.block_size, flags,
+                               int(synth._minimum_voice_duration), float(synth.sample_rate))
+    wave = to_torch(synth._wave, device)
+    rows = dict(off._gain_rows(ctrl, synth.master_volume), **off._osc_rows(ctrl, wave))
+    synth.reset()
+    return rows, wave, synth.block_size

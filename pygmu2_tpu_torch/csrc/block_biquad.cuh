@@ -1,10 +1,10 @@
-// Device code shared by the SoundFont audio-pass kernels
-// (osc_filter_gain_mix.cu: the oscillator fused in; filter_gain_mix.cu: the
-// oscillator's samples read from memory).
+// Device code of the unfused SoundFont audio pass (filter_gain_mix.cu: the
+// oscillator's samples read from memory); osc_filter_gain_mix.cu takes its
+// kNonAudible.
 //
-// Both run a per-voice DF1 biquad whose coefficients are constant within a
-// MIDI block of N samples, cut at block boundaries: a block's response is
-// affine in its incoming (y1, y2), so
+// The unfused pass runs a per-voice DF1 biquad whose coefficients are
+// constant within a MIDI block of N samples, cut at block boundaries: a
+// block's response is affine in its incoming (y1, y2), so
 //   1. zero_state: one thread per (block, voice) runs the block from zero
 //      y-state and records the end state and the block's transition A^N
 //      (zero_state_block);

@@ -47,6 +47,8 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "staged_ring.cuh"
+
 namespace {
 
 constexpr int kLanes = 32;   // channels per CUDA block: one consumer warp
@@ -60,35 +62,6 @@ struct Stage {
 __device__ __forceinline__ float step(float e, float x, float atk, float rel) {
   const float coeff = x > e ? atk : rel;
   return __fadd_rn(e, __fmul_rn(coeff, __fsub_rn(x, e)));
-}
-
-__device__ __forceinline__ unsigned smem(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem(bar)), "r"(count));
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("{\n .reg .b64 st;\n mbarrier.arrive.shared::cta.b64 st, [%0];\n}\n"
-               ::"r"(smem(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n .reg .pred done;\n WAIT:\n"
-      " mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      " @!done bra WAIT;\n}\n" ::"r"(smem(bar)), "r"(parity) : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem(dst)), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem(dst)), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem(bar))
-               : "memory");
 }
 
 // How a chunk's rows move between global and shared memory (each stage

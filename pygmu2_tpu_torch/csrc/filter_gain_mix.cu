@@ -15,12 +15,12 @@
 // 68 MB of xt, ~0.02 ms at 3.35 TB/s). The bounds are the biquad's serial
 // dependence along T and the reduction over voices behind every output sample.
 //
-// What the design does about it: the design of csrc/osc_filter_gain_mix.cu,
-// with the oscillator replaced by a read of xt (coalesced: neighbouring
-// threads hold neighbouring voices): the serial chain cut at MIDI-block
+// What the design does about it: the serial chain cut at MIDI-block
 // boundaries (block_biquad.cuh), a zero-state pass per (block, voice), a
 // per-voice carry over the blocks, a re-run from the true state with a
-// shared-memory mixdown.
+// shared-memory mixdown; the oscillator's samples read from xt (coalesced:
+// neighbouring threads hold neighbouring voices). The fused pass
+// (osc_filter_gain_mix.cu) took this design before its own.
 //
 // Tolerance: the TPU kernel (and its plain version, soundfont/filter_kernels.
 // filter_gain_mix_ref) scans each 128-sample chunk in Kogge-Stone order; this

@@ -1,7 +1,8 @@
-"""Cycle counts of the serial threads in the comb, string and follower
-kernels, on one CUDA card: ``python -m pygmu2_tpu_torch.cycle_probe``.
+"""Cycle counts of the serial threads and the roles of the port's kernels,
+on one CUDA card: ``python -m pygmu2_tpu_torch.cycle_probe [name ...]``
+(names: the keys of ``PROBES``; all by default).
 
-Four measurements, each printed as one JSON line with the card's name:
+Each measurement prints one JSON line with the card's name:
 
 1. ``chains``: one thread, ``clock64()`` around 2**20 steps of a dependent
    chain, in cycles a step: the string's allpass (a multiply and a
@@ -9,26 +10,33 @@ Four measurements, each printed as one JSON line with the card's name:
    ``setp``/``selp``, and as a C conditional; the smoother walking a
    512-sample chunk in shared memory with bounds-tested scalar loads eight
    ahead and register moves between batches, against the 16-byte vector
-   walk the kernels use; and the envelope follower's step with its
+   walk the kernels use; the envelope follower's step with its
    coefficient selected before the multiply (its first design), with the
    two products formed and one selected (in C, and by ``setp``/``selp``),
    with the attack coefficient alone (its chain without a select), with
    the products or the coefficient picked by a mask in a register
    (``set``, ``lop3``: no predicate), and with both updates formed and one
-   selected or picked last.
+   selected or picked last; and the slew limiter's steps: LINEAR's clip
+   as ``fminf``/``fmaxf``, as ``setp``/``selp``, and as three sums formed
+   and one selected, EXPONENTIAL's coefficient selected, and both updates
+   formed and one selected.
 2. ``roles``: copies of ``csrc/comb_scan.cu`` and ``csrc/ks_scan.cu`` with
    ``clock64()`` stamps around each role's work in the pipelined loop
    (busy) and around its barrier (wait), run at T = 16384: the comb at
    C = 1 with a 200-240 Hz sweep, the string at L = 133 and 535.
-
-3. ``follower roles``: a copy of ``csrc/envelope_ar_scan.cu`` with
-   ``clock64()`` around each warp's whole run and its mbarrier waits, at
-   T = 16384 and C = 1 and 128.
-4. ``adsr passes``: copies of ``csrc/adsr_scan.cu`` with ``clock64()``
-   around its set-up, each tile's three passes and the whole kernel, at
-   T = 16384 on the patch's gate, the many-edges gate, an edge every eight
-   samples and every sample; as built, and with the tile's path forced to
-   the edge walk and to the per-sample walk (``ADSR_PATHS``).
+3. ``follower`` and ``slew``: copies of ``csrc/envelope_ar_scan.cu`` and
+   ``csrc/slew_scan.cu`` with ``clock64()`` around each warp's whole run
+   and its mbarrier waits, at T = 16384: the follower at C = 1 and 128,
+   the slew limiter in both modes.
+4. ``osc``: a copy of ``csrc/osc_filter_gain_mix.cu`` with ``clock64()``
+   around each role's work (``OSC_ROLES``), summed over the CUDA blocks,
+   on the bench's rows: the 3 s chord through both fonts and the 60 s
+   piece's first streamed segment.
+5. ``adsr``: copies of ``csrc/adsr_scan.cu`` with ``clock64()`` around its
+   set-up, each tile's three passes and the whole kernel, at T = 16384 on
+   the patch's gate, the many-edges gate, an edge every eight samples and
+   every sample; as built, and with the tile's path forced to the edge
+   walk and to the per-sample walk (``ADSR_PATHS``).
 
 Builds into ``build/cycle_probe/`` beside the package with ``nvcc``; the
 kernels' own library is untouched.
@@ -40,6 +48,7 @@ import ctypes
 import json
 import re
 import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -109,6 +118,36 @@ __device__ __forceinline__ float follow_results_lop3(float e, float x, float atk
   const float d = __fsub_rn(x, e);
   return pick(gt_mask(x, e), __fadd_rn(e, __fmul_rn(atk, d)), __fadd_rn(e, __fmul_rn(rel, d)));
 }
+// the slew limiter's steps: LINEAR cur + clip(x - cur, -fall, rise), as
+// fminf / fmaxf, as setp/selp, and as the three sums formed and one selected;
+// EXPONENTIAL cur + (err > 0 ? rise : fall) * err with the coefficient
+// selected, and with both updates formed and one selected
+__device__ __forceinline__ float slew_minmax(float cur, float x, float rise, float nfall) {
+  return __fadd_rn(cur, fminf(fmaxf(__fsub_rn(x, cur), nfall), rise));
+}
+__device__ __forceinline__ float slew_selp(float cur, float x, float rise, float nfall) {
+  const float d = __fsub_rn(x, cur);
+  float c;
+  asm("{\n\t.reg .pred p, q;\n\tsetp.lt.f32 p, %1, %2;\n\tselp.f32 %0, %2, %1, p;\n\t"
+      "setp.gt.f32 q, %0, %3;\n\tselp.f32 %0, %3, %0, q;\n\t}"
+      : "=f"(c) : "f"(d), "f"(nfall), "f"(rise));
+  return __fadd_rn(cur, c);
+}
+__device__ __forceinline__ float slew_sums(float cur, float x, float rise, float nfall) {
+  const float d = __fsub_rn(x, cur);
+  const float up = __fadd_rn(cur, rise), down = __fadd_rn(cur, nfall), mid = __fadd_rn(cur, d);
+  return d > rise ? up : (d < nfall ? down : mid);
+}
+__device__ __forceinline__ float slew_coeff(float cur, float x, float rise, float fall) {
+  const float err = __fsub_rn(x, cur);
+  return __fadd_rn(cur, __fmul_rn(err > 0.0f ? rise : fall, err));
+}
+__device__ __forceinline__ float slew_updates(float cur, float x, float rise, float fall) {
+  const float err = __fsub_rn(x, cur);
+  const float up = __fadd_rn(cur, __fmul_rn(rise, err));
+  const float down = __fadd_rn(cur, __fmul_rn(fall, err));
+  return err > 0.0f ? up : down;
+}
 constexpr int kN = 512;
 __global__ void chains(const float* in, float* out, long long* cyc, int n, int m, float a,
                        int mode) {  // m: the chunk length, a run-time value as in the kernels
@@ -174,6 +213,21 @@ __global__ void chains(const float* in, float* out, long long* cyc, int n, int m
   } else if (mode == 13) {
 #pragma unroll 8
     for (int i = 0; i < n; ++i) x = follow_results_lop3(x, in[i & 7], a, a * 0.0625f);
+  } else if (mode == 14) {
+#pragma unroll 8
+    for (int i = 0; i < n; ++i) x = slew_minmax(x, in[i & 7], a, -0.2f * a);
+  } else if (mode == 15) {
+#pragma unroll 8
+    for (int i = 0; i < n; ++i) x = slew_selp(x, in[i & 7], a, -0.2f * a);
+  } else if (mode == 16) {
+#pragma unroll 8
+    for (int i = 0; i < n; ++i) x = slew_sums(x, in[i & 7], a, -0.2f * a);
+  } else if (mode == 17) {
+#pragma unroll 8
+    for (int i = 0; i < n; ++i) x = slew_coeff(x, in[i & 7], a, 0.04f * a);
+  } else if (mode == 18) {
+#pragma unroll 8
+    for (int i = 0; i < n; ++i) x = slew_updates(x, in[i & 7], a, 0.04f * a);
   } else {  // the kernels' walk: 16-byte vectors, two batches a turn
     const float4* in4 = reinterpret_cast<const float4*>(s_in);
     float4* out4 = reinterpret_cast<float4*>(s_out);
@@ -208,9 +262,12 @@ extern "C" int chains_launch(const float* in, float* out, long long* cyc, int n,
 """
 
 _READ = """
-__device__ long long g_cycles[8];
+__device__ long long g_cycles[16];
 extern "C" int read_cycles(long long* out) {
-  return (int)cudaMemcpyFromSymbol(out, g_cycles, sizeof(long long) * 8);
+  return (int)cudaMemcpyFromSymbol(out, g_cycles, sizeof(long long) * 16);
+}
+extern "C" int write_cycles(const long long* in) {
+  return (int)cudaMemcpyToSymbol(g_cycles, in, sizeof(long long) * 16);
 }
 """
 
@@ -243,7 +300,8 @@ def _build(name: str, text: str) -> ctypes.CDLL:
     nvcc = _ext._nvcc()
     if nvcc is None:
         raise RuntimeError("cycle_probe: nvcc not found")
-    subprocess.run([nvcc, *_ext.NVCC_FLAGS, "-shared", "-o", str(lib), str(src)], check=True)
+    subprocess.run([nvcc, *_ext.NVCC_FLAGS, "-I", str(_PKG / "csrc"), "-shared", "-o", str(lib),
+                    str(src)], check=True)
     return ctypes.CDLL(str(lib))
 
 
@@ -265,10 +323,16 @@ def chains(card: str) -> dict:
              "follower, products picked by a mask (set, lop3)",
              "follower, coefficient picked by a mask (set, lop3)",
              "follower, both updates formed, one selected",
-             "follower, both updates formed, one picked by a mask (set, lop3)"]
+             "follower, both updates formed, one picked by a mask (set, lop3)",
+             "slew linear, clip as fminf/fmaxf", "slew linear, clip as setp/selp",
+             "slew linear, three sums formed, one selected",
+             "slew exponential, coefficient selected",
+             "slew exponential, both updates formed, one selected"]
     result = {"probe": "chains", "card": card, "cycles_per_step": {}}
     for mode, name in enumerate(names):
-        a = 0.35 if mode == 0 else (0.0045 if mode >= 6 else 1.0 / 2400)
+        # the slew's: the wah's rise (40000 / 44100 a sample) and an exponential 0.05
+        a = (0.35, 1.0 / 2400, 0.0045, 40000.0 / 44100, 0.05)[
+            (mode > 0) + (mode >= 6) + (mode >= 14) + (mode >= 17)]
         for _ in range(2):  # the second launch is the one kept
             err = lib.chains_launch(vals.data_ptr(), out.data_ptr(), cyc.data_ptr(), n, 512, a,
                                     mode)
@@ -300,7 +364,7 @@ def roles(card: str) -> dict:
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     T = 16384
-    cycles = (ctypes.c_longlong * 8)()
+    cycles = (ctypes.c_longlong * 16)()
     result = {"probe": "roles", "card": card, "T": T}
 
     comb = _build("comb_roles", comb_roles_source())
@@ -346,11 +410,11 @@ def roles(card: str) -> dict:
     return result
 
 
-def follower_roles_source() -> str:
-    """``csrc/envelope_ar_scan.cu`` with ``clock64()`` around each role's
-    whole run and around its mbarrier waits: lane 0 of the consumer and of
-    the producer warp."""
-    s = (_PKG / "csrc" / "envelope_ar_scan.cu").read_text()
+def _ring_roles_source(src: str, consumer_end: str) -> str:
+    """``csrc/<src>`` (a producer warp staging a ring, a consumer) with
+    ``clock64()`` around each role's whole run and around its mbarrier
+    waits: lane 0 of the consumer and of the producer warp."""
+    s = (_PKG / "csrc" / src).read_text()
     s = _replace(s, "namespace {", _READ + "namespace {")
     s = _replace(s, "  __syncthreads();\n", "  __syncthreads();\n  long long waited = 0;\n"
                  "  const long long t_start = clock64();\n")
@@ -361,8 +425,15 @@ def follower_roles_source() -> str:
     record = ("if ((threadIdx.x & 31) == 0 && blockIdx.x == 0) {{ g_cycles[{k}] = "
               "clock64() - t_start; g_cycles[{k} + 1] = waited; }}\n")
     s = _replace(s, "    return;\n", "    " + record.format(k=2) + "    return;\n")
-    return _replace(s, "  if (live) env_final[c] = e;",
-                    "  " + record.format(k=0) + "  if (live) env_final[c] = e;")
+    return _replace(s, consumer_end, "  " + record.format(k=0) + consumer_end)
+
+
+def follower_roles_source() -> str:
+    return _ring_roles_source("envelope_ar_scan.cu", "  if (live) env_final[c] = e;")
+
+
+def slew_roles_source() -> str:
+    return _ring_roles_source("slew_scan.cu", "  *cur_out = cur;")
 
 
 def follower_roles(card: str) -> dict:
@@ -373,7 +444,7 @@ def follower_roles(card: str) -> dict:
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     T = 16384
-    cycles = (ctypes.c_longlong * 8)()
+    cycles = (ctypes.c_longlong * 16)()
     result = {"probe": "follower roles", "card": card, "T": T}
     for C in (1, 128):
         x = torch.from_numpy(rng.uniform(0.0, 0.5, (T, C)).astype(np.float32)).to(dev)
@@ -394,6 +465,33 @@ def follower_roles(card: str) -> dict:
 # the ADSR's tile paths: as built (past kSerialAbove edges a tile the
 # per-sample walk), the edge walk at any edge count, the per-sample walk always
 ADSR_PATHS = {"as built": None, "edge walk": 1 << 30, "per-sample walk": -1}
+
+
+def slew_roles(card: str) -> dict:
+    """The slew limiter's roles at T = 16384 in both modes (the wah's
+    LINEAR rates, an EXPONENTIAL pair)."""
+    lib = _build("slew_roles", slew_roles_source())
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.slew_scan_launch.argtypes = [p] * 4 + [i, i, f, f, p]
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    T = 16384
+    cycles = (ctypes.c_longlong * 16)()
+    x = torch.from_numpy(np.repeat(rng.uniform(300.0, 2800.0, T // 64), 64)
+                         .astype(np.float32)).to(dev)
+    cur0, y, final = torch.full((), 300.0, device=dev), torch.empty(T, device=dev), \
+        torch.empty((), device=dev)
+    result = {"probe": "slew roles", "card": card, "T": T}
+    for mode, linear, rise, fall in (("linear", 1, 40000.0 / 44100, 8000.0 / 44100),
+                                     ("exponential", 0, 0.05, 0.002)):
+        for _ in range(2):  # the second launch is the one kept
+            lib.slew_scan_launch(x.data_ptr(), cur0.data_ptr(), y.data_ptr(), final.data_ptr(),
+                                 T, linear, rise, fall, torch.cuda.current_stream().cuda_stream)
+            torch.cuda.synchronize()
+        lib.read_cycles(cycles)
+        result[mode] = {role: {"total": cycles[k], "waiting": cycles[k + 1]}
+                        for role, k in (("consumer", 0), ("producer", 2))}
+    return result
 
 
 def adsr_passes_source(serial_above=None) -> str:
@@ -444,7 +542,7 @@ def adsr_passes(card: str) -> dict:
     gates["many edges"] = g
     gates["an edge every 8 samples"] = ((np.arange(T) // 8) % 2).astype(np.float32)
     gates["an edge every sample"] = (np.arange(T) % 2).astype(np.float32)
-    cycles = (ctypes.c_longlong * 8)()
+    cycles = (ctypes.c_longlong * 16)()
     result = {"probe": "adsr passes", "card": card, "T": T}
     for k, (path, above) in enumerate(ADSR_PATHS.items()):
         lib = _build(f"adsr_passes_{k}", adsr_passes_source(above))
@@ -468,13 +566,113 @@ def adsr_passes(card: str) -> dict:
     return result
 
 
+# the SoundFont pass's roles, each summed over the CUDA blocks
+OSC_ROLES = ("producers: oscillator", "producers: earlier maps", "producers: barrier",
+             "producers: mix", "producers: mix, waiting on run 2", "chain: run 1",
+             "chain: run 1, waiting on the producers", "chain: map and barrier",
+             "chain: entering state", "chain: run 2")
+
+
+def osc_roles_source() -> str:
+    """``csrc/osc_filter_gain_mix.cu`` with ``clock64()`` stamps around
+    each role's work (``OSC_ROLES``: thread 0 for the producer warps, the
+    chain warp's lane 0), summed over the CUDA blocks into ``g_cycles``."""
+    s = (_PKG / "csrc" / "osc_filter_gain_mix.cu").read_text()
+    s = _replace(s, "namespace {", _READ + "namespace {")
+    s = _replace(s, "  if (warp < kProducers) {\n",
+                 "  long long c[10] = {0}, m0 = clock64(), m1;\n"
+                 "  auto lap = [&](int k) { m1 = clock64(); c[k] += m1 - m0; m0 = m1; };\n"
+                 "  if (warp < kProducers) {\n")
+    s = _replace(s, "    // ---- the maps of the group's earlier segments, kSlot a warp ----\n",
+                 "    lap(0);\n    // ---- the maps of the group's earlier segments, kSlot a warp ----\n")
+    bar = '    asm volatile("bar.sync 1, %0;" ::"n"(kThreads));\n'
+    s = _replace(s, bar + "\n    // ---- the mix", "    lap(1);\n" + bar + "    lap(2);\n\n    // ---- the mix")
+    s = _replace(s, "      mbar_wait(&sm.ydone[t], 0);\n",
+                 "      { const long long w0 = clock64(); mbar_wait(&sm.ydone[t], 0);"
+                 " c[4] += clock64() - w0; }\n")
+    s = _replace(s, "  } else {\n    // ---- the chain: one voice a lane ----\n",
+                 "    lap(3);\n  } else {\n    // ---- the chain: one voice a lane ----\n"
+                 "    m0 = clock64();\n")
+    s = _replace(s, "        if (!run2) mbar_wait(&sm.full[t], 0);\n",
+                 "        if (!run2) { const long long w0 = clock64(); mbar_wait(&sm.full[t], 0);"
+                 " c[6] += clock64() - w0; }\n")
+    s = _replace(s, "    walk(fir_quad, false);\n", "    walk(fir_quad, false);\n    lap(5);\n")
+    s = _replace(s, bar + "\n    // the entering state", bar + "    lap(7);\n\n    // the entering state")
+    s = _replace(s, "    walk(y_quad, true);\n", "    lap(8);\n    walk(y_quad, true);\n    lap(9);\n")
+    return _replace(s, "  // ---- with more than one block of voices: the partials, in order ----\n",
+                    "  if (tid == 0 || tid == kProducers * 32)\n"
+                    "    for (int k = 0; k < 10; ++k)\n"
+                    "      if (c[k]) atomicAdd((unsigned long long*)&g_cycles[k], (unsigned long long)c[k]);\n"
+                    "  // ---- with more than one block of voices: the partials, in order ----\n")
+
+
+def osc_roles(card: str) -> dict:
+    """The SoundFont pass's roles on the bench's rows: the 3 s chord
+    through the small and the large font, and the 60 s piece's first
+    streamed segment (large font); cycles per CUDA block, and per sample of
+    its segment."""
+    from pygmu2_tpu_torch.soundfont import filter_kernels as fk
+
+    lib = _build("osc_roles", osc_roles_source())
+    p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.osc_filter_gain_mix_launch.argtypes = [p, p, p, i, p, p, p, p, q, p, q, i, i, i, p]
+    dev = torch.device("cuda")
+    cycles = (ctypes.c_longlong * 16)()
+    zero = (ctypes.c_longlong * 16)()
+    result = {"probe": "osc roles", "card": card}
+    for name, large, seconds in (("3 s chord, small font", False, 3.0),
+                                 ("3 s chord, large font", True, 3.0),
+                                 ("60 s piece's first segment", True, 255.5 * 1024 / 44100)):
+        rows, wave, N = _osc_rows(large, seconds, dev)
+        B, P = rows["ratio"].shape
+        rows_f = torch.stack([rows[k].float() for k in fk._OSC_F32_ROWS])
+        rows_i = torch.stack([rows[k].to(torch.int32) for k in fk._OSC_I32_ROWS])
+        n_f, n_i = fk._osc_scratch_sizes(B, P, N)
+        scratch_f, scratch_i = torch.empty(n_f, device=dev), torch.empty(n_i, dtype=torch.int32,
+                                                                         device=dev)
+        state = torch.zeros((4, P), device=dev)
+        out, state_out = torch.empty((B * N, 2), device=dev), torch.empty((4, P), device=dev)
+        for _ in range(2):  # the second launch is the one kept
+            lib.write_cycles(zero)
+            err = lib.osc_filter_gain_mix_launch(
+                rows_f.data_ptr(), rows_i.data_ptr(), wave.data_ptr(), wave.shape[0],
+                state.data_ptr(), out.data_ptr(), state_out.data_ptr(), scratch_f.data_ptr(), n_f,
+                scratch_i.data_ptr(), n_i, B, P, N, torch.cuda.current_stream().cuda_stream)
+            torch.cuda.synchronize()
+            if err:
+                raise RuntimeError(f"cycle_probe: osc launch failed ({err})")
+        lib.read_cycles(cycles)
+        blocks = B * -(-N // fk.OSC_SEG) * -(-P // fk.OSC_VOICES)
+        result[name] = {"B": B, "P": P, "N": N, "cuda_blocks": blocks, **{
+            role: {"per_block": cycles[k] / blocks, "per_sample": cycles[k] / blocks / fk.OSC_SEG}
+            for k, role in enumerate(OSC_ROLES)}}
+    return result
+
+
+def _osc_rows(large: bool, seconds: float, dev):
+    """The bench's control rows (``chip_smoke.py`` phase 3's): the 3 s chord,
+    or the first ``seconds`` of the 60 s piece."""
+    from pygmu2_tpu_torch import bench_workload
+    from pygmu2_tpu_torch.soundfont import MidiFile
+
+    synth, midi = bench_workload.build_workload(large)
+    if seconds != 3.0:
+        midi = MidiFile(bench_workload.build_midi_bytes(repeats=15))
+    return bench_workload.audio_pass_rows(synth, midi, seconds, dev)
+
+
 def instrumented_sources() -> dict:
     """Every instrumented copy's source text (no build): each raises if a
     line it stamps is gone from its kernel."""
     out = {"comb roles": comb_roles_source(), "ks roles": ks_roles_source(),
-           "follower roles": follower_roles_source()}
+           "follower roles": follower_roles_source(), "slew roles": slew_roles_source(),
+           "osc roles": osc_roles_source()}
     out.update({f"adsr passes, {k}": adsr_passes_source(v) for k, v in ADSR_PATHS.items()})
     return out
+
+
+PROBES = {"chains": chains, "roles": roles, "follower": follower_roles, "slew": slew_roles,
+          "osc": osc_roles, "adsr": adsr_passes}
 
 
 def main() -> None:
@@ -483,10 +681,8 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     card = smi.splitlines()[0]
-    print(json.dumps(chains(card)))
-    print(json.dumps(roles(card)))
-    print(json.dumps(follower_roles(card)))
-    print(json.dumps(adsr_passes(card)))
+    for name in sys.argv[1:] or PROBES:
+        print(json.dumps(PROBES[name](card)))
 
 
 if __name__ == "__main__":

@@ -1,10 +1,13 @@
-"""Where the PE-graph render's time goes on one CUDA card:
+"""Where a render's time goes on one CUDA card:
 ``python -m pygmu2_tpu_torch.profile_pe [name ...]``.
 
 Renders the workloads of ``patch_workload`` (the patch for 60 s, the bank
 for 10 s), ``fx_workload`` (the chain for 60 s, the fx bank for 10 s) and
-``filter_workload`` (the filter bank for 10 s), or the ones named, through
-``render_to_array`` on the card, after a warm-up render of the same graph:
+``filter_workload`` (the filter bank for 10 s) through ``render_to_array``,
+and the SoundFont workloads of ``bench_workload`` (``sf_small``,
+``sf_large``: the 3 s chord through ``render_midi_offline``; ``sf_60``: the
+60 s piece through the large font, ``render_midi_offline_streamed``), or
+the ones named, on the card, after a warm-up render of the same workload:
 the untraced wall time (median of 3, host clock around a render that ends
 in a synchronize), then one render under ``torch.profiler``. Prints one
 JSON line per workload with the device busy time (device-side events
@@ -25,12 +28,33 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 import pygmu2_tpu_torch as pg
-from pygmu2_tpu_torch import filter_workload, fx_workload, patch_workload
+from pygmu2_tpu_torch import bench_workload, filter_workload, fx_workload, patch_workload
 
 
-def _render(graph, dev) -> float:
+def _graph(build):
+    """A PE-graph workload: (seconds) -> a render function."""
+    def make(seconds, dev):
+        graph = build(seconds)
+        return lambda: pg.render_to_array(graph, device=dev)
+    return make
+
+
+def _soundfont(large, repeats, streamed):
+    """A SoundFont workload: (seconds) -> a render function."""
+    def make(seconds, dev):
+        from pygmu2_tpu_torch.soundfont import MidiFile
+        from pygmu2_tpu_torch.soundfont import offline as off
+
+        synth, _ = bench_workload.build_workload(large)
+        data = bench_workload.build_midi_bytes(repeats=repeats)
+        render = off.render_midi_offline_streamed if streamed else off.render_midi_offline
+        return lambda: render(synth, MidiFile(data), seconds, wire="int16", device=dev)
+    return make
+
+
+def _timed(render) -> float:
     t = time.perf_counter()
-    pg.render_to_array(graph, device=dev)
+    render()
     torch.cuda.synchronize()
     return time.perf_counter() - t
 
@@ -40,19 +64,22 @@ def main() -> None:
         sys.exit("profile_pe: needs a CUDA device")
     dev = torch.device("cuda", 0)
     workloads = {
-        "patch": (60.0, lambda s: patch_workload.build_patch(pg, s)),
-        "bank": (10.0, lambda s: patch_workload.build_bank(pg, s, seed=0)),
-        "chain": (60.0, lambda s: fx_workload.build_chain(pg, s)),
-        "fx_bank": (10.0, lambda s: fx_workload.build_fx_bank(pg, s, seed=0)),
-        "filter_bank": (10.0, lambda s: filter_workload.build_filter_bank(pg, s, seed=0)),
+        "patch": (60.0, _graph(lambda s: patch_workload.build_patch(pg, s))),
+        "bank": (10.0, _graph(lambda s: patch_workload.build_bank(pg, s, seed=0))),
+        "chain": (60.0, _graph(lambda s: fx_workload.build_chain(pg, s))),
+        "fx_bank": (10.0, _graph(lambda s: fx_workload.build_fx_bank(pg, s, seed=0))),
+        "filter_bank": (10.0, _graph(lambda s: filter_workload.build_filter_bank(pg, s, seed=0))),
+        "sf_small": (3.0, _soundfont(False, 1, streamed=False)),
+        "sf_large": (3.0, _soundfont(True, 1, streamed=False)),
+        "sf_60": (60.0, _soundfont(True, 15, streamed=True)),
     }
     for label in sys.argv[1:] or workloads:
-        seconds, build = workloads[label]
-        graph = build(seconds)
-        _render(graph, dev)  # warm-up: kernel build, table upload
-        wall = statistics.median(_render(graph, dev) for _ in range(3))
+        seconds, make = workloads[label]
+        render = make(seconds, dev)
+        _timed(render)  # warm-up: kernel build, table upload
+        wall = statistics.median(_timed(render) for _ in range(3))
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            traced = _render(graph, dev)
+            traced = _timed(render)
         by_name = defaultdict(lambda: [0.0, 0])
         for evt in prof.events():
             if evt.device_type == DeviceType.CUDA:

@@ -22,6 +22,14 @@ State layout (as ``filter_pallas.osc_filter_gain_mix_pallas``): rows
 ``[y1; y2; x[-2]; x[-1]]`` — the biquad's last two outputs and the
 oscillator's last two samples.
 
+- ``osc_filter_gain_mix_cut`` computes the same in the kernel's order, in
+  torch ops: each segment of ``OSC_SEG`` samples of a block run from zero
+  state, its map composed with its group's earlier ones in the kernel's
+  fixed order, the re-run from the entering state, and the mix summed over
+  ``OSC_VOICES`` voices as the kernel's butterfly adds them, then over the
+  blocks of voices in order. The CPU tests hold it to the plain version and
+  the JAX package's kernels; on the card it is the kernel's reference order.
+
 ``filter_gain_mix`` is the unfused pass (``filter_gain_mix_pallas``): it
 takes (T, P) oscillator samples computed beforehand and the filter and
 gain rows, and returns the (T, 2) mix of one render from zero state.
@@ -50,14 +58,19 @@ _OSC_F32_ROWS = (
     "b0", "b1", "b2", "a1", "a2", "freshf", "pgl", "gl", "pgr", "gr",
 )
 _OSC_I32_ROWS = ("base_int", "loop_start", "loop_len", "smp_end")
-# float planes of (B, P) scratch the kernels' three launches share
+# float planes of (B, P) scratch of the unfused pass's three launches
 _SCRATCH_PLANES = 10
+# the fused kernel's cut (csrc/osc_filter_gain_mix.cu kSeg, kV, kGroup):
+# samples of a block per segment, voices per CUDA block, segments per
+# group of entering states
+OSC_SEG, OSC_VOICES, OSC_GROUP = 512, 32, 32
 # Row order of the unfused pass, the kernel's ABI as well
 # (csrc/filter_gain_mix.cu); also the tail of _OSC_F32_ROWS.
 _FILTER_ROWS = ("b0", "b1", "b2", "a1", "a2", "freshf", "pgl", "gl", "pgr", "gr")
 # samples per chunk of filter_gain_mix_pallas
 FILTER_CHUNK = 128
-# the mixdown launch runs one thread per voice in one CUDA block
+# voices a call takes (the unfused pass's mixdown launch runs one thread per
+# voice in one CUDA block)
 _MAX_VOICES = 256
 
 
@@ -167,6 +180,19 @@ def osc_filter_gain_mix(rows, wave, N: int, state=None):
 osc_filter_gain_mix.launches = 0
 
 
+def _osc_scratch_sizes(B: int, P: int, N: int) -> tuple[int, int]:
+    """(floats, ints) of the fused kernel's scratch: a map of 8 floats per
+    segment and voice, an entering state of 2 per group and voice, and with
+    more than ``OSC_VOICES`` voices a partial mix per segment and block of
+    voices; the ticket, a count per segment and the flags of the maps and
+    entering states."""
+    S, G = -(-N // OSC_SEG), -(-P // OSC_VOICES)
+    nseg = B * S
+    groups = -(-nseg // OSC_GROUP)
+    n_f = nseg * P * 8 + groups * P * 2 + (nseg * G * 2 * OSC_SEG if G > 1 else 0)
+    return n_f, 1 + nseg + nseg * P + groups * P
+
+
 def _launch(rows, wave, N: int, state):
     from pygmu2_tpu_torch import _ext
 
@@ -190,17 +216,155 @@ def _launch(rows, wave, N: int, state):
     state = state.contiguous()
     out = torch.empty((B * N, 2), dtype=torch.float32, device=dev)
     state_out = torch.empty((4, P), dtype=torch.float32, device=dev)
-    scratch = torch.empty((_SCRATCH_PLANES, B, P), dtype=torch.float32, device=dev)
+    n_f, n_i = _osc_scratch_sizes(B, P, N)
+    scratch_f = torch.empty((n_f,), dtype=torch.float32, device=dev)
+    scratch_i = torch.empty((n_i,), dtype=torch.int32, device=dev)
     lib = _ext.load()
     with torch.cuda.device(dev):
         err = lib.osc_filter_gain_mix_launch(
             rows_f.data_ptr(), rows_i.data_ptr(), wave.data_ptr(), L,
             state.data_ptr(), out.data_ptr(), state_out.data_ptr(),
-            scratch.data_ptr(), B, P, N,
+            scratch_f.data_ptr(), n_f, scratch_i.data_ptr(), n_i, B, P, N,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _ext.raise_on_error(err, "osc_filter_gain_mix")
     osc_filter_gain_mix.launches += 1
+    return out, state_out
+
+
+def _matmul(a, b):
+    """The 2x2 product a b of matrices (m11, m12, m21, m22)."""
+    a11, a12, a21, a22 = a
+    b11, b12, b21, b22 = b
+    return (a11 * b11 + a12 * b21, a11 * b12 + a12 * b22,
+            a21 * b11 + a22 * b21, a21 * b12 + a22 * b22)
+
+
+def _then(f, g):
+    """The affine map g after f; a map (z1, z2, m11, m12, m21, m22) takes
+    the biquad's output state s = (y[n-1], y[n-2]) to z + m s."""
+    return (*_apply(g, *f[:2]), *_matmul(g[2:], f[2:]))
+
+
+def _apply(f, s1, s2):
+    z1, z2, m11, m12, m21, m22 = f
+    return z1 + m11 * s1 + m12 * s2, z2 + m21 * s1 + m22 * s2
+
+
+def _where(cond, f, g):
+    return tuple(torch.where(cond, a, b) for a, b in zip(f, g))
+
+
+def osc_filter_gain_mix_cut(rows, wave, N: int, state=None):
+    """:func:`osc_filter_gain_mix_ref` in the kernel's order (same
+    arguments and result): the biquad cut into segments of ``OSC_SEG``
+    samples, each run from zero state, the entering states composed in the
+    kernel's fixed order, each segment re-run from its entering state, and
+    the mix summed as the kernel sums it."""
+    B, P = rows["ratio"].shape
+    dev = wave.device
+    if state is None:
+        state = torch.zeros((4, P), dtype=torch.float32, device=dev)
+    x = _oscillator(rows, wave, N).reshape(B, N, P)
+    S, G = -(-N // OSC_SEG), -(-P // OSC_VOICES)
+    nseg = B * S
+    fresh = rows["freshf"] > 0.5  # (B, P)
+    b0, b1, b2, a1, a2 = (rows[k] for k in ("b0", "b1", "b2", "a1", "a2"))
+    zero, one = torch.zeros_like(a1), torch.ones_like(a1)
+
+    # run 1, segment by segment (k: the segment's place in its block): the
+    # FIR line, the feedback from zero state, and the segment's map
+    firs, maps = [], []
+    for k in range(S):
+        n0, n = k * OSC_SEG, min(OSC_SEG, N - k * OSC_SEG)
+        if n0 > 0:
+            x2, x1 = x[:, n0 - 2], x[:, n0 - 1]
+        else:  # the block before's last samples, the state's before block 0
+            x2 = torch.where(fresh, 0.0, torch.cat([state[2:3], x[:-1, N - 2]]))
+            x1 = torch.where(fresh, 0.0, torch.cat([state[3:4], x[:-1, N - 1]]))
+        y1 = y2 = zero
+        fir = []
+        for i in range(n):
+            xi = x[:, n0 + i]
+            f = b0 * xi + b1 * x1 + b2 * x2
+            y1, y2 = f - a1 * y1 - a2 * y2, y1
+            x2, x1 = x1, xi
+            fir.append(f)
+        firs.append(torch.stack(fir, dim=1))
+        # M = A^n for A = [[-a1, -a2], [1, 0]], by squaring as the kernel does;
+        # a fresh block's first segment forgets its entering state (M = 0)
+        m, pw, e = (one, zero, zero, one), (-a1, -a2, one, zero), n
+        while e:
+            if e & 1:
+                m = _matmul(m, pw)
+            pw, e = _matmul(pw, pw), e >> 1
+        if k == 0:
+            m = tuple(torch.where(fresh, 0.0, v) for v in m)
+        maps.append((y1, y2, *m))
+    # (nseg, P) planes in the kernel's segment order: seg = b * S + k
+    own = tuple(torch.stack([mp[c] for mp in maps], dim=1).reshape(nseg, P) for c in range(6))
+    fresh_seg = torch.cat([fresh[:, None], torch.zeros((B, S - 1, P), dtype=torch.bool,
+                                                       device=dev)], dim=1).reshape(nseg, P)
+    seg = torch.arange(nseg, device=dev)
+    first = seg // OSC_GROUP * OSC_GROUP
+
+    # each segment's composition of its group's earlier maps: four at a time
+    # (a producer warp of the kernel each), then those in order
+    ones, zeros = torch.ones((nseg, P), device=dev), torch.zeros((nseg, P), device=dev)
+    ident = (zeros, zeros, ones, zeros, zeros, ones)
+    composed = ident
+    for w in range(OSC_GROUP // 4):
+        q = ident
+        for t in range(4):
+            k = first + 4 * w + t
+            earlier = tuple(c[k.clamp(max=nseg - 1)] for c in own)
+            q = _where((k < seg)[:, None], _then(q, earlier), q)
+        composed = _where((first + 4 * w < seg)[:, None], _then(composed, q), composed)
+    reset = (composed[2] == 0) & (composed[3] == 0) & (composed[4] == 0) & (composed[5] == 0)
+
+    # the entering states; each group's from the group before's last segment
+    s_in1, s_in2 = torch.empty((nseg, P), device=dev), torch.empty((nseg, P), device=dev)
+    g1, g2 = state[0], state[1]
+    for lo in range(0, nseg, OSC_GROUP):
+        hi = min(nseg, lo + OSC_GROUP)
+        c = tuple(v[lo:hi] for v in composed)
+        e1, e2 = _apply(c, g1, g2)
+        e1 = torch.where(reset[lo:hi], c[0], e1)
+        e2 = torch.where(reset[lo:hi], c[1], e2)
+        s_in1[lo:hi] = torch.where(fresh_seg[lo:hi], 0.0, e1)
+        s_in2[lo:hi] = torch.where(fresh_seg[lo:hi], 0.0, e2)
+        g1, g2 = _apply(tuple(v[hi - 1] for v in own), s_in1[hi - 1], s_in2[hi - 1])
+    s_in1, s_in2 = s_in1.reshape(B, S, P), s_in2.reshape(B, S, P)
+
+    # run 2 from the entering states
+    ys = []
+    for k in range(S):
+        y1, y2 = s_in1[:, k], s_in2[:, k]
+        out = []
+        for i in range(firs[k].shape[1]):
+            y1, y2 = firs[k][:, i] - a1 * y1 - a2 * y2, y1
+            out.append(y1)
+        ys.append(torch.stack(out, dim=1))
+    y = torch.cat(ys, dim=1)  # (B, N, P)
+
+    # the gain ramps; the sum over each block of OSC_VOICES voices as the
+    # kernel's butterfly adds it (halves), then over the blocks in order
+    ramp = torch.arange(N, dtype=torch.float32, device=dev)[None, :, None] / N
+
+    def mixed(prev, cur):
+        prev, cur = rows[prev][:, None, :], rows[cur][:, None, :]
+        g = torch.where(torch.abs(cur - prev) < 1.0e-3, cur, prev + (cur - prev) * ramp)
+        g = torch.where(torch.maximum(prev, cur) >= NON_AUDIBLE, g, 0.0)
+        v = torch.nn.functional.pad(g * y, (0, G * OSC_VOICES - P)).reshape(B, N, G, -1)
+        while v.shape[-1] > 1:
+            v = v[..., : v.shape[-1] // 2] + v[..., v.shape[-1] // 2:]
+        acc = v[..., 0, 0]
+        for h in range(1, G):
+            acc = acc + v[..., h, 0]
+        return acc.reshape(B * N)
+
+    out = torch.stack([mixed("pgl", "gl"), mixed("pgr", "gr")], dim=1)
+    state_out = torch.stack([y[-1, -1], y[-1, -2], x[-1, -2], x[-1, -1]])
     return out, state_out
 
 

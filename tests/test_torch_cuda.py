@@ -12,10 +12,10 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_osc_rows import synthetic_rows
 from pygmu2_tpu_torch import bench_workload
 from pygmu2_tpu_torch.soundfont import filter_kernels as fk
 from pygmu2_tpu_torch.soundfont import offline as off
-from pygmu2_tpu_torch.soundfont.convert import schedule_to_torch, to_torch
 
 pytestmark = pytest.mark.cuda
 
@@ -31,15 +31,7 @@ def cuda():
 
 def _rows(large, device):
     synth, midi = bench_workload.build_workload(large)
-    par, ch, snap, _nb = synth.build_schedule(midi, SECONDS)
-    planes, flags = schedule_to_torch(par, ch, snap, device)
-    ctrl = off._control_device(
-        *planes, synth.block_size, flags, int(synth._minimum_voice_duration),
-        float(synth.sample_rate),
-    )
-    wave = to_torch(synth._wave, device)
-    rows = dict(off._gain_rows(ctrl, synth.master_volume), **off._osc_rows(ctrl, wave))
-    return rows, wave, synth.block_size
+    return bench_workload.audio_pass_rows(synth, midi, SECONDS, device)
 
 
 @pytest.mark.parametrize("large", [False, True], ids=["small_font", "large_font"])
@@ -65,6 +57,52 @@ def test_kernel_state_handoff(cuda):
     )
     torch.testing.assert_close(torch.cat([o1, o2]), one, rtol=0, atol=1e-5)
     torch.testing.assert_close(st2, st_one, rtol=0, atol=1e-5)
+
+
+def _synthetic(device, B, P, fresh_blocks, seed):
+    rows, wave, state = synthetic_rows(B, P, 4096, seed, fresh_blocks)
+    return ({k: torch.from_numpy(v).to(device) for k, v in rows.items()},
+            torch.from_numpy(wave).to(device), torch.from_numpy(state).to(device))
+
+
+@pytest.mark.parametrize("P", [1, 33, 256])
+@pytest.mark.parametrize("B,fresh", [(1, (0,)), (5, (2,))], ids=["B1_fresh0", "B5_fresh2"])
+def test_kernel_odd_shapes_match_plain_and_cut(cuda, P, B, fresh):
+    """N = 1000: two segments of a block, the second a part one, not a
+    multiple of the 32-sample tile; P = 1, 33 (a part block of voices) and
+    256 (eight blocks of voices); a fresh epoch at block 0 or mid-call.
+    Within 3e-5 x scale of the plain version (the kernel-level bound of
+    tests/test_torch_filter_kernel.py) and 1e-5 x scale of its own order in
+    torch ops (the same cut, other roundings: fused multiply-adds)."""
+    n = 1000
+    rows, wave, state = _synthetic(cuda, B, P, fresh, seed=P + B)
+    got, st = fk.osc_filter_gain_mix(rows, wave, n, state)
+    torch.cuda.synchronize()
+    ref, st_ref = fk.osc_filter_gain_mix_ref(rows, wave, n, state)
+    cut, st_cut = fk.osc_filter_gain_mix_cut(rows, wave, n, state)
+    scale = max(float(ref.abs().max()), 1.0)
+    assert float(ref.abs().max()) > 0.1
+    torch.testing.assert_close(got, ref, rtol=0, atol=3e-5 * scale)
+    torch.testing.assert_close(st, st_ref, rtol=0, atol=3e-5 * scale)
+    torch.testing.assert_close(got, cut, rtol=0, atol=1e-5 * scale)
+    torch.testing.assert_close(st, st_cut, rtol=0, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("case", ["bench large font", "B=70 P=256 N=1000"])
+def test_kernel_two_calls_equal_bits(cuda, case):
+    """The entering states and the mix are summed in a fixed order: two calls
+    return the same bits (70 blocks of two segments: five groups of
+    entering states, eight blocks of voices)."""
+    if case == "bench large font":
+        rows, wave, n = _rows(True, cuda)
+        state = None
+    else:
+        n = 1000
+        rows, wave, state = _synthetic(cuda, 70, 256, (9, 40), seed=7)
+    first = fk.osc_filter_gain_mix(rows, wave, n, state)
+    second = fk.osc_filter_gain_mix(rows, wave, n, state)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_render_on_card_matches_cpu(cuda):
@@ -362,6 +400,29 @@ def test_slew_kernel_matches_plain(cuda, linear):
         torch.testing.assert_close(g, r, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("linear", [True, False], ids=["linear", "exponential"])
+@pytest.mark.parametrize("T", [1, 5, 4096 + 3])
+def test_slew_kernel_odd_lengths_and_handoff(cuda, linear, T):
+    """T = 1 and 5 (one part stage), 4099 (a part last stage); two calls
+    with the value handed on, the second's x not 16-byte aligned. Bit for
+    bit."""
+    from pygmu2_tpu_torch.ops import slew
+
+    (x,) = _seeded(cuda, T, (T,), lo=0.0, hi=3000.0)
+    kw = dict(linear=linear, p_rise=40000 / 44100 if linear else 0.05,
+              p_fall=8000 / 44100 if linear else 0.002)
+    cur = torch.tensor(300.0, device=cuda)
+    want = slew.slew_scan_ref(x, cur, **kw)
+    for g, r in zip(slew.slew_scan(x, cur, **kw), want):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+    if T > 1:
+        cut = max(1, T // 3)
+        first = slew.slew_scan(x[:cut], cur, **kw)
+        second = slew.slew_scan(x[cut:], first[1], **kw)
+        torch.testing.assert_close(torch.cat([first[0], second[0]]), want[0], rtol=0, atol=0)
+        torch.testing.assert_close(second[1], want[1], rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("C", [1, 128])
 def test_reverse_echo_kernel_matches_plain(cuda, C):
     from pygmu2_tpu_torch.ops import reverse_echo
@@ -433,13 +494,9 @@ def test_filter_gain_mix_kernel_matches_plain(cuda):
 
     synth, _ = bench_workload.build_workload(True)
     midi = MidiFile(bench_workload.build_high_midi_bytes(SECONDS))
-    par, ch, snap, _nb = synth.build_schedule(midi, SECONDS)
+    par, ch, _snap, _nb = synth.build_schedule(midi, SECONDS)
     assert off._out_of_window(synth, par, ch)
-    planes, flags = schedule_to_torch(par, ch, snap, cuda)
-    ctrl = off._control_device(*planes, synth.block_size, flags,
-                               int(synth._minimum_voice_duration), float(synth.sample_rate))
-    wave = to_torch(synth._wave, cuda)
-    rows = dict(off._gain_rows(ctrl, synth.master_volume), **off._osc_rows(ctrl, wave))
+    rows, wave, _n = bench_workload.audio_pass_rows(synth, midi, SECONDS, cuda)
     xt = fk._oscillator(rows, wave, synth.block_size)
     before = fk.filter_gain_mix.launches
     got = fk.filter_gain_mix(xt, rows, synth.block_size)

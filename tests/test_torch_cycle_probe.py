@@ -6,7 +6,7 @@ import pytest
 
 from pygmu2_tpu_torch import cycle_probe
 
-NAMES = ["comb roles", "ks roles", "follower roles"] + [
+NAMES = ["comb roles", "ks roles", "follower roles", "slew roles", "osc roles"] + [
     f"adsr passes, {k}" for k in cycle_probe.ADSR_PATHS]
 
 

@@ -10,6 +10,10 @@ coordinates in the extended wavetable) while the port reads the original
 wave with its own ``_osc_rows``. Tolerance 3e-5 x scale, as the JAX
 package holds its own fused kernel to its XLA path
 (tests/test_filter_pallas.py).
+
+``osc_filter_gain_mix_cut`` (the CUDA kernel's order in torch ops) is held
+to the plain version and the JAX kernel at the same tolerance, on the bench
+rows and on seeded rows (``tests/test_torch_osc_rows.py``), with hand-offs.
 """
 
 import jax.numpy as jnp
@@ -18,6 +22,7 @@ import pytest
 import torch
 
 import bench
+from test_torch_osc_rows import synthetic_rows
 from pygmu2_tpu.ops.linrec import affine_scan_2 as jax_affine_scan_2
 from pygmu2_tpu.soundfont import MidiFile, SoundFont, Synthesizer, SynthesizerSettings
 from pygmu2_tpu.soundfont import offline as joff
@@ -163,3 +168,66 @@ def test_affine_scan_2_matches_jax(with_s0):
     )
     for g, j in zip(got, ref):
         np.testing.assert_allclose(g.numpy(), np.asarray(j), rtol=1e-5, atol=1e-5)
+
+
+# ---- the fused kernel's order in torch ops (osc_filter_gain_mix_cut) ----
+
+
+def test_cut_matches_ref_and_pallas_small_font(small):
+    """The bench score's rows (35 blocks of 128 samples: two groups of
+    entering states, four blocks of 32 voices)."""
+    ctrl, wave, master, rows_j = small
+    ref, st_ref = osc_filter_gain_mix_pallas(rows_j, jnp.asarray(wave), N, wave.shape[0],
+                                             interpret=True)
+    wave_t = torch.tensor(wave)
+    rows = _port_rows(ctrl, wave_t, master)
+    got, st = fk.osc_filter_gain_mix_cut(rows, wave_t, N)
+    plain, st_plain = fk.osc_filter_gain_mix_ref(rows, wave_t, N)
+    ref = np.asarray(ref)
+    scale = max(float(np.abs(ref).max()), 1.0)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=3e-5 * scale)
+    np.testing.assert_allclose(st.numpy(), np.asarray(st_ref), rtol=0, atol=3e-5 * scale)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=0, atol=3e-5 * scale)
+    np.testing.assert_allclose(st.numpy(), st_plain.numpy(), rtol=0, atol=3e-5 * scale)
+
+
+# (B, P, N, fresh blocks, held to the JAX kernel too: it takes P = 128
+# only): N = 600 and 130 are not multiples of the kernel's 32-sample tile;
+# 600 and 640 take two segments of a block, the last a part one; 40 blocks
+# take two groups of entering states; P = 33 and 256 leave a part block of
+# voices and take eight
+CUT_CASES = {
+    "B=1 P=33 N=600 fresh at block 0": (1, 33, 600, (0,), False),
+    "B=5 P=33 N=640 fresh at block 2": (5, 33, 640, (2,), False),
+    "B=4 P=128 N=640 fresh at blocks 0 and 2": (4, 128, 640, (0, 2), True),
+    "B=40 P=1 N=130": (40, 1, 130, (), False),
+    "B=3 P=256 N=256 fresh at block 2": (3, 256, 256, (2,), False),
+}
+
+
+@pytest.mark.parametrize("case", list(CUT_CASES))
+def test_cut_matches_ref_and_hands_off(case):
+    B, P, n, fresh, with_pallas = CUT_CASES[case]
+    rows_np, wave, state = synthetic_rows(B, P, 4096, seed=B * P + n, fresh_blocks=fresh)
+    rows = {k: torch.from_numpy(v) for k, v in rows_np.items()}
+    wave_t, state_t = torch.from_numpy(wave), torch.from_numpy(state)
+    got, st = fk.osc_filter_gain_mix_cut(rows, wave_t, n, state_t)
+    ref, st_ref = fk.osc_filter_gain_mix_ref(rows, wave_t, n, state_t)
+    scale = max(float(ref.abs().max()), 1.0)
+    assert float(ref.abs().max()) > 0.1
+    torch.testing.assert_close(got, ref, rtol=0, atol=3e-5 * scale)
+    torch.testing.assert_close(st, st_ref, rtol=0, atol=3e-5 * scale)
+    if with_pallas:
+        rows_j = {k: jnp.asarray(v) for k, v in rows_np.items()}
+        pal, st_pal = osc_filter_gain_mix_pallas(rows_j, jnp.asarray(wave), n, wave.shape[0],
+                                                 interpret=True, state=jnp.asarray(state))
+        np.testing.assert_allclose(got.numpy(), np.asarray(pal), rtol=0, atol=3e-5 * scale)
+        np.testing.assert_allclose(st.numpy(), np.asarray(st_pal), rtol=0, atol=3e-5 * scale)
+    if B > 1:  # two calls with the state handed on equal one call
+        cut = B // 2
+        o1, s1 = fk.osc_filter_gain_mix_cut({k: v[:cut] for k, v in rows.items()}, wave_t, n,
+                                            state_t)
+        o2, s2 = fk.osc_filter_gain_mix_cut({k: v[cut:] for k, v in rows.items()}, wave_t, n,
+                                            s1)
+        torch.testing.assert_close(torch.cat([o1, o2]), got, rtol=0, atol=1e-5)
+        torch.testing.assert_close(s2, st, rtol=0, atol=1e-5)

@@ -23,6 +23,8 @@ ops), raised by the band-pass and the compressor's makeup gain.
 ``python tests/test_torch_fx_chain.py`` prints these numbers.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -32,6 +34,7 @@ import pygmu2_tpu_torch as tpg
 from pygmu2_tpu.core import engine as jengine
 from pygmu2_tpu_torch import fx_workload, patch_workload
 from pygmu2_tpu_torch.core import engine as tengine
+from pygmu2_tpu_torch.ops import xla_math
 
 torch.set_num_threads(1)
 
@@ -70,6 +73,7 @@ def _layout(tree):
     return np.asarray(tree).shape, np.asarray(tree).dtype
 
 
+@functools.cache
 def _jax_render(which):
     """The JAX render of one workload in two calls, with the checkpoint
     taken between them (the blocks of ``render_to_array``): (which, full
@@ -124,6 +128,105 @@ def _walk(pe):
     yield pe
     for child in pe.inputs():
         yield from _walk(child)
+
+
+# ---- where the chain's residual comes from: each PE upstream of the wah
+# fed the JAX render's own input to that PE ----
+
+def _render_jax(pe):
+    total = int(round(SECONDS["chain"] * fx_workload.SR))
+    return np.asarray(jengine.render_scan(jpg.CropPE(pe, 0, total), 0, total, BLOCK))
+
+
+def _render_port(pe):
+    total = int(round(SECONDS["chain"] * fx_workload.SR))
+    return np.asarray(tpg.render_to_array(tpg.CropPE(pe, 0, total), block=BLOCK, device="cpu"))
+
+
+def _upstream():
+    """The JAX render's intermediates of the wah's control path over the
+    chain's 0.4 s: the gated strings (``src``), the follower's envelope and
+    the slew limiter's input ``300 + 2500 * env`` (a MixPE of a ConstantPE
+    and a GainPE)."""
+    jpg.set_sample_rate(fx_workload.SR)
+    tpg.set_sample_rate(fx_workload.SR)
+    strings = jpg.MixPE(*(jpg.KarplusStrongPE(f, rho=0.9995, seed=i)
+                          for i, f in enumerate(fx_workload.STRINGS)))
+    src = jpg.GainPE(strings, jpg.PeriodicGate(2.0, 0.45))
+    env = jpg.EnvelopePE(src, attack=0.005, release=0.08)
+    centre_in = jpg.MixPE(jpg.ConstantPE(300.0), jpg.GainPE(env, 2500.0))
+    return {name: _render_jax(pe)
+            for name, pe in (("src", src), ("env", env), ("centre_in", centre_in))}
+
+
+@pytest.fixture(scope="module")
+def upstream():
+    return _upstream()
+
+
+# per PE: (the JAX PE, the port's, both built from the JAX input), and the
+# largest difference held (the observed maxima in the comments)
+def _string(i):
+    f = fx_workload.STRINGS[i]
+    return lambda pg, up: pg.KarplusStrongPE(f, rho=0.9995, seed=i)
+
+
+UPSTREAM = {
+    **{f"string {f} Hz": (_string(i), 2e-6)  # observed <= 7.64e-7 (196 Hz)
+       for i, f in enumerate(fx_workload.STRINGS)},
+    # observed 1.49e-8
+    "EnvelopePE": (lambda pg, up: pg.EnvelopePE(pg.ArrayPE(up["src"].copy()), attack=0.005,
+                                                release=0.08), 1e-7),
+    # bit for bit
+    "SlewLimiterPE": (lambda pg, up: pg.SlewLimiterPE(pg.ArrayPE(up["centre_in"].copy()),
+                                                      40000.0, 8000.0), 0.0),
+}
+
+
+@pytest.mark.parametrize("name", list(UPSTREAM))
+def test_upstream_pe_matches_jax_on_jax_input(upstream, name):
+    build, atol = UPSTREAM[name]
+    want, got = _render_jax(build(jpg, upstream)), _render_port(build(tpg, upstream))
+    assert np.abs(want).max() > 1e-3
+    _close(got, want, atol)
+
+
+def test_centre_input_is_one_fused_multiply_add(upstream):
+    """XLA contracts the GainPE's product into the MixPE's sum: the JAX
+    centre input is ``fmaf(env, 2500, 300)``, rounded once; the port rounds
+    the product and the sum (one float32 ulp apart at most, 6.1e-5 at the
+    values near 300-512 Hz)."""
+    env = torch.from_numpy(upstream["env"].copy())
+    fused = xla_math.fmaf(env, 2500.0, 300.0).numpy()
+    np.testing.assert_array_equal(fused, upstream["centre_in"])
+    got = _render_port(tpg.MixPE(tpg.ConstantPE(300.0),
+                                 tpg.GainPE(tpg.ArrayPE(upstream["env"].copy()), 2500.0)))
+    ulp = np.spacing(np.abs(upstream["centre_in"]).astype(np.float32))
+    assert np.all(np.abs(got - upstream["centre_in"]) <= ulp)
+
+
+def test_chain_on_jax_centre_input_matches_jax(upstream):
+    """The chain's residual is that one rounding: the port's chain with the
+    slew limiter fed the JAX centre input stays within 1e-5 of the JAX
+    render over the whole 0.4 s (observed 4.30e-6 at sample 365; with its
+    own centre input 8.03e-5 at sample 5135)."""
+    want = _jax_render("chain")[1]
+    got = np.asarray(tpg.render_to_array(_chain_on_centre_input(upstream["centre_in"]),
+                                         block=BLOCK, device="cpu"))
+    _close(got, want, 1e-5)
+
+
+def _chain_on_centre_input(centre_in):
+    """``fx_workload.build_chain(tpg, 0.4)`` with the slew limiter's input
+    replaced by ``centre_in``."""
+    pg = tpg
+    strings = pg.MixPE(*(pg.KarplusStrongPE(f, rho=0.9995, seed=i)
+                         for i, f in enumerate(fx_workload.STRINGS)))
+    src = pg.CachePE(pg.GainPE(strings, pg.PeriodicGate(2.0, 0.45)))
+    centre = pg.SlewLimiterPE(pg.ArrayPE(centre_in.copy()), 40000.0, 8000.0)
+    wah = pg.BiquadPE(src, centre, 6.0, mode=pg.BiquadMode.BANDPASS)
+    out = fx_workload._echo_mix(pg, pg.CompressorPE(wah, threshold=-18.0, ratio=6.0))
+    return pg.CropPE(out, 0, int(round(SECONDS["chain"] * fx_workload.SR)))
 
 
 if __name__ == "__main__":
@@ -182,3 +285,12 @@ if __name__ == "__main__":
             e = np.abs(got - data[1])[:, 0]
             print(f"  whole 0.4 s: {e.max():.3g} at sample {e.argmax()}")
             bandpass_errors()
+            up = _upstream()
+            for name, (build, _atol) in UPSTREAM.items():
+                want, got = _render_jax(build(jpg, up)), _render_port(build(tpg, up))
+                e = np.abs(got - want)[:, 0]
+                print(f"  {name} on the JAX input: {e.max():.3g} at sample {e.argmax()}")
+            got = tpg.render_to_array(_chain_on_centre_input(up["centre_in"]), block=BLOCK,
+                                      device="cpu")
+            e = np.abs(got - data[1])[:, 0]
+            print(f"  whole 0.4 s on the JAX centre input: {e.max():.3g} at sample {e.argmax()}")

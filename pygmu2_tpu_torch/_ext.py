@@ -123,10 +123,11 @@ def load() -> ctypes.CDLL:
         # misc_out, tab, bounds, n_periods, T, C, sr, plen, cap, min_block,
         # max_block, smooth_alpha, inv_plen, half, inv_half, stream
         "reverse_echo_scan_launch": [p] * 15 + [i, i, f, i, i, i, i, f, f, f, f, p],
-        # a11, a12, a21, a22, u1, u2, s01, s02, s1, s2, T, C, chunk, shared, stream
-        "affine_scan_2_launch": [p] * 10 + [i, i, i, i, p],
-        # xt, rows, out, scratch, B, P, N, stream
-        "filter_gain_mix_launch": [p] * 4 + [i, i, i, p],
+        # a11, a12, a21, a22, u1, u2, s01, s02, s1, s2, agg, flags, T, C, chunk,
+        # shared, stream
+        "affine_scan_2_launch": [p] * 12 + [i, i, i, i, p],
+        # xt, rows, out, scratch_f, n_f, scratch_i, n_i, B, P, N, stream
+        "filter_gain_mix_launch": [p, p, p, p, q, p, q, i, i, i, p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

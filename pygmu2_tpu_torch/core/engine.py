@@ -26,6 +26,7 @@ package's format).
 
 from __future__ import annotations
 
+import collections
 import itertools
 from typing import Any, TYPE_CHECKING
 
@@ -100,6 +101,7 @@ class TraceContext:
         self._states_in = states  # None on the very first block
         self._states_out: dict[str, Any] = {}
         self._memo: dict[tuple, torch.Tensor] = {}
+        self._kept: dict[tuple, tuple] = {}  # a product node's factors (keep_factors)
         self._stack: list[_Frame] = []
         self._bindings = bindings  # name -> value (ParamPE)
 
@@ -153,10 +155,7 @@ class TraceContext:
             return self._zeros(0, pe.channel_count() or 1)
 
         ext = pe.extent()
-        if rel is not None:
-            key = (id(pe), rel, duration)
-        else:
-            key = (id(pe), ("abs", start), duration)
+        key = self._key(pe, start, rel, duration)
         if key in self._memo:
             return self._memo[key]
 
@@ -188,6 +187,42 @@ class TraceContext:
         self._memo[key] = out
         return out
 
+    def keep_factors(self, a, b) -> None:
+        """Called by a product PE's ``_trace``: its output is ``a * b``
+        (see :meth:`factors_of`)."""
+        frame = self._stack[-1]
+        self._kept[self._key(frame.pe, frame.start, frame.rel, frame.duration)] = (a, b)
+
+    def factors_of(self, pe: "ProcessingElement"):
+        """The unrounded factors of the input ``pe`` just pulled over the
+        current frame, for a consumer that contracts its product into a sum
+        (``MixPE``), as XLA's CPU program contracts a product whose one use
+        is a sum into a fused multiply-add.
+
+        Returns ``(a, b, keep)``: the pull is ``where(keep, a * b, 0)``
+        (``keep`` a ``(duration, 1)`` mask, or None where the frame lies
+        inside ``pe``'s extent). None where ``pe`` kept no factors (not a
+        product, or pruned in this frame) or feeds another consumer in the
+        graph.
+        """
+        if self._program.uses(pe) != 1:
+            return None
+        frame = self._stack[-1]
+        kept = self._kept.get(self._key(pe, frame.start, frame.rel, frame.duration))
+        if kept is None:
+            return None
+        mask = None
+        if not pe._fills_own_edges():
+            mask = self._extent_mask(pe.extent(), frame.start, frame.duration)
+        return (*kept, None if mask is None else mask[:, None])
+
+    @staticmethod
+    def _key(pe, start: int, rel, duration: int) -> tuple:
+        """The memo key of ``pe``'s render over a window."""
+        if rel is not None:
+            return (id(pe), rel, duration)
+        return (id(pe), ("abs", start), duration)
+
     def _zeros(self, duration: int, channels: int):
         return torch.zeros((duration, int(channels)), dtype=prec.AUDIO, device=self.device)
 
@@ -204,17 +239,25 @@ class TraceContext:
         fills its own edges (ExtendMode HOLD variants)."""
         if pe._fills_own_edges():
             return out
+        mask = self._extent_mask(ext, start, duration)
+        if mask is None:
+            return out
+        return torch.where(mask[:, None], out, torch.zeros((), dtype=out.dtype, device=out.device))
+
+    def _extent_mask(self, ext: Extent, start: int, duration: int):
+        """``(duration,)`` bool mask of the samples inside ``ext``, or None
+        when the window lies inside it."""
         if ext.start is None and ext.end is None:
-            return out
+            return None
         if ext.spans(start, duration):
-            return out
+            return None
         t = torch.arange(duration, dtype=prec.INDEX, device=self.device) + start
         mask = torch.ones((duration,), dtype=torch.bool, device=self.device)
         if ext.start is not None:
             mask = mask & (t >= ext.start)
         if ext.end is not None:
             mask = mask & (t < ext.end)
-        return torch.where(mask[:, None], out, torch.zeros((), dtype=out.dtype, device=out.device))
+        return mask
 
     # ---- scalar-or-PE parameters ---------------------------------------
 
@@ -328,6 +371,12 @@ class Program:
         self.sample_rate = root.sample_rate
         self._state_nodes: list = []
         self._walked = _walk(root)
+        self._uses = collections.Counter(id(inp) for pe in self._walked for inp in pe.inputs())
+
+    def uses(self, pe) -> int:
+        """How many inputs of the graph's nodes are ``pe`` (its consumers,
+        each counted once per input it feeds)."""
+        return self._uses[id(pe)]
 
     def _run(self, block_start: int, states: dict | None, bindings=None):
         """Render one block from ``states``; returns (block, new states)."""

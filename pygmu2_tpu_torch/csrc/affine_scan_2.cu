@@ -7,147 +7,402 @@
 // rows are the identity map), then the state entering the chunk applied to
 // every row, the chunk's last row carried to the next chunk.
 //
-// What bounds it on this card: bytes, if anything. Per (sample, channel) it
-// reads up to six floats and writes two (67 MB at T = 16384, C = 128; 33 MB
-// when the four matrix planes are one column shared by the channels, as for
-// BiquadPE and SVFilterPE) and does ~20 flops per Kogge-Stone pass, 10 passes
-// at chunk 1024: ~0.02 ms of bytes against ~0.006 ms of flops at the data
-// sheet's rates. The scan's serial dependence is across chunks only.
+// What bounds it on this card: bytes. Per (sample, channel) it reads two
+// input floats and writes two (33 MB at T = 16384, C = 128 when the four
+// matrix planes are one column shared by the channels, as for BiquadPE and
+// SVFilterPE; 67 MB with six full planes) and does ~20 flops per
+// Kogge-Stone pass, 10 passes at chunk 1024: ~0.01 ms of bytes against
+// ~0.006 ms of flops at the data sheet's rates. The scan's serial dependence
+// is across chunks only, 16 steps at T = 16384.
 //
-// What the design does about it: one CUDA block per channel and one thread
-// per row of the chunk (C = 128 gives 128 blocks on 132 SMs). A block walks
-// its channel's chunks in order; each Kogge-Stone pass publishes the six
-// values of every row to a double-buffered shared-memory array (48 KB at chunk
-// 1024, so one __syncthreads() per pass) and reads row t - s back. The next
-// chunk's inputs are loaded into registers before the current chunk's scan, so
-// their global-memory latency hides behind it. A plane may be shared by the
-// channels (a bit of `shared`): it is then read as a (T,) column.
-//
+// What the design does about it (the first design ran one CUDA block per
+// channel, a thread per row reading rows C floats apart, and walked the
+// channel's chunks in order with a barrier of 1024 threads per pass):
+//   tiles    a CUDA block takes one chunk and a tile of K channels: each row
+//            of the tile is K contiguous floats (K = 8 with shared matrix
+//            planes: one 32-byte sector), read and written with 16-byte
+//            loads and stores straight to and from registers. The grid
+//            covers (chunk x tile): 256 blocks of 256 threads at T = 16384,
+//            C = 128, two a SM.
+//   rows     a thread holds R rows of the chunk, row r * NT + t (NT =
+//            chunk / R threads): the passes with s >= NT take their partner
+//            row from the same thread's registers; the others exchange rows
+//            through shared memory, one barrier to publish and one to reuse.
+//   shared   with the four matrix planes shared by the channels, a thread
+//   planes   forms each pass's matrix once per row for its K channels; each
+//            channel's (v1, v2) pass uses the row's matrix before the pass
+//            updates it, as the plain version does.
+//   carry    one launch: the blocks take tickets from an atomic counter,
+//            chunk by chunk. A block scans its chunk, publishes the chunk's
+//            last row (a flag per chunk and tile), waits for the earlier
+//            chunks' rows (published by blocks that took their tickets
+//            before it and wait on nothing after their scan), walks them in
+//            the plain version's order (its serial carry, <= 15 steps at
+//            T = 16384), applies the entering state and writes the rows. The
+//            order is fixed, so two calls give the same bits. (Two launches,
+//            the chunks' last rows by their Kogge-Stone tree alone and then
+//            the scan with the walk, measured slower on both layouts.)
+
 // Explicitly rounded ops in the plain version's order
 // (ops/linrec_kernel.affine_scan_2_chunked_ref): every a*b + c*d is
 // __fmaf_rn(a, b, __fmul_rn(c, d)), the one fused multiply-add XLA's CPU
 // backend makes of it in the JAX package's reference, every other sum
-// __fadd_rn. The plain version computes the same fused multiply-adds exactly
-// in float64 (ops/xla_math.fmaf), so the kernel equals it bit for bit.
+// __fadd_rn. Any schedule that forms the same expressions gives the same
+// bits: the kernel equals the plain version bit for bit.
 
 #include <cuda_runtime.h>
+#include <cstdint>
 
 namespace {
 
-constexpr int kPlanes = 6;
 constexpr int kMaxChunk = 1024;
-
-struct Row {
-  float m11, m12, m21, m22, v1, v2;
-};
 
 // a*b + c*d as XLA's CPU backend contracts it in the JAX reference
 __device__ __forceinline__ float dot2(float a, float b, float c, float d) {
   return __fmaf_rn(a, b, __fmul_rn(c, d));
 }
 
-// Row `t` of the six planes; zero past T (the plain version's zero padding).
-__device__ __forceinline__ Row load_row(const float* const* planes, int shared,
-                                        long t, int T, int C, int c) {
-  Row r{0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  if (t < T) {
-    float v[kPlanes];
+// A 2x2 matrix as (m11, m12, m21, m22): the product c p.
+__device__ __forceinline__ float4 mat_mul(const float4& c, const float4& p) {
+  return make_float4(dot2(c.x, p.x, c.y, p.z), dot2(c.x, p.y, c.y, p.w),
+                     dot2(c.z, p.x, c.w, p.z), dot2(c.z, p.y, c.w, p.w));
+}
+
+struct Planes {
+  const float* p[6];  // a11, a12, a21, a22, u1, u2
+  int shared;         // bit k: plane k is a (T,) column shared by the channels
+  bool vec;           // C % 4 == 0 and the full planes 16-byte aligned
+};
+
+// K values of plane k at `row`, channels c0 .. c0 + K - 1 (0 past C).
+template <int K>
+__device__ __forceinline__ void load_plane(const Planes& pl, int k, long row, int C, int c0,
+                                           float (&out)[K]) {
+  const float* p = pl.p[k];
+  if ((pl.shared >> k) & 1) {
+    const float x = __ldg(p + row);
 #pragma unroll
-    for (int k = 0; k < kPlanes; ++k)
-      v[k] = __ldg(planes[k] + ((shared >> k) & 1 ? t : t * C + c));
-    r = Row{v[0], v[1], v[2], v[3], v[4], v[5]};
+    for (int j = 0; j < K; ++j) out[j] = x;
+    return;
   }
-  return r;
+  const float* q = p + row * C + c0;
+  if (pl.vec) {
+#pragma unroll
+    for (int j = 0; j < K / 4; ++j) {
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (c0 + 4 * j < C) v = __ldg(reinterpret_cast<const float4*>(q) + j);
+      out[4 * j] = v.x, out[4 * j + 1] = v.y, out[4 * j + 2] = v.z, out[4 * j + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < K; ++j) out[j] = c0 + j < C ? __ldg(q + j) : 0.0f;
+  }
 }
 
-__global__ void __launch_bounds__(kMaxChunk)
-affine_scan_2(const float* __restrict__ a11, const float* __restrict__ a12,
-              const float* __restrict__ a21, const float* __restrict__ a22,
-              const float* __restrict__ u1, const float* __restrict__ u2,
-              const float* __restrict__ s01, const float* __restrict__ s02,
-              float* __restrict__ s1_out, float* __restrict__ s2_out, int T,
-              int C, int shared) {
-  extern __shared__ float smem[];  // [2][kPlanes][chunk], then the carry pair
-  const int chunk = blockDim.x;
+// R rows of a thread, K channels each; with shared matrix planes (SH) one
+// matrix per row, else one per (row, channel).
+template <int K, int R, bool SH>
+struct Rows {
+  static constexpr int MK = SH ? 1 : K;
+  // float4 fields of a row in the exchange buffer: the matrices, v1, v2
+  static constexpr int F = MK + K / 2;
+  float4 m[R][MK];
+  float v1[R][K], v2[R][K];
+
+  // row r := row r after prev (m, q1, q2): the pass of the plain version
+  __device__ __forceinline__ void combine(int r, const float4 (&pm)[MK], const float (&q1)[K],
+                                          const float (&q2)[K]) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const float4& c = m[r][SH ? 0 : k];
+      const float n1 = __fadd_rn(dot2(c.x, q1[k], c.y, q2[k]), v1[r][k]);
+      const float n2 = __fadd_rn(dot2(c.z, q1[k], c.w, q2[k]), v2[r][k]);
+      v1[r][k] = n1, v2[r][k] = n2;
+    }
+#pragma unroll
+    for (int j = 0; j < MK; ++j) m[r][j] = mat_mul(m[r][j], pm[j]);
+  }
+
+  // A partner row's values, (pm, q1, q2): the identity map (shifted in
+  // before the chunk's first row), this thread's row rp, or a row published
+  // in the exchange buffer.
+  __device__ __forceinline__ static void identity(float4 (&pm)[MK], float (&q1)[K],
+                                                  float (&q2)[K]) {
+#pragma unroll
+    for (int j = 0; j < MK; ++j) pm[j] = make_float4(1.0f, 0.0f, 0.0f, 1.0f);
+#pragma unroll
+    for (int k = 0; k < K; ++k) q1[k] = 0.0f, q2[k] = 0.0f;
+  }
+
+  __device__ __forceinline__ void own(int rp, float4 (&pm)[MK], float (&q1)[K],
+                                      float (&q2)[K]) const {
+#pragma unroll
+    for (int j = 0; j < MK; ++j) pm[j] = m[rp][j];
+#pragma unroll
+    for (int k = 0; k < K; ++k) q1[k] = v1[rp][k], q2[k] = v2[rp][k];
+  }
+
+  // the exchange buffer: field f of row (r, t) at xb[(f * R + r) * nt + t]
+  __device__ __forceinline__ void publish(float4* xb, int r, int t, int nt) const {
+#pragma unroll
+    for (int j = 0; j < MK; ++j) xb[(j * R + r) * nt + t] = m[r][j];
+#pragma unroll
+    for (int j = 0; j < K / 4; ++j) {
+      xb[((MK + j) * R + r) * nt + t] =
+          make_float4(v1[r][4 * j], v1[r][4 * j + 1], v1[r][4 * j + 2], v1[r][4 * j + 3]);
+      xb[((MK + K / 4 + j) * R + r) * nt + t] =
+          make_float4(v2[r][4 * j], v2[r][4 * j + 1], v2[r][4 * j + 2], v2[r][4 * j + 3]);
+    }
+  }
+
+  __device__ __forceinline__ static void published(const float4* xb, int rp, int tp, int nt,
+                                                   float4 (&pm)[MK], float (&q1)[K],
+                                                   float (&q2)[K]) {
+#pragma unroll
+    for (int j = 0; j < MK; ++j) pm[j] = xb[(j * R + rp) * nt + tp];
+#pragma unroll
+    for (int j = 0; j < K / 4; ++j) {
+      const float4 a = xb[((MK + j) * R + rp) * nt + tp];
+      const float4 b = xb[((MK + K / 4 + j) * R + rp) * nt + tp];
+      q1[4 * j] = a.x, q1[4 * j + 1] = a.y, q1[4 * j + 2] = a.z, q1[4 * j + 3] = a.w;
+      q2[4 * j] = b.x, q2[4 * j + 1] = b.y, q2[4 * j + 2] = b.z, q2[4 * j + 3] = b.w;
+    }
+  }
+};
+
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void store_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// One CUDA block per (chunk, tile), in ticket order: load, scan, publish the
+// chunk's last row, take the entering state from the earlier chunks' rows,
+// apply, write. flags[0] is the ticket counter, flags[1 + ch * tiles + tile]
+// is set once chunk ch's last row of the tile is in agg (all zeroed before
+// the launch).
+template <int K, int R, bool SH>
+__global__ void __launch_bounds__(SH ? 256 : 512, SH ? 2 : 1)
+    affine_scan_2(const __grid_constant__ Planes pl, const float* __restrict__ s01,
+                  const float* __restrict__ s02, float* __restrict__ s1_out,
+                  float* __restrict__ s2_out, float* __restrict__ agg, int* __restrict__ flags,
+                  int T, int C, int chunk, int L) {
+  extern __shared__ float4 xb[];  // Rows::F x chunk float4; then the entering state
+  __shared__ int ticket;
+  using RowsT = Rows<K, R, SH>;
+  const int nt = chunk / R;
   const int t = threadIdx.x;
-  const int c = blockIdx.x;
-  float* carry = smem + 2 * kPlanes * chunk;
-  const float* planes[kPlanes] = {a11, a12, a21, a22, u1, u2};
-  if (t == 0) {
-    carry[0] = 0.0f;
-    carry[1] = 0.0f;
-  }
+  const int tiles = (C + K - 1) / K;
+  if (t == 0) ticket = atomicAdd(flags, 1);  // chunk by chunk, in launch order
+  __syncthreads();
+  const int tile = ticket % tiles, ch = ticket / tiles;
+  const int c0 = tile * K;
+  const long base = (long)ch * chunk, plane = (long)L * C;
+  float* cin = reinterpret_cast<float*>(xb + RowsT::F * chunk);  // [2][K]
 
-  Row next = load_row(planes, shared, t, T, C, c);
-  if (t == 0 && s01 != nullptr) {  // fold s0 into u[0]
-    next.v1 = __fadd_rn(next.v1, dot2(next.m11, s01[c], next.m12, s02[c]));
-    next.v2 = __fadd_rn(next.v2, dot2(next.m21, s01[c], next.m22, s02[c]));
-  }
-  for (long base = 0; base < T; base += chunk) {
-    Row r = next;
-    next = load_row(planes, shared, base + chunk + t, T, C, c);
-
-    int buf = 0;
-    for (int s = 1; s < chunk; s <<= 1, buf ^= 1) {
-      float* b = smem + buf * kPlanes * chunk;
-      b[0 * chunk + t] = r.m11;
-      b[1 * chunk + t] = r.m12;
-      b[2 * chunk + t] = r.m21;
-      b[3 * chunk + t] = r.m22;
-      b[4 * chunk + t] = r.v1;
-      b[5 * chunk + t] = r.v2;
-      __syncthreads();
-      Row p{1.f, 0.f, 0.f, 1.f, 0.f, 0.f};  // the identity map
-      if (t >= s) {
-        const int j = t - s;
-        p = Row{b[0 * chunk + j], b[1 * chunk + j], b[2 * chunk + j],
-                b[3 * chunk + j], b[4 * chunk + j], b[5 * chunk + j]};
-      }
-      r = Row{dot2(r.m11, p.m11, r.m12, p.m21), dot2(r.m11, p.m12, r.m12, p.m22),
-              dot2(r.m21, p.m11, r.m22, p.m21), dot2(r.m21, p.m12, r.m22, p.m22),
-              __fadd_rn(dot2(r.m11, p.v1, r.m12, p.v2), r.v1),
-              __fadd_rn(dot2(r.m21, p.v1, r.m22, p.v2), r.v2)};
-    }
-    // the state entering this chunk: written by the last row of the one
-    // before, ordered by the scan's barriers (chunk >= 2) and this one
-    __syncthreads();
-    const float c1 = carry[0], c2 = carry[1];
-    const float o1 = __fadd_rn(dot2(r.m11, c1, r.m12, c2), r.v1);
-    const float o2 = __fadd_rn(dot2(r.m21, c1, r.m22, c2), r.v2);
-    const long row = base + t;
+  RowsT rows;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const long row = base + r * nt + t;
     if (row < T) {
-      s1_out[row * C + c] = o1;
-      s2_out[row * C + c] = o2;
+      float v[K];
+      if (SH) {
+        rows.m[r][0] = make_float4(__ldg(pl.p[0] + row), __ldg(pl.p[1] + row),
+                                   __ldg(pl.p[2] + row), __ldg(pl.p[3] + row));
+      } else {
+        float a[4][K];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) load_plane<K>(pl, k, row, C, c0, a[k]);
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          rows.m[r][SH ? 0 : k] = make_float4(a[0][k], a[1][k], a[2][k], a[3][k]);
+      }
+      load_plane<K>(pl, 4, row, C, c0, v);
+#pragma unroll
+      for (int k = 0; k < K; ++k) rows.v1[r][k] = v[k];
+      load_plane<K>(pl, 5, row, C, c0, v);
+#pragma unroll
+      for (int k = 0; k < K; ++k) rows.v2[r][k] = v[k];
+    } else {  // the plain version's zero padding
+#pragma unroll
+      for (int j = 0; j < RowsT::MK; ++j) rows.m[r][j] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int k = 0; k < K; ++k) rows.v1[r][k] = 0.0f, rows.v2[r][k] = 0.0f;
     }
-    __syncthreads();  // every thread has read the carry
-    if (t == chunk - 1) {
-      carry[0] = o1;
-      carry[1] = o2;
+  }
+  if (ch == 0 && t == 0 && s01 != nullptr) {  // fold s0 into u[0]
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (c0 + k < C) {
+        const float4& m = rows.m[0][SH ? 0 : k];
+        const float a = s01[c0 + k], b = s02[c0 + k];
+        rows.v1[0][k] = __fadd_rn(rows.v1[0][k], dot2(m.x, a, m.y, b));
+        rows.v2[0][k] = __fadd_rn(rows.v2[0][k], dot2(m.z, a, m.w, b));
+      }
+    }
+  }
+
+  for (int s = 1; s < chunk; s <<= 1) {
+    float4 pm[RowsT::MK];
+    float q1[K], q2[K];
+    if (s < nt) {
+      // partner row (r, t - s), or (r - 1, t - s + nt) across the wrap,
+      // through the exchange buffer
+      __syncthreads();  // the previous pass's reads are done
+#pragma unroll
+      for (int r = 0; r < R; ++r) rows.publish(xb, r, t, nt);
+      __syncthreads();
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        int tp = t - s, rp = r;
+        if (tp < 0) tp += nt, rp = r - 1;
+        if (rp >= 0) RowsT::published(xb, rp, tp, nt, pm, q1, q2);
+        else RowsT::identity(pm, q1, q2);
+        rows.combine(r, pm, q1, q2);
+      }
+    } else {
+      // partner row r - s / nt of the same thread, not yet updated
+      // (register arrays take compile-time indices: q runs over all rows,
+      // a constant trip count, so that both loops unroll)
+      const int d = s / nt;
+#pragma unroll
+      for (int r = R - 1; r >= 0; --r) {
+        if (r < d) RowsT::identity(pm, q1, q2);
+#pragma unroll
+        for (int q = 0; q < R; ++q)
+          if (q + d == r) rows.own(q, pm, q1, q2);
+        rows.combine(r, pm, q1, q2);
+      }
+    }
+  }
+
+  // the chunk's last row (row R - 1 of thread nt - 1), for the chunks after
+  if (t == nt - 1 && ch + 1 < L) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int c = c0 + k;
+      if (c < C) {
+        const long at = (long)ch * C + c;
+        const float4& m = rows.m[R - 1][SH ? 0 : k];
+        agg[at] = m.x, agg[plane + at] = m.y, agg[2 * plane + at] = m.z;
+        agg[3 * plane + at] = m.w, agg[4 * plane + at] = rows.v1[R - 1][k];
+        agg[5 * plane + at] = rows.v2[R - 1][k];
+      }
+    }
+    __threadfence();
+    store_release(flags + 1 + ch * tiles + tile, 1);
+  }
+  // the earlier chunks' rows: published by blocks that took their tickets
+  // before this one, and that wait on nothing after their scan
+  for (int j = t; j < ch; j += nt)
+    while (load_acquire(flags + 1 + j * tiles + tile) == 0) __nanosleep(32);
+  __threadfence();
+  __syncthreads();
+  // the state entering the chunk: those rows in the plain version's order,
+  // one channel a thread (unrolled by 4: four chunks' loads in flight)
+  for (int kk = t; kk < K; kk += nt) {
+    float e1 = 0.0f, e2 = 0.0f;
+    const int c = c0 + kk;
+#pragma unroll 4
+    for (int j = 0; j < ch && c < C; ++j) {
+      const float* a = agg + (long)j * C + c;
+      const float m11 = __ldcg(a), m12 = __ldcg(a + plane), m21 = __ldcg(a + 2 * plane),
+                  m22 = __ldcg(a + 3 * plane), v1 = __ldcg(a + 4 * plane),
+                  v2 = __ldcg(a + 5 * plane);
+      const float n1 = __fadd_rn(dot2(m11, e1, m12, e2), v1);
+      e2 = __fadd_rn(dot2(m21, e1, m22, e2), v2);
+      e1 = n1;
+    }
+    cin[kk] = e1;
+    cin[K + kk] = e2;
+  }
+
+  __syncthreads();  // the entering state
+  float e1[K], e2[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) e1[k] = cin[k], e2[k] = cin[K + k];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const long row = base + r * nt + t;
+    float o1[K], o2[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const float4& m = rows.m[r][SH ? 0 : k];
+      o1[k] = __fadd_rn(dot2(m.x, e1[k], m.y, e2[k]), rows.v1[r][k]);
+      o2[k] = __fadd_rn(dot2(m.z, e1[k], m.w, e2[k]), rows.v2[r][k]);
+    }
+    float* d1 = s1_out + row * C + c0;
+    float* d2 = s2_out + row * C + c0;
+    if (row >= T) {
+      // past the end: the plain version's padding, not written
+    } else if (pl.vec) {
+#pragma unroll
+      for (int j = 0; j < K / 4; ++j) {
+        if (c0 + 4 * j < C) {
+          reinterpret_cast<float4*>(d1)[j] =
+              make_float4(o1[4 * j], o1[4 * j + 1], o1[4 * j + 2], o1[4 * j + 3]);
+          reinterpret_cast<float4*>(d2)[j] =
+              make_float4(o2[4 * j], o2[4 * j + 1], o2[4 * j + 2], o2[4 * j + 3]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        if (c0 + k < C) d1[k] = o1[k], d2[k] = o2[k];
     }
   }
 }
+
+template <int K, int R, bool SH>
+cudaError_t launch(const Planes& pl, const float* s01, const float* s02, float* s1, float* s2,
+                   float* agg, int* flags, int T, int C, int chunk, cudaStream_t stream) {
+  using RowsT = Rows<K, R, SH>;
+  const int L = (T + chunk - 1) / chunk, tiles = (C + K - 1) / K;
+  cudaError_t err = cudaMemsetAsync(flags, 0, sizeof(int) * (1 + (size_t)L * tiles), stream);
+  if (err != cudaSuccess) return err;
+  const size_t smem = sizeof(float4) * RowsT::F * chunk + sizeof(float) * 2 * K;
+  auto kernel = affine_scan_2<K, R, SH>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<L * tiles, chunk / R, smem, stream>>>(pl, s01, s02, s1, s2, agg, flags, T, C, chunk,
+                                                 L);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
 
 extern "C" {
 
-// Enqueues one launch on `stream`; returns its cudaError_t (0: accepted).
+// Enqueues the call on `stream` (a memset of `flags`, then the kernel);
+// returns the cudaError_t of the first step that failed (0: both accepted).
 // Pointers are device pointers: the six planes, each (T, C) f32 or, where
 // its bit k of `shared` is set, a (T,) f32 column shared by the channels;
-// s01 / s02 (C,) f32 or both null; s1 / s2 (T, C) f32 outputs. Needs chunk a
-// power of two in [2, 1024].
+// s01 / s02 (C,) f32 or both null; s1 / s2 (T, C) f32 outputs; agg a (6,
+// ceil(T / chunk), C) f32 scratch (the chunks' last rows) and flags one of
+// 1 + ceil(T / chunk) * C ints. Needs chunk a power of two in [2, 1024].
 int affine_scan_2_launch(const float* a11, const float* a12, const float* a21,
                          const float* a22, const float* u1, const float* u2,
-                         const float* s01, const float* s02, float* s1,
-                         float* s2, int T, int C, int chunk, int shared,
-                         cudaStream_t stream) {
-  const size_t smem = (2 * kPlanes * (size_t)chunk + 2) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      affine_scan_2, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  affine_scan_2<<<C, chunk, smem, stream>>>(a11, a12, a21, a22, u1, u2, s01,
-                                            s02, s1, s2, T, C, shared);
-  return (int)cudaGetLastError();
+                         const float* s01, const float* s02, float* s1, float* s2, float* agg,
+                         int* flags, int T, int C, int chunk, int shared, cudaStream_t stream) {
+  if (T < 1 || C < 1 || chunk < 2 || chunk > kMaxChunk || (chunk & (chunk - 1)))
+    return (int)cudaErrorInvalidValue;
+  Planes pl{{a11, a12, a21, a22, u1, u2}, shared, C % 4 == 0};
+  for (int k = 0; k < 6; ++k)
+    if (!((shared >> k) & 1) && !aligned16(pl.p[k])) pl.vec = false;
+  if (!aligned16(s1) || !aligned16(s2)) pl.vec = false;
+  cudaError_t err;
+  if ((shared & 15) == 15) {  // the matrices one column: BiquadPE, SVFilterPE
+    err = chunk >= 4 ? launch<8, 4, true>(pl, s01, s02, s1, s2, agg, flags, T, C, chunk, stream)
+                     : launch<8, 2, true>(pl, s01, s02, s1, s2, agg, flags, T, C, chunk, stream);
+  } else {
+    err = launch<4, 2, false>(pl, s01, s02, s1, s2, agg, flags, T, C, chunk, stream);
+  }
+  return (int)err;
 }
 
 }  // extern "C"

@@ -28,7 +28,8 @@ Each measurement prints one JSON line with the card's name:
    ``csrc/slew_scan.cu`` with ``clock64()`` around each warp's whole run
    and its mbarrier waits, at T = 16384: the follower at C = 1 and 128,
    the slew limiter in both modes.
-4. ``osc``: a copy of ``csrc/osc_filter_gain_mix.cu`` with ``clock64()``
+4. ``osc``: a copy of ``csrc/osc_filter_gain_mix.cu`` (with the segment
+   pass of ``csrc/filter_pass.cuh`` inlined) with ``clock64()``
    around each role's work (``OSC_ROLES``), summed over the CUDA blocks,
    on the bench's rows: the 3 s chord through both fonts and the 60 s
    piece's first streamed segment.
@@ -574,10 +575,11 @@ OSC_ROLES = ("producers: oscillator", "producers: earlier maps", "producers: bar
 
 
 def osc_roles_source() -> str:
-    """``csrc/osc_filter_gain_mix.cu`` with ``clock64()`` stamps around
-    each role's work (``OSC_ROLES``: thread 0 for the producer warps, the
-    chain warp's lane 0), summed over the CUDA blocks into ``g_cycles``."""
-    s = (_PKG / "csrc" / "osc_filter_gain_mix.cu").read_text()
+    """``csrc/osc_filter_gain_mix.cu`` with the segment pass it includes
+    (``csrc/filter_pass.cuh``) inlined and ``clock64()`` stamps around each
+    role's work (``OSC_ROLES``: thread 0 for the producer warps, the chain
+    warp's lane 0), summed over the CUDA blocks into ``g_cycles``."""
+    s = (_PKG / "csrc" / "filter_pass.cuh").read_text()
     s = _replace(s, "namespace {", _READ + "namespace {")
     s = _replace(s, "  if (warp < kProducers) {\n",
                  "  long long c[10] = {0}, m0 = clock64(), m1;\n"
@@ -599,11 +601,13 @@ def osc_roles_source() -> str:
     s = _replace(s, "    walk(fir_quad, false);\n", "    walk(fir_quad, false);\n    lap(5);\n")
     s = _replace(s, bar + "\n    // the entering state", bar + "    lap(7);\n\n    // the entering state")
     s = _replace(s, "    walk(y_quad, true);\n", "    lap(8);\n    walk(y_quad, true);\n    lap(9);\n")
-    return _replace(s, "  // ---- with more than one block of voices: the partials, in order ----\n",
-                    "  if (tid == 0 || tid == kProducers * 32)\n"
-                    "    for (int k = 0; k < 10; ++k)\n"
-                    "      if (c[k]) atomicAdd((unsigned long long*)&g_cycles[k], (unsigned long long)c[k]);\n"
-                    "  // ---- with more than one block of voices: the partials, in order ----\n")
+    s = _replace(s, "  // ---- with more than one block of voices: the partials, in order ----\n",
+                 "  if (tid == 0 || tid == kProducers * 32)\n"
+                 "    for (int k = 0; k < 10; ++k)\n"
+                 "      if (c[k]) atomicAdd((unsigned long long*)&g_cycles[k], (unsigned long long)c[k]);\n"
+                 "  // ---- with more than one block of voices: the partials, in order ----\n")
+    return _replace((_PKG / "csrc" / "osc_filter_gain_mix.cu").read_text(),
+                    '#include "filter_pass.cuh"\n', s)
 
 
 def osc_roles(card: str) -> dict:

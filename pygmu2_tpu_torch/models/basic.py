@@ -22,6 +22,7 @@ import torch
 from pygmu2_tpu_torch.core import prec
 from pygmu2_tpu_torch.core.extent import Extent, ExtendMode
 from pygmu2_tpu_torch.core.processing_element import ProcessingElement, SourcePE
+from pygmu2_tpu_torch.ops import xla_math
 
 
 class ConstantPE(SourcePE):
@@ -222,9 +223,11 @@ class GainPE(ProcessingElement):
     def _trace(self, ctx):
         x = ctx.pull(self._source)
         if self._gain_is_pe:
-            g = ctx.param(self._gain, multichannel=True)
-            return x * g  # (N,1) control broadcasts over channels
-        return x * float(self._gain)
+            g = ctx.param(self._gain, multichannel=True)  # (N,1) broadcasts over channels
+        else:
+            g = float(np.float32(self._gain))
+        ctx.keep_factors(x, g)  # a MixPE may add the product unrounded
+        return x * g
 
     def __repr__(self) -> str:
         g = f"{type(self._gain).__name__}(...)" if self._gain_is_pe else str(self._gain)
@@ -273,7 +276,16 @@ class MixPE(ProcessingElement):
         return ext
 
     def _trace(self, ctx):
-        total = None
+        # The JAX package's render is XLA's CPU program, which contracts a
+        # product whose one use is a sum into one fused multiply-add
+        # (ops/xla_math.fmaf here): an input GainPE that feeds nothing else
+        # is added with its product unrounded where the program holds both
+        # operands of the sum in a form LLVM can fuse (_fuses). Left to
+        # right, as XLA sums; where both operands are fusable products, the
+        # left one fuses and the right one is rounded. Inside this PE's own
+        # mask, LLVM drops an input's mask that is the same one.
+        total = first = form = None  # the running sum, the first input's factors, the form
+        own = _xla_form(self)
         for i, inp in enumerate(self._inputs, start=1):
             x = ctx.pull(inp)
             if total is not None and x.shape[1] != total.shape[1]:
@@ -284,12 +296,72 @@ class MixPE(ProcessingElement):
                     f"MixPE input channel mismatch: input 1 has "
                     f"{total.shape[1]} channels, input {i} has {x.shape[1]}"
                 )
-            total = x if total is None else total + x
+            fac = ctx.factors_of(inp)
+            f = _xla_form(inp)
+            if isinstance(own, Extent) and f == own:
+                f = None
+            if total is None:
+                total, first, form = x, fac, f
+                continue
+            if first is not None:  # the first input's product, unrounded
+                if _fuses(form, f):
+                    total = _fused(first, x)
+                elif fac is not None and _fuses(f, form):
+                    total = _fused(fac, total)
+                else:
+                    total = total + x
+                first = None
+            elif fac is not None and _fuses(f, form):
+                total = _fused(fac, total)
+            else:
+                total = total + x
+            form = _merged(form, f)
         return total
 
     def __repr__(self) -> str:
         names = ", ".join(type(i).__name__ for i in self._inputs)
         return f"MixPE({names})"
+
+
+# How XLA's program of a block holds a PE's pull (the JAX engine masks a
+# pull to its PE's extent with a select, for every block): _CONSTANT, a
+# ConstantPE's folded constant; the Extent of a masked pull; None, a plain
+# value (an infinite extent, or a PE that fills its own edges).
+_CONSTANT = "constant"
+
+
+def _xla_form(pe):
+    if isinstance(pe, ConstantPE):
+        return _CONSTANT
+    ext = pe.extent()
+    if pe._fills_own_edges() or (ext.start is None and ext.end is None):
+        return None
+    return ext
+
+
+def _fuses(product, other) -> bool:
+    """Whether LLVM fuses a product of form ``product`` (its GainPE's pull)
+    into its sum with an operand of form ``other``: a bare product always;
+    a masked one where the select folds into the sum (a constant operand)
+    or merges with the operand's (the same mask)."""
+    return product is None or other is _CONSTANT or other == product
+
+
+def _merged(a, b):
+    """The form of a sum of two operands of forms ``a`` and ``b``."""
+    if a is _CONSTANT:
+        return b
+    if b is _CONSTANT:
+        return a
+    return a if a is not None and a == b else None
+
+
+def _fused(fac, c):
+    """``a * b + c`` rounded once (``c`` plus zero outside the product's
+    extent)."""
+    a, b, keep = fac
+    y = xla_math.fmaf(a, b, c)
+    return y if keep is None else torch.where(keep, y, c + 0.0)
 
 
 class TransformPE(ProcessingElement):

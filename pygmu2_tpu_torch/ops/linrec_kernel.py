@@ -34,7 +34,7 @@ import torch
 from pygmu2_tpu_torch import _ext
 from pygmu2_tpu_torch.ops.xla_math import fmaf
 
-_MAX_CHUNK = 1024  # one thread per row of a chunk
+_MAX_CHUNK = 1024  # a chunk's rows in one CUDA block
 
 
 def _dot(a, b, c, d):
@@ -140,13 +140,19 @@ def _launch(planes, s0, chunk: int):
                            f"s0[{i}]", (C,), dev) for i, v in enumerate(s0)]
     s1 = torch.empty((T, C), dtype=torch.float32, device=dev)
     s2 = torch.empty((T, C), dtype=torch.float32, device=dev)
+    # each chunk's last row (m11, m12, m21, m22, v1, v2), carried to the next,
+    # and the kernel's ticket and flags (zeroed by the launch)
+    L = -(-T // chunk)
+    agg = torch.empty((6, L, C), dtype=torch.float32, device=dev)
+    flags = torch.empty((1 + L * C,), dtype=torch.int32, device=dev)
     lib = _ext.load()
     with torch.cuda.device(dev):
         err = lib.affine_scan_2_launch(
             *(x.data_ptr() for x, _sh in checked),
             s0[0].data_ptr() if s0 is not None else None,
             s0[1].data_ptr() if s0 is not None else None,
-            s1.data_ptr(), s2.data_ptr(), T, C, chunk, shared,
+            s1.data_ptr(), s2.data_ptr(), agg.data_ptr(), flags.data_ptr(), T, C,
+            chunk, shared,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _ext.raise_on_error(err, "affine_scan_2")

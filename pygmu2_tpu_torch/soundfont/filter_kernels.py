@@ -42,6 +42,10 @@ gain rows, and returns the (T, 2) mix of one render from zero state.
   samples, a Kogge-Stone scan of the block's constant transition per
   chunk, the epoch reset at a chunk's first sample, the filter state and
   FIR tail carried from chunk to chunk from zero.
+- ``filter_gain_mix_cut`` computes the same in the kernel's order, in
+  torch ops: the fused pass's segments (``osc_filter_gain_mix_cut``; both
+  kernels are the segment pass of ``csrc/filter_pass.cuh``) over ``xt``
+  from zero state.
 """
 
 from __future__ import annotations
@@ -58,19 +62,16 @@ _OSC_F32_ROWS = (
     "b0", "b1", "b2", "a1", "a2", "freshf", "pgl", "gl", "pgr", "gr",
 )
 _OSC_I32_ROWS = ("base_int", "loop_start", "loop_len", "smp_end")
-# float planes of (B, P) scratch of the unfused pass's three launches
-_SCRATCH_PLANES = 10
-# the fused kernel's cut (csrc/osc_filter_gain_mix.cu kSeg, kV, kGroup):
-# samples of a block per segment, voices per CUDA block, segments per
-# group of entering states
+# the segment pass's cut (csrc/filter_pass.cuh kSeg, kV, kGroup), both
+# kernels': samples of a block per segment, voices per CUDA block, segments
+# per group of entering states
 OSC_SEG, OSC_VOICES, OSC_GROUP = 512, 32, 32
 # Row order of the unfused pass, the kernel's ABI as well
-# (csrc/filter_gain_mix.cu); also the tail of _OSC_F32_ROWS.
+# (csrc/filter_pass.cuh FilterRow); also the tail of _OSC_F32_ROWS.
 _FILTER_ROWS = ("b0", "b1", "b2", "a1", "a2", "freshf", "pgl", "gl", "pgr", "gr")
 # samples per chunk of filter_gain_mix_pallas
 FILTER_CHUNK = 128
-# voices a call takes (the unfused pass's mixdown launch runs one thread per
-# voice in one CUDA block)
+# voices a call takes (the JAX package's kernels take 128)
 _MAX_VOICES = 256
 
 
@@ -262,10 +263,29 @@ def osc_filter_gain_mix_cut(rows, wave, N: int, state=None):
     kernel's fixed order, each segment re-run from its entering state, and
     the mix summed as the kernel sums it."""
     B, P = rows["ratio"].shape
-    dev = wave.device
     if state is None:
-        state = torch.zeros((4, P), dtype=torch.float32, device=dev)
+        state = torch.zeros((4, P), dtype=torch.float32, device=wave.device)
     x = _oscillator(rows, wave, N).reshape(B, N, P)
+    ramp = torch.arange(N, dtype=torch.float32, device=wave.device)[None, :, None] / N
+    return _segment_cut(x, rows, state, ramp)
+
+
+def filter_gain_mix_cut(xt, rows, N: int):
+    """:func:`filter_gain_mix_ref` in its kernel's order (same arguments and
+    result): the segment pass of :func:`osc_filter_gain_mix_cut` over
+    ``xt``, from zero state, its gain ramps at ``n * (1 / N)``."""
+    T, P = xt.shape
+    state = torch.zeros((4, P), dtype=torch.float32, device=xt.device)
+    ramp = torch.arange(N, dtype=torch.float32, device=xt.device)[None, :, None] * (1.0 / N)
+    return _segment_cut(xt.reshape(T // N, N, P), rows, state, ramp)[0]
+
+
+def _segment_cut(x, rows, state, ramp):
+    """The segment pass (csrc/filter_pass.cuh) in torch ops over (B, N, P)
+    input samples ``x``, from the (4, P) ``state``, with the gain ramps'
+    (1, N, 1) positions ``ramp``: ((B * N, 2) mix, (4, P) state after)."""
+    B, N, P = x.shape
+    dev = x.device
     S, G = -(-N // OSC_SEG), -(-P // OSC_VOICES)
     nseg = B * S
     fresh = rows["freshf"] > 0.5  # (B, P)
@@ -349,8 +369,6 @@ def osc_filter_gain_mix_cut(rows, wave, N: int, state=None):
 
     # the gain ramps; the sum over each block of OSC_VOICES voices as the
     # kernel's butterfly adds it (halves), then over the blocks in order
-    ramp = torch.arange(N, dtype=torch.float32, device=dev)[None, :, None] / N
-
     def mixed(prev, cur):
         prev, cur = rows[prev][:, None, :], rows[cur][:, None, :]
         g = torch.where(torch.abs(cur - prev) < 1.0e-3, cur, prev + (cur - prev) * ramp)
@@ -467,12 +485,14 @@ def _launch_filter(xt, rows, N: int):
     stacked = torch.stack([_ext.checked(rows[k], f"row {k!r}", (B, P), dev)
                            for k in _FILTER_ROWS])
     out = torch.empty((T, 2), dtype=torch.float32, device=dev)
-    scratch = torch.empty((_SCRATCH_PLANES, B, P), dtype=torch.float32, device=dev)
+    n_f, n_i = _osc_scratch_sizes(B, P, N)
+    scratch_f = torch.empty((n_f,), dtype=torch.float32, device=dev)
+    scratch_i = torch.empty((n_i,), dtype=torch.int32, device=dev)
     lib = _ext.load()
     with torch.cuda.device(dev):
         err = lib.filter_gain_mix_launch(
-            xt.data_ptr(), stacked.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-            B, P, N, torch.cuda.current_stream(dev).cuda_stream,
+            xt.data_ptr(), stacked.data_ptr(), out.data_ptr(), scratch_f.data_ptr(), n_f,
+            scratch_i.data_ptr(), n_i, B, P, N, torch.cuda.current_stream(dev).cuda_stream,
         )
     _ext.raise_on_error(err, "filter_gain_mix")
     filter_gain_mix.launches += 1

@@ -520,3 +520,81 @@ def test_filter_bank_on_card_launches_kernel_and_matches_cpu(cuda):
     on_cpu = pg.render_to_array(filter_workload.build_filter_bank(pg, 0.2), block=4096,
                                 device="cpu")
     np.testing.assert_allclose(on_card, on_cpu, rtol=0, atol=1e-4)
+
+
+def _scan_planes(device, T, C, shared, seed):
+    """Stable 2x2 maps (the four matrix planes one column for every channel
+    where ``shared``, the SVFilterPE layout), inputs, a state."""
+    mats = _seeded(device, seed, *[(T, 1 if shared else C)] * 4, lo=-0.7, hi=0.7)
+    planes = [m.expand(T, C) for m in mats] + _seeded(device, seed + 1, (T, C), (T, C))
+    return planes, tuple(_seeded(device, seed + 2, (C,), (C,)))
+
+
+@pytest.mark.parametrize("with_s0", [False, True], ids=["zero_state", "s0"])
+@pytest.mark.parametrize("shared", [False, True], ids=["full_planes", "shared_planes"])
+@pytest.mark.parametrize("chunk", [128, 1024])
+@pytest.mark.parametrize("C", [4, 5, 33, 128])
+@pytest.mark.parametrize("T", [1, 1023, 1025, 4099, 16384])
+def test_affine_scan_2_kernel_shapes_bit_for_bit(cuda, T, C, chunk, shared, with_s0):
+    """Odd lengths (one row, a part chunk, one row past a chunk) and widths
+    (a part tile of channels, widths not a multiple of 4: the kernel's
+    scalar loads), both chunk sizes, both matrix layouts, with and without
+    an initial state: bit for bit against the plain version."""
+    from pygmu2_tpu_torch.ops import linrec_kernel as lk
+
+    planes, s0 = _scan_planes(cuda, T, C, shared, seed=T + C + chunk)
+    s0 = s0 if with_s0 else None
+    got = lk.affine_scan_2_kernel(*planes, s0, chunk=chunk)
+    torch.cuda.synchronize()
+    for g, r in zip(got, lk.affine_scan_2_chunked_ref(*planes, s0, chunk=chunk)):
+        assert torch.isfinite(g).all() and torch.equal(g, r)
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["full_planes", "shared_planes"])
+@pytest.mark.parametrize("chunk", [128, 1024])
+def test_affine_scan_2_kernel_handoff_and_two_calls(cuda, shared, chunk):
+    """Two calls handing the state on through ``s0`` equal the plain
+    version's two calls bit for bit, and two identical calls give the same
+    bits (the chunks' carry has a fixed order: no atomics)."""
+    from pygmu2_tpu_torch.ops import linrec_kernel as lk
+
+    T, C = 4099, 33
+    planes, s0 = _scan_planes(cuda, T, C, shared, seed=chunk + shared)
+    cut = 1500
+    first = lk.affine_scan_2_kernel(*(p[:cut] for p in planes), s0, chunk=chunk)
+    second = lk.affine_scan_2_kernel(*(p[cut:] for p in planes),
+                                     (first[0][-1], first[1][-1]), chunk=chunk)
+    r1 = lk.affine_scan_2_chunked_ref(*(p[:cut] for p in planes), s0, chunk=chunk)
+    r2 = lk.affine_scan_2_chunked_ref(*(p[cut:] for p in planes), (r1[0][-1], r1[1][-1]),
+                                      chunk=chunk)
+    for g, r in zip((*first, *second), (*r1, *r2)):
+        assert torch.equal(g, r)
+    again = lk.affine_scan_2_kernel(*planes, s0, chunk=chunk)
+    once = lk.affine_scan_2_kernel(*planes, s0, chunk=chunk)
+    for a, b in zip(again, once):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("P", [1, 33, 128, 256])
+def test_filter_gain_mix_kernel_voices_and_epochs(cuda, P):
+    """The unfused pass at 1, 33 (a part block of voices, not a multiple of
+    4: the copy's scalar loads), 128 and 256 voices, fresh epochs at block 0
+    and mid-score, on the oscillator of seeded rows: within 2e-5 * max(1,
+    peak) of the plain version, 1e-5 * max(1, peak) of its own order in
+    torch ops (the same cut, other roundings: fused multiply-adds), and two
+    calls bit for bit."""
+    B, N = 6, 1024
+    rows, wave, _state = _synthetic(cuda, B, P, (2, 5), seed=P)
+    xt = fk._oscillator(rows, wave, N)  # the unfused route's input
+    before = fk.filter_gain_mix.launches
+    got = fk.filter_gain_mix(xt, rows, N)
+    again = fk.filter_gain_mix(xt, rows, N)
+    torch.cuda.synchronize()
+    assert fk.filter_gain_mix.launches == before + 2
+    assert torch.equal(got, again)
+    ref = fk.filter_gain_mix_ref(xt, rows, N)
+    cut = fk.filter_gain_mix_cut(xt, rows, N)
+    scale = max(1.0, float(ref.abs().max()))
+    assert float(ref.abs().max()) > 0.5 and torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, rtol=0, atol=2e-5 * scale)
+    torch.testing.assert_close(got, cut, rtol=0, atol=1e-5 * scale)

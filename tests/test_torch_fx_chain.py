@@ -16,10 +16,13 @@ Kogge-Stone passes, the stitch and the apply, except in the first pass's
 row of the negated coefficients ``-a1``, ``-a2``: LLVM rewrites
 ``(-a1)·p + (-a2)·q`` as ``(-a2)·q - a1·p`` and fuses ``(-a2)·q``. The FIR
 line is ``fma(b2, x2, fma(b0, x0, b1·x1))``. Fed the JAX render's strings
-and centre, the two packages' band-passes are then equal bit for bit; the
-chain stays within 1e-4 of the JAX render over the whole 0.4 s, the rest
-coming from the strings and centre upstream (float32 roundings in other
-ops), raised by the band-pass and the compressor's makeup gain.
+and centre, the two packages' band-passes are then equal bit for bit. The
+slew limiter's input ``MixPE(ConstantPE(300), GainPE(env, 2500))`` is one
+fused multiply-add in XLA's program, and the port's MixPE mirrors that
+contraction: the centre input equals the JAX render's bit for bit, and the
+chain stays within 1e-5 of the JAX render over the whole 0.4 s, the rest
+coming from the strings upstream (float32 roundings in other ops), raised
+by the band-pass and the compressor's makeup gain.
 ``python tests/test_torch_fx_chain.py`` prints these numbers.
 """
 
@@ -193,23 +196,42 @@ def test_upstream_pe_matches_jax_on_jax_input(upstream, name):
 
 def test_centre_input_is_one_fused_multiply_add(upstream):
     """XLA contracts the GainPE's product into the MixPE's sum: the JAX
-    centre input is ``fmaf(env, 2500, 300)``, rounded once; the port rounds
-    the product and the sum (one float32 ulp apart at most, 6.1e-5 at the
-    values near 300-512 Hz)."""
+    centre input is ``fmaf(env, 2500, 300)``, rounded once; the port's
+    MixPE mirrors the contraction (tests/test_torch_mix_contraction.py), so
+    on the JAX envelope its centre input equals the JAX render's bit for
+    bit."""
     env = torch.from_numpy(upstream["env"].copy())
     fused = xla_math.fmaf(env, 2500.0, 300.0).numpy()
     np.testing.assert_array_equal(fused, upstream["centre_in"])
     got = _render_port(tpg.MixPE(tpg.ConstantPE(300.0),
                                  tpg.GainPE(tpg.ArrayPE(upstream["env"].copy()), 2500.0)))
-    ulp = np.spacing(np.abs(upstream["centre_in"]).astype(np.float32))
-    assert np.all(np.abs(got - upstream["centre_in"]) <= ulp)
+    np.testing.assert_array_equal(got, upstream["centre_in"])
+
+
+def test_chain_on_jax_envelope_matches_jax(upstream):
+    """The port's chain with the follower's envelope taken from the JAX
+    render, the centre input formed by the port's MixPE and GainPE (equal to
+    the JAX centre input bit for bit, above), stays within 1e-5 of the JAX
+    render over the whole 0.4 s (observed 4.30e-6; 8.03e-5 with the product
+    and the sum rounded apart). With its own envelope the chain differs by
+    9.63e-5: the strings differ from the JAX render's from their first
+    samples (<= 7.64e-7), the envelope follows (1.27e-7), and the centre's
+    gain of 2500 carries that into the band-pass (ROADMAP queue 3)."""
+    want = _jax_render("chain")[1]
+    pg = tpg
+    centre_in = pg.MixPE(pg.ConstantPE(300.0),
+                         pg.GainPE(pg.ArrayPE(upstream["env"].copy()), 2500.0))
+    got = np.asarray(tpg.render_to_array(_chain_on_centre_input(centre_in), block=BLOCK,
+                                         device="cpu"))
+    _close(got, want, 1e-5)
 
 
 def test_chain_on_jax_centre_input_matches_jax(upstream):
-    """The chain's residual is that one rounding: the port's chain with the
+    """The chain's residual was that one rounding: the port's chain with the
     slew limiter fed the JAX centre input stays within 1e-5 of the JAX
     render over the whole 0.4 s (observed 4.30e-6 at sample 365; with its
-    own centre input 8.03e-5 at sample 5135)."""
+    own centre input before the MixPE mirrored the contraction, 8.03e-5 at
+    sample 5135)."""
     want = _jax_render("chain")[1]
     got = np.asarray(tpg.render_to_array(_chain_on_centre_input(upstream["centre_in"]),
                                          block=BLOCK, device="cpu"))
@@ -218,12 +240,14 @@ def test_chain_on_jax_centre_input_matches_jax(upstream):
 
 def _chain_on_centre_input(centre_in):
     """``fx_workload.build_chain(tpg, 0.4)`` with the slew limiter's input
-    replaced by ``centre_in``."""
+    replaced by ``centre_in`` (samples, or a PE)."""
     pg = tpg
     strings = pg.MixPE(*(pg.KarplusStrongPE(f, rho=0.9995, seed=i)
                          for i, f in enumerate(fx_workload.STRINGS)))
     src = pg.CachePE(pg.GainPE(strings, pg.PeriodicGate(2.0, 0.45)))
-    centre = pg.SlewLimiterPE(pg.ArrayPE(centre_in.copy()), 40000.0, 8000.0)
+    if not isinstance(centre_in, pg.ProcessingElement):
+        centre_in = pg.ArrayPE(centre_in.copy())
+    centre = pg.SlewLimiterPE(centre_in, 40000.0, 8000.0)
     wah = pg.BiquadPE(src, centre, 6.0, mode=pg.BiquadMode.BANDPASS)
     out = fx_workload._echo_mix(pg, pg.CompressorPE(wah, threshold=-18.0, ratio=6.0))
     return pg.CropPE(out, 0, int(round(SECONDS["chain"] * fx_workload.SR)))

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: ``python3 chip_smoke.py``.
 
-Drives the port's three main paths through their user entry points:
+Drives the port's main paths through their user entry points:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. builds every CUDA kernel from ``pygmu2_tpu_torch/csrc`` (build seconds);
@@ -99,7 +99,20 @@ Drives the port's three main paths through their user entry points:
    launch the unfused pass's kernel and not the fused one, and match the
    same render with the plain version on the card within 1e-4. Realtime
    after a warm-up; as a measurement only, the fused kernel on the same
-   rows, timed beside the unfused route, and the two outputs' difference.
+   rows, timed beside the unfused route, and the two outputs' difference;
+12. the streaming SoundFont synth at the bench's width (the 3 s chord,
+   small font, 128 voices, block 1024): ``Synthesizer.render_midi_schedule``,
+   ``MidiFileSequencer.render`` in counts of 1000, 4096 and the rest (blocks
+   split across calls) and ``render_midi_offline_hostctl``. The first two
+   must launch the scan kernel once a block (130), the third the SoundFont
+   pass once; each must come out finite and not silent, match the same
+   render through the plain version on the card within 1e-4 and
+   ``render_midi_offline`` within 1e-4. Realtime (median of 3 after a
+   warm-up), and one traced ``render_midi_schedule``: device ops a block,
+   device busy time and idle share. Then a MeltysynthPE fed by
+   ``MidiInPE.feed`` (a chord) at block 64 for 1 s through
+   ``render_to_array(device="cuda")``: the scan once a synth block, against
+   the plain version within 1e-4, realtime.
 
 Prints a JSON line of per-kernel results, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, before any result, on
@@ -376,6 +389,9 @@ def main() -> None:
     serial.update(scan_kernels(dev, card, device_ms))
     pe_launches.update(filter_graph(dev, card))
     pe_launches.update(high_score(dev, card, device_ms))
+    stream = streaming_synth(dev, card)
+    pe_launches["affine_scan_2"] += stream["affine_scan_2"]
+    osc_entries[0]["launches"] += stream["osc_filter_gain_mix"]  # the small font's
     entries = list(osc_entries)
     for name, info in serial.items():
         entries.append({"name": name, "route": "cuda", **info,
@@ -411,11 +427,15 @@ def timed_plain(fn):
     return result, start.elapsed_time(end)
 
 
-def device_events(fn, reps: int = 10, key: str = "") -> dict:
+PROFILER_SESSIONS = 6
+
+
+def device_events(fn, reps: int = 10, key: str = ""):
     """{name: [ms, ...]} of the device events of ``reps`` calls of ``fn``
-    (after a warm-up call), from torch.profiler. A session that traced no
-    device event whose name holds ``key`` is run again, at most twice more
-    (one run of this script saw a session trace no kernel it launched)."""
+    (after a warm-up call), from torch.profiler, or None. A session that
+    traced no device event whose name holds ``key`` is run again, up to
+    ``PROFILER_SESSIONS`` in all: on the H100 sessions come back empty, often
+    one or two in a row and once three, and the next one full."""
     from collections import defaultdict
 
     from torch.autograd import DeviceType
@@ -423,7 +443,7 @@ def device_events(fn, reps: int = 10, key: str = "") -> dict:
 
     fn()
     torch.cuda.synchronize()
-    for attempt in range(3):
+    for attempt in range(PROFILER_SESSIONS):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -436,7 +456,26 @@ def device_events(fn, reps: int = 10, key: str = "") -> dict:
             return events
         print(f"device_events: session {attempt + 1} traced no device event named {key!r}: "
               f"{sorted(events)[:4]}")
-    fail(f"device_events: no device event named {key!r} in three sessions")
+    return None
+
+
+def busy_stream_ms(fn, reps: int = 10) -> float:
+    """Device ms of a call of ``fn``, every item it enqueues, by CUDA events
+    around ``reps`` calls enqueued behind a spin of the stream: the
+    host's enqueue is hidden, so the events see the calls back to back on
+    the card. The stand-in for torch.profiler where no session traced the
+    kernel."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # about 50 ms at the H100's 1.98 GHz
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def kernel_ms(fn, key: str, reps: int = 10) -> float:
@@ -447,9 +486,17 @@ def kernel_ms(fn, key: str, reps: int = 10) -> float:
     short kernel. Some sessions drop events or trace some twice: a session
     that traced a kernel other than ``reps`` times is run again, at most
     twice more, and past that each kernel counts at its median event (each
-    kernel here launches once a call)."""
+    kernel here launches once a call). Where no session traced the kernel,
+    the call's every item by ``busy_stream_ms``, which says so."""
+    ours = {}
     for _ in range(3):
-        ours = {name: ts for name, ts in device_events(fn, reps, key).items() if key in name}
+        events = device_events(fn, reps, key)
+        if events is None:
+            ms = busy_stream_ms(fn, reps)
+            print(f"kernel_ms: torch.profiler traced no {key}; a call's device items by CUDA "
+                  f"events behind a busy stream: {ms:.4f} ms")
+            return ms
+        ours = {name: ts for name, ts in events.items() if key in name}
         if all(len(ts) == reps for ts in ours.values()):
             return sum(sum(ts) for ts in ours.values()) / reps
     print(f"kernel_ms: no session traced each {key} kernel {reps} times; medians")
@@ -458,8 +505,15 @@ def kernel_ms(fn, key: str, reps: int = 10) -> float:
 
 def launch_split(fn, reps: int = 10, key: str = "") -> dict:
     """Mean device ms a call of ``fn`` spends in each item it enqueues, by
-    name (torch.profiler's device events)."""
-    return {name: sum(ts) / reps for name, ts in device_events(fn, reps, key).items()}
+    name (torch.profiler's device events); where no session traced ``key``,
+    one entry named for it: the call's every item by ``busy_stream_ms``."""
+    events = device_events(fn, reps, key)
+    if events is None:
+        ms = busy_stream_ms(fn, reps)
+        print(f"launch_split: torch.profiler traced no {key}; a call's device items by CUDA "
+              f"events behind a busy stream: {ms:.4f} ms")
+        return {f"{key} (all items, events behind a busy stream)": ms}
+    return {name: sum(ts) / reps for name, ts in events.items()}
 
 
 def compare(name, got, ref, tol, what):
@@ -839,15 +893,48 @@ def fx_kernels(dev, card, device_ms) -> dict:
         cut = 100 + 3 * max(1, ks.window_length(L))
         got, ref = handoff(ks.ks_scan, ks.ks_scan_ref, args, cut, 4, kw)
         errs.append(compare("ks_scan", got, ref, 0.0, f"L={L} two-call hand-off at {cut}"))
-    ms_133, _ = timed("ks_scan", ks.ks_scan, ks.ks_scan_ref, ks_args(BLOCK, 133, seed=2),
-                      dict(L=133, allpass_c=0.35), 0.0, "L=133", errs)
+    ms_133_serial, _ = timed("ks_scan", ks.ks_scan, ks.ks_scan_ref,
+                             ks_args(BLOCK, 133, seed=2), dict(L=133, allpass_c=0.35), 0.0,
+                             "L=133 (per-sample order)", errs)
+    ms_serial, plain_serial = timed("ks_scan", ks.ks_scan, ks.ks_scan_ref,
+                                    ks_args(BLOCK, 535, seed=1), dict(L=535, allpass_c=0.35),
+                                    0.0, "L=535 (per-sample order)", errs)
+
+    # the blocked order, every sample active (the chain's strings: the JAX
+    # KarplusStrongPE's ks_blocked), bit for bit, with a hand-off mid-block
+    def blocked(rho, act, buf, r, ai, ao, **kw):
+        return ks.ks_scan(rho, act, buf, r, ai, ao, all_active=True, **kw)
+
+    def blocked_ref(rho, act, buf, r, ai, ao, **kw):
+        return ks.ks_blocked_ref(rho, buf, r, ai, ao, **kw)
+
+    for L in (16, 133, 535, ks.MAX_KERNEL_L + 1):
+        kw = dict(L=L, allpass_c=0.35)
+        args = ks_args(T, L, seed=L + 7, act="all")
+        err, _plain, _ref = held("ks_scan", blocked, blocked_ref, args, kw, 0.0,
+                                 f"blocked L={L} T={T}")
+        errs.append(err)
+        # blocks start at each call's first sample: two calls against two
+        got, _ = handoff(blocked, None, args, 1000, 4, kw, ref=())
+        ref, _ = handoff(blocked_ref, None, args, 1000, 4, kw, ref=())
+        errs.append(compare("ks_scan", got, ref, 0.0, f"blocked L={L} two-call hand-off"))
+    ms_133, plain_133 = timed("ks_scan", blocked, blocked_ref, ks_args(BLOCK, 133, seed=2, act="all"),
+                              dict(L=133, allpass_c=0.35), 0.0, "L=133 blocked", errs)
     L, kw = 535, dict(L=535, allpass_c=0.35)
-    ms, plain_ms = timed("ks_scan", ks.ks_scan, ks.ks_scan_ref, ks_args(BLOCK, L, seed=1),
-                         kw, 0.0, f"L={L}", errs)
+    ms, plain_ms = timed("ks_scan", blocked, blocked_ref, ks_args(BLOCK, L, seed=1, act="all"),
+                         kw, 0.0, f"L={L} blocked", errs)
+    # the blocked order's operations: two-point average 3, u 2, and row j
+    # of a block of B = min(L - 1, 512) rows j + 1 multiply-adds (2 each)
+    # plus 9 for the lanes' sums and the state's multiply-add
+    B = min(L - 1, ks.BLOCKED_MAX_B)
+    nb, rem = divmod(BLOCK, B)
+    gemv_ops = 2 * (nb * B * (B + 1) // 2 + rem * (rem + 1) // 2)
     out["ks_scan"] = entry(
         "ks_scan.cu", "pygmu2_tpu/ops/ks_pallas.py:115", errs, ms, plain_ms,
-        5 * BLOCK + 4 * (2 * L + 6), KS_OPS * BLOCK, f"T={BLOCK} L={L} C=1")
-    out["ks_scan"]["ms_L133"] = ms_133
+        4 * BLOCK + 4 * (2 * L + 6) + 8 * B, gemv_ops + 14 * BLOCK,
+        f"T={BLOCK} L={L} C=1, every sample active (the blocked order)")
+    out["ks_scan"].update(ms_L133=ms_133, plain_ms_L133=plain_133, ms_serial=ms_serial,
+                          plain_ms_serial=plain_serial, ms_serial_L133=ms_133_serial)
 
     # ---- envelope follower: the wah's attack and release ----
     env_kw = dict(atk=1.0 - np.exp(-1.0 / (0.005 * SR)), rel=1.0 - np.exp(-1.0 / (0.08 * SR)))
@@ -1287,6 +1374,199 @@ def high_score(dev, card, device_ms) -> dict:
           f"(oscillator in torch + filter_gain_mix) {unfused_ms:.4f} ms; outputs differ by "
           f"{diff:.3g} [{card}]")
     return {"filter_gain_mix": launches}
+
+
+def _stereo_pe(pg, source):
+    """A mono source on both channels (so a MidiInPE's drain can be mixed
+    before a stereo synth; the port has no SpatialPE yet)."""
+    from pygmu2_tpu_torch.core.extent import Extent
+
+    class Stereo(pg.ProcessingElement):
+        def __init__(self, source):
+            self._source = source
+
+        def inputs(self):
+            return [self._source]
+
+        def channel_count(self):
+            return 2
+
+        def _compute_extent(self):
+            return Extent(None, None)
+
+        def _trace(self, ctx):
+            return ctx.pull(self._source).expand(-1, 2)
+
+    return Stereo(source)
+
+
+def streaming_synth(dev, card) -> dict:
+    """Phase 12: the streaming SoundFont synth at the bench's full width
+    (the 3 s chord, small font, 128 voices, block 1024) through
+    ``Synthesizer.render_midi_schedule``, ``MidiFileSequencer.render`` in
+    uneven counts and ``render_midi_offline_hostctl``, then a MeltysynthPE
+    fed by a MidiInPE (block 64, 1 s) through ``render_to_array``. Returns
+    the kernels' launches on that path."""
+    from pathlib import Path
+
+    import pygmu2_tpu_torch as pg
+    from pygmu2_tpu_torch import bench_workload
+    from pygmu2_tpu_torch.ops import linrec_kernel
+    from pygmu2_tpu_torch.soundfont import MidiFileSequencer
+    from pygmu2_tpu_torch.soundfont import filter_kernels as fk
+    from pygmu2_tpu_torch.soundfont import offline as off
+    from pygmu2_tpu_torch.soundfont import synthesizer
+
+    seconds = 3.0
+    scan, osc = linrec_kernel.affine_scan_2_kernel, fk.osc_filter_gain_mix
+    total = int(round(seconds * SR))
+
+    def schedule(synth, midi):
+        return synth.render_midi_schedule(midi, seconds)
+
+    def sequencer(synth, midi):
+        seq = MidiFileSequencer(synth)
+        seq.play(midi)
+        left, right = np.zeros(total, np.float32), np.zeros(total, np.float32)
+        at = 0
+        for n in (1000, 4096, total - 5096):  # blocks split across calls
+            seq.render(left, right, at, n)
+            at += n
+        return np.stack([left, right], axis=1)
+
+    def hostctl(synth, midi):
+        return off.render_midi_offline_hostctl(synth, midi, seconds, device=dev)
+
+    cases = [("render_midi_schedule", schedule, scan),
+             ("MidiFileSequencer.render (1000, 4096, rest)", sequencer, scan),
+             ("render_midi_offline_hostctl", hostctl, osc)]
+    n_blocks = int(np.ceil(seconds * SR / 1024))
+    scan.launches = osc.launches = 0  # the main path's run starts here
+    outs, per_case = [], []
+    for label, render, counter in cases:
+        synth, midi = bench_workload.build_workload(False, device=dev)
+        before = counter.launches
+        outs.append(render(synth, midi))
+        per_case.append(counter.launches - before)
+    launches = {"affine_scan_2": scan.launches, "osc_filter_gain_mix": osc.launches}
+    check(per_case[0] == per_case[1] == n_blocks,
+          f"streaming synth: scan launches {per_case[:2]}, expected {n_blocks} a render")
+    check(per_case[2] == 1, f"hostctl: {per_case[2]} launches of the SoundFont pass")
+
+    @contextlib.contextmanager
+    def plain(counter):
+        if counter is scan:
+            synthesizer.affine_scan_2_kernel = linrec_kernel.affine_scan_2_chunked_ref
+        else:
+            fk.osc_filter_gain_mix = fk.osc_filter_gain_mix_ref
+        try:
+            yield
+        finally:
+            synthesizer.affine_scan_2_kernel, fk.osc_filter_gain_mix = scan, osc
+
+    synth, midi = bench_workload.build_workload(False, device=dev)
+    one_pass = off.render_midi_offline(synth, midi, seconds, device=dev)
+    rates = {}
+    for (label, render, counter), got, n in zip(cases, outs, per_case):
+        check(got.shape == (total, 2) and np.isfinite(got).all() and np.abs(got).max() > 0.1,
+              f"{label}: not finite, silent or misshapen {got.shape}")
+        synth, midi = bench_workload.build_workload(False, device=dev)
+        with plain(counter):
+            ref = render(synth, midi)
+        err = float(np.abs(got - ref).max())
+        check(err <= TOL, f"{label}: kernel render vs plain render {err}")
+        vs_offline = float(np.abs(got - one_pass).max())
+        check(vs_offline <= TOL, f"{label}: against render_midi_offline {vs_offline}")
+
+        def timed():
+            synth, midi = bench_workload.build_workload(False, device=dev)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            render(synth, midi)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t
+
+        timed()  # warm-up
+        walls = [timed() for _ in range(3)]
+        wall = statistics.median(walls)
+        rates[label] = seconds / wall
+        print(f"{label}: {n} launches; max abs err vs plain {err:.3g}; vs render_midi_offline "
+              f"{vs_offline:.3g}; realtime x{seconds / wall:.2f} wall, median of 3 "
+              f"({', '.join(f'{w * 1e3:.1f}' for w in walls)} ms) [{card}]")
+
+    # the block engine's device ops and busy time, one traced render
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(PROFILER_SESSIONS):  # sessions may come back empty
+        synth, midi = bench_workload.build_workload(False, device=dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            schedule(synth, midi)
+            torch.cuda.synchronize()
+        traced_wall = time.perf_counter() - t
+        dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if dev_events:
+            break
+        print(f"render_midi_schedule traced: session {attempt + 1} traced no device event")
+    if dev_events:
+        busy = sum((e.time_range.end - e.time_range.start) for e in dev_events) / 1e3
+        scan_ms = sum((e.time_range.end - e.time_range.start) for e in dev_events
+                      if "affine" in e.name or "scan" in e.name) / 1e3
+        print(f"render_midi_schedule traced: {len(dev_events)} device ops "
+              f"({len(dev_events) / n_blocks:.1f} a block), device busy {busy:.3f} ms of "
+              f"{traced_wall * 1e3:.1f} ms wall (idle share "
+              f"{1 - busy / (traced_wall * 1e3):.3f}), the scan kernel {scan_ms:.3f} ms [{card}]")
+    else:
+        print("render_midi_schedule traced: device ops and idle share not measured "
+              f"(no session traced a device event) [{card}]")
+    t_one = []
+    for _ in range(3):
+        synth, midi = bench_workload.build_workload(False, device=dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        off.render_midi_offline(synth, midi, seconds, device=dev)
+        torch.cuda.synchronize()
+        t_one.append(time.perf_counter() - t)
+    print(f"render_midi_offline, same score: realtime x{seconds / statistics.median(t_one):.2f} "
+          f"wall, median of 3 [{card}]")
+
+    # MeltysynthPE fed by MidiInPE.feed, block 64, 1 s, render_to_array
+    font = Path(__file__).resolve().parent / "build" / "smoke" / "bench_small.sf2"
+    font.parent.mkdir(parents=True, exist_ok=True)
+    font.write_bytes(bench_workload.build_font_bytes(False))
+    pg.set_sample_rate(SR)
+
+    def live():
+        synth_pe = pg.MeltysynthPE(str(font), block_size=64)
+        midi_pe = pg.MidiInPE(port_name=None, callback=lambda start, msg:
+                              synth_pe.synthesizer.process_midi_message(*msg))
+        graph = pg.CropPE(pg.MixPE(_stereo_pe(pg, midi_pe), synth_pe), 0, SR)
+        for key in (48, 52, 55, 60, 64, 67):
+            midi_pe.feed((0, 0x90, key, 100))  # drained at the first block
+        # render_to_array starts the PEs (the synth exists before the first
+        # drain) and renders whole blocks of `block`, the last cropped
+        return pg.render_to_array(graph, block=block, device=dev)
+
+    block = 16384
+    scan.launches = 0  # the live path's run starts here
+    got = live()
+    n_live = scan.launches
+    launches["affine_scan_2"] += n_live
+    check(n_live == -(-SR // block) * block // 64, f"MeltysynthPE: {n_live} scan launches")
+    check(got.shape == (SR, 2) and np.isfinite(got).all() and np.abs(got).max() > 0.05,
+          f"MeltysynthPE: not finite or silent {got.shape}")
+    with plain(scan):
+        ref = live()
+    err = float(np.abs(got - ref).max())
+    check(err <= TOL, f"MeltysynthPE: kernel render vs plain render {err}")
+    t = time.perf_counter()  # warmed up by the renders above
+    live()
+    wall = time.perf_counter() - t
+    print(f"MeltysynthPE + MidiInPE, block 64, 1 s, render_to_array: {n_live} scan launches; "
+          f"max abs err vs plain {err:.3g}; realtime x{1.0 / wall:.2f} wall [{card}]")
+    return launches
 
 
 if __name__ == "__main__":

@@ -1,10 +1,17 @@
 """pygmu2_tpu_torch: the PyTorch + CUDA port of pygmu2_tpu.
 
-Two slices so far:
+The slices so far:
 
 - the offline SoundFont render: a MIDI score through a SoundFont to
   stereo audio, with the audio-rate pass in a hand-written CUDA kernel
-  (``csrc/osc_filter_gain_mix.cu``);
+  (``csrc/osc_filter_gain_mix.cu``; the control pass on the device, or on
+  the host in numpy: ``render_midi_offline_hostctl``);
+- the streaming SoundFont synth: ``Synthesizer.render`` /
+  ``render_stereo`` / ``render_midi_schedule`` and
+  ``MidiFileSequencer.render`` render block by block on the device, the
+  per-voice biquad's feedback on the order-2 scan kernel
+  (``csrc/affine_scan_2.cu``); ``MeltysynthPE`` and ``MidiInPE`` bring it
+  into the PE graph;
 - the PE-graph render engine (``core/``) with the PEs of a subtractive
   patch (``models/``): LadderPE, CombPE and the ADSR pair run on
   hand-written CUDA kernels (``csrc/ladder_scan.cu``, ``comb_scan.cu``,
@@ -68,6 +75,8 @@ from pygmu2_tpu_torch.models.gates import (
     TriggerSignal,
 )
 from pygmu2_tpu_torch.models.holds import CachePE, SampleHoldPE, SlewLimiterPE, TrackHoldPE
+from pygmu2_tpu_torch.models.meltysynth_pe import MeltysynthPE
+from pygmu2_tpu_torch.models.midi_in import MidiInPE
 from pygmu2_tpu_torch.models.modes import (
     BiquadMode,
     DetectionMode,
@@ -93,6 +102,7 @@ from pygmu2_tpu_torch.soundfont.filter_kernels import (
 )
 from pygmu2_tpu_torch.soundfont.offline import (
     render_midi_offline,
+    render_midi_offline_hostctl,
     render_midi_offline_streamed,
 )
 from pygmu2_tpu_torch.utils.playback import render_to_array, render_to_file
@@ -163,7 +173,9 @@ __all__ = [
     "SVFilterPE",
     "BiquadMode",
     "ReversePitchEchoPE",
-    # the offline SoundFont render
+    "MeltysynthPE",
+    "MidiInPE",
+    # the SoundFont renders, offline and streaming
     "MidiFile",
     "MidiFileSequencer",
     "SoundFont",
@@ -172,5 +184,6 @@ __all__ = [
     "osc_filter_gain_mix",
     "osc_filter_gain_mix_ref",
     "render_midi_offline",
+    "render_midi_offline_hostctl",
     "render_midi_offline_streamed",
 ]

@@ -115,6 +115,9 @@ def load() -> ctypes.CDLL:
         # rho, act, buf_in, r_in, ap_in_in, ap_out_in, y, buf_out, r_out,
         # ap_in_out, ap_out_out, idx, rho_c, T, L, allpass_c, stream
         "ks_scan_launch": [p] * 13 + [i, i, f, p],
+        # rho, buf_in, r_in, ap_in_in, ap_out_in, diag, powv, y, buf_out,
+        # r_out, ap_in_out, ap_out_out, T, L, B, allpass_c, stream
+        "ks_blocked_launch": [p] * 12 + [i, i, i, f, p],
         # x, env0, env, env_final, T, C, atk, rel, stream
         "envelope_ar_scan_launch": [p] * 4 + [i, i, f, f, p],
         # x, cur_in, y, cur_out, T, linear, p_rise, p_fall, stream

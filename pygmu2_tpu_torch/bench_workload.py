@@ -140,7 +140,9 @@ def _midi_bytes(events) -> bytes:
     )
 
 
-def build_workload(large_font: bool = False):
+def build_workload(large_font: bool = False, device="cuda"):
+    """``bench.build_workload``: (synthesizer, score); the synthesizer's
+    streaming engine runs on ``device``."""
     from pygmu2_tpu_torch.soundfont import (
         MidiFile,
         SoundFont,
@@ -155,6 +157,7 @@ def build_workload(large_font: bool = False):
         SynthesizerSettings(
             sample_rate=44100, block_size=1024, maximum_polyphony=128
         ),
+        device=device,
     )
     return synth, midi
 

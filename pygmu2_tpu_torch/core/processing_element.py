@@ -122,6 +122,12 @@ class ProcessingElement(ABC):
     def _compute_extent(self) -> Extent:
         return Extent(None, None)
 
+    def _xla_select(self):
+        """The zeroing select, if any, that ends the JAX package's program of
+        this PE with no engine mask after it, as a form for MixPE's
+        contraction rule (``models/basic._xla_form``); None here."""
+        return None
+
     def _fills_own_edges(self) -> bool:
         """True when this PE emits meaningful samples outside its extent,
         suppressing the engine's zero mask.

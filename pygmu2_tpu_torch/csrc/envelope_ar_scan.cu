@@ -5,10 +5,11 @@
 // envelope_ar_pallas (:97), which keeps the envelope of 128 lanes in vector
 // registers and walks a sequential grid of time chunks.
 //
-// What it computes (the op order of envelope_ar_scan_ref, float32), per
-// sample t and channel c:
+// What it computes (the op order of envelope_ar_scan_ref, float32, the
+// update one fused multiply-add as XLA's CPU program forms it), per sample
+// t and channel c:
 //   coeff = x[t, c] > e ? atk : rel
-//   e     = e + coeff * (x[t, c] - e);   env[t, c] = e
+//   e     = fma(coeff, x[t, c] - e, e);   env[t, c] = e
 //
 // What bounds it on this card: the dependent chain. At the main path's
 // block (T = 16384) it moves 8 bytes per sample and channel (16.8 MB at
@@ -40,9 +41,11 @@
 // the chain's compare, select, subtract, multiply and add take 19.4
 // (cycle_probe: both updates formed and one selected 18.9, about the same;
 // both products formed and one selected, or picked by a mask, 22.4-23.9).
-// Explicitly rounded float ops keep the kernel equal to the plain PyTorch
-// version bit for bit (the coefficient switches on x > e: one ulp can flip
-// a sample).
+// Explicitly rounded float ops (__fsub_rn, __fmaf_rn) keep the kernel
+// equal to the plain PyTorch version bit for bit (the coefficient switches
+// on x > e: one ulp can flip a sample). Until the update became one fused
+// multiply-add (rounded once, as the JAX package's program on the CPU
+// rounds it) the product and the sum were rounded apart.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -61,7 +64,7 @@ struct Stage {
 
 __device__ __forceinline__ float step(float e, float x, float atk, float rel) {
   const float coeff = x > e ? atk : rel;
-  return __fadd_rn(e, __fmul_rn(coeff, __fsub_rn(x, e)));
+  return __fmaf_rn(coeff, __fsub_rn(x, e), e);
 }
 
 // How a chunk's rows move between global and shared memory (each stage

@@ -5,12 +5,15 @@
 // (:115), which keeps the (L, 128) string in VMEM scratch (one live lane)
 // and walks a sequential grid of time chunks.
 //
-// What it computes (the op order of ks_scan_ref, float32), per sample t
-// where act[t] is set (elsewhere y = 0 and the state stands still):
+// What it computes (the op order of ks_scan_ref, float32, its allpass two
+// fused multiply-adds as XLA's CPU program forms them), per sample t where
+// act[t] is set (elsewhere y = 0 and the state stands still):
 //   rn  = (r + 1) % L
 //   out = rho[t] * (buf[r] + buf[rn]) * 0.5              two-point average
-//   ap  = c * out + ap_in - c * ap_out                   fractional allpass
+//   ap  = fma(-c, ap_out, fma(c, out, ap_in))            fractional allpass
 //   y[t] = ap; buf[r] = ap; r = rn; ap_in = out; ap_out = ap
+// A call whose samples are all active, on a string of L >= 16, takes the
+// second kernel, ks_blocked, below: the order of ks_blocked_ref.
 //
 // What bounds it on this card: a dependent chain, not bytes or operations.
 // At the main path's block (T = 16384, L = 535) it moves 152 KB (roofline
@@ -21,9 +24,9 @@
 // allpass output of sample k. Sample k reads S[k] and S[k + 1], values
 // written L and L - 1 samples before it, so out[k] for a window of L - 1
 // samples depends only on earlier windows. What is left serial is the
-// allpass: ap[k] = (c * out[k] + out[k - 1]) - c * ap[k - 1], one multiply
-// and one subtract on the chain (~8 cycles): ~70 us per 16384 samples at
-// 1.98 GHz. The first design ran the whole sample on one thread, its
+// allpass: ap[k] = fma(-c, ap[k - 1], fma(c, out[k], out[k - 1])), one
+// fused multiply-add on the chain (the first design's multiply and
+// subtract took ~8 cycles: ~70 us per 16384 samples at 1.98 GHz). The first design ran the whole sample on one thread, its
 // shared-memory loads ordered after the previous sample's store: 1.03 ms.
 //
 // What the design does about it: one CUDA block of 256 threads.
@@ -33,14 +36,14 @@
 // 2. Windows of W = min(1024, (L - 1) / 2) active samples, pipelined: while
 //    thread 0 runs the allpass over window j, warps 1-7 write window
 //    j - 1's outputs into the string and to y[idx[k]], then (after a
-//    barrier of their own) form P[k] = c * out[k] + out[k - 1] for window
+//    barrier of their own) form P[k] = fma(c, out[k], out[k - 1]) for window
 //    j + 1 (it reads only tape values of windows up to j - 1, since
 //    2W + 1 <= L) and stage rho_c of window j + 2 into shared memory with
 //    cp.async; one __syncthreads() per window. Thread 0 touches only two
 //    shared arrays, P and its outputs, in 16-byte vectors, loading eight P
 //    ahead of the chain.
 //    Every value is rounded as in the plain version (__fmul_rn, __fadd_rn,
-//    __fsub_rn on the same operands), so the kernel equals it bit for bit.
+//    __fmaf_rn on the same operands), so the kernel equals it bit for bit.
 // The string lives in shared memory up to 51200 samples (200 KB; a string
 // below 0.862 Hz at 44.1 kHz is longer); a longer one lives in buf_out in
 // global memory (L2-resident), updated in place, and then its windows are
@@ -90,7 +93,7 @@ __device__ void serial_string(const float* __restrict__ rho,
     const float rh = rho[t];
     const int rn = r + 1 == L ? 0 : r + 1;
     const float out = __fmul_rn(__fmul_rn(rh, __fadd_rn(ring[r], ring[rn])), 0.5f);
-    const float ap = __fsub_rn(__fadd_rn(__fmul_rn(c, out), ai), __fmul_rn(c, ao));
+    const float ap = __fmaf_rn(-c, ao, __fmaf_rn(c, out, ai));
     y[t] = a ? ap : 0.0f;
     if (a) {
       ring[r] = ap;
@@ -244,7 +247,7 @@ __global__ void __launch_bounds__(kThreads) ks_scan(
           prev = average(s_rho[b][i - 1], ring, s0 == 0 ? L - 1 : s0 - 1, L);
         else
           prev = m == 0 ? ai0 : s_last[(j - 1) & 1];
-        s_P[b][i] = __fadd_rn(__fmul_rn(c, out), prev);
+        s_P[b][i] = __fmaf_rn(c, out, prev);
         if (i == n - 1) s_last[b] = out;
       }
     };
@@ -272,7 +275,7 @@ __global__ void __launch_bounds__(kThreads) ks_scan(
       if (tid == 0 && j < n_win) {
         const int b = j & 1;
         walk(s_P[b], s_ap[b], min(W, K - j * W),
-             [&](float p) { return ao = __fsub_rn(p, __fmul_rn(c, ao)); });
+             [&](float p) { return ao = __fmaf_rn(-c, ao, p); });
       } else if (tid >= 32) {
         if (j + 2 < n_win) stage(j + 2);  // in flight through this window
         cp_async_commit();
@@ -294,6 +297,126 @@ __global__ void __launch_bounds__(kThreads) ks_scan(
   __syncthreads();
   if (ring_in_shared)
     for (int l = tid; l < L; l += kThreads) buf_out[l] = ring[l];
+}
+
+// ---- the blocked order: a call whose samples are all active ----
+//
+// What it computes (the op order of ks_blocked_ref: the JAX package's
+// ops/ks_block.ks_blocked as XLA's CPU program rounds it), in blocks of
+// B = min(L - 1, 512) samples, W the string oldest first:
+//   out[j] = rho[j] * (W[j] + W[j + 1]) * 0.5
+//   u[0]   = fma(c, out[0], ap_in);  u[j] = c * out[j] + out[j - 1]
+//   ap[j]  = fma((-c)^(j+1), ap_out, sum_k (-c)^(j-k) u[k])
+// the sum in XLA's GEMV order: eight lanes (k mod 8, below B - B % 8) of
+// fused multiply-adds from 0, summed pairwise (rows below B - B % 8:
+// ((l0+l1)+(l2+l3))+((l4+l5)+(l6+l7)); the rest: ((l0+l4)+(l2+l6))+
+// ((l1+l5)+(l3+l7))), then the B % 8 last columns' fused multiply-adds
+// from 0 added. A term with k > j is a product by 0 and adds nothing, so
+// row j walks k <= j only. Then ap_in = out[B - 1], ap_out = ap[B - 1], and
+// the block's outputs become the string's newest B values.
+//
+// The design: one CUDA block, a thread per row of the block (B <= 512), the
+// string in shared memory (or in buf_out beyond MAX_KERNEL_L), the diagonals
+// (-c)^d and (-c)^(j+1) in shared memory. Three barriers a block: the
+// averages, the u row, then every row's sum at once (row j: j + 1 fused
+// multiply-adds on eight independent chains). The sums read u and the
+// diagonals as 16-byte vectors, four terms a load: u is one broadcast row;
+// the diagonals are kept reversed in four copies shifted by one, so every
+// row's run of terms starts 16-byte aligned in one of them.
+
+constexpr int kBlockedMaxB = 512;
+constexpr int kRevLen = kBlockedMaxB + 8;  // a reversed diagonal, padded
+
+__global__ void __launch_bounds__(kBlockedMaxB) ks_blocked(
+    const float* __restrict__ rho, const float* __restrict__ buf_in,
+    const int* __restrict__ r_in, const float* __restrict__ ap_in_in,
+    const float* __restrict__ ap_out_in, const float* __restrict__ diag,
+    const float* __restrict__ powv, float* __restrict__ y, float* buf_out,
+    int* __restrict__ r_out, float* __restrict__ ap_in_out,
+    float* __restrict__ ap_out_out, int T, int L, int B, float c,
+    bool ring_in_shared) {
+  extern __shared__ float shared_ring[];
+  // s_rev[q][i] = (-c)^(511 - i - q): row j reads its terms k, k + 1, ...
+  // ascending from 16-byte aligned s_rev[(511 - j) & 3][511 - j - that + k]
+  __shared__ __align__(16) float s_rev[4][kRevLen];
+  __shared__ __align__(16) float s_u[kRevLen];
+  __shared__ float s_pow[kBlockedMaxB], s_out[kBlockedMaxB], s_ap[kBlockedMaxB];
+  const int j = threadIdx.x;
+  float* ring = ring_in_shared ? shared_ring : buf_out;
+  for (int l = j; l < L; l += blockDim.x) ring[l] = buf_in[l];
+  for (int i = j; i < 4 * kRevLen; i += blockDim.x) {
+    const int d = kBlockedMaxB - 1 - i % kRevLen - i / kRevLen;
+    s_rev[i / kRevLen][i % kRevLen] = d >= 0 && d < B ? diag[d] : 0.f;
+  }
+  if (j < B) s_pow[j] = powv[j];
+  const int r0 = *r_in;
+  float ai = *ap_in_in, ao = *ap_out_in;
+  const int K8 = B & ~7;
+  const int q_j = (kBlockedMaxB - 1 - j) & 3;
+  const float* rev = s_rev[q_j] + (kBlockedMaxB - 1 - j - q_j);  // rev[k] = (-c)^(j-k)
+  __syncthreads();
+  int sb = r0;  // the slot of the block's oldest value
+  for (int n0 = 0; n0 < T; n0 += B) {
+    const int nb = min(B, T - n0);
+    int s0 = sb + j;
+    if (s0 >= L) s0 -= L;  // j < B < L
+    if (j < nb) {
+      const int s1 = s0 + 1 == L ? 0 : s0 + 1;
+      s_out[j] = __fmul_rn(__fmul_rn(rho[n0 + j], __fadd_rn(ring[s0], ring[s1])), 0.5f);
+    }
+    __syncthreads();
+    if (j < nb)
+      s_u[j] = j == 0 ? __fmaf_rn(c, s_out[0], ai)
+                      : __fadd_rn(__fmul_rn(c, s_out[j]), s_out[j - 1]);
+    const float ai_next = s_out[nb - 1];
+    __syncthreads();
+    if (j < nb) {
+      float a[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      const int kend = min(j + 1, K8);
+      int k0 = 0;
+      for (; k0 + 8 <= kend; k0 += 8) {  // 16-byte loads: u broadcast, diagonals
+        const float4 u0 = *reinterpret_cast<const float4*>(s_u + k0);
+        const float4 u1 = *reinterpret_cast<const float4*>(s_u + k0 + 4);
+        const float4 d0 = *reinterpret_cast<const float4*>(rev + k0);
+        const float4 d1 = *reinterpret_cast<const float4*>(rev + k0 + 4);
+        a[0] = __fmaf_rn(d0.x, u0.x, a[0]);
+        a[1] = __fmaf_rn(d0.y, u0.y, a[1]);
+        a[2] = __fmaf_rn(d0.z, u0.z, a[2]);
+        a[3] = __fmaf_rn(d0.w, u0.w, a[3]);
+        a[4] = __fmaf_rn(d1.x, u1.x, a[4]);
+        a[5] = __fmaf_rn(d1.y, u1.y, a[5]);
+        a[6] = __fmaf_rn(d1.z, u1.z, a[6]);
+        a[7] = __fmaf_rn(d1.w, u1.w, a[7]);
+      }
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        if (k0 + q < kend) a[q] = __fmaf_rn(rev[k0 + q], s_u[k0 + q], a[q]);
+      const float h =
+          j < K8 ? __fadd_rn(__fadd_rn(__fadd_rn(a[0], a[1]), __fadd_rn(a[2], a[3])),
+                             __fadd_rn(__fadd_rn(a[4], a[5]), __fadd_rn(a[6], a[7])))
+                 : __fadd_rn(__fadd_rn(__fadd_rn(a[0], a[4]), __fadd_rn(a[2], a[6])),
+                             __fadd_rn(__fadd_rn(a[1], a[5]), __fadd_rn(a[3], a[7])));
+      float e = 0.f;
+      for (int k = K8; k <= j; ++k) e = __fmaf_rn(rev[k], s_u[k], e);
+      const float ap = __fmaf_rn(s_pow[j], ao, __fadd_rn(h, e));
+      s_ap[j] = ap;
+      y[n0 + j] = ap;
+      ring[s0] = ap;
+    }
+    __syncthreads();
+    ai = ai_next;
+    ao = s_ap[nb - 1];
+    sb += nb;
+    if (sb >= L) sb -= L;
+  }
+  if (j == 0) {
+    *r_out = sb;
+    *ap_in_out = ai;
+    *ap_out_out = ao;
+  }
+  __syncthreads();
+  if (ring_in_shared)
+    for (int l = j; l < L; l += blockDim.x) buf_out[l] = ring[l];
 }
 
 }  // namespace
@@ -322,6 +445,32 @@ int ks_scan_launch(const float* rho, const bool* act, const float* buf_in,
                                          ap_out_in, y, buf_out, r_out,
                                          ap_in_out, ap_out_out, idx, rho_c, T,
                                          L, allpass_c, shared);
+  return (int)cudaGetLastError();
+}
+
+// The blocked order (all samples active, L >= 16): one launch on `stream`;
+// returns its cudaError_t. diag (B,) f32: (-c)^d, d = 0 .. B - 1; powv (B,)
+// f32: (-c)^(j+1); B = min(L - 1, 512). Other pointers as ks_scan_launch.
+int ks_blocked_launch(const float* rho, const float* buf_in, const int* r_in,
+                      const float* ap_in_in, const float* ap_out_in,
+                      const float* diag, const float* powv, float* y,
+                      float* buf_out, int* r_out, float* ap_in_out,
+                      float* ap_out_out, int T, int L, int B, float allpass_c,
+                      cudaStream_t stream) {
+  if (L < 16 || B < 1 || B > kBlockedMaxB || B > L - 1) return (int)cudaErrorInvalidValue;
+  const size_t ring_bytes = (size_t)L * sizeof(float);
+  const bool shared = ring_bytes <= (size_t)kMaxSharedBytes;
+  const size_t smem = shared ? ring_bytes : 0;
+  if (smem > 16 * 1024) {  // beside the 16.5 KB of static shared memory
+    const cudaError_t err = cudaFuncSetAttribute(
+        ks_blocked, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int threads = (B + 31) / 32 * 32;
+  ks_blocked<<<1, threads, smem, stream>>>(rho, buf_in, r_in, ap_in_in, ap_out_in,
+                                           diag, powv, y, buf_out, r_out,
+                                           ap_in_out, ap_out_out, T, L, B,
+                                           allpass_c, shared);
   return (int)cudaGetLastError();
 }
 

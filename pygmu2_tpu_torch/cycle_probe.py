@@ -72,10 +72,10 @@ __device__ __forceinline__ float smooth_selp(float sf, float f, float a) {
 __device__ __forceinline__ float step(float sf, float f, float a) {
   return __fadd_rn(sf, __fmul_rn(__fsub_rn(f, sf), a));
 }
-// the follower's step, e + coeff * (x - e) with coeff = x > e ? atk : rel
+// the follower's step, fma(coeff, x - e, e) with coeff = x > e ? atk : rel
 __device__ __forceinline__ float follow_coeff(float e, float x, float atk, float rel) {
   const float coeff = x > e ? atk : rel;
-  return __fadd_rn(e, __fmul_rn(coeff, __fsub_rn(x, e)));
+  return __fmaf_rn(coeff, __fsub_rn(x, e), e);
 }
 __device__ __forceinline__ float follow_products(float e, float x, float atk, float rel) {
   const float d = __fsub_rn(x, e);

@@ -157,6 +157,19 @@ class ArrayPE(SourcePE):
     def _fills_own_edges(self) -> bool:
         return self._extend_mode != ExtendMode.ZERO
 
+    def _xla_select(self):
+        """The zeroing select that ends the JAX package's program of this PE
+        with no engine mask after it (HOLD_LAST zeroes t < 0, HOLD_FIRST
+        t >= n), as a form for MixPE's contraction rule; else None. LLVM
+        hoists a scalar gain's product into such a select's arms, so the
+        product reaches a sum selected, as a masked one does (see
+        ``_xla_form``)."""
+        if self._extend_mode == ExtendMode.HOLD_LAST:
+            return ("t < 0",)
+        if self._extend_mode == ExtendMode.HOLD_FIRST:
+            return ("t >= n", self._data.shape[0])
+        return None
+
     def _table(self, device: torch.device) -> torch.Tensor:
         table = self._tables.get(device)
         if table is None:
@@ -229,6 +242,11 @@ class GainPE(ProcessingElement):
         ctx.keep_factors(x, g)  # a MixPE may add the product unrounded
         return x * g
 
+    def _xla_select(self):
+        """A scalar gain's product is hoisted into its source's zeroing
+        select (``ArrayPE._xla_select``); a control gain's is not."""
+        return None if self._gain_is_pe else self._source._xla_select()
+
     def __repr__(self) -> str:
         g = f"{type(self._gain).__name__}(...)" if self._gain_is_pe else str(self._gain)
         return f"GainPE(source={type(self._source).__name__}, gain={g})"
@@ -283,7 +301,9 @@ class MixPE(ProcessingElement):
         # operands of the sum in a form LLVM can fuse (_fuses). Left to
         # right, as XLA sums; where both operands are fusable products, the
         # left one fuses and the right one is rounded. Inside this PE's own
-        # mask, LLVM drops an input's mask that is the same one.
+        # mask, LLVM drops an input's mask that is the same one. A zeroing
+        # select that ends an input's own program counts as its mask
+        # (_xla_select).
         total = first = form = None  # the running sum, the first input's factors, the form
         own = _xla_form(self)
         for i, inp in enumerate(self._inputs, start=1):
@@ -333,6 +353,9 @@ _CONSTANT = "constant"
 def _xla_form(pe):
     if isinstance(pe, ConstantPE):
         return _CONSTANT
+    sel = pe._xla_select()
+    if sel is not None:  # selected by its own program, as by a mask
+        return sel
     ext = pe.extent()
     if pe._fills_own_edges() or (ext.start is None and ext.end is None):
         return None

@@ -380,12 +380,12 @@ class KarplusStrongPE(SourcePE):
             )
         else:
             rho_t = torch.full((ctx.duration,), self._rho, dtype=torch.float32, device=dev)
-        # The kernel takes every block: the JAX package's block-parallel
-        # path for fully active blocks with delay_len >= 16
-        # (ops/ks_block.py) computes the same recurrence.
+        # A block that starts at t >= 0 is active throughout: with
+        # delay_len >= 16 the JAX PE takes its blocked order there
+        # (ops/ks_block.py), and so does ks_scan; else the per-sample order.
         y, buf2, r2, ai2, ao2 = _ks.ks_scan(
             rho_t, t >= 0, st["buf"], st["r"], st["ap_in"], st["ap_out"],
-            L=delay_len, allpass_c=float(allpass_c),
+            L=delay_len, allpass_c=float(allpass_c), all_active=ctx.start >= 0,
         )
         ctx.set_state(self, {"buf": buf2, "r": r2, "ap_in": ai2, "ap_out": ao2})
         return y[:, None].expand(-1, self._channels)

@@ -11,7 +11,9 @@ envelope, else ``rel``, and ``e = e + coeff * (x - e)``.
   launch in ``envelope_ar_scan.launches``; for CPU tensors it runs the
   plain version.
 - ``envelope_ar_scan_ref`` is the plain PyTorch version: a per-sample
-  loop with the JAX package's ``envelope_ar_scan_ref`` op order, float32.
+  loop with the JAX package's ``envelope_ar_scan_ref`` op order, float32,
+  rounded as XLA's CPU program rounds it: the update is one fused
+  multiply-add, ``e = fma(coeff, x - e, e)`` (``ops/xla_math.fmaf``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from pygmu2_tpu_torch import _ext
+from pygmu2_tpu_torch.ops.xla_math import fmaf
 
 
 def envelope_ar_scan_ref(x, env0, *, atk, rel):
@@ -30,7 +33,7 @@ def envelope_ar_scan_ref(x, env0, *, atk, rel):
     ys = []
     for xi in x.to(torch.float32):
         coeff = torch.where(xi > e, a, r)
-        e = e + coeff * (xi - e)
+        e = fmaf(coeff, xi - e, e)
         ys.append(e)
     return torch.stack(ys), e
 

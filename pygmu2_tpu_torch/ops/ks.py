@@ -12,18 +12,32 @@ inactive sample (before t = 0) outputs 0 and leaves the string alone.
   hand-written kernel in ``csrc/ks_scan.cu`` and counts the launch in
   ``ks_scan.launches``; for CPU tensors it runs the plain version.
 - ``ks_scan_ref`` is the plain PyTorch version: a per-sample loop with
-  the JAX package's ``ks_scan_ref`` op order, float32.
-- ``ks_scan_windows`` computes the same in the kernel's order (tests
-  only): the active samples compacted, the two-point average of a window
-  of them at once from the string as earlier windows left it, then the
-  allpass's serial chain over the window.
+  the JAX package's ``ks_scan_ref`` op order, float32, rounded as XLA's
+  CPU program rounds it: the allpass is two fused multiply-adds,
+  ``fma(-c, ap_out, fma(c, out, ap_in))`` (``ops/xla_math.fmaf``).
+- ``ks_blocked_ref`` is the plain version of a call whose samples are all
+  active, on a string of at least ``BLOCKED_MIN_L`` samples: the JAX
+  KarplusStrongPE takes ``ops/ks_block.ks_blocked`` there, which forms
+  the allpass of a block of ``B = min(L - 1, 512)`` samples as one
+  lower-triangular matrix-vector product. It computes that product in the
+  order of XLA's CPU program (``xla_gemv``: eight lanes of fused
+  multiply-adds, their pairwise sum, a serial tail), so it equals the JAX
+  render bit for bit. ``ks_scan(..., all_active=True)`` takes it.
+- ``ks_scan_windows`` computes ``ks_scan_ref`` in the kernel's order
+  (tests only): the active samples compacted, the two-point average of a
+  window of them at once from the string as earlier windows left it, then
+  the allpass's serial chain over the window.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from pygmu2_tpu_torch import _ext
+from pygmu2_tpu_torch.ops.xla_math import fmaf
 
 # the longest string the kernel holds in shared memory (200 KB; a string
 # below 0.862 Hz at 44.1 kHz is longer and stays in global memory)
@@ -32,6 +46,11 @@ MAX_KERNEL_L = 200 * 1024 // 4
 SERIAL_MAX_L = 8
 # the kernel's longest window, in active samples
 MAX_WINDOW = 1024
+# all-active calls on strings this long take the blocked order (the JAX
+# KarplusStrongPE's ``delay_len >= 16`` test), in blocks of at most
+# BLOCKED_MAX_B samples (``ks_blocked``'s ``max_block``)
+BLOCKED_MIN_L = 16
+BLOCKED_MAX_B = 512
 
 
 def window_length(L: int) -> int:
@@ -41,9 +60,12 @@ def window_length(L: int) -> int:
     return min(MAX_WINDOW, (L - 1) // 2)
 
 
-def ks_scan_ref(rho, act, buf, r, ap_in, ap_out, *, L, allpass_c):
+def ks_scan_ref(rho, act, buf, r, ap_in, ap_out, *, L, allpass_c, all_active=False):
     """Plain PyTorch version of :func:`ks_scan` (same arguments and
-    result). A Python loop over samples: keep T small."""
+    result): :func:`ks_blocked_ref` where ``ks_scan`` takes the blocked
+    order, else a Python loop over samples (keep T small)."""
+    if all_active and L >= BLOCKED_MIN_L:
+        return ks_blocked_ref(rho, buf, r, ap_in, ap_out, L=L, allpass_c=allpass_c)
     dev = rho.device
     f32 = lambda v: torch.as_tensor(v, dtype=torch.float32, device=dev).reshape(())  # noqa: E731
     buf = buf.to(torch.float32).clone()
@@ -56,7 +78,7 @@ def ks_scan_ref(rho, act, buf, r, ap_in, ap_out, *, L, allpass_c):
             continue
         rn = (rr + 1) % L
         out = rho_t * (buf[rr] + buf[rn]) * 0.5
-        ap = c * out + ai - c * ao
+        ap = fmaf(-c, ao, fmaf(c, out, ai))
         buf[rr] = ap
         rr, ai, ao = rn, out, ap
         ys.append(ap)
@@ -84,9 +106,9 @@ def ks_scan_windows(rho, act, buf, r, ap_in, ap_out, *, L, allpass_c):
         n = min(W, K - k0)
         # sample k reads S[k] and S[k + 1], written by earlier windows
         out = rho_c[k0:k0 + n] * (S[k0:k0 + n] + S[k0 + 1:k0 + n + 1]) * 0.5
-        P = c * out + torch.cat([last[None], out[:-1]])  # c * out + ap_in
+        P = fmaf(c, out, torch.cat([last[None], out[:-1]]))  # c * out + ap_in
         for i in range(n):  # the allpass: its one serial chain
-            ap = P[i] - c * ap
+            ap = fmaf(-c, ap, P[i])
             S[L + k0 + i] = ap
         last = out[-1]
     y = torch.zeros(rho.shape[0], dtype=f32, device=dev)
@@ -96,21 +118,109 @@ def ks_scan_windows(rho, act, buf, r, ap_in, ap_out, *, L, allpass_c):
     return y, buf_out, r_out, last, ap
 
 
-def ks_scan(rho, act, buf, r, ap_in, ap_out, *, L, allpass_c):
+@functools.cache
+def blocked_tables(L: int, allpass_c: float):
+    """``ks_blocked``'s operators for a string of L: (B, the (B, B) float32
+    lower-triangular matrix ``TRIL[j, k] = (-c)^(j-k)``, the (B,) float32
+    ``(-c)^(j+1)``), formed in float64 numpy as the JAX package forms them."""
+    B = min(L - 1, BLOCKED_MAX_B)
+    jk = np.arange(B)[:, None] - np.arange(B)[None, :]
+    tril = np.where(jk >= 0, (-float(allpass_c)) ** np.clip(jk, 0, None), 0.0)
+    powv = (-float(allpass_c)) ** (np.arange(B) + 1)
+    return B, tril.astype(np.float32), powv.astype(np.float32)
+
+
+def xla_gemv(m, v):
+    """``m @ v`` for a (M, K) float32 matrix and a (K,) vector, rounded as
+    XLA's CPU program computes it (its tiled row-major GEMV, eight lanes):
+    lane l sums ``m[i, k] * v[k]`` over k = l mod 8 below K - K % 8 by fused
+    multiply-adds from 0, the lanes are summed pairwise (rows in the tiles
+    of 8: ((l0 + l1) + (l2 + l3)) + ((l4 + l5) + (l6 + l7)); the rows after
+    them: ((l0 + l4) + (l2 + l6)) + ((l1 + l5) + (l3 + l7))), and the
+    K % 8 last columns, summed in order by fused multiply-adds from 0, are
+    added last."""
+    M, K = m.shape
+    K8, M8 = K - K % 8, M - M % 8
+    acc = torch.zeros((M, 8), dtype=torch.float32, device=m.device)
+    for k0 in range(0, K8, 8):
+        acc = fmaf(m[:, k0:k0 + 8], v[k0:k0 + 8], acc)
+    a = acc.unbind(1)
+    h = torch.cat([
+        ((a[0] + a[1]) + (a[2] + a[3])) + ((a[4] + a[5]) + (a[6] + a[7])),
+        ((a[0] + a[4]) + (a[2] + a[6])) + ((a[1] + a[5]) + (a[3] + a[7])),
+    ])
+    h = torch.cat([h[:M8], h[M + M8:]])
+    e = torch.zeros(M, dtype=torch.float32, device=m.device)
+    for k in range(K8, K):
+        e = fmaf(m[:, k], v[k], e)
+    return h + e
+
+
+def ks_blocked_ref(rho, buf, r, ap_in, ap_out, *, L, allpass_c):
+    """Plain PyTorch version of :func:`ks_scan` on a call whose samples are
+    all active (the arguments but ``act``; the same result), for
+    ``L >= BLOCKED_MIN_L``: the JAX package's ``ks_blocked`` op for op.
+    Each block of B samples reads the string's B + 1 oldest values:
+    ``out = rho * (W[j] + W[j + 1]) * 0.5``, ``u = c * out + out_prev``
+    (``fma(c, out, ap_in)`` at j = 0), ``ap = fma((-c)^(j+1), ap_out,
+    TRIL @ u)``, and the block's outputs
+    become the string's newest."""
+    dev = rho.device
+    f32 = torch.float32
+    T = rho.shape[0]
+    B, tril, powv = blocked_tables(L, float(allpass_c))
+    tril = torch.from_numpy(tril).to(dev)
+    powv = torch.from_numpy(powv).to(dev)
+    c = torch.tensor(np.float32(allpass_c), device=dev)
+    nb = -(-T // B)
+    rb = torch.cat([rho.to(f32), torch.zeros(nb * B - T, dtype=f32, device=dev)]).view(nb, B)
+    r0 = int(r)
+    W = buf.to(f32)[(r0 + torch.arange(L, device=dev)) % L]  # W[0]: the next read
+    ai = torch.as_tensor(ap_in, dtype=f32, device=dev).reshape(())
+    ao = torch.as_tensor(ap_out, dtype=f32, device=dev).reshape(())
+    aps, outs = [], []
+    for b in range(nb):
+        out = (rb[b] * (W[:B] + W[1:B + 1])) * 0.5
+        # u[0] = fma(c, out[0], ap_in); after it both terms are products
+        # and LLVM fuses the left one, out[j - 1] = (rho * s) * 0.5, whose
+        # product by 0.5 is exact: u[j] = round(c * out[j]) + out[j - 1]
+        u = torch.cat([fmaf(c, out[:1], ai[None]), c * out[1:] + out[:-1]])
+        ap = fmaf(powv, ao, xla_gemv(tril, u))
+        W = torch.cat([W[B:], ap])
+        ai, ao = out[-1], ap[-1]
+        aps.append(ap)
+        outs.append(out)
+    y = torch.cat(aps)[:T]
+    r2 = (r0 + T) % L
+    if T >= L:
+        buf2 = torch.roll(y[T - L:], r2)  # the slot of y[T - L] is r2
+    else:
+        buf2 = buf.to(f32).clone()
+        buf2[(r0 + torch.arange(T, device=dev)) % L] = y
+    return (y, buf2, torch.tensor(r2, dtype=torch.int32, device=dev),
+            torch.cat(outs)[T - 1], y[T - 1])
+
+
+def ks_scan(rho, act, buf, r, ap_in, ap_out, *, L, allpass_c, all_active=False):
     """Karplus-Strong string over T samples.
 
     rho: (T,) f32; act: (T,) bool; buf: (L,) f32; r: () int32 in [0, L);
     ap_in / ap_out: () f32. Returns (y (T,), buf' (L,), r' () int32,
-    ap_in' () f32, ap_out' () f32). CPU tensors take the plain version;
-    CUDA tensors launch the kernel (one count in ``ks_scan.launches`` per
-    call) or raise. Any L >= 2: a string longer than ``MAX_KERNEL_L``
-    lives in global memory on the card.
+    ap_in' () f32, ap_out' () f32). ``all_active`` (a host flag: every
+    ``act`` is set) with ``L >= BLOCKED_MIN_L`` takes the blocked order of
+    :func:`ks_blocked_ref`, as the JAX KarplusStrongPE does on such a
+    block; else the per-sample order of :func:`ks_scan_ref`. CPU tensors
+    take the plain version; CUDA tensors launch the kernel (one count in
+    ``ks_scan.launches`` per call) or raise. Any L >= 2: a string longer
+    than ``MAX_KERNEL_L`` lives in global memory on the card.
     """
     kw = dict(L=L, allpass_c=allpass_c)
     if rho.device.type == "cpu":
-        return ks_scan_ref(rho, act, buf, r, ap_in, ap_out, **kw)
+        return ks_scan_ref(rho, act, buf, r, ap_in, ap_out, all_active=all_active, **kw)
     if rho.device.type != "cuda":
         raise ValueError(f"no kernel for device {rho.device}")
+    if all_active and L >= BLOCKED_MIN_L:
+        return _launch_blocked(rho, buf, r, ap_in, ap_out, **kw)
     return _launch(rho, act, buf, r, ap_in, ap_out, **kw)
 
 
@@ -147,6 +257,47 @@ def _launch(rho, act, buf, r, ap_in, ap_out, *, L, allpass_c):
             r_out.data_ptr(), ai_out.data_ptr(), ao_out.data_ptr(), idx.data_ptr(),
             rho_c.data_ptr(), T, L,
             float(allpass_c), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _ext.raise_on_error(err, "ks_scan")
+    ks_scan.launches += 1
+    return y, buf_out, r_out, ai_out, ao_out
+
+
+# the blocked order's tables on the card, uploaded once per string
+_DEVICE_TABLES: dict = {}
+
+
+def _launch_blocked(rho, buf, r, ap_in, ap_out, *, L, allpass_c):
+    dev = rho.device
+    if rho.dim() != 1 or rho.shape[0] < 1 or L < BLOCKED_MIN_L:
+        raise ValueError(f"unsupported shape rho={tuple(rho.shape)} L={L}")
+    (T,) = rho.shape
+    rho = _ext.checked(rho, "rho", (T,), dev)
+    buf = _ext.checked(buf, "buf", (L,), dev)
+    ap_in = _ext.checked(ap_in.reshape(()), "ap_in", (), dev)
+    ap_out = _ext.checked(ap_out.reshape(()), "ap_out", (), dev)
+    r = r.reshape(())
+    if r.dtype != torch.int32 or r.device != dev:
+        raise ValueError("r must be an int32 scalar tensor on rho's device")
+    key = (L, float(allpass_c), str(dev))
+    if key not in _DEVICE_TABLES:
+        B, tril, powv = blocked_tables(L, float(allpass_c))
+        # TRIL is Toeplitz: its first column is every diagonal
+        _DEVICE_TABLES[key] = (B, torch.from_numpy(np.ascontiguousarray(tril[:, 0])).to(dev),
+                               torch.from_numpy(powv).to(dev))
+    B, diag, powv = _DEVICE_TABLES[key]
+    y = torch.empty((T,), dtype=torch.float32, device=dev)
+    buf_out = torch.empty((L,), dtype=torch.float32, device=dev)
+    r_out = torch.empty((), dtype=torch.int32, device=dev)
+    ai_out = torch.empty((), dtype=torch.float32, device=dev)
+    ao_out = torch.empty((), dtype=torch.float32, device=dev)
+    lib = _ext.load()
+    with torch.cuda.device(dev):
+        err = lib.ks_blocked_launch(
+            rho.data_ptr(), buf.data_ptr(), r.data_ptr(), ap_in.data_ptr(),
+            ap_out.data_ptr(), diag.data_ptr(), powv.data_ptr(), y.data_ptr(),
+            buf_out.data_ptr(), r_out.data_ptr(), ai_out.data_ptr(), ao_out.data_ptr(),
+            T, L, B, float(allpass_c), torch.cuda.current_stream(dev).cuda_stream,
         )
     _ext.raise_on_error(err, "ks_scan")
     ks_scan.launches += 1

@@ -2,10 +2,10 @@
 
 Copy of ``pygmu2_tpu.soundfont.midi`` for the PyTorch port (numpy only,
 no JAX): SMF format 0/1, running status, tempo-map merge to absolute
-seconds. ``MidiFileSequencer.render_to_array`` renders offline through
-:func:`pygmu2_tpu_torch.soundfont.offline.render_midi_offline`; the
-block-by-block streaming ``render`` needs the streaming synthesizer,
-which the port does not have yet.
+seconds. ``MidiFileSequencer`` drives a Synthesizer block by block
+(``render``, the streaming engine on the synthesizer's device);
+``render_to_array`` renders offline through
+:func:`pygmu2_tpu_torch.soundfont.offline.render_midi_offline`.
 """
 
 from __future__ import annotations
@@ -227,10 +227,16 @@ class MidiFileSequencer:
         self._synthesizer = synthesizer
         self._midi_file: MidiFile | None = None
         self._loop = False
+        self._block_wrote = 0
+        self._current_time = 0.0
+        self._msg_index = 0
 
     def play(self, midi_file: MidiFile, loop: bool = False) -> None:
         self._midi_file = midi_file
         self._loop = loop
+        self._block_wrote = self._synthesizer.block_size
+        self._current_time = 0.0
+        self._msg_index = 0
         self._synthesizer.reset()
 
     def stop(self) -> None:
@@ -238,12 +244,51 @@ class MidiFileSequencer:
         self._synthesizer.reset()
 
     def render(self, left, right, offset: int | None = None, count: int | None = None) -> None:
-        """Block-accurate streaming render: needs ``Synthesizer.render``,
-        which the port does not have yet."""
-        raise NotImplementedError(
-            "MidiFileSequencer.render needs the streaming synthesizer "
-            "(ROADMAP: 'Port the streaming synth'); use render_to_array"
-        )
+        """Block-accurate streaming render into the provided buffers: the
+        events due at a block's start go to the synthesizer before it
+        renders that block (``Synthesizer.render``, on its device)."""
+        if len(left) != len(right):
+            raise MeltysynthError(
+                "The output buffers for the left and right must be the same length."
+            )
+        if offset is None:
+            offset = 0
+        elif count is None:
+            raise ValueError("'count' must be set if 'offset' is set.")
+        if count is None:
+            count = len(left)
+        wrote = 0
+        while wrote < count:
+            if self._block_wrote == self._synthesizer.block_size:
+                self._process_events()
+                self._block_wrote = 0
+                self._current_time += (
+                    self._synthesizer.block_size / self._synthesizer.sample_rate
+                )
+            src_rem = self._synthesizer.block_size - self._block_wrote
+            rem = min(src_rem, count - wrote)
+            self._synthesizer.render(left, right, offset + wrote, rem)
+            self._block_wrote += rem
+            wrote += rem
+
+    def _process_events(self) -> None:
+        if self._midi_file is None:
+            return
+        while self._msg_index < len(self._midi_file.messages):
+            time = self._midi_file.times[self._msg_index]
+            msg = self._midi_file.messages[self._msg_index]
+            if time <= self._current_time:
+                if msg.type == MidiMessageType.NORMAL:
+                    self._synthesizer.process_midi_message(
+                        msg.channel, msg.command, msg.data1, msg.data2
+                    )
+                self._msg_index += 1
+            else:
+                break
+        if self._loop and self._msg_index == len(self._midi_file.messages):
+            self._current_time = 0.0
+            self._msg_index = 0
+            self._synthesizer.note_off_all(False)
 
     def render_to_array(self, seconds: float, device="cuda") -> np.ndarray:
         """Offline render of the playing score on ``device``.

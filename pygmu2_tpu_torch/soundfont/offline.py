@@ -20,9 +20,12 @@ stages:
    plain tensor ops, then
    :func:`~pygmu2_tpu_torch.soundfont.filter_kernels.filter_gain_mix`.
 
-Entry points: :func:`render_midi_offline` (one pass over the whole piece)
-and :func:`render_midi_offline_streamed` (segments, with the host
-simulation of segment k+1 overlapping the device work of segment k).
+Entry points: :func:`render_midi_offline` (one pass over the whole piece),
+:func:`render_midi_offline_streamed` (segments, with the host simulation
+of segment k+1 overlapping the device work of segment k) and
+:func:`render_midi_offline_hostctl` (the control pass on the host in numpy,
+:func:`compute_control`, a copy of the JAX package's, then the same audio
+pass).
 """
 
 from __future__ import annotations
@@ -124,15 +127,503 @@ def _mod_env(t, p, released, rel_t, rel_level):
     return torch.where(released, rel, _mod_env_held(t, p))
 
 
+def _mod(a, b):
+    """``a mod b`` with the divisor's sign, exact as ``jnp.mod``: the
+    remainder of ``fmod`` (exact), moved by b where its sign differs
+    (``torch.remainder`` computes ``a - b * floor(a / b)``, which rounds)."""
+    r = torch.fmod(a, b)
+    return torch.where((r != 0) & ((r < 0) != (b < 0)), r + b, r)
+
+
 def _lfo(t, delay, period):
     safe = torch.clamp_min(period, 1e-9)
-    phase = torch.remainder(t - delay, safe) / safe
+    phase = _mod(t - delay, safe) / safe
     tri = torch.where(
         phase < 0.25,
         4.0 * phase,
         torch.where(phase < 0.75, 4.0 * (0.5 - phase), 4.0 * (phase - 1.0)),
     )
     return torch.where((period > 0.0) & (t >= delay), tri, 0.0)
+
+
+# ---- host control pass (numpy; the JAX package's, copied) ---------------
+
+
+def _exp_cutoff_np(x, xp=np):
+    return xp.where(x < LOG_NON_AUDIBLE, 0.0, xp.exp(xp.minimum(x, 0.0)))
+
+
+def _vol_env_np(t, p, released, rel_t, rel_level, xp=np):
+    held = xp.where(
+        t < p["v_att_start"],
+        0.0,
+        xp.where(
+            t < p["v_hold_start"],
+            p["v_att_slope"] * (t - p["v_att_start"]),
+            xp.where(
+                t < p["v_dec_start"],
+                1.0,
+                xp.maximum(
+                    _exp_cutoff_np(p["v_dec_slope"] * (t - p["v_dec_start"]), xp),
+                    p["v_sustain"],
+                ),
+            ),
+        ),
+    )
+    rel = rel_level * _exp_cutoff_np(p["v_rel_slope"] * (t - rel_t), xp)
+    return xp.where(released, rel, held)
+
+
+def _mod_env_np(t, p, released, rel_t, rel_level, xp=np):
+    held = xp.where(
+        t < p["m_att_start"],
+        0.0,
+        xp.where(
+            t < p["m_hold_start"],
+            p["m_att_slope"] * (t - p["m_att_start"]),
+            xp.where(
+                t < p["m_dec_start"],
+                1.0,
+                xp.maximum(
+                    p["m_dec_slope"] * (p["m_dec_end"] - t), p["m_sustain"]
+                ),
+            ),
+        ),
+    )
+    rel = xp.maximum(
+        rel_level * (1.0 - (t - rel_t) / xp.maximum(p["m_rel_dur"], 1e-9)), 0.0
+    )
+    return xp.where(released, rel, held)
+
+
+def _lfo_np(t, delay, period, xp=np):
+    active = period > 0.0
+    safe = xp.maximum(period, 1e-9)
+    phase = xp.mod(t - delay, safe) / safe
+    tri = xp.where(
+        phase < 0.25,
+        4.0 * phase,
+        xp.where(phase < 0.75, 4.0 * (0.5 - phase), 4.0 * (phase - 1.0)),
+    )
+    return xp.where(active & (t >= delay), tri, 0.0)
+
+
+def compute_control(synth, par_np, ch_np, snap_idx):
+    """Host control pass → dict of (B, P) float32/bool arrays.
+
+    Fully vectorized over blocks: the sequential chains of the block
+    kernel (voice time, release latch, position accumulation, liveness)
+    become segment-wise cummax/cumsum along the block axis, with epochs
+    (voice restarts) as segment boundaries. Matches
+    ``Synthesizer._block_kernel``'s control section bit-for-bit in its
+    float32 arithmetic.
+    """
+    return _compute_control_vectorized(synth, par_np, ch_np, snap_idx)
+
+
+def _compute_control_loop(synth, par_np, ch_np, snap_idx):
+    """Reference implementation (per-block Python loop)."""
+    N = synth.block_size
+    sr = float(synth.sample_rate)
+    min_dur = synth._minimum_voice_duration
+    B = len(snap_idx)
+    P = synth.maximum_polyphony
+
+    # Expand snapshots to per-block views (cheap fancy indexing).
+    par = {k: v[snap_idx].astype(np.float32) if v.dtype == np.float64 else v[snap_idx] for k, v in par_np.items()}
+    par_f64 = {k: par_np[k][snap_idx] for k in ("smp_start", "smp_end", "loop_start", "loop_end", "srate_ratio")}
+    ch = {k: v[snap_idx] for k, v in ch_np.items()}
+
+    out = {
+        k: np.zeros((B, P), np.float32)
+        for k in (
+            "ratio",
+            "b0",
+            "b1",
+            "b2",
+            "a1",
+            "a2",
+            "gl",
+            "gr",
+            "pgl",
+            "pgr",
+        )
+    }
+    out["base_pos"] = np.zeros((B, P), np.float64)
+    out["looping"] = np.zeros((B, P), bool)
+    out["alive"] = np.zeros((B, P), bool)
+    out["fresh"] = np.zeros((B, P), bool)
+    out["flt_on"] = np.zeros((B, P), bool)
+
+    # dynamic state mirrors ((P,) numpy)
+    d_epoch = np.full(P, -1, np.int32)
+    d_vt = np.zeros(P, np.int64)
+    d_released = np.zeros(P, bool)
+    d_rel_t = np.zeros(P, np.float32)
+    d_rel_vol = np.zeros(P, np.float32)
+    d_rel_mod = np.zeros(P, np.float32)
+    d_pos = np.zeros(P, np.float64)
+    d_smc = np.zeros(P, np.float32)
+    d_pgl = np.zeros(P, np.float32)
+    d_pgr = np.zeros(P, np.float32)
+    d_active = np.zeros(P, bool)
+
+    rpo = np.float32(1.0 - 1.0 / math.sqrt(2.0))
+
+    for b in range(B):
+        p = {k: v[b] for k, v in par.items()}
+        p64 = {k: v[b] for k, v in par_f64.items()}
+        chb = {k: v[b] for k, v in ch.items()}
+        chan = par["channel"][b]
+
+        fresh = p["epoch"] != d_epoch
+        vt = np.where(fresh, 0, d_vt)
+        released = np.where(fresh, False, d_released)
+        rel_t = np.where(fresh, 0.0, d_rel_t).astype(np.float32)
+        rel_vol = np.where(fresh, 0.0, d_rel_vol).astype(np.float32)
+        rel_mod = np.where(fresh, 0.0, d_rel_mod).astype(np.float32)
+        pos = np.where(fresh, p64["smp_start"], d_pos)
+        smc = np.where(fresh, p["cutoff"], d_smc).astype(np.float32)
+        pgl = np.where(fresh, 0.0, d_pgl).astype(np.float32)
+        pgr = np.where(fresh, 0.0, d_pgr).astype(np.float32)
+        active = np.where(fresh, p["note_gain"] >= NON_AUDIBLE, d_active)
+
+        hold = chb["ch_hold"][chan]
+        t_now = (vt / sr).astype(np.float32)
+        want = (
+            active
+            & ~released
+            & (p["release_req"] <= vt)
+            & (vt >= min_dur)
+            & ~hold
+        )
+        rel_t = np.where(want, t_now, rel_t)
+        rel_vol = np.where(
+            want, _vol_env_np(t_now, p, False, rel_t, rel_vol), rel_vol
+        ).astype(np.float32)
+        rel_mod = np.where(
+            want, _mod_env_np(t_now, p, False, rel_t, rel_mod), rel_mod
+        ).astype(np.float32)
+        released = released | want
+
+        t_end = ((vt + N) / sr).astype(np.float32)
+        vol_env = _vol_env_np(t_end, p, released, rel_t, rel_vol)
+        mod_env = _mod_env_np(t_end, p, released, rel_t, rel_mod)
+        vib = _lfo_np(t_end, p["vib_delay"], p["vib_period"])
+        mlf = _lfo_np(t_end, p["mod_delay"], p["mod_period"])
+
+        dead_vol = (vol_env <= NON_AUDIBLE) & (
+            released | (t_end >= p["v_dec_start"])
+        )
+
+        pitch = (
+            p["key"]
+            + (np.float32(0.01) * chb["ch_mod"][chan] + p["vib2pitch"]) * vib
+            + p["mod2pitch"] * mlf
+            + p["modenv2pitch"] * mod_env
+            + chb["ch_pitch"][chan]
+        )
+        pitch_change = p["pitch_scale"] * (pitch - p["root_key"]) + p["tune"]
+        ratio = p64["srate_ratio"] * 2.0 ** (pitch_change.astype(np.float64) / 12.0)
+
+        looping = (p["loop_mode"] == int(LoopMode.CONTINUOUS)) | (
+            (p["loop_mode"] == int(LoopMode.LOOP_UNTIL_NOTE_OFF)) & ~released
+        )
+        loop_len = np.maximum(p64["loop_end"] - p64["loop_start"], 1.0)
+        pos_wrapped = np.where(
+            looping,
+            np.mod(pos - p64["loop_start"], loop_len) + p64["loop_start"],
+            pos,
+        )
+        dead_osc = ~looping & (pos >= p64["smp_end"])
+        new_pos = pos_wrapped + N * ratio
+        new_pos = np.where(
+            looping & (new_pos >= p64["loop_end"]),
+            np.mod(new_pos - p64["loop_start"], loop_len) + p64["loop_start"],
+            new_pos,
+        )
+
+        # filter coefficients (f32 math like the kernel)
+        res = p["resonance"]
+        cents = p["modlfo2cut"] * mlf + p["modenv2cut"] * mod_env
+        dynamic = (p["modlfo2cut"] != 0.0) | (p["modenv2cut"] != 0.0)
+        new_cut = (2.0 ** (cents / 1200.0)).astype(np.float32) * p["cutoff"]
+        smc = np.where(
+            dynamic, np.clip(new_cut, 0.5 * smc, 2.0 * smc), smc
+        ).astype(np.float32)
+        cutoff = np.where(dynamic, smc, p["cutoff"])
+        flt_on = cutoff < 0.499 * sr
+        q = res - rpo / (1.0 + 6.0 * (res - 1.0))
+        w = np.float32(2.0 * np.pi) * cutoff / np.float32(sr)
+        cosw = np.cos(w)
+        alpha = np.sin(w) / (2.0 * np.maximum(q, 1e-6))
+        a0 = 1.0 + alpha
+        b0 = ((1.0 - cosw) / 2.0) / a0
+        b1 = (1.0 - cosw) / a0
+        b2 = b0
+        a1 = (-2.0 * cosw) / a0
+        a2 = (1.0 - alpha) / a0
+        # Inactive filter = identity passthrough: the y-chain then carries
+        # the raw samples, matching the reference's state update.
+        b0 = np.where(flt_on, b0, 1.0).astype(np.float32)
+        b1 = np.where(flt_on, b1, 0.0).astype(np.float32)
+        b2 = np.where(flt_on, b2, 0.0).astype(np.float32)
+        a1 = np.where(flt_on, a1, 0.0).astype(np.float32)
+        a2 = np.where(flt_on, a2, 0.0).astype(np.float32)
+
+        ve = chb["ch_vol_exp"][chan]
+        mix_gain = p["note_gain"] * ve * ve * vol_env.astype(np.float32)
+        dyn_vol = p["modlfo2vol"] > 0.05
+        mix_gain = mix_gain * np.where(
+            dyn_vol, (10.0 ** (0.05 * p["modlfo2vol"] * mlf)).astype(np.float32), 1.0
+        )
+        angle = np.float32(np.pi / 200.0) * (
+            chb["ch_pan"][chan] + p["inst_pan"] + np.float32(50.0)
+        )
+        gl = np.where(
+            angle <= 0.0,
+            mix_gain,
+            np.where(angle >= np.float32(np.pi / 2), 0.0, mix_gain * np.cos(angle)),
+        ).astype(np.float32)
+        gr = np.where(
+            angle <= 0.0,
+            0.0,
+            np.where(angle >= np.float32(np.pi / 2), mix_gain, mix_gain * np.sin(angle)),
+        ).astype(np.float32)
+        first_block = vt == 0
+        pgl = np.where(first_block, gl, pgl)
+        pgr = np.where(first_block, gr, pgr)
+
+        alive = active & ~dead_vol & ~dead_osc
+
+        out["ratio"][b] = ratio.astype(np.float32)
+        out["base_pos"][b] = pos_wrapped
+        out["looping"][b] = looping
+        out["alive"][b] = alive
+        out["fresh"][b] = fresh
+        out["flt_on"][b] = flt_on
+        for k, v in (("b0", b0), ("b1", b1), ("b2", b2), ("a1", a1), ("a2", a2)):
+            out[k][b] = v
+        out["gl"][b] = gl
+        out["gr"][b] = gr
+        out["pgl"][b] = pgl
+        out["pgr"][b] = pgr
+
+        d_epoch = par["epoch"][b].copy()
+        d_vt = vt + N
+        d_released = released
+        d_rel_t = rel_t
+        d_rel_vol = rel_vol
+        d_rel_mod = rel_mod
+        d_pos = new_pos
+        d_smc = smc
+        d_pgl = gl
+        d_pgr = gr
+        d_active = alive
+
+    # Static per-voice-per-block sample geometry for the device pass.
+    out["loop_start"] = par_f64["loop_start"].astype(np.float64)
+    out["loop_len"] = np.maximum(
+        par_f64["loop_end"] - par_f64["loop_start"], 1.0
+    )
+    out["smp_end"] = par_f64["smp_end"]
+    out["lv_off"] = par["lv_off"]
+    return out
+
+
+def _compute_control_vectorized(synth, par_np, ch_np, snap_idx):
+    N = synth.block_size
+    sr = float(synth.sample_rate)
+    min_dur = synth._minimum_voice_duration
+    B = len(snap_idx)
+    P = synth.maximum_polyphony
+    rpo = np.float32(1.0 - 1.0 / math.sqrt(2.0))
+
+    par = {
+        k: (v[snap_idx].astype(np.float32) if v.dtype == np.float64 else v[snap_idx])
+        for k, v in par_np.items()
+    }
+    par64 = {
+        k: par_np[k][snap_idx]
+        for k in ("smp_start", "smp_end", "loop_start", "loop_end", "srate_ratio")
+    }
+    ch = {k: v[snap_idx] for k, v in ch_np.items()}
+    chan = par["channel"]  # (B, P)
+    b_idx = np.arange(B)[:, None]
+
+    def chv(name):  # per-voice view of a channel field
+        return np.take_along_axis(ch[name], chan, axis=1)
+
+    # --- segments (epochs) ---
+    epoch = par["epoch"]
+    fresh = np.ones((B, P), bool)
+    fresh[1:] = epoch[1:] != epoch[:-1]
+    seg_start = np.maximum.accumulate(np.where(fresh, b_idx, -1), axis=0)
+    vt = ((b_idx - seg_start) * N).astype(np.int64)
+    t_now = (vt / sr).astype(np.float32)
+    t_end = ((vt + N) / sr).astype(np.float32)
+
+    def seg_gather(arr):
+        """arr value at each row's segment start."""
+        return np.take_along_axis(arr, seg_start, axis=0)
+
+    # --- release latch ---
+    hold = chv("ch_hold")
+    eligible = (par["release_req"] <= vt) & (vt >= min_dur) & ~hold
+    # latch within segment: count eligible rows since the segment start
+    elig_cs = np.cumsum(eligible, axis=0)
+    excl = np.zeros_like(elig_cs)
+    excl[1:] = elig_cs[:-1]
+    elig_in_seg = elig_cs - seg_gather(excl)
+    released = elig_in_seg > 0
+    # the first eligible row of each segment is where the release lands
+    first_elig = eligible & (elig_in_seg == 1)
+    marker_row = np.where(first_elig, b_idx, -1)
+    marker_cm = np.maximum.accumulate(marker_row, axis=0)
+    rel_valid = marker_cm >= seg_start
+    rel_row = np.clip(marker_cm, 0, B - 1)
+    rel_t = np.where(
+        released & rel_valid,
+        np.take_along_axis(t_now, rel_row, axis=0),
+        0.0,
+    ).astype(np.float32)
+    released = released & rel_valid
+
+    # --- envelopes / LFOs ---
+    rel_vol = _vol_env_np(rel_t, par, False, rel_t, 0.0).astype(np.float32)
+    rel_mod = _mod_env_np(rel_t, par, False, rel_t, 0.0).astype(np.float32)
+    vol_env = _vol_env_np(t_end, par, released, rel_t, rel_vol)
+    mod_env = _mod_env_np(t_end, par, released, rel_t, rel_mod)
+    vib = _lfo_np(t_end, par["vib_delay"], par["vib_period"])
+    mlf = _lfo_np(t_end, par["mod_delay"], par["mod_period"])
+
+    dead_vol = (vol_env <= NON_AUDIBLE) & (released | (t_end >= par["v_dec_start"]))
+
+    # --- pitch / oscillator advance ---
+    pitch = (
+        par["key"]
+        + (np.float32(0.01) * chv("ch_mod") + par["vib2pitch"]) * vib
+        + par["mod2pitch"] * mlf
+        + par["modenv2pitch"] * mod_env
+        + chv("ch_pitch")
+    )
+    pitch_change = par["pitch_scale"] * (pitch - par["root_key"]) + par["tune"]
+    ratio = par64["srate_ratio"] * 2.0 ** (pitch_change.astype(np.float64) / 12.0)
+
+    looping = (par["loop_mode"] == int(LoopMode.CONTINUOUS)) | (
+        (par["loop_mode"] == int(LoopMode.LOOP_UNTIL_NOTE_OFF)) & ~released
+    )
+    advance = N * ratio
+    adv_cs = np.cumsum(advance, axis=0)
+    adv_excl = np.zeros_like(adv_cs)
+    adv_excl[1:] = adv_cs[:-1]
+    base = par64["smp_start"] + (adv_excl - seg_gather(adv_excl))
+
+    # LOOP_UNTIL_NOTE_OFF: after release the head leaves the loop from its
+    # *wrapped* position — re-anchor the unwrapped chain at the release row.
+    loop_len = np.maximum(par64["loop_end"] - par64["loop_start"], 1.0)
+    mode3 = par["loop_mode"] == int(LoopMode.LOOP_UNTIL_NOTE_OFF)
+    if mode3.any():
+        base_at_rel = np.take_along_axis(base, rel_row, axis=0)
+        wrapped_at_rel = (
+            np.mod(base_at_rel - par64["loop_start"], loop_len) + par64["loop_start"]
+        )
+        fix = mode3 & released
+        base = np.where(fix, base - base_at_rel + wrapped_at_rel, base)
+    dead_osc = ~looping & (base >= par64["smp_end"])
+    # Pre-wrap looping bases so the device wrap needs no integer mod.
+    base = np.where(
+        looping,
+        np.mod(base - par64["loop_start"], loop_len) + par64["loop_start"],
+        base,
+    )
+
+    # --- filter coefficients ---
+    res = par["resonance"]
+    dynamic = (par["modlfo2cut"] != 0.0) | (par["modenv2cut"] != 0.0)
+    if dynamic.any():
+        # clamped smoother is sequential; tiny loop over blocks for the
+        # dynamic voices only.
+        cents = par["modlfo2cut"] * mlf + par["modenv2cut"] * mod_env
+        new_cut = (2.0 ** (cents / 1200.0)).astype(np.float32) * par["cutoff"]
+        smc = np.empty((B, P), np.float32)
+        prev = par["cutoff"][0].copy()
+        for b in range(B):
+            prev = np.where(fresh[b], par["cutoff"][b], prev)
+            prev = np.where(
+                dynamic[b],
+                np.clip(new_cut[b], 0.5 * prev, 2.0 * prev),
+                prev,
+            ).astype(np.float32)
+            smc[b] = prev
+        cutoff = np.where(dynamic, smc, par["cutoff"])
+    else:
+        cutoff = par["cutoff"]
+    flt_on = cutoff < 0.499 * sr
+    q = res - rpo / (1.0 + 6.0 * (res - 1.0))
+    w = np.float32(2.0 * np.pi) * cutoff / np.float32(sr)
+    cosw = np.cos(w)
+    alpha = np.sin(w) / (2.0 * np.maximum(q, 1e-6))
+    a0 = 1.0 + alpha
+    b0 = np.where(flt_on, ((1.0 - cosw) / 2.0) / a0, 1.0).astype(np.float32)
+    b1 = np.where(flt_on, (1.0 - cosw) / a0, 0.0).astype(np.float32)
+    b2 = np.where(flt_on, ((1.0 - cosw) / 2.0) / a0, 0.0).astype(np.float32)
+    a1 = np.where(flt_on, (-2.0 * cosw) / a0, 0.0).astype(np.float32)
+    a2 = np.where(flt_on, (1.0 - alpha) / a0, 0.0).astype(np.float32)
+
+    # --- gains ---
+    ve = chv("ch_vol_exp")
+    mix_gain = par["note_gain"] * ve * ve * vol_env.astype(np.float32)
+    dyn_vol = par["modlfo2vol"] > 0.05
+    mix_gain = mix_gain * np.where(
+        dyn_vol, (10.0 ** (0.05 * par["modlfo2vol"] * mlf)).astype(np.float32), 1.0
+    )
+    angle = np.float32(np.pi / 200.0) * (
+        chv("ch_pan") + par["inst_pan"] + np.float32(50.0)
+    )
+    gl = np.where(
+        angle <= 0.0,
+        mix_gain,
+        np.where(angle >= np.float32(np.pi / 2), 0.0, mix_gain * np.cos(angle)),
+    ).astype(np.float32)
+    gr = np.where(
+        angle <= 0.0,
+        0.0,
+        np.where(angle >= np.float32(np.pi / 2), mix_gain, mix_gain * np.sin(angle)),
+    ).astype(np.float32)
+    pgl = np.where(fresh, gl, np.roll(gl, 1, axis=0))
+    pgr = np.where(fresh, gr, np.roll(gr, 1, axis=0))
+
+    # --- liveness chain ---
+    active0 = par["note_gain"] >= NON_AUDIBLE
+    dead = dead_vol | dead_osc
+    dead_cs = np.cumsum(dead, axis=0)
+    dead_excl = np.zeros_like(dead_cs)
+    dead_excl[1:] = dead_cs[:-1]
+    dead_before = (dead_excl - seg_gather(dead_excl)) > 0
+    alive = active0 & ~dead_before & ~dead
+
+    return {
+        "ratio": ratio.astype(np.float32),
+        "base_pos": base,
+        "looping": looping,
+        "alive": alive,
+        "fresh": fresh,
+        "flt_on": flt_on,
+        "b0": b0,
+        "b1": b1,
+        "b2": b2,
+        "a1": a1,
+        "a2": a2,
+        "gl": gl,
+        "gr": gr,
+        "pgl": pgl,
+        "pgr": pgr,
+        "loop_start": par64["loop_start"].astype(np.float64),
+        "loop_len": np.maximum(par64["loop_end"] - par64["loop_start"], 1.0),
+        "smp_end": par64["smp_end"],
+        "lv_off": par["lv_off"],
+    }
 
 
 # ---- device control pass -------------------------------------------------
@@ -596,3 +1087,20 @@ def render_midi_offline_streamed(synth, midi_file, seconds: float,
     synth.reset()
     total = int(round(seconds * sr))
     return torch.cat(outs)[:total].cpu().numpy()
+
+
+def render_midi_offline_hostctl(synth, midi_file, seconds: float, device="cuda") -> np.ndarray:
+    """:func:`render_midi_offline` with the control pass on the host
+    (:func:`compute_control`, numpy): its planes go to ``device`` and
+    through the same audio pass, routed as :func:`render_midi_offline`
+    routes it. Returns (samples, 2) float32."""
+    N = synth.block_size
+    par_np, ch_np, snap_idx, _n_blocks = synth.build_schedule(midi_file, seconds)
+    unfused = (_out_of_window(synth, par_np, ch_np)
+               and N % 128 == 0 and synth.maximum_polyphony % 128 == 0)
+    ctrl = to_torch(compute_control(synth, par_np, ch_np, snap_idx), device)
+    wave = to_torch(synth._wave, device)
+    out, _state = _audio_pass(ctrl, wave, N, float(synth.master_volume), unfused=unfused)
+    total = int(round(seconds * synth.sample_rate))
+    synth.reset()
+    return out[:total].cpu().numpy()

@@ -1,19 +1,26 @@
-"""SoundFont synthesizer, host half: the event machine for offline renders.
+"""SoundFont synthesizer: the host event machine and the per-block voice
+engine on a PyTorch device.
 
-Counterpart of ``pygmu2_tpu.soundfont.synthesizer`` for the PyTorch port,
-numpy only. It keeps the MIDI/event handling, voice allocation and the
-offline event simulation (``build_schedule`` /
-``build_schedule_segments``), whose output is bit-identical to the JAX
-package's; the device passes live in
-:mod:`pygmu2_tpu_torch.soundfont.offline`. The per-block streaming
-engine (``render``, ``render_stereo``, ``render_midi_schedule``) is not
-ported yet.
-
+Counterpart of ``pygmu2_tpu.soundfont.synthesizer`` for the PyTorch port.
 Every per-voice quantity is a struct-of-arrays of shape
 ``(polyphony,)``: ``note_on`` resolves SF2 regions to a flat numeric
-parameter record (see ``params.resolve_voice_params``) written into
-numpy mirrors, and voice allocation/stealing uses closed-form envelope
-priorities on the host.
+parameter record (see ``params.resolve_voice_params``) written into numpy
+mirrors, and voice allocation/stealing uses closed-form envelope
+priorities on the host. The offline event simulation
+(``build_schedule`` / ``build_schedule_segments``) is bit-identical to
+the JAX package's.
+
+The streaming engine (``render``, ``render_stereo``,
+``render_midi_schedule``) renders one block for all voices at once on the
+synthesizer's device (``device=``, the card unless the caller asks for the
+CPU): :meth:`Synthesizer._block_kernel` in tensor ops, the envelopes and
+LFOs as closed forms of voice time (the control helpers of
+:mod:`pygmu2_tpu_torch.soundfont.offline`), the oscillator a gather and a
+lerp over ``(voices, block)``, the per-voice biquad's feedback one launch
+of the order-2 scan kernel (``ops/linrec_kernel.affine_scan_2_kernel``,
+``csrc/affine_scan_2.cu`` on the card) and the stereo mix a reduction over
+voices. The device passes of the one-launch offline render live in
+:mod:`pygmu2_tpu_torch.soundfont.offline`.
 """
 
 from __future__ import annotations
@@ -22,9 +29,21 @@ import math
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
+from pygmu2_tpu_torch.ops.linrec_kernel import affine_scan_2_kernel
+from pygmu2_tpu_torch.ops.xla_math import fmaf
+from pygmu2_tpu_torch.soundfont import offline as _ctl
+from pygmu2_tpu_torch.soundfont.convert import (
+    _CH_F32,
+    _PAR_F32,
+    _PAR_F64,
+    _PAR_I32,
+    _pack_schedule_np,
+    to_torch,
+)
 from pygmu2_tpu_torch.soundfont.midi import MidiFile, MidiMessageType
-from pygmu2_tpu_torch.soundfont.model import MeltysynthError, SoundFont
+from pygmu2_tpu_torch.soundfont.model import LoopMode, MeltysynthError, SoundFont
 from pygmu2_tpu_torch.soundfont.params import (
     NON_AUDIBLE,
     RegionPair,
@@ -258,8 +277,12 @@ class Synthesizer:
     _CHANNEL_COUNT = 16
     _PERCUSSION_CHANNEL = 9
 
-    def __init__(self, sound_font, settings: SynthesizerSettings | None = None):
+    def __init__(self, sound_font, settings: SynthesizerSettings | None = None,
+                 device="cuda"):
         self._vp_cache = {}
+        # the streaming engine's device (the card unless the caller asks
+        # for the CPU); nothing moves there before the first block
+        self._device = torch.device(device)
         if isinstance(sound_font, str):
             sound_font = SoundFont.from_file(sound_font)
         if settings is None:
@@ -282,8 +305,10 @@ class Synthesizer:
                 min_id = pid
                 self._default_preset = preset
 
-        # host copy; the offline renderer moves it to the device
+        # host copy; the offline renderer moves it to its device, the
+        # streaming engine to the synthesizer's once (_device_wave)
         self._wave = np.asarray(sound_font.wave_data, np.float32)
+        self._wave_dev = None
         # Loop-view offsets (the ``lv_off`` schedule plane). The JAX
         # package's windowed-DMA oscillator reads them; the port keeps
         # them only so its schedule stays bit-identical to the JAX one.
@@ -313,6 +338,12 @@ class Synthesizer:
         self._ck_index: dict = {}
         self._slot_ck: list = [None] * P
 
+        self._dyn = None  # device state; created lazily
+        self._block_cache = np.zeros((self._block_size, 2), np.float32)
+        self._block_read = self._block_size
+        self._block_cache_dev = None  # the same block on the device
+        self._consts = None  # per-block constants on the device (_engine_consts)
+
     # ---- public properties ----------------------------------------------
 
     @property
@@ -340,7 +371,12 @@ class Synthesizer:
         return self._PERCUSSION_CHANNEL
 
     @property
+    def device(self) -> torch.device:
+        return self._device
+
+    @property
     def active_voice_count(self) -> int:
+        self._sync_active()
         return int(self._host_active.sum())
 
     # ---- MIDI dispatch ---------------------------------------------------
@@ -592,10 +628,10 @@ class Synthesizer:
         semantics: free slots fill in index order first, then steals in
         (priority asc, age desc, index asc) order — exactly the
         argmin/argmax-age chain of :meth:`_allocate_slot`. Anything
-        else (velocity 0, tiny bursts) falls back to the sequential
-        loop.
+        else (velocity 0, live device state, tiny bursts) falls back to
+        the sequential loop.
         """
-        if len(notes) < 8:
+        if self._dyn is not None or len(notes) < 8:
             for c, k, v in notes:
                 self.note_on(c, k, v)
             return
@@ -620,6 +656,7 @@ class Synthesizer:
                     self._write_slot(slot, params)
             return
         n = sum(b["n"] for b in bundles)
+        self._sync_active()
         act = self._host_active
         free = np.nonzero(~act)[0]
         n_free = min(free.size, n)
@@ -738,6 +775,8 @@ class Synthesizer:
         self._kill_all()
         for ch in self._channels:
             ch.reset()
+        self._dyn = None
+        self._block_read = self._block_size
 
     def _kill_all(self):
         self._host_active[:] = False
@@ -792,7 +831,7 @@ class Synthesizer:
 
         The result is memoized: any mutation of the inputs either
         invalidates the cache (:meth:`_invalidate_pri` — note-offs,
-        block advances, kill-all) or patches the one
+        block advances, device sync, kill-all) or patches the one
         affected row (:meth:`_write_slot` via :meth:`_priority_of`).
         """
         if self._pri_cache is not None:
@@ -845,6 +884,7 @@ class Synthesizer:
         return pri
 
     def _allocate_slot(self, params: VoiceParams) -> int:
+        self._sync_active()
         # exclusive class: retrigger the same voice
         if params.exclusive_class != 0:
             same = (
@@ -953,6 +993,371 @@ class Synthesizer:
             self._lv_total += -(-view_len // 128) * 128
             self._lv_map[key] = off
         return off
+
+    # ---- device state ------------------------------------------------------
+
+    def _sync_active(self):
+        """Pull the device's liveness verdict back to the host mirror."""
+        if self._dyn is not None:
+            self._host_active &= self._dyn["active"].cpu().numpy()
+            self._invalidate_pri()
+
+    def _init_dyn(self, polyphony: int | None = None):
+        """The voices' device state before their first block."""
+        P = polyphony or self._maximum_polyphony
+        dev = self._device
+
+        def full(value, dtype):
+            return torch.full((P,), value, dtype=dtype, device=dev)
+
+        f32 = torch.float32
+        return {
+            "epoch": full(-1, torch.int32),
+            "active": full(False, torch.bool),
+            "voice_time": full(0, torch.int32),
+            "released": full(False, torch.bool),
+            "rel_t": full(0.0, f32),
+            "rel_vol": full(0.0, f32),
+            "rel_mod": full(0.0, f32),
+            "osc_pos": full(0.0, torch.float64),
+            "fx1": full(0.0, f32),
+            "fx2": full(0.0, f32),
+            "fy1": full(0.0, f32),
+            "fy2": full(0.0, f32),
+            "sm_cutoff": full(0.0, f32),
+            "prev_gl": full(0.0, f32),
+            "prev_gr": full(0.0, f32),
+        }
+
+    def _device_wave(self):
+        """The wavetable on the synthesizer's device, moved there once."""
+        if self._wave_dev is None:
+            self._wave_dev = to_torch(self._wave, self._device)
+        return self._wave_dev
+
+    def _engine_consts(self):
+        """Per-block constants on the device, made once: the sample steps,
+        the gain ramp, and the scan's shared (N, 1) columns of ones and
+        zeros."""
+        if self._consts is None:
+            N, dev = self._block_size, self._device
+            steps = torch.arange(N, dtype=torch.float32, device=dev)
+            ones = torch.ones((N, 1), dtype=torch.float32, device=dev)
+            zeros = torch.zeros((N, 1), dtype=torch.float32, device=dev)
+            self._consts = (steps, steps / N, ones, zeros)
+        return self._consts
+
+    # ---- device kernel ---------------------------------------------------
+
+    def _block_kernel(self, dyn, par, ch, master):
+        """Render one block for all voices; returns (dyn', (N, 2) audio).
+
+        ``dyn``: the voices' device state (:meth:`_init_dyn`); ``par``: the
+        parameter planes, (P,) tensors by name; ``ch``: the channel fields,
+        (16,) tensors; ``master``: the master volume (a float). Tensor ops
+        only, with no host sync: the DF1 feedback is one launch of the
+        order-2 scan kernel.
+        """
+        N = self._block_size
+        sr = float(self._sample_rate)
+        wave = self._device_wave()
+        min_dur = self._minimum_voice_duration
+        f32, f64 = torch.float32, torch.float64
+        P = par["epoch"].shape[0]
+        steps, ramp, ones, zeros = self._engine_consts()
+        where = torch.where
+
+        fresh = par["epoch"] != dyn["epoch"]
+        voice_time = where(fresh, 0, dyn["voice_time"])
+        released = where(fresh, False, dyn["released"])
+        rel_t = where(fresh, 0.0, dyn["rel_t"])
+        rel_vol = where(fresh, 0.0, dyn["rel_vol"])
+        rel_mod = where(fresh, 0.0, dyn["rel_mod"])
+        osc_pos = where(fresh, par["smp_start"], dyn["osc_pos"])
+        fx1 = where(fresh, 0.0, dyn["fx1"])
+        fx2 = where(fresh, 0.0, dyn["fx2"])
+        fy1 = where(fresh, 0.0, dyn["fy1"])
+        fy2 = where(fresh, 0.0, dyn["fy2"])
+        sm_cutoff = where(fresh, par["cutoff"], dyn["sm_cutoff"])
+        prev_gl = where(fresh, 0.0, dyn["prev_gl"])
+        prev_gr = where(fresh, 0.0, dyn["prev_gr"])
+        active = where(fresh, par["note_gain"] >= NON_AUDIBLE, dyn["active"])
+
+        chan = par["channel"].long()
+        ch_hold = ch["ch_hold"][chan]
+
+        # XLA's program divides by a constant as it multiplies by the
+        # constant's reciprocal (rounded in the constant's type); so here
+        inv_sr = float(np.float32(1.0) / np.float32(sr))
+
+        # Release transition at block start (reference voice.py:217-227).
+        t_now = voice_time.to(f32) * inv_sr
+        want = (
+            active
+            & ~released
+            & (par["release_req"] <= voice_time)
+            & (voice_time >= min_dur)
+            & ~ch_hold
+        )
+        rel_t = where(want, t_now, rel_t)
+        rel_vol = where(want, _ctl._vol_env_held(t_now, par), rel_vol)
+        rel_mod = where(want, _ctl._mod_env_held(t_now, par), rel_mod)
+        released = released | want
+
+        # Per-block control values at end-of-block time (reference
+        # convention: envelopes/LFOs advance block_size then evaluate).
+        t_end = (voice_time + N).to(f32) * inv_sr
+        vol_env = _ctl._vol_env(t_end, par, released, rel_t, rel_vol)
+        mod_env = _ctl._mod_env(t_end, par, released, rel_t, rel_mod)
+        vib = _ctl._lfo(t_end, par["vib_delay"], par["vib_period"])
+        mlf = _ctl._lfo(t_end, par["mod_delay"], par["mod_period"])
+
+        dead_vol = (vol_env <= NON_AUDIBLE) & (released | (t_end >= par["v_dec_start"]))
+
+        # Pitch (reference voice.py:134-147), its products fused into the
+        # sums as XLA's CPU program fuses them: the carried float64
+        # position follows the pitch's last bit
+        pitch = fmaf(fmaf(_ctl._CENT, ch["ch_mod"][chan], par["vib2pitch"]), vib, par["key"])
+        pitch = fmaf(par["mod2pitch"], mlf, pitch)
+        pitch = fmaf(par["modenv2pitch"], mod_env, pitch) + ch["ch_pitch"][chan]
+        pitch_change = fmaf(par["pitch_scale"], pitch - par["root_key"], par["tune"])
+        ratio = par["srate_ratio"] * 2.0 ** (pitch_change.to(f64) * (1.0 / 12.0))
+
+        # Oscillator: a (P, N) gather + lerp; the carried position is
+        # float64, the grid an int32 base plus a float32 offset.
+        loop_mode = par["loop_mode"]
+        looping = (loop_mode == int(LoopMode.CONTINUOUS)) | (
+            (loop_mode == int(LoopMode.LOOP_UNTIL_NOTE_OFF)) & ~released
+        )
+        loop_start_i = par["loop_start"].to(torch.int32)
+        loop_len_i = torch.clamp_min(par["loop_end"].to(torch.int32) - loop_start_i, 1)
+        loop_len_f = loop_len_i.to(f64)
+        pos_wrapped = where(
+            looping,
+            _ctl._mod(osc_pos - par["loop_start"], loop_len_f) + par["loop_start"],
+            osc_pos,
+        )
+        base_int = torch.floor(pos_wrapped).to(torch.int32)
+        base_frac = (pos_wrapped - base_int).to(f32)
+        offset = base_frac[:, None] + steps[None, :] * ratio.to(f32)[:, None]  # (P, N)
+        off_int = torch.floor(offset)
+        frac = offset - off_int
+        abs_idx = base_int[:, None] + off_int.to(torch.int32)
+        # the loop wrap in exact integer arithmetic (the position is
+        # pre-wrapped into the loop, so the offset from its start is >= 0)
+        wr = torch.remainder(abs_idx - loop_start_i[:, None], loop_len_i[:, None])
+        idx_eff = where(looping[:, None], loop_start_i[:, None] + wr, abs_idx)
+        W = wave.shape[0]
+        i0 = torch.clamp(idx_eff, 0, W - 2)
+        i1 = i0 + 1
+        # loop upper neighbour wraps to the loop start
+        i1 = where(
+            looping[:, None] & (i1 >= par["loop_end"].to(torch.int32)[:, None]),
+            loop_start_i[:, None],
+            i1,
+        )
+        w0 = wave[i0.long()]
+        w1 = wave[i1.long()]
+        smp = (1.0 - frac) * w0 + frac * w1
+        valid = looping[:, None] | (abs_idx < par["smp_end"].to(torch.int32)[:, None])
+        blk = where(valid, smp, 0.0)  # (P, N)
+        dead_osc = ~looping & (osc_pos >= par["smp_end"])
+
+        new_pos = pos_wrapped + N * ratio  # float64, (P,)
+        new_pos = where(
+            looping & (new_pos >= par["loop_end"]),
+            _ctl._mod(new_pos - par["loop_start"], loop_len_f) + par["loop_start"],
+            new_pos,
+        )
+
+        # Filter (reference BiQuadFilter: per-block lowpass coefficients).
+        res = par["resonance"]
+        cents = par["modlfo2cut"] * mlf + par["modenv2cut"] * mod_env
+        dynamic = (par["modlfo2cut"] != 0.0) | (par["modenv2cut"] != 0.0)
+        new_cut = 2.0 ** (cents * float(np.float32(1.0) / np.float32(1200.0))) * par["cutoff"]
+        sm_cutoff = where(
+            dynamic,
+            torch.minimum(torch.maximum(new_cut, 0.5 * sm_cutoff), 2.0 * sm_cutoff),
+            sm_cutoff,
+        )
+        cutoff = where(dynamic, sm_cutoff, par["cutoff"])
+        flt_on = cutoff < 0.499 * sr
+        q = res - _ctl._RPO / (1.0 + 6.0 * (res - 1.0))
+        w = _ctl._TWO_PI * cutoff / _ctl._F32(sr)
+        cosw = torch.cos(w)
+        alpha = torch.sin(w) / (2.0 * torch.clamp_min(q, 1e-6))
+        a0 = 1.0 + alpha
+        b0 = ((1.0 - cosw) / 2.0) / a0
+        b1 = (1.0 - cosw) / a0
+        b2 = b0
+        a1 = (-2.0 * cosw) / a0
+        a2 = (1.0 - alpha) / a0
+
+        # DF1 over the block: the FIR half in tensor ops, the order-2
+        # feedback y[n] = fir[n] - a1 y[n-1] - a2 y[n-2] by the scan
+        # kernel (one launch), voices along its channels.
+        xpad = torch.cat([fx2[:, None], fx1[:, None], blk], dim=1)  # (P, N + 2)
+        fir = b0[:, None] * xpad[:, 2:] + b1[:, None] * xpad[:, 1:-1] + b2[:, None] * xpad[:, :-2]
+        s1, _s2 = affine_scan_2_kernel(
+            (-a1)[None].expand(N, P).contiguous(),
+            (-a2)[None].expand(N, P).contiguous(),
+            ones, zeros, fir.T.contiguous(), zeros,
+            s0=(fy1, fy2), chunk=_scan_chunk(N),
+        )
+        filtered = s1.T  # (P, N)
+
+        out_blk = where(flt_on[:, None], filtered, blk)
+        nfx1 = blk[:, -1]
+        nfx2 = blk[:, -2]
+        nfy1 = where(flt_on, filtered[:, -1], blk[:, -1])
+        nfy2 = where(flt_on, filtered[:, -2], blk[:, -2])
+
+        # Mix gains (reference voice.py:160-205).
+        ve = ch["ch_vol_exp"][chan]
+        mix_gain = par["note_gain"] * ve * ve * vol_env
+        dyn_vol = par["modlfo2vol"] > 0.05
+        mix_gain = mix_gain * where(dyn_vol, 10.0 ** (0.05 * par["modlfo2vol"] * mlf), 1.0)
+        angle = _ctl._PAN_SCALE * (ch["ch_pan"][chan] + par["inst_pan"] + 50.0)
+        gl = where(
+            angle <= 0.0,
+            mix_gain,
+            where(angle >= _ctl._HALF_PI, 0.0, mix_gain * torch.cos(angle)),
+        )
+        gr = where(
+            angle <= 0.0,
+            0.0,
+            where(angle >= _ctl._HALF_PI, mix_gain, mix_gain * torch.sin(angle)),
+        )
+        first_block = voice_time == 0
+        prev_gl = where(first_block, gl, prev_gl)
+        prev_gr = where(first_block, gr, prev_gr)
+
+        # Linear gain ramp within the block (reference _write_block: the
+        # ramp/constant choice and the audibility skip are made on
+        # master-scaled gains).
+        alive = active & ~dead_vol & ~dead_osc
+        m = _ctl._F32(master)
+        gl_m = m * where(alive, gl, 0.0)
+        gr_m = m * where(alive, gr, 0.0)
+        pl_m = m * where(alive, prev_gl, 0.0)
+        pr_m = m * where(alive, prev_gr, 0.0)
+
+        def ramped(prev, cur):
+            audible = torch.maximum(prev, cur) >= NON_AUDIBLE
+            const = torch.abs(cur - prev) < 1.0e-3
+            g = where(
+                const[:, None],
+                cur[:, None],
+                prev[:, None] + (cur - prev)[:, None] * ramp[None, :],
+            )
+            return where(audible[:, None], g, 0.0)
+
+        L = (ramped(pl_m, gl_m) * out_blk).sum(0)
+        R = (ramped(pr_m, gr_m) * out_blk).sum(0)
+        audio = torch.stack([L, R], dim=1)
+
+        new_dyn = {
+            "epoch": par["epoch"],
+            "active": alive,
+            "voice_time": voice_time + N,
+            "released": released,
+            "rel_t": rel_t,
+            "rel_vol": rel_vol,
+            "rel_mod": rel_mod,
+            "osc_pos": new_pos,
+            "fx1": nfx1,
+            "fx2": nfx2,
+            "fy1": nfy1,
+            "fy2": nfy2,
+            "sm_cutoff": sm_cutoff,
+            "prev_gl": gl,
+            "prev_gr": gr,
+        }
+        return new_dyn, audio
+
+    def _device_params(self):
+        """The host parameter and channel mirrors on the device: (par, ch),
+        dicts of (P,) and (16,) tensors, uploaded in five packed copies
+        (pinned, not blocking the host, on the card)."""
+        *planes, _flags = _pack_schedule_np(self._par, self._channel_arrays())
+        return _unpacked(*to_torch(tuple(planes), self._device))
+
+    # ---- streaming render (reference API) --------------------------------
+
+    def _render_block_device(self):
+        """One block of the live voices: the (N, 2) audio on the device."""
+        if self._dyn is None:
+            self._dyn = self._init_dyn()
+        par, ch = self._device_params()
+        self._dyn, audio = self._block_kernel(self._dyn, par, ch, float(self.master_volume))
+        self._host_voice_blocks[self._host_active] += 1
+        self._invalidate_pri()
+        return audio
+
+    def _move_to(self, device) -> None:
+        """Run the streaming engine on ``device`` from now on (the voice
+        state, if any, moves with it)."""
+        self._device = torch.device(device)
+        self._wave_dev = None
+        self._consts = None
+        if self._dyn is not None:
+            self._dyn = {k: v.to(self._device) for k, v in self._dyn.items()}
+        if self._block_cache_dev is not None:
+            self._block_cache_dev = self._block_cache_dev.to(self._device)
+
+    def _render_block(self) -> np.ndarray:
+        self._block_cache_dev = self._render_block_device()
+        return self._block_cache_dev.cpu().numpy()
+
+    def _render_stereo_device(self, count: int) -> torch.Tensor:
+        """:meth:`render_stereo` kept on the device: the next ``count``
+        samples as a (count, 2) float32 tensor on the synthesizer's device,
+        sharing the block read position with :meth:`render`."""
+        parts = []
+        wrote = 0
+        while wrote < count:
+            if self._block_read == self._block_size:
+                self._block_cache_dev = self._render_block_device()
+                self._block_cache = None  # downloaded only if render() reads it
+                self._block_read = 0
+            rem = min(self._block_size - self._block_read, count - wrote)
+            parts.append(self._block_cache_dev[self._block_read:self._block_read + rem])
+            self._block_read += rem
+            wrote += rem
+        if not parts:
+            return torch.zeros((0, 2), dtype=torch.float32, device=self._device)
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+    def render(self, left, right, offset: int | None = None, count: int | None = None):
+        """Fill ``left``/``right`` with the next ``count`` samples."""
+        if len(left) != len(right):
+            raise MeltysynthError(
+                "The output buffers for the left and right must be the same length."
+            )
+        if offset is None:
+            offset = 0
+        if count is None:
+            count = len(left) - offset
+        wrote = 0
+        while wrote < count:
+            if self._block_read == self._block_size:
+                self._block_cache = self._render_block()
+                self._block_read = 0
+            elif self._block_cache is None:  # a block the device path began
+                self._block_cache = self._block_cache_dev.cpu().numpy()
+            rem = min(self._block_size - self._block_read, count - wrote)
+            seg = self._block_cache[self._block_read : self._block_read + rem]
+            left[offset + wrote : offset + wrote + rem] = seg[:, 0]
+            right[offset + wrote : offset + wrote + rem] = seg[:, 1]
+            self._block_read += rem
+            wrote += rem
+
+    def render_stereo(self, count: int) -> np.ndarray:
+        """Convenience: render ``count`` samples → (count, 2) float32."""
+        left = np.zeros(count, np.float32)
+        right = np.zeros(count, np.float32)
+        self.render(left, right)
+        return np.stack([left, right], axis=1)
 
     # ---- channel snapshot ------------------------------------------------
 
@@ -1094,3 +1499,41 @@ class Synthesizer:
             yield par_stack, ch_stack, snap_idx, s1 - s0
         self._host_voice_blocks[self._host_active] += n_blocks - prev_b
         self._invalidate_pri()
+
+    def render_midi_schedule(self, midi_file: MidiFile, seconds: float) -> np.ndarray:
+        """Render a MIDI file offline, block after block on the device.
+
+        The host pass (:meth:`build_schedule`) runs first; its stacks go to
+        the device once. The device pass is a Python loop over blocks that
+        picks each block's snapshot by its host-side index, threads the
+        voice state, and writes into one preallocated output: no host
+        sync until the one download at the end.
+        """
+        par_np, ch_np, snap_idx, n_blocks = self.build_schedule(midi_file, seconds)
+        N = self._block_size
+        *planes, _flags = _pack_schedule_np(par_np, ch_np)
+        pf32, pi32, pf64, cf32, chold = to_torch(tuple(planes), self._device)
+        master = float(self.master_volume)
+        out = torch.empty((n_blocks * N, 2), dtype=torch.float32, device=self._device)
+        dyn = self._init_dyn()
+        for b, s in enumerate(snap_idx.tolist()):  # s: the block's snapshot
+            par, ch = _unpacked(pf32[:, s], pi32[:, s], pf64[:, s], cf32[:, s], chold[s])
+            dyn, out[b * N:(b + 1) * N] = self._block_kernel(dyn, par, ch, master)
+        total = int(round(seconds * self._sample_rate))
+        result = out[:total].cpu().numpy()
+        self.reset()
+        return result
+
+
+def _unpacked(pf32, pi32, pf64, cf32, chold):
+    """Packed planes (``convert._pack_schedule_np``'s order) -> (par, ch),
+    dicts of their rows by field name."""
+    par = {**dict(zip(_PAR_F32, pf32)), **dict(zip(_PAR_I32, pi32)),
+           **dict(zip(_PAR_F64, pf64))}
+    return par, {**dict(zip(_CH_F32, cf32)), "ch_hold": chold}
+
+
+def _scan_chunk(n: int) -> int:
+    """The scan kernel's chunk for a block of n samples: the power of two
+    that holds it, at most 1024."""
+    return min(1024, 1 << max(1, (n - 1).bit_length()))

@@ -598,3 +598,97 @@ def test_filter_gain_mix_kernel_voices_and_epochs(cuda, P):
     assert float(ref.abs().max()) > 0.5 and torch.isfinite(got).all()
     torch.testing.assert_close(got, ref, rtol=0, atol=2e-5 * scale)
     torch.testing.assert_close(got, cut, rtol=0, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("L", [16, 133, 535, 51201])
+def test_ks_blocked_kernel_matches_plain(cuda, L):
+    """The all-active order (the JAX KarplusStrongPE's ks_blocked) bit for
+    bit, T not a multiple of the block, and a two-call hand-off against two
+    calls of the plain version; 51201 (past ``MAX_KERNEL_L``) runs from
+    global memory."""
+    from pygmu2_tpu_torch.ops import ks
+
+    T = 2045
+    (rho,) = _seeded(cuda, L, (T,), lo=0.99, hi=0.9999)
+    (buf,) = _seeded(cuda, L + 1, (L,))
+    act = torch.ones(T, dtype=torch.bool, device=cuda)
+    state = (torch.tensor(3, dtype=torch.int32, device=cuda),
+             torch.tensor(0.1, device=cuda), torch.tensor(-0.2, device=cuda))
+    kw = dict(L=L, allpass_c=0.35, all_active=True)
+    before = ks.ks_scan.launches
+    got = ks.ks_scan(rho, act, buf, *state, **kw)
+    torch.cuda.synchronize()
+    assert ks.ks_scan.launches == before + 1
+    ref = ks.ks_blocked_ref(rho, buf, *state, L=L, allpass_c=0.35)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+    # blocks start at each call's first sample (as in the JAX package), so
+    # two calls are held to two calls of the plain version
+    cut = 700
+    first = ks.ks_scan(rho[:cut], act[:cut], buf, *state, **kw)
+    second = ks.ks_scan(rho[cut:], act[cut:], *first[1:], **kw)
+    ref1 = ks.ks_blocked_ref(rho[:cut], buf, *state, L=L, allpass_c=0.35)
+    ref2 = ks.ks_blocked_ref(rho[cut:], *ref1[1:], L=L, allpass_c=0.35)
+    torch.testing.assert_close(torch.cat([first[0], second[0]]),
+                               torch.cat([ref1[0], ref2[0]]), rtol=0, atol=0)
+    for g, r in zip(second[1:], ref2[1:]):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+
+
+@pytest.fixture
+def plain_scan(monkeypatch):
+    """A context in which the streaming engine takes the scan's plain
+    version on the card."""
+    import contextlib
+
+    from pygmu2_tpu_torch.ops import linrec_kernel
+    from pygmu2_tpu_torch.soundfont import synthesizer
+
+    @contextlib.contextmanager
+    def ctx():
+        with monkeypatch.context() as m:
+            m.setattr(synthesizer, "affine_scan_2_kernel",
+                      linrec_kernel.affine_scan_2_chunked_ref)
+            yield
+
+    return ctx
+
+
+def test_block_engine_scan_once_a_block(cuda, plain_scan):
+    """render_midi_schedule launches the scan kernel once a block and
+    matches the same render through the scan's plain version on the card."""
+    from pygmu2_tpu_torch.ops import linrec_kernel
+
+    seconds = 0.2
+    synth, midi = bench_workload.build_workload(False, device=cuda)
+    n_blocks = int(np.ceil(seconds * 44100 / synth.block_size))
+    before = linrec_kernel.affine_scan_2_kernel.launches
+    got = synth.render_midi_schedule(midi, seconds)
+    assert linrec_kernel.affine_scan_2_kernel.launches == before + n_blocks
+    with plain_scan():
+        ref = synth.render_midi_schedule(midi, seconds)
+    assert np.isfinite(got).all() and np.abs(ref).max() > 0.1
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)
+
+
+def test_sequencer_matches_plain_on_card(cuda, plain_scan):
+    """MidiFileSequencer.render in uneven counts on the card against the
+    same render through the scan's plain version."""
+    from pygmu2_tpu_torch.soundfont import MidiFileSequencer
+
+    def render():
+        synth, midi = bench_workload.build_workload(False, device=cuda)
+        seq = MidiFileSequencer(synth)
+        seq.play(midi)
+        left, right = np.zeros(8192, np.float32), np.zeros(8192, np.float32)
+        at = 0
+        for n in (1000, 4096, 3096):
+            seq.render(left, right, at, n)
+            at += n
+        return np.stack([left, right], axis=1)
+
+    got = render()
+    with plain_scan():
+        ref = render()
+    assert np.isfinite(got).all() and np.abs(ref).max() > 0.1
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)

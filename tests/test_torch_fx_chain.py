@@ -19,10 +19,12 @@ line is ``fma(b2, x2, fma(b0, x0, b1·x1))``. Fed the JAX render's strings
 and centre, the two packages' band-passes are then equal bit for bit. The
 slew limiter's input ``MixPE(ConstantPE(300), GainPE(env, 2500))`` is one
 fused multiply-add in XLA's program, and the port's MixPE mirrors that
-contraction: the centre input equals the JAX render's bit for bit, and the
-chain stays within 1e-5 of the JAX render over the whole 0.4 s, the rest
-coming from the strings upstream (float32 roundings in other ops), raised
-by the band-pass and the compressor's makeup gain.
+contraction: the centre input equals the JAX render's bit for bit. The six
+strings take the JAX PE's blocked order (``ops/ks.ks_blocked_ref``: its
+allpass as XLA's GEMV sums it) and the follower's update is one fused
+multiply-add, so the strings, the follower and the slew limiter equal the
+JAX PEs bit for bit, and the chain stays within 2e-8 of the JAX render over
+the whole 0.4 s (3.73e-9: the compressor and the echo downstream).
 ``python tests/test_torch_fx_chain.py`` prints these numbers.
 """
 
@@ -52,6 +54,9 @@ HALF = 14 * BLOCK
 SECONDS = {"chain": 0.4, "bank": 18 * BLOCK / fx_workload.SR}
 # the stretches held to the JAX render, in seconds (see above)
 WINDOWS = {"chain": [(0.0, SECONDS["chain"])], "bank": [(0.0, SECONDS["bank"])]}
+# each render's bound beside the repo's 1e-4: about five times its observed
+# maximum (chain 3.73e-9, bank 1.79e-7)
+TIGHT = {"chain": 2e-8, "bank": 1e-6}
 
 
 @pytest.fixture(autouse=True)
@@ -104,6 +109,7 @@ def test_workload_matches_jax(workload):
     for a, b in WINDOWS[which]:
         span = slice(int(round(a * fx_workload.SR)), int(round(b * fx_workload.SR)))
         _close(got[span], want[span], 1e-4)
+        _close(got[span], want[span], TIGHT[which])
     # the port's snapshot has the JAX package's layout, leaf for leaf
     assert _layout(tpg.checkpoint_state(graph)) == _layout(snap)
 
@@ -175,11 +181,12 @@ def _string(i):
 
 
 UPSTREAM = {
-    **{f"string {f} Hz": (_string(i), 2e-6)  # observed <= 7.64e-7 (196 Hz)
+    # bit for bit (before the blocked order was mirrored: <= 7.64e-7)
+    **{f"string {f} Hz": (_string(i), 0.0)
        for i, f in enumerate(fx_workload.STRINGS)},
-    # observed 1.49e-8
+    # bit for bit (before the update was one fused multiply-add: 1.49e-8)
     "EnvelopePE": (lambda pg, up: pg.EnvelopePE(pg.ArrayPE(up["src"].copy()), attack=0.005,
-                                                release=0.08), 1e-7),
+                                                release=0.08), 0.0),
     # bit for bit
     "SlewLimiterPE": (lambda pg, up: pg.SlewLimiterPE(pg.ArrayPE(up["centre_in"].copy()),
                                                       40000.0, 8000.0), 0.0),
@@ -192,6 +199,19 @@ def test_upstream_pe_matches_jax_on_jax_input(upstream, name):
     want, got = _render_jax(build(jpg, upstream)), _render_port(build(tpg, upstream))
     assert np.abs(want).max() > 1e-3
     _close(got, want, atol)
+
+
+def test_strings_and_follower_equal_jax_pes(upstream):
+    """On the port's own inputs (not the JAX render's), the six strings'
+    sum gated and the follower's envelope equal the JAX render's bit for
+    bit: nothing upstream of the wah differs any more."""
+    pg = tpg
+    strings = pg.MixPE(*(pg.KarplusStrongPE(f, rho=0.9995, seed=i)
+                         for i, f in enumerate(fx_workload.STRINGS)))
+    src = pg.GainPE(strings, pg.PeriodicGate(2.0, 0.45))
+    np.testing.assert_array_equal(_render_port(src), upstream["src"])
+    env = pg.EnvelopePE(src, attack=0.005, release=0.08)
+    np.testing.assert_array_equal(_render_port(env), upstream["env"])
 
 
 def test_centre_input_is_one_fused_multiply_add(upstream):
@@ -212,11 +232,10 @@ def test_chain_on_jax_envelope_matches_jax(upstream):
     """The port's chain with the follower's envelope taken from the JAX
     render, the centre input formed by the port's MixPE and GainPE (equal to
     the JAX centre input bit for bit, above), stays within 1e-5 of the JAX
-    render over the whole 0.4 s (observed 4.30e-6; 8.03e-5 with the product
-    and the sum rounded apart). With its own envelope the chain differs by
-    9.63e-5: the strings differ from the JAX render's from their first
-    samples (<= 7.64e-7), the envelope follows (1.27e-7), and the centre's
-    gain of 2500 carries that into the band-pass (ROADMAP queue 3)."""
+    render over the whole 0.4 s (observed 3.73e-9; 8.03e-5 with the product
+    and the sum rounded apart). With its own envelope the chain differed by
+    9.63e-5 until the strings' blocked order and the follower's fused
+    multiply-add were mirrored; it now holds 3.73e-9 too."""
     want = _jax_render("chain")[1]
     pg = tpg
     centre_in = pg.MixPE(pg.ConstantPE(300.0),
@@ -227,11 +246,11 @@ def test_chain_on_jax_envelope_matches_jax(upstream):
 
 
 def test_chain_on_jax_centre_input_matches_jax(upstream):
-    """The chain's residual was that one rounding: the port's chain with the
-    slew limiter fed the JAX centre input stays within 1e-5 of the JAX
-    render over the whole 0.4 s (observed 4.30e-6 at sample 365; with its
-    own centre input before the MixPE mirrored the contraction, 8.03e-5 at
-    sample 5135)."""
+    """The port's chain with the slew limiter fed the JAX centre input stays
+    within 1e-5 of the JAX render over the whole 0.4 s (observed 3.73e-9 at
+    sample 16931; 4.30e-6 before the strings and the follower were
+    mirrored; with its own centre input before the MixPE mirrored the
+    contraction, 8.03e-5 at sample 5135)."""
     want = _jax_render("chain")[1]
     got = np.asarray(tpg.render_to_array(_chain_on_centre_input(upstream["centre_in"]),
                                          block=BLOCK, device="cpu"))

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from pygmu2_tpu.ops.envelope_pallas import envelope_ar_scan_ref as jax_envelope_ref
+from pygmu2_tpu.ops.ks_block import ks_blocked as jax_ks_blocked
 from pygmu2_tpu.ops.ks_pallas import ks_scan_ref as jax_ks_ref
 from pygmu2_tpu.ops.reverse_echo_pallas import reverse_echo_scan_ref as jax_echo_ref
 from pygmu2_tpu.ops.slew_pallas import slew_scan_ref as jax_slew_ref
@@ -129,6 +130,53 @@ def test_ks_state_handoff_matches_one_call(L):
     _equal(*_handoff(ks.ks_scan, 2, args, 400, dict(L=L, allpass_c=0.6)))
 
 
+# the blocked order (every sample active, L >= 16; the JAX KarplusStrongPE's
+# ops/ks_block.ks_blocked): B = min(L - 1, 512) with every remainder mod 8
+# of B's rows and columns, calls shorter than B and than L, a read head
+# inside the string
+KS_BLOCKED_CASES = [(16, 100, 5), (133, 1500, 0), (178, 700, 9), (300, 1024, 299),
+                    (400, 900, 1), (535, 2000, 17), (600, 300, 4)]
+
+
+@pytest.mark.parametrize("L, T, r", KS_BLOCKED_CASES)
+def test_ks_blocked_equals_jax_bit_for_bit(L, T, r):
+    """The plain version of the blocked order equals the JAX package's
+    ``ks_blocked`` on the CPU bit for bit: the allpass's matrix-vector
+    product in the order of XLA's GEMV (``ks.xla_gemv``) and its fused
+    multiply-adds where XLA's program fuses."""
+    rng = np.random.default_rng(L + T)
+    rho = rng.uniform(0.95, 0.999, T).astype(np.float32)
+    buf = rng.standard_normal(L).astype(np.float32)
+    kw = dict(L=L, allpass_c=0.35)
+    want = jax_ks_blocked(jnp.asarray(rho), jnp.asarray(buf), jnp.int32(r),
+                          jnp.float32(0.1), jnp.float32(-0.2), **kw)
+    got = ks.ks_scan(_t(rho), torch.ones(T, dtype=torch.bool), _t(buf),
+                     torch.tensor(r, dtype=torch.int32), torch.tensor(0.1),
+                     torch.tensor(-0.2), all_active=True, **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_ks_blocked_diagonals_are_the_matrix():
+    """The card kernel reads ``TRIL``'s first column as every diagonal: the
+    matrix is Toeplitz, and ``(-c)^(j+1)`` continues the column."""
+    B, tril, powv = ks.blocked_tables(535, 0.35)
+    jk = np.arange(B)[:, None] - np.arange(B)[None, :]
+    np.testing.assert_array_equal(tril, np.where(jk >= 0, tril[np.clip(jk, 0, None), 0], 0.0))
+    np.testing.assert_array_equal(powv[:-1], tril[1:, 0])
+
+
+@pytest.mark.parametrize("L", [7, 171])
+def test_ks_scan_all_active_takes_the_blocked_order_from_16(L):
+    rho, _act, buf = _ks_inputs(600, L, seed=L)
+    args = (_t(rho), torch.ones(600, dtype=torch.bool), _t(buf),
+            torch.tensor(2, dtype=torch.int32), torch.tensor(0.0), torch.tensor(0.0))
+    kw = dict(L=L, allpass_c=0.6)
+    want = (ks.ks_blocked_ref(*args[:1], *args[2:], **kw) if L >= ks.BLOCKED_MIN_L
+            else ks.ks_scan_ref(*args, **kw))
+    _equal(ks.ks_scan(*args, all_active=True, **kw), want)
+
+
 # ---- envelope follower ---------------------------------------------------
 
 
@@ -153,6 +201,20 @@ def test_envelope_plain_matches_jax(T, C):
     got = envelope.envelope_ar_scan(_t(x), _t(env0), **ENV_KW)
     _close(got[0], want[0], 1e-5)
     _close(got[1], want[1], 1e-5)
+
+
+@pytest.mark.parametrize("C", [1, 3])
+def test_envelope_plain_equals_jax_bit_for_bit(C):
+    """The update is one fused multiply-add, as XLA's program on the CPU
+    forms it: the plain version equals the JAX reference bit for bit."""
+    x = _rectified(1500, C, seed=C)
+    env0 = np.linspace(0.0, 0.3, C).astype(np.float32)
+    want = jax.jit(jax_envelope_ref, static_argnames=("atk", "rel"))(
+        jnp.asarray(x), jnp.asarray(env0), **ENV_KW
+    )
+    got = envelope.envelope_ar_scan(_t(x), _t(env0), **ENV_KW)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
 
 
 def test_envelope_state_handoff_matches_one_call():

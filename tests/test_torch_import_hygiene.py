@@ -124,3 +124,30 @@ def test_cpu_filter_bank_and_high_score_launch_no_kernel():
     assert [fn.launches for fn in counters] == before
     if not torch.cuda.is_available():
         assert before == [0, 0]
+
+
+def test_cpu_streaming_synth_launches_no_kernel():
+    from pygmu2_tpu_torch.ops import linrec_kernel
+    from pygmu2_tpu_torch.soundfont import SoundFont, Synthesizer, SynthesizerSettings
+
+    before = linrec_kernel.affine_scan_2_kernel.launches
+    synth = Synthesizer(SoundFont(bench_workload.build_font_bytes(False)),
+                        SynthesizerSettings(block_size=256, maximum_polyphony=8), device="cpu")
+    synth.note_on(0, 60, 100)
+    out = synth.render_stereo(1000)
+    assert out.shape == (1000, 2) and abs(out).max() > 0.01
+    assert linrec_kernel.affine_scan_2_kernel.launches == before
+
+
+def test_streaming_synth_on_a_missing_card_raises():
+    """No fallback: a synthesizer on the card (the default) where there is
+    none fails at its first block; it does not render on the CPU."""
+    from pygmu2_tpu_torch.soundfont import SoundFont, Synthesizer, SynthesizerSettings
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    synth = Synthesizer(SoundFont(bench_workload.build_font_bytes(False)),
+                        SynthesizerSettings(block_size=256, maximum_polyphony=8))
+    synth.note_on(0, 60, 100)
+    with pytest.raises((RuntimeError, AssertionError)):
+        synth.render_stereo(256)

@@ -72,7 +72,14 @@ def test_sequencer_render_to_array(renders):
     got = seq.render_to_array(SECONDS, device="cpu")
     np.testing.assert_array_equal(got, port_f32)
     np.testing.assert_allclose(got, jax_f32, rtol=0, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="streaming synth"):
-        seq.render(np.zeros(8, np.float32), np.zeros(8, np.float32))
+    # the streaming render (the synthesizer's engine on its device) follows
+    # the same score: its first two blocks against the one-pass render
+    stream_synth, stream_midi = bench_workload.build_workload(_large, device="cpu")
+    stream = MidiFileSequencer(stream_synth)
+    stream.play(stream_midi)
+    left, right = np.zeros(2048, np.float32), np.zeros(2048, np.float32)
+    stream.render(left, right)
+    np.testing.assert_allclose(np.stack([left, right], axis=1), port_f32[:2048], rtol=0,
+                               atol=1e-4)
     seq.stop()
     assert not seq.render_to_array(0.01, device="cpu").any()

@@ -112,14 +112,41 @@ Drives the port's main paths through their user entry points:
    device busy time and idle share. Then a MeltysynthPE fed by
    ``MidiInPE.feed`` (a chord) at block 64 for 1 s through
    ``render_to_array(device="cuda")``: the scan once a synth block, against
-   the plain version within 1e-4, realtime.
+   the plain version within 1e-4, realtime;
+13. the studio workload (``pygmu2_tpu_torch/studio_workload.py``): 60 s of
+   stereo at block 16384 (2,646,000 frames, 162 blocks) through
+   ``render_to_array`` into a WavWriterPE, over files made from a seed in
+   ``build/smoke/studio/`` while the kernels build (a 30 s WAV recording,
+   its FLAC copy, a 2 s impulse response): a tape (TimeWarpPE under a ControlPE over a
+   crossfaded LoopPE), 32 faded FLAC slices sequenced behind a fractional
+   DelayPE, a WavetablePE drone, brown noise following the loop's RMS
+   (WindowPE), a TralfamPE stretch, a CompressorPE (the follower kernel,
+   once a block: 162 launches) and a ReverbPE (cuFFT). The file must equal
+   the render bit for bit with exactly its frames; each of the main
+   path's 162 follower launches must match the plain follower on the card
+   on that launch's inputs and carried state (all in one plain loop, the
+   launches side by side as channels), and the first 0.5 s of the graph
+   its render with the plain follower, within 1e-4 (the whole 60 s
+   through the plain per-sample loop would take minutes); the graph at
+   2 s the port's CPU render within 1e-4; the tape's live controls through
+   ``Program.run`` (a rate change from the next block on and not before, a
+   seek, a write landing between a block's render and its scatter); and
+   ``render_functional`` must leave every PE's state as it was and equal
+   the main path's render (a ``render_scan`` from reset state) bit for
+   bit. Realtime (median of 3 after a warm-up), and one traced render of
+   the first 16 blocks: device ops a block, idle share, the largest device
+   items.
+
+``python3 chip_smoke.py 13`` runs phases 1, 2 and 13 only (no kernels line).
 
 Prints a JSON line of per-kernel results, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, before any result, on
 any failure or where no CUDA device is present. Imports no JAX.
 """
 
+import concurrent.futures
 import contextlib
+import functools
 import json
 import statistics
 import subprocess
@@ -194,6 +221,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(2)
+    only_studio = sys.argv[1:] == ["13"]
     from pygmu2_tpu_torch import _ext, bench_workload
     from pygmu2_tpu_torch.soundfont import MidiFile
     from pygmu2_tpu_torch.soundfont import filter_kernels as fk
@@ -221,9 +249,20 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     # ---- 2. build ----
+    # the studio's files are made, and its FLAC copy decoded, on the host
+    # while nvcc builds; the phases after wait for both
     t0 = time.perf_counter()
-    _ext.load()
-    print(f"kernel build+load: {time.perf_counter() - t0:.2f} s")
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        setup = pool.submit(studio_setup)
+        _ext.load()
+        print(f"kernel build+load: {time.perf_counter() - t0:.2f} s")
+        studio_inputs = setup.result()
+    print(f"the studio's files made and the FLAC decoded: {studio_inputs[2]:.2f} s, "
+          f"{time.perf_counter() - t0:.2f} s with the build")
+    if only_studio:
+        studio(dev, card, studio_inputs)
+        print_ok()
+        return
 
     # ---- 3. kernel vs plain at the main path's shapes ----
     def bench_rows(large: bool, seconds: float):
@@ -391,12 +430,17 @@ def main() -> None:
     pe_launches.update(high_score(dev, card, device_ms))
     stream = streaming_synth(dev, card)
     pe_launches["affine_scan_2"] += stream["affine_scan_2"]
+    pe_launches["envelope_ar_scan"] += studio(dev, card, studio_inputs)["envelope_ar_scan"]
     osc_entries[0]["launches"] += stream["osc_filter_gain_mix"]  # the small font's
     entries = list(osc_entries)
     for name, info in serial.items():
         entries.append({"name": name, "route": "cuda", **info,
                         "launches": pe_launches[name], "library_ms": None})
     print(json.dumps({"kernels": entries}))
+    print_ok()
+
+
+def print_ok() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
@@ -1495,32 +1539,9 @@ def streaming_synth(dev, card) -> dict:
               f"({', '.join(f'{w * 1e3:.1f}' for w in walls)} ms) [{card}]")
 
     # the block engine's device ops and busy time, one traced render
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    for attempt in range(PROFILER_SESSIONS):  # sessions may come back empty
-        synth, midi = bench_workload.build_workload(False, device=dev)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            schedule(synth, midi)
-            torch.cuda.synchronize()
-        traced_wall = time.perf_counter() - t
-        dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if dev_events:
-            break
-        print(f"render_midi_schedule traced: session {attempt + 1} traced no device event")
-    if dev_events:
-        busy = sum((e.time_range.end - e.time_range.start) for e in dev_events) / 1e3
-        scan_ms = sum((e.time_range.end - e.time_range.start) for e in dev_events
-                      if "affine" in e.name or "scan" in e.name) / 1e3
-        print(f"render_midi_schedule traced: {len(dev_events)} device ops "
-              f"({len(dev_events) / n_blocks:.1f} a block), device busy {busy:.3f} ms of "
-              f"{traced_wall * 1e3:.1f} ms wall (idle share "
-              f"{1 - busy / (traced_wall * 1e3):.3f}), the scan kernel {scan_ms:.3f} ms [{card}]")
-    else:
-        print("render_midi_schedule traced: device ops and idle share not measured "
-              f"(no session traced a device event) [{card}]")
+    traced_render(lambda: functools.partial(schedule, *bench_workload.build_workload(
+                      False, device=dev)),
+                  n_blocks, card, "render_midi_schedule", {"the scan kernel": ("affine", "scan")})
     t_one = []
     for _ in range(3):
         synth, midi = bench_workload.build_workload(False, device=dev)
@@ -1567,6 +1588,258 @@ def streaming_synth(dev, card) -> dict:
     print(f"MeltysynthPE + MidiInPE, block 64, 1 s, render_to_array: {n_live} scan launches; "
           f"max abs err vs plain {err:.3g}; realtime x{1.0 / wall:.2f} wall [{card}]")
     return launches
+
+
+STUDIO_S = 60.0
+STUDIO_CHECK_S = 0.5  # the whole graph against its plain-follower render
+STUDIO_CPU_S = 2.0  # against the port's CPU render
+STUDIO_TRACED_BLOCKS = 16  # a traced render's blocks (the profiler slows the host ~7x)
+
+
+def studio_setup():
+    """The studio's files (made with numpy from seed 0) and their readers,
+    the FLAC copy decoded; and the seconds that took on the host."""
+    from pathlib import Path
+
+    import pygmu2_tpu_torch as pg
+    from pygmu2_tpu_torch import studio_workload as sw
+
+    t = time.perf_counter()
+    files = sw.make_files(Path(__file__).resolve().parent / "build" / "smoke" / "studio", seed=0)
+    readers = sw.readers(pg, files)
+    readers["flac"].extent()  # the FLAC copy, decoded once on the host
+    return files, readers, time.perf_counter() - t
+
+
+def traced_render(prepare, n_blocks: int, card: str, label: str, groups: dict) -> None:
+    """One render under torch.profiler: device ops a block, busy time and
+    idle share, the device time of each of ``groups`` ({label: name
+    keys}) and the largest device items by name. ``prepare()``, called
+    outside the trace, returns the render's callable. A session that traced
+    no device event is run again, up to ``PROFILER_SESSIONS`` in all; where
+    none did, the render's device time by CUDA events behind a busy stream
+    (an upper bound: it also counts the card waiting on the host after each
+    of the render's host syncs)."""
+    from collections import defaultdict
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev_events = []
+    for attempt in range(PROFILER_SESSIONS):  # sessions may come back empty
+        render = prepare()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            render()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if dev_events:
+            break
+        print(f"{label} traced: session {attempt + 1} traced no device event")
+    if not dev_events:
+        ms = busy_stream_ms(lambda: prepare()(), reps=1)
+        print(f"{label} traced: device ops a block and idle share not measured (no session "
+              f"traced a device event); the render's device items by CUDA events behind a busy "
+              f"stream: {ms:.3f} ms [{card}]")
+        return
+    by_name = defaultdict(float)
+    for e in dev_events:
+        by_name[e.name] += (e.time_range.end - e.time_range.start) / 1e3
+    busy = sum(by_name.values())
+
+    def group(keys):
+        return sum(v for k, v in by_name.items() if any(key in k.lower() for key in keys))
+
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"{label} traced: {len(dev_events)} device ops ({len(dev_events) / n_blocks:.1f} a "
+          f"block), device busy {busy:.3f} ms of {wall * 1e3:.1f} ms wall (idle share "
+          f"{1 - busy / (wall * 1e3):.3f}); "
+          + ", ".join(f"{name} {group(keys):.3f} ms" for name, keys in groups.items())
+          + "; largest: " + ", ".join(f"{k[:50]} {v:.3f} ms" for k, v in top) + f" [{card}]")
+
+
+def studio(dev, card, inputs) -> dict:
+    """Phase 13: the studio workload, 60 s through ``render_to_array`` into
+    a WavWriterPE; the file, the plain follower, the CPU render, the tape's
+    live controls and ``render_functional``. ``inputs`` is what
+    :func:`studio_setup` returned. Returns the follower's launches on that
+    path."""
+    import types
+    from pathlib import Path
+
+    import pygmu2_tpu_torch as pg
+    from pygmu2_tpu_torch import studio_workload as sw
+    from pygmu2_tpu_torch.core import engine
+    from pygmu2_tpu_torch.core.extent import Extent
+    from pygmu2_tpu_torch.models import envelopes as envelope_pes
+    from pygmu2_tpu_torch.ops import envelope
+    from pygmu2_tpu_torch.utils import wavio
+
+    t0 = time.perf_counter()
+    files, readers, _ = inputs
+    follower = envelope.envelope_ar_scan
+    total = int(round(STUDIO_S * SR))
+    n_blocks = -(-total // BLOCK)
+    out_path = str(Path(files["src.wav"]).parent / "out.wav")
+    root, parts = sw.build_studio(pg, STUDIO_S, readers, out_path=out_path)
+    writer = parts["writer"]
+    calls = []
+
+    def recording(x, env0, *, atk, rel):
+        """The follower as the main path calls it, each call's inputs,
+        carried state and results copied on the card (no host sync)."""
+        y, final = follower(x, env0, atk=atk, rel=rel)
+        calls.append((x.clone(), env0.clone(), atk, rel, y.clone(), final.clone()))
+        return y, final
+
+    follower.launches = 0  # the main path's run starts here
+    envelope_pes._envelope = types.SimpleNamespace(envelope_ar_scan=recording)
+    try:
+        t = time.perf_counter()
+        out = pg.render_to_array(root, block=BLOCK, device=dev)
+        first_wall = time.perf_counter() - t
+    finally:
+        envelope_pes._envelope = envelope
+    launches = follower.launches
+    check(launches == n_blocks, f"studio: {launches} follower launches, expected {n_blocks}")
+    peak = float(np.abs(out).max())
+    check(out.shape == (total, 2) and np.isfinite(out).all() and peak > 0.05,
+          f"studio: not finite, silent or misshapen {out.shape}")
+    data, sr = wavio.read_wav(out_path)
+    check(writer.frames_written == total and sr == SR and np.array_equal(data, out),
+          f"studio: the file ({writer.frames_written} frames) is not the render")
+    print(f"studio: {total} frames, {n_blocks} blocks, {launches} follower launches, peak "
+          f"{peak:.3g}; the file equals the render bit for bit; first render "
+          f"{first_wall * 1e3:.1f} ms [{card}]")
+
+    # every follower launch of the main path against the plain follower on
+    # its own inputs and carried state: the launches are independent given
+    # those, so one plain loop runs them side by side as channels
+    check(len(calls) == launches, f"studio: {len(calls)} follower calls recorded")
+    err, plain_s, groups = 0.0, 0.0, {}
+    for call in calls:
+        groups.setdefault((call[0].shape[0], call[2], call[3]), []).append(call)
+    for (_, atk, rel), group in groups.items():
+        t = time.perf_counter()
+        y, final = envelope.envelope_ar_scan_ref(torch.cat([c[0] for c in group], 1),
+                                                 torch.cat([c[1] for c in group]),
+                                                 atk=atk, rel=rel)
+        torch.cuda.synchronize()
+        plain_s += time.perf_counter() - t
+        err = max(err, _err((y, final), (torch.cat([c[4] for c in group], 1),
+                                         torch.cat([c[5] for c in group]))))
+    check(err <= TOL, f"studio: the main path's follower launches vs plain {err}")
+    print(f"studio: all {len(calls)} follower launches of the main path against the plain "
+          f"follower on their inputs and carried state: max abs err {err:.3g} (the plain loop "
+          f"{plain_s:.1f} s)")
+
+    # the whole graph's first 0.5 s against its render with the plain follower
+    plain_graph, _ = sw.build_studio(pg, STUDIO_S, readers)
+    head = Extent(0, int(STUDIO_CHECK_S * SR))
+    got = pg.render_to_array(plain_graph, extent=head, block=BLOCK, device=dev)
+    with plain_versions([(envelope, "envelope_ar_scan")]):
+        ref = pg.render_to_array(plain_graph, extent=head, block=BLOCK, device=dev)
+    err = float(np.abs(got - ref).max())
+    check(err <= TOL, f"studio: first {STUDIO_CHECK_S} s, kernel vs plain {err}")
+    print(f"studio: first {STUDIO_CHECK_S} s, kernel vs plain follower max abs err {err:.3g}")
+
+    # the graph at 2 s: the card against the port's CPU render
+    short = [sw.build_studio(pg, STUDIO_CPU_S, readers)[0] for _ in range(2)]
+    on_card = pg.render_to_array(short[0], block=BLOCK, device=dev)
+    t = time.perf_counter()
+    on_cpu = pg.render_to_array(short[1], block=BLOCK, device="cpu")
+    cpu_s = time.perf_counter() - t
+    err = float(np.abs(on_card - on_cpu).max())
+    check(on_card.shape == on_cpu.shape and err <= TOL, f"studio at {STUDIO_CPU_S} s: card vs "
+          f"CPU {err}")
+    print(f"studio at {STUDIO_CPU_S} s: card vs the port's CPU render max abs err {err:.3g} "
+          f"(cuFFT against pocketfft; peak {np.abs(on_cpu).max():.3g}; the CPU render "
+          f"{cpu_s:.1f} s)")
+
+    # the tape's live controls, block by block through Program.run
+    _, live = sw.build_studio(pg, STUDIO_S, readers)
+    tape, rate, loop = live["tape"], live["rate"], live["loop"]
+    prog = engine.get_program(tape, BLOCK, dev)
+
+    def tape_at(position, value, starts):
+        """A second tape over the same loop, from ``position`` at ``value``."""
+        ref = pg.TimeWarpPE(loop, rate=pg.ControlPE(value), max_rate=2.0,
+                            interpolation=pg.InterpolationMode.CUBIC)
+        ref.seek(position)
+        ref_prog = engine.get_program(ref, BLOCK, dev)
+        return [ref_prog.run(s) for s in starts]
+
+    def sample_at(position):
+        return loop.render(int(position), 1, device=dev).data[0]
+
+    blocks = [prog.run(i * BLOCK) for i in range(3)]
+    rate.set_value(1.5)  # between blocks 2 and 3
+    blocks.append(prog.run(3 * BLOCK))
+    before = tape_at(0.0, 1.0, [i * BLOCK for i in range(3)])
+    after = tape_at(3.0 * BLOCK, 1.5, [3 * BLOCK])
+    check(all(torch.equal(a, b) for a, b in zip(blocks, before + after)),
+          "studio: the rate change did not apply from the next block on, or applied before")
+    check(tape.position == 3.0 * BLOCK + 1.5 * BLOCK, f"studio: tape at {tape.position}")
+    tape.seek(123456.0)
+    b = prog.run(4 * BLOCK)
+    check(np.array_equal(b[0].cpu().numpy(), sample_at(123456.0))
+          and tape.position == 123456.0 + 1.5 * BLOCK, "studio: the seek did not move the tape")
+    orig = prog._run
+
+    def render_then_write(start, states, bindings=None):  # lands mid-block
+        result = orig(start, states, bindings)
+        tape.seek(250000.0)
+        rate.set_value(0.75)
+        return result
+
+    prog._run = render_then_write
+    prog.run(5 * BLOCK)
+    prog._run = orig
+    check(tape.position == 250000.0 and float(rate._eng_state["user"]) == 0.75,
+          "studio: a write landing between a block's render and its scatter was lost")
+    b = prog.run(6 * BLOCK)
+    check(np.array_equal(b[0].cpu().numpy(), sample_at(250000.0))
+          and tape.position == 250000.0 + 0.75 * BLOCK,
+          "studio: the block after an in-flight write did not play it")
+    print("studio: live controls through Program.run: a rate change from the next block on "
+          "and not before, a seek, a write between a block's render and its scatter: all kept")
+
+    # render_functional: no PE state read or written; the blocks of the main
+    # path's render, a render_scan from reset state
+    functional, _ = sw.build_studio(pg, STUDIO_S, readers)
+    pg.render_to_array(functional, extent=Extent(0, 3 * BLOCK), block=BLOCK,
+                       device=dev)  # leaves state
+    walked = engine._walk(functional)
+    held = [pe._eng_state for pe in walked]
+    got = engine.render_functional(functional, 0, total, BLOCK, device=dev).cpu().numpy()
+    check(all(pe._eng_state is st for pe, st in zip(walked, held)),
+          "studio: render_functional touched a PE's state")
+    err = float(np.abs(got - out).max())
+    check(err == 0.0, f"studio: render_functional vs a fresh render_scan {err}")
+    print("studio: render_functional leaves every state as it was and equals the main "
+          f"path's render_scan from reset state bit for bit ({time.perf_counter() - t0:.1f} s "
+          "into the phase)")
+
+    # realtime: median of 3 after the warm-up (the main path's render)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pg.render_to_array(root, block=BLOCK, device=dev)
+        walls.append(time.perf_counter() - t)
+    wall = statistics.median(walls)
+    print(f"studio, {STUDIO_S:g} s stereo into a WAV file: realtime x{STUDIO_S / wall:.2f} wall, median "
+          f"of 3 ({', '.join(f'{w * 1e3:.1f}' for w in walls)} ms) [{card}]")
+    traced = Extent(0, STUDIO_TRACED_BLOCKS * BLOCK)
+    traced_render(lambda: functools.partial(pg.render_to_array, root, extent=traced,
+                                            block=BLOCK, device=dev),
+                  STUDIO_TRACED_BLOCKS, card, f"studio, its first {STUDIO_TRACED_BLOCKS} blocks,",
+                  {"cuFFT": ("fft",), "the follower kernel": ("envelope",),
+                   "downloads (the writer's taps and the render)": ("dtoh", "device -> pageable")})
+    print(f"studio: phase took {time.perf_counter() - t0:.1f} s")
+    return {"envelope_ar_scan": launches}
 
 
 if __name__ == "__main__":

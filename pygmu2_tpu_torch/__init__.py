@@ -20,7 +20,13 @@ The slices so far:
   dynamics family), SlewLimiterPE and ReversePitchEchoPE on hand-written
   CUDA kernels (``csrc/ks_scan.cu``, ``envelope_ar_scan.cu``,
   ``slew_scan.cu``, ``reverse_echo_scan.cu``), with the holds, CachePE,
-  BiquadPE and SVFilterPE in plain tensor ops.
+  BiquadPE and SVFilterPE in plain tensor ops;
+- the engine's live half and the PEs that need it: block hooks
+  (WavWriterPE, with WavReaderPE and AudioReaderPE), live-control writes
+  (ControlPE, TimeWarpPE.seek), the host prelude (TralfamPE, ReverbPE's
+  IR energy) and ``render_functional``; with them WavetablePE, WindowPE,
+  DelayPE, LoopPE, SlicePE, SequencePE, NoisePE and ConvolvePE/ReverbPE
+  (``torch.fft``), all in plain tensor ops.
 
 Every public render function takes an explicit ``device`` (default
 ``"cuda"``); CPU tensors run the kernels' plain PyTorch versions.
@@ -36,6 +42,7 @@ from pygmu2_tpu_torch.core.config import (
 )
 from pygmu2_tpu_torch.core.engine import (
     checkpoint_state,
+    render_functional,
     render_scan,
     reset_graph_states,
     restore_state,
@@ -60,6 +67,8 @@ from pygmu2_tpu_torch.models.basic import (
     ParamPE,
     TransformPE,
 )
+from pygmu2_tpu_torch.models.convolve import ConvolvePE, ReverbPE
+from pygmu2_tpu_torch.models.delay import DelayPE
 from pygmu2_tpu_torch.models.dynamics import (
     CompressorPE,
     DynamicsPE,
@@ -74,20 +83,36 @@ from pygmu2_tpu_torch.models.gates import (
     PeriodicTrigger,
     TriggerSignal,
 )
-from pygmu2_tpu_torch.models.holds import CachePE, SampleHoldPE, SlewLimiterPE, TrackHoldPE
+from pygmu2_tpu_torch.models.holds import (
+    CachePE,
+    ControlPE,
+    SampleHoldPE,
+    SlewLimiterPE,
+    TrackHoldPE,
+)
+from pygmu2_tpu_torch.models.io_pes import AudioReaderPE, WavReaderPE, WavWriterPE
+from pygmu2_tpu_torch.models.lookup import TimeWarpPE, WavetablePE, WindowPE
+from pygmu2_tpu_torch.models.loop_slice import LoopPE, SequencePE, SlicePE
 from pygmu2_tpu_torch.models.meltysynth_pe import MeltysynthPE
 from pygmu2_tpu_torch.models.midi_in import MidiInPE
 from pygmu2_tpu_torch.models.modes import (
     BiquadMode,
     DetectionMode,
     DynamicsMode,
+    InterpolationMode,
     LadderMode,
+    NoiseMode,
+    OutOfBoundsMode,
+    SequenceMode,
     SlewMode,
+    WindowMode,
 )
+from pygmu2_tpu_torch.models.noise import NoisePE
 from pygmu2_tpu_torch.models.osc_bandlimited import BlitSawPE
 from pygmu2_tpu_torch.models.oscillators import FunctionGenPE, SinePE
 from pygmu2_tpu_torch.models.physical import CombPE, KarplusStrongPE, LadderPE, rho_for_decay_db
 from pygmu2_tpu_torch.models.reverse_echo import ReversePitchEchoPE
+from pygmu2_tpu_torch.models.tralfam import TralfamPE
 from pygmu2_tpu_torch.models.window import CropPE, SetExtentPE
 from pygmu2_tpu_torch.soundfont import (
     MidiFile,
@@ -127,6 +152,7 @@ __all__ = [
     "ProfileReport",
     "Snippet",
     "checkpoint_state",
+    "render_functional",
     "render_scan",
     "reset_graph_states",
     "restore_state",
@@ -175,6 +201,26 @@ __all__ = [
     "ReversePitchEchoPE",
     "MeltysynthPE",
     "MidiInPE",
+    "ControlPE",
+    "WavReaderPE",
+    "AudioReaderPE",
+    "WavWriterPE",
+    "WavetablePE",
+    "TimeWarpPE",
+    "WindowPE",
+    "InterpolationMode",
+    "OutOfBoundsMode",
+    "WindowMode",
+    "DelayPE",
+    "LoopPE",
+    "SlicePE",
+    "SequencePE",
+    "SequenceMode",
+    "NoisePE",
+    "NoiseMode",
+    "TralfamPE",
+    "ConvolvePE",
+    "ReverbPE",
     # the SoundFont renders, offline and streaming
     "MidiFile",
     "MidiFileSequencer",

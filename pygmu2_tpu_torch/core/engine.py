@@ -21,7 +21,20 @@ package's traced-start branches collapse into its static ones.
 ``render_scan`` renders a timeline as a Python loop over fixed blocks that
 threads the state dict, then leaves the final state on the PE instances
 (``checkpoint_state`` / ``restore_state`` save and load it, in the JAX
-package's format).
+package's format). ``render_functional`` renders from fresh state and
+leaves the instances alone.
+
+Besides rendering, a ``Program`` serves three kinds of PE:
+
+* a PE with ``_prepare_host(device)`` builds a host-side cache once, when
+  the program is made (TralfamPE's spectral scramble);
+* a PE with ``_eng_version`` takes live writes between blocks
+  (``ControlPE.set_value``, ``TimeWarpPE.seek``): a write that lands
+  while a block renders survives the block's state scatter;
+* a PE with ``_eng_on_block`` (WavWriterPE) publishes each block through
+  its state payload, handed to the hook after the block
+  (``Program.run``) or, in ``render_scan``, all together after the last
+  block, in one download.
 """
 
 from __future__ import annotations
@@ -372,6 +385,12 @@ class Program:
         self._state_nodes: list = []
         self._walked = _walk(root)
         self._uses = collections.Counter(id(inp) for pe in self._walked for inp in pe.inputs())
+        # Host prelude: PEs build host-side caches once, before the first
+        # block (TralfamPE renders its whole source here, on this device).
+        for pe in self._walked:
+            prep = getattr(pe, "_prepare_host", None)
+            if prep is not None:
+                prep(self.device)
 
     def uses(self, pe) -> int:
         """How many inputs of the graph's nodes are ``pe`` (its consumers,
@@ -389,15 +408,51 @@ class Program:
             self._state_nodes.append(pe)
 
     def run(self, start: int):
-        """Render one block at ``start``, threading instance-held state."""
-        out, new_states = self._run(int(start), _gather_states(self.root))
-        _scatter_states(self.root, new_states)
+        """Render one block at ``start``, threading instance-held state.
+
+        Live-control writes win: a thread-safe state write that lands
+        while the block renders (``ControlPE.set_value``,
+        ``TimeWarpPE.seek``; they bump the PE's ``_eng_version``) is not
+        overwritten by the scatter after the block: the PE keeps its live
+        payload and takes only the timeline cursor (``next``) from the
+        render, so the write plays from the next contiguous block.
+        """
+        versions = [getattr(pe, "_eng_version", 0) for pe in self._walked]
+        states = _gather_states(self.root)
+        out, new_states = self._run(int(start), states)
+        for pe, ver in zip(self._walked, versions):
+            key = f"pe{pe._uid}"
+            if key not in new_states:
+                continue
+            if getattr(pe, "_eng_version", 0) != ver:
+                live = getattr(pe, "_eng_live_state", None)
+                cur = pe._eng_state
+                # on the block's device: a write before the PE's first state
+                # must not leave a host tensor for the next block to upload
+                user = live(new_states[key]["user"].device) if live is not None else (
+                    cur["user"] if cur is not None else new_states[key]["user"]
+                )
+                pe._eng_state = {"user": user, "next": new_states[key]["next"]}
+            else:
+                pe._eng_state = new_states[key]
+        self._fire_block_hooks(states, new_states)
         return out
 
     def run_static(self, start: int):
         """Same as :meth:`run`: in eager PyTorch every start is static, so
         the JAX package's per-start retrace has nothing to add."""
         return self.run(start)
+
+    def _fire_block_hooks(self, before: dict | None, after: dict) -> None:
+        """Hand each side-effect PE (``_eng_on_block``: WavWriterPE) the
+        payload it published in the block just rendered. A PE pruned from
+        the block published nothing: its carried payload is not handed
+        over again."""
+        for pe in self._walked:
+            hook = getattr(pe, "_eng_on_block", None)
+            key = f"pe{pe._uid}"
+            if hook is not None and key in after and after[key] is not (before or {}).get(key):
+                hook(after[key]["user"])
 
 
 def _walk(root) -> list:
@@ -451,6 +506,28 @@ def get_program(root, duration: int, device="cuda") -> Program:
     return prog
 
 
+def _render_blocks(prog, start: int, total: int, states, bindings, taps=None):
+    """Render ``[start, start+total)`` in blocks of ``prog.duration`` from
+    ``states``. Returns (the (total, C) output, the final states). With
+    ``taps`` (a dict of side-effect PE keys to lists), each block's newly
+    published payload is appended, its rows past the render's end (the
+    last block's padding) cut off."""
+    block = prog.duration
+    outs = []
+    for i in range(-(-total // block)):
+        out, new_states = prog._run(start + i * block, states, bindings)
+        for key, got in (taps or {}).items():
+            st = new_states.get(key)
+            if st is not None and st is not (states or {}).get(key):
+                n = st["user"].shape[0]  # the payload ends at the cursor
+                keep = min(n, start + total - (st["next"] - n))
+                if keep > 0:
+                    got.append(st["user"][:keep])
+        outs.append(out)
+        states = new_states
+    return torch.cat(outs)[:total], states
+
+
 def render_scan(root, start: int, total: int, block: int, bindings=None, *,
                 device="cuda"):
     """Render ``[start, start+total)`` over fixed blocks of ``block`` samples.
@@ -458,20 +535,55 @@ def render_scan(root, start: int, total: int, block: int, bindings=None, *,
     Returns a ``(total, C)`` float32 tensor on ``device``; the state after
     the last block stays on the PE instances. ``bindings`` maps
     :class:`~pygmu2_tpu_torch.models.basic.ParamPE` names to values.
+
+    Side-effect PEs (``_eng_on_block``: WavWriterPE) get every block's
+    payload, in block order, after the last block: the payloads stay on
+    the device during the loop and come down in one copy per PE, so a
+    graph with a writer syncs the host no more often than one without.
     """
     device = torch.device(device)
     if total <= 0:
         return torch.zeros((0, root.channel_count() or 1), dtype=prec.AUDIO, device=device)
     block = int(min(block, total))
-    n_blocks = -(-total // block)
     prog = get_program(root, block, device)
-    states = _gather_states(root)
-    outs = []
-    for i in range(n_blocks):
-        out, states = prog._run(start + i * block, states, bindings)
-        outs.append(out)
+    writers = [pe for pe in prog._walked if hasattr(pe, "_eng_on_block")]
+    taps = {f"pe{pe._uid}": [] for pe in writers}
+    out, states = _render_blocks(prog, start, total, _gather_states(root), bindings, taps)
     _scatter_states(root, states)
-    return torch.cat(outs)[:total]
+    for pe in writers:
+        parts = taps[f"pe{pe._uid}"]
+        if parts:
+            host = torch.cat(parts).cpu()  # the writer's one download
+            for part in host.split([p.shape[0] for p in parts]):
+                pe._eng_on_block(part)
+    return out
+
+
+def render_functional(root, start: int, total: int, block: int, bindings=None, *,
+                      device="cuda"):
+    """Render ``[start, start+total)`` from fresh state, as ``render_scan``
+    renders it from a reset graph, reading and writing no PE's carried
+    state and firing no block hook.
+
+    ``bindings`` maps ParamPE names to values: a parameter sweep renders
+    the same graph again and again without touching it. (Making the PE
+    instances' state private to the call is what the JAX package needs
+    for ``jax.grad``; gradients through the port's kernels are not
+    wired yet.)
+    """
+    device = torch.device(device)
+    if total <= 0:
+        return torch.zeros((0, root.channel_count() or 1), dtype=prec.AUDIO, device=device)
+    block = int(min(block, total))
+    # the program's host prelude may render a subgraph through the instances
+    # (TralfamPE's source): put their states back as they were
+    walked = _walk(root)
+    held = [pe._eng_state for pe in walked]
+    prog = get_program(root, block, device)
+    for pe, st in zip(walked, held):
+        pe._eng_state = st
+    out, _ = _render_blocks(prog, start, total, None, bindings)
+    return out
 
 
 # ---- checkpoint / resume -------------------------------------------------

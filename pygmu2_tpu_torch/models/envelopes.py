@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from pygmu2_tpu_torch.core import prec
@@ -35,6 +36,7 @@ from pygmu2_tpu_torch.ops import adsr as _adsr
 from pygmu2_tpu_torch.ops import envelope as _envelope
 from pygmu2_tpu_torch.ops.linrec import affine_scan_1
 from pygmu2_tpu_torch.ops.phase import prefix_sum
+from pygmu2_tpu_torch.ops.xla_math import sqrtf
 
 # ADSR stage codes.
 _IDLE, _ATTACK, _DECAY, _SUSTAIN, _RELEASE = 0, 1, 2, 3, 4
@@ -113,8 +115,10 @@ class EnvelopePE(ProcessingElement):
         sq = x * x
         padded = torch.cat([sq[:1].expand(left, -1), sq, sq[-1:].expand(right, -1)])
         csum = torch.cat([torch.zeros_like(sq[:1]), prefix_sum(padded)])
-        mean = (csum[window:] - csum[:-window]) / window
-        return torch.sqrt(torch.clamp(mean, min=0.0))
+        # XLA divides by a constant as a product with its reciprocal, and
+        # its square root is correctly rounded
+        mean = (csum[window:] - csum[:-window]) * float(np.float32(1.0 / window))
+        return sqrtf(torch.clamp(mean, min=0.0))
 
     def _trace(self, ctx):
         sr = ctx.sample_rate

@@ -1,12 +1,14 @@
 """Latch and slew PEs, and CachePE.
 
-Counterpart of ``pygmu2_tpu.models.holds`` (ControlPE is not ported yet):
+Counterpart of ``pygmu2_tpu.models.holds``:
 - SampleHoldPE  (reference: src/pygmu2/sample_hold_pe.py:21) — latch the
   source on positive trigger events.
 - TrackHoldPE   (reference: src/pygmu2/track_hold_pe.py:21) — follow the
   source while gate=1, hold while 0.
 - SlewLimiterPE (reference: src/pygmu2/slew_limiter_pe.py:36) — rate
   limiter, LINEAR (clamped step) or EXPONENTIAL (asymmetric one-pole).
+- ControlPE     — a constant source whose value any thread may set
+  between blocks (a live control: its value rides in the carried state).
 - CachePE       (reference: src/pygmu2/cache_pe.py:21) — a pass-through
   marker: the engine's per-block memo renders a shared node once.
 
@@ -18,11 +20,13 @@ slew limiter's clamped or asymmetric update is serial: it runs in
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from pygmu2_tpu_torch.core import prec
 from pygmu2_tpu_torch.core.extent import Extent
-from pygmu2_tpu_torch.core.processing_element import ProcessingElement
+from pygmu2_tpu_torch.core.processing_element import ProcessingElement, SourcePE
 from pygmu2_tpu_torch.models.modes import SlewMode
 from pygmu2_tpu_torch.ops import slew as _slew
 
@@ -174,6 +178,71 @@ class SlewLimiterPE(ProcessingElement):
             f"SlewLimiterPE(rise_rate={self._rise_rate}, "
             f"fall_rate={self._fall_rate}, mode={self._mode.value})"
         )
+
+
+class ControlPE(SourcePE):
+    """Constant-valued source whose value is settable from any thread.
+
+    The live value rides in the carried state: ``set_value`` writes it
+    between blocks (thread-safe), and a write that lands while a block
+    renders is kept by ``Program.run`` (the PE's ``_eng_version``).
+    """
+
+    def __init__(self, initial_value: float = 0.0, channels: int = 1):
+        self._initial = float(initial_value)
+        self._pending = float(initial_value)
+        self._lock = threading.Lock()
+        self._channels = channels
+
+    def set_value(self, value: float) -> None:
+        """Thread-safe: takes effect on the next rendered block."""
+        with self._lock:
+            self._pending = float(value)
+            # version bump: an in-flight block's scatter must not overwrite
+            # this write (engine.Program.run)
+            self._eng_version = getattr(self, "_eng_version", 0) + 1
+            if self._eng_state is not None:
+                self._eng_state = {
+                    "user": self._value_on(self._eng_state["user"].device),
+                    "next": self._eng_state["next"],
+                }
+
+    @property
+    def value(self) -> float:
+        return self._pending
+
+    def _value_on(self, device) -> torch.Tensor:
+        # a fill on the device, not a host-to-card copy (which would sync)
+        return torch.full((), self._pending, dtype=torch.float32, device=device)
+
+    def _eng_live_state(self, device):
+        """Live payload for the engine's external-write-wins scatter
+        (engine.Program.run), on ``device``, the block's."""
+        with self._lock:
+            return self._value_on(device)
+
+    def is_pure(self) -> bool:
+        return False
+
+    def channel_count(self) -> int:
+        return self._channels
+
+    def _compute_extent(self) -> Extent:
+        return Extent(None, None)
+
+    def _trace(self, ctx):
+        with self._lock:
+            init = self._pending
+        val, _ = ctx.state(
+            self,
+            init=lambda: torch.full((), init, dtype=torch.float32, device=ctx.device),
+            reset_on_gap=False,
+        )
+        ctx.set_state(self, val)
+        return val.to(prec.AUDIO).expand(ctx.duration, self._channels).contiguous()
+
+    def __repr__(self) -> str:
+        return f"ControlPE(value={self._pending}, channels={self._channels})"
 
 
 class CachePE(ProcessingElement):

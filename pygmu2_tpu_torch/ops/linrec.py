@@ -1,8 +1,8 @@
 """Linear recurrence over time, in plain PyTorch.
 
 Counterparts of ``pygmu2_tpu.ops.linrec.affine_scan_1``,
-``affine_scan_2``, ``affine_scan_2_auto``, ``affine_scan_2_seg`` and
-``biquad_filter``. A
+``affine_scan_2``, ``affine_scan_2_auto``, ``affine_scan_2_seg``,
+``biquad_filter`` and ``clamp_accum_scan`` (a saturating accumulator). A
 (possibly time-varying) affine recurrence
 
     s[t] = A[t] @ s[t-1] + u[t]
@@ -240,3 +240,62 @@ def biquad_filter(x, b0, b1, b2, a1, a2, zi=None):
         "y": torch.stack([y[-1], y[-2] if T >= 2 else y_tail[0]]),
     }
     return y, zf
+
+
+def _associative_scan(combine, elems):
+    """Inclusive scan over dim 0 of a tuple of tensors, in the tree of
+    ``jax.lax.associative_scan`` (pairs reduced, the odd prefix scanned
+    recursively, the even elements combined from it, interleaved), so a
+    combine with rounding gives XLA's bits."""
+    n = elems[0].shape[0]
+    if n < 2:
+        return elems
+    reduced = combine(tuple(e[0:-1:2] for e in elems), tuple(e[1::2] for e in elems))
+    odd = _associative_scan(combine, reduced)
+    if n % 2 == 0:
+        even = combine(tuple(e[:-1] for e in odd), tuple(e[2::2] for e in elems))
+    else:
+        even = combine(odd, tuple(e[2::2] for e in elems))
+    even = tuple(torch.cat([e[:1], r]) for e, r in zip(elems, even))
+    out = []
+    for ev, od in zip(even, odd):
+        x = ev.new_empty((n, *ev.shape[1:]))
+        x[0::2] = ev
+        x[1::2] = od
+        out.append(x)
+    return tuple(out)
+
+
+def clamp_accum_scan(d, lo, hi, s0):
+    """Saturating accumulator ``y[t] = clamp(y[t-1] + d[t], lo, hi)``,
+    exactly, as an associative scan.
+
+    Counterpart of ``pygmu2_tpu.ops.linrec.clamp_accum_scan``. The step map
+    ``f(y) = clamp(y + s, L, H)`` is closed under composition:
+
+        clamp(clamp(y + s1, L1, H1) + s2, L2, H2)
+          = clamp(y + s1 + s2, clamp(L1 + s2, L2, H2),
+                               clamp(H1 + s2, L2, H2))
+
+    so the triples ``(s, L, H)`` scan associatively; the scan takes
+    ``jax.lax.associative_scan``'s tree, so its sums round as the JAX
+    package's do.
+
+    Args:
+        d: (T, ...) per-step increments.
+        lo / hi: scalar clamp bounds.
+        s0: (...) state before step 0.
+
+    Returns:
+        y: (T, ...) states after each step.
+    """
+
+    def combine(left, right):
+        s1, l1, h1 = left
+        s2, l2, h2 = right
+        return (s1 + s2,
+                torch.minimum(torch.maximum(l1 + s2, l2), h2),
+                torch.minimum(torch.maximum(h1 + s2, l2), h2))
+
+    S, L, H = _associative_scan(combine, (d, torch.full_like(d, lo), torch.full_like(d, hi)))
+    return torch.minimum(torch.maximum(s0 + S, L), H)

@@ -35,6 +35,7 @@ import math
 import numpy as np
 import torch
 
+from pygmu2_tpu_torch.ops.xla_math import mod as _mod
 from pygmu2_tpu_torch.soundfont import filter_kernels
 from pygmu2_tpu_torch.soundfont.convert import (
     _CH_F32,
@@ -125,14 +126,6 @@ def _mod_env(t, p, released, rel_t, rel_level):
         0.0,
     )
     return torch.where(released, rel, _mod_env_held(t, p))
-
-
-def _mod(a, b):
-    """``a mod b`` with the divisor's sign, exact as ``jnp.mod``: the
-    remainder of ``fmod`` (exact), moved by b where its sign differs
-    (``torch.remainder`` computes ``a - b * floor(a / b)``, which rounds)."""
-    r = torch.fmod(a, b)
-    return torch.where((r != 0) & ((r < 0) != (b < 0)), r + b, r)
 
 
 def _lfo(t, delay, period):

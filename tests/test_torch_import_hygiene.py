@@ -32,7 +32,10 @@ def test_port_imports_no_jax():
     for name in ("ops.ks", "ops.envelope", "ops.slew", "ops.reverse_echo",
                  "models.holds", "models.dynamics", "models.filters",
                  "models.reverse_echo", "fx_workload", "ops.linrec_kernel",
-                 "ops.xla_math", "filter_workload"):
+                 "ops.xla_math", "filter_workload", "ops.interp", "ops.noise",
+                 "ops.fftconv", "models.io_pes", "models.lookup", "models.delay",
+                 "models.loop_slice", "models.noise", "models.tralfam",
+                 "models.convolve", "utils.flacio", "studio_workload"):
         assert f"pygmu2_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"

@@ -18,7 +18,8 @@ Drives the port's main paths through their user entry points:
    back-to-back calls (these also count the wrapper's host enqueue);
 4. end to end, ``wire="int16"``: the 3 s chord through the small and the
    large font (``render_midi_offline``) and the 60 s piece through the
-   large font (``render_midi_offline_streamed``). Each must launch the
+   large font (``render_midi_offline_streamed``), and the chord through the
+   small font in four segments (``pipeline=4``, below). Each must launch the
    kernel, come out finite and not silent, and match the same render with
    the plain version on the card within 1e-4 (f32 wire). Realtime factors
    after warm-up, by wall clock and by CUDA events;
@@ -137,7 +138,40 @@ Drives the port's main paths through their user entry points:
    the first 16 blocks: device ops a block, idle share, the largest device
    items.
 
-``python3 chip_smoke.py 13`` runs phases 1, 2 and 13 only (no kernels line).
+14. the generative performance (``pygmu2_tpu_torch/perform_workload.py``):
+   60 s of stereo at block 16384 (2,646,000 frames, 162 blocks) through
+   ``render_to_array``: a PortamentoPE glide in just intonation into a
+   SuperSawPE and the ladder (cutoff a SMOOTH RandomPE), gated by the ADSR,
+   under the KEMAR HRTF; an AnalogOscPE bass with a PiecewisePE duty panned
+   by a WALK RandomPE; RandomSelectPE percussion under the HRTF; TriggerPE,
+   TriggerRestartPE and ResetPE accents panned by a held RandomPE. It must
+   be stereo, exactly 2,646,000 frames, finite and not silent, and launch
+   the ladder and the ADSR kernels once a block each (162). Each of those
+   launches is recorded on the card (inputs, carried state, results) and
+   held to the plain version on the same inputs, each kernel's 162
+   launches side by side as channels of one plain loop on the host. Under
+   the HRTF the lead restarts every block (ROADMAP queue 3), so every
+   launch enters from the initial state: the state the kernels carry from
+   block to block is held by phase 5's hand-offs and phase 6's renders.
+   Its first 0.5 s must match its render with the plain ladder and ADSR
+   (run on the host on the card's inputs), the graph at 1 s the port's CPU
+   render (made in a second process while the card renders), and the
+   first 2 s through ``AudioRenderer(blocksize=1024)`` on the card into an
+   in-script fake output stream ``render_to_array``'s frames, each within
+   1e-4; the renderer plays in chunks of 16 callbacks, BLOCK samples, and
+   the lead's restart makes the render depend on its block size, so that
+   check holds at this chunk only. Then, with the second process done, realtime
+   (median of 3 after a warm-up), the host syncs of 16 blocks
+   (``torch.cuda.set_sync_debug_mode``), and one traced render of the
+   first 16 blocks: device ops a block, idle share, the largest device
+   items.
+
+Phase 4 also renders the 3 s chord through the small font with
+``render_midi_offline(pipeline=4)``: four launches of the SoundFont kernel,
+equal to the one-pass render within 1e-6.
+
+``python3 chip_smoke.py 13`` runs phases 1, 2 and 13 only, ``python3
+chip_smoke.py 14`` phases 1, 2 and 14 only (no kernels line).
 
 Prints a JSON line of per-kernel results, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, before any result, on
@@ -148,10 +182,12 @@ import concurrent.futures
 import contextlib
 import functools
 import json
+import multiprocessing
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -222,6 +258,7 @@ def main() -> None:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(2)
     only_studio = sys.argv[1:] == ["13"]
+    only_perform = sys.argv[1:] == ["14"]
     from pygmu2_tpu_torch import _ext, bench_workload
     from pygmu2_tpu_torch.soundfont import MidiFile
     from pygmu2_tpu_torch.soundfont import filter_kernels as fk
@@ -253,14 +290,19 @@ def main() -> None:
     # while nvcc builds; the phases after wait for both
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        setup = pool.submit(studio_setup)
+        setup = None if only_perform else pool.submit(studio_setup)
         _ext.load()
         print(f"kernel build+load: {time.perf_counter() - t0:.2f} s")
-        studio_inputs = setup.result()
-    print(f"the studio's files made and the FLAC decoded: {studio_inputs[2]:.2f} s, "
-          f"{time.perf_counter() - t0:.2f} s with the build")
+        studio_inputs = None if only_perform else setup.result()
+    if studio_inputs is not None:
+        print(f"the studio's files made and the FLAC decoded: {studio_inputs[2]:.2f} s, "
+              f"{time.perf_counter() - t0:.2f} s with the build")
     if only_studio:
         studio(dev, card, studio_inputs)
+        print_ok()
+        return
+    if only_perform:
+        perform(dev, card)
         print_ok()
         return
 
@@ -421,6 +463,21 @@ def main() -> None:
         osc_entries.append(entry)
     check(sum(e["launches"] for e in osc_entries) == launches, "osc launches: split by font")
 
+    # the chord through the small font in four segments, the (4, P) state
+    # carried; each segment's download overlaps the next one's kernel
+    synth, midi = workload(False, 1)
+    one_pass = off.render_midi_offline(synth, midi, 3.0, pipeline=0, device=dev)
+    before = kernel.launches
+    piped = off.render_midi_offline(synth, midi, 3.0, pipeline=4, device=dev)
+    n_piped = kernel.launches - before
+    err = float(np.abs(piped - one_pass).max())
+    check(n_piped == 4, f"pipeline=4: {n_piped} kernel launches")
+    check(piped.shape == one_pass.shape and np.abs(one_pass).max() > 0.01 and err <= 1e-6,
+          f"pipeline=4 vs one pass {err}")
+    osc_entries[0]["launches"] += n_piped
+    print(f"3 s chord, small font, pipeline=4: {n_piped} kernel launches; max abs err vs the "
+          f"one-pass render {err:.3g}")
+
     serial = serial_kernels(dev, card, device_ms)
     pe_launches = pe_graph(dev, card)
     serial.update(fx_kernels(dev, card, device_ms))
@@ -431,6 +488,8 @@ def main() -> None:
     stream = streaming_synth(dev, card)
     pe_launches["affine_scan_2"] += stream["affine_scan_2"]
     pe_launches["envelope_ar_scan"] += studio(dev, card, studio_inputs)["envelope_ar_scan"]
+    for name, n in perform(dev, card).items():
+        pe_launches[name] += n
     osc_entries[0]["launches"] += stream["osc_filter_gain_mix"]  # the small font's
     entries = list(osc_entries)
     for name, info in serial.items():
@@ -805,13 +864,26 @@ def patch_adsr_blocks(dev) -> dict:
     return out
 
 
+def _on_host(fn):
+    """``fn`` on copies of its tensor arguments on the CPU, its results
+    copied back to the arguments' device."""
+    def call(*args, **kw):
+        dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+        out = fn(*(a.cpu() if isinstance(a, torch.Tensor) else a for a in args), **kw)
+        return tuple(o.to(dev) for o in out)
+    return call
+
+
 @contextlib.contextmanager
-def plain_versions(swaps):
+def plain_versions(swaps, host=False):
     """PE renders inside take the plain versions of the kernels in
-    ``swaps``, a list of (module, wrapper name)."""
+    ``swaps``, a list of (module, wrapper name); ``host``: on the CPU, on
+    copies of the card's inputs (a per-sample loop runs several times
+    faster there than on the card, where each of its steps is a launch)."""
     kernels = [getattr(mod, name) for mod, name in swaps]
     for mod, name in swaps:
-        setattr(mod, name, getattr(mod, name + "_ref"))
+        ref = getattr(mod, name + "_ref")
+        setattr(mod, name, _on_host(ref) if host else ref)
     try:
         yield
     finally:
@@ -1840,6 +1912,282 @@ def studio(dev, card, inputs) -> dict:
                    "downloads (the writer's taps and the render)": ("dtoh", "device -> pageable")})
     print(f"studio: phase took {time.perf_counter() - t0:.1f} s")
     return {"envelope_ar_scan": launches}
+
+
+PERFORM_S = 60.0
+PERFORM_CHECK_S = 0.5  # the whole graph against its plain ladder and ADSR render
+PERFORM_CPU_S = 1.0  # against the port's CPU render
+PERFORM_RENDERER_S = 2.0  # through AudioRenderer into a fake output stream
+PERFORM_TRACED_BLOCKS = 16
+
+
+def perform_cpu_render(seconds: float):
+    """The performance's graph at ``seconds`` rendered by the port on the
+    CPU (run in a second process)."""
+    torch.set_num_threads(2)
+    import pygmu2_tpu_torch as pg
+    from pygmu2_tpu_torch import perform_workload as pw
+
+    t = time.perf_counter()
+    out = pg.render_to_array(pw.build_performance(pg, seconds), block=BLOCK, device="cpu")
+    return out, time.perf_counter() - t
+
+
+class _FakeOutputStream:
+    """An output stream for AudioRenderer that keeps what it is given."""
+
+    def __init__(self, samplerate, channels, blocksize, device=None, latency=None,
+                 dtype="float32", callback=None, finished_callback=None):
+        self.channels = channels
+        self.writes = []
+
+    def start(self):
+        pass
+
+    def write(self, data):
+        self.writes.append(np.array(data, copy=True))
+
+    def stop(self):
+        pass
+
+    def close(self):
+        pass
+
+
+class _FakeSoundDevice:
+    OutputStream = _FakeOutputStream
+
+    class CallbackStop(Exception):
+        pass
+
+
+class _Recorder:
+    """Stands for an ops module where a PE module calls it: its wrapper
+    ``name`` runs as before (and counts its launches) and each call's
+    tensor arguments, keywords and results are kept, copied on the card
+    (no host sync); every other attribute is the module's."""
+
+    def __init__(self, mod, name: str):
+        self._mod, self.calls = mod, []
+        wrapper = getattr(mod, name)
+
+        def record(*args, **kw):
+            out = wrapper(*args, **kw)
+            self.calls.append(([a.clone() for a in args], kw, [o.clone() for o in out]))
+            return out
+
+        setattr(self, name, record)
+
+    def __getattr__(self, attr):
+        return getattr(self._mod, attr)
+
+
+def _launch_groups(calls, join_args, join_out):
+    """Recorded calls grouped by length and keywords, each group joined
+    into one plain call's arguments and the kernel's results, on the host:
+    the launches are independent given their inputs and carried state, so
+    a plain loop runs a group's launches side by side as channels."""
+    groups = {}
+    for args, kw, out in calls:
+        groups.setdefault((args[0].shape[0], tuple(sorted(kw.items()))), []).append((args, out))
+    for (_, kw), group in groups.items():
+        args = [t.cpu() for t in join_args([a for a, _ in group])]
+        out = [t.cpu() for t in join_out([o for _, o in group])]
+        yield args, dict(kw), out
+
+
+def _ladder_args(group):
+    """(x, al, qa, ki, dsc, state) of ladder launches side by side: each
+    launch's channels with its own coefficient columns."""
+    def columns(i):
+        return torch.cat([a[i][:, None].expand(-1, a[0].shape[1]) for a in group], 1)
+    return (torch.cat([a[0] for a in group], 1), *(columns(i) for i in range(1, 5)),
+            torch.cat([a[5] for a in group], 1))
+
+
+def _adsr_args(group):
+    """(gate (T, n), state (4, n)) of n ADSR launches side by side."""
+    return torch.stack([a[0] for a in group], 1), torch.stack([a[1] for a in group], 1)
+
+
+def count_syncs(fn) -> int:
+    """The synchronizing CUDA operations ``fn`` makes (PyTorch warns on
+    each under ``set_sync_debug_mode("warn")``)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def perform(dev, card) -> dict:
+    """Phase 14: the generative performance, 60 s of stereo through
+    ``render_to_array``; every launch against the plain ladder and ADSR,
+    the plain head render, the CPU render, the
+    AudioRenderer; realtime, syncs and a trace. Returns the ladder's and
+    the ADSR's launches on that path.
+
+    The 1 s CPU render (the plain ladder and ADSR: half a minute of
+    per-sample loops) runs in a second process while the card renders and the plain
+    versions are checked, and is collected before anything is timed; the
+    process is stopped on the way out, whatever happens."""
+    pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        return _perform(dev, card, pool.submit(perform_cpu_render, PERFORM_CPU_S))
+    finally:
+        for proc in list(getattr(pool, "_processes", {}).values()):
+            proc.terminate()
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def _perform(dev, card, cpu_job) -> dict:
+    import pygmu2_tpu_torch as pg
+    from pygmu2_tpu_torch import perform_workload as pw
+    from pygmu2_tpu_torch.core import audio_renderer
+    from pygmu2_tpu_torch.core.extent import Extent
+    from pygmu2_tpu_torch.models import envelopes, physical
+    from pygmu2_tpu_torch.ops import adsr, ladder
+
+    t0 = time.perf_counter()
+    swaps = [(ladder, "ladder_scan"), (adsr, "adsr_scan")]
+    counters = {name: getattr(mod, name) for mod, name in swaps}
+    total = int(round(PERFORM_S * SR))
+    n_blocks = -(-total // BLOCK)
+    root = pw.build_performance(pg, PERFORM_S)
+    rec_ladder, rec_adsr = _Recorder(ladder, "ladder_scan"), _Recorder(adsr, "adsr_scan")
+    for fn in counters.values():
+        fn.launches = 0  # the main path's run starts here
+    physical._ladder, envelopes._adsr = rec_ladder, rec_adsr
+    try:
+        t = time.perf_counter()
+        out = pg.render_to_array(root, block=BLOCK, device=dev)
+        first_wall = time.perf_counter() - t
+    finally:
+        physical._ladder, envelopes._adsr = ladder, adsr
+    launches = {name: fn.launches for name, fn in counters.items()}
+    check(launches == {name: n_blocks for name in counters},
+          f"performance: launches {launches}, expected {n_blocks} each")
+    peak = float(np.abs(out).max())
+    check(out.shape == (total, 2) and out.dtype == np.float32 and np.isfinite(out).all()
+          and peak > 0.05, f"performance: not finite, silent or misshapen {out.shape}")
+    print(f"performance: {total} frames of stereo, {n_blocks} blocks, launches {launches}, "
+          f"peak {peak:.3g}; first render {first_wall * 1e3:.1f} ms [{card}]")
+
+    # every ladder and ADSR launch of the main path against the plain
+    # versions on its own inputs and carried state, one plain loop a
+    # kernel on the host. Under SpatialHRTF the lead restarts every block
+    # (ROADMAP queue 3), so each launch here enters from the initial
+    # state: the state carried between launches is held by phase 5's
+    # hand-offs and phase 6's renders
+    n_calls = (len(rec_ladder.calls), len(rec_adsr.calls))
+    check(n_calls == (launches["ladder_scan"], launches["adsr_scan"]),
+          f"performance: {n_calls} ladder and ADSR calls recorded")
+    errs = {"ladder": 0.0, "ADSR": 0.0}
+    t = time.perf_counter()
+    for args, kw, want in _launch_groups(rec_ladder.calls, _ladder_args,
+                                         lambda g: [torch.cat(o, 1) for o in zip(*g)]):
+        errs["ladder"] = max(errs["ladder"], _err(ladder.ladder_scan_ref(*args, **kw), want))
+    for args, kw, want in _launch_groups(
+            rec_adsr.calls, _adsr_args,
+            lambda g: [torch.stack(o, o[0].dim()) for o in zip(*g)]):
+        errs["ADSR"] = max(errs["ADSR"], _err(adsr.adsr_scan_ref(*args, **kw), want))
+    plain_s = time.perf_counter() - t
+    rec_ladder.calls.clear()
+    rec_adsr.calls.clear()
+    check(max(errs.values()) <= TOL, f"performance: the main path's launches vs plain {errs}")
+    print(f"performance: all {n_calls[0]} ladder and {n_calls[1]} ADSR launches of the main "
+          f"path against the plain versions on their inputs and carried state (on the host, "
+          f"each kernel's launches as channels of one plain loop): max abs err ladder "
+          f"{errs['ladder']:.3g}, ADSR {errs['ADSR']:.3g} (the plain loops {plain_s:.1f} s)")
+
+    # the first 0.5 s against its render with the plain ladder and ADSR
+    # (run on the host, on the card's inputs)
+    head = Extent(0, int(PERFORM_CHECK_S * SR))
+    got = pg.render_to_array(pw.build_performance(pg, PERFORM_S), extent=head, block=BLOCK,
+                             device=dev)
+    t = time.perf_counter()
+    with plain_versions(swaps, host=True):
+        ref = pg.render_to_array(pw.build_performance(pg, PERFORM_S), extent=head,
+                                 block=BLOCK, device=dev)
+    plain_s = time.perf_counter() - t
+    err = float(np.abs(got - ref).max())
+    check(err <= TOL and np.abs(ref).max() > 0.05, f"performance: first {PERFORM_CHECK_S} s, "
+          f"kernels vs plain {err}")
+    print(f"performance: first {PERFORM_CHECK_S} s, kernels vs plain ladder and ADSR (on the "
+          f"host) max abs err {err:.3g} (the plain render {plain_s:.1f} s)")
+
+    # the first 2 s through AudioRenderer(blocksize=1024) into a fake
+    # stream. It plays in chunks of 16 callbacks, 16384 samples: BLOCK.
+    # The lead's restart every block makes the render depend on its block
+    # size (ROADMAP queue 3), so this holds at that chunk only
+    real_sd = audio_renderer._sd
+    audio_renderer._sd = _FakeSoundDevice
+    try:
+        renderer = pg.AudioRenderer(sample_rate=SR, blocksize=1024, device=dev)
+        renderer.set_source(pw.build_performance(pg, PERFORM_RENDERER_S))
+        renderer.start()
+        streams = []
+        orig_output = renderer._output
+
+        def output(snippet):
+            orig_output(snippet)
+            if renderer._stream is not None and renderer._stream not in streams:
+                streams.append(renderer._stream)
+
+        renderer._output = output
+        renderer.play_extent()
+        renderer.stop()
+    finally:
+        audio_renderer._sd = real_sd
+    played = np.concatenate([w for st in streams for w in st.writes])
+    want = pg.render_to_array(pw.build_performance(pg, PERFORM_RENDERER_S), block=BLOCK,
+                              device=dev)
+    err = float(np.abs(played - want).max()) if played.shape == want.shape else float("inf")
+    check(err <= TOL, f"performance: AudioRenderer {played.shape} vs render_to_array {err}")
+    print(f"performance: first {PERFORM_RENDERER_S:g} s through AudioRenderer(blocksize=1024) "
+          f"on the card, {played.shape[0]} frames written, vs render_to_array max abs err "
+          f"{err:.3g}")
+
+    # the graph at 1 s: the card against the port's CPU render
+    on_card = pg.render_to_array(pw.build_performance(pg, PERFORM_CPU_S), block=BLOCK,
+                                 device=dev)
+    t = time.perf_counter()
+    on_cpu, cpu_s = cpu_job.result()
+    waited = time.perf_counter() - t
+    err = float(np.abs(on_card - on_cpu).max()) if on_card.shape == on_cpu.shape else float("inf")
+    check(err <= TOL, f"performance at {PERFORM_CPU_S} s: card vs CPU {err}")
+    print(f"performance at {PERFORM_CPU_S:g} s: card vs the port's CPU render max abs err "
+          f"{err:.3g} (peak {np.abs(on_cpu).max():.3g}; the CPU render {cpu_s:.1f} s in a "
+          f"second process, waited {waited:.1f} s for it)")
+
+    # realtime: median of 3 after the warm-up (the main path's render)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pg.render_to_array(root, block=BLOCK, device=dev)
+        walls.append(time.perf_counter() - t)
+    wall = statistics.median(walls)
+    print(f"performance, {PERFORM_S:g} s stereo: realtime x{PERFORM_S / wall:.2f} wall, median "
+          f"of 3 ({', '.join(f'{w * 1e3:.1f}' for w in walls)} ms) [{card}]")
+    traced = Extent(0, PERFORM_TRACED_BLOCKS * BLOCK)
+    syncs = count_syncs(lambda: pg.render_to_array(root, extent=traced, block=BLOCK,
+                                                   device=dev))
+    print(f"performance: {syncs} synchronizing CUDA operations over its first "
+          f"{PERFORM_TRACED_BLOCKS} blocks ({syncs / PERFORM_TRACED_BLOCKS:.2f} a block, the "
+          f"render's one download included)")
+    traced_render(lambda: functools.partial(pg.render_to_array, root, extent=traced,
+                                            block=BLOCK, device=dev),
+                  PERFORM_TRACED_BLOCKS, card,
+                  f"performance, its first {PERFORM_TRACED_BLOCKS} blocks,",
+                  {"the ladder kernel": ("ladder",), "the ADSR kernel": ("adsr",),
+                   "cuFFT": ("fft",), "copies": ("memcpy",)})
+    print(f"performance: phase took {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 if __name__ == "__main__":

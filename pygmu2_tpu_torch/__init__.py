@@ -26,12 +26,20 @@ The slices so far:
   (ControlPE, TimeWarpPE.seek), the host prelude (TralfamPE, ReverbPE's
   IR energy) and ``render_functional``; with them WavetablePE, WindowPE,
   DelayPE, LoopPE, SlicePE, SequencePE, NoisePE and ConvolvePE/ReverbPE
-  (``torch.fft``), all in plain tensor ops.
+  (``torch.fft``), all in plain tensor ops;
+- the rest of the JAX package's PEs and user utilities, in plain tensor
+  ops: RandomPE, the trigger family (TriggerPE, TriggerRestartPE,
+  ResetPE, RandomSelectPE), PiecewisePE and PortamentoPE, SuperSawPE and
+  AnalogOscPE, SpatialPE with the KEMAR HRTF (read by path from the JAX
+  package's asset folder), temperaments and conversions, print_pe_tree,
+  the asset loaders, and AudioRenderer with ``play`` / ``play_offline``;
+  ``perform_workload`` drives them with the ladder and ADSR kernels.
 
 Every public render function takes an explicit ``device`` (default
 ``"cuda"``); CPU tensors run the kernels' plain PyTorch versions.
 """
 
+from pygmu2_tpu_torch.core.audio_renderer import AudioRenderer
 from pygmu2_tpu_torch.core.config import (
     ErrorMode,
     get_error_mode,
@@ -103,16 +111,36 @@ from pygmu2_tpu_torch.models.modes import (
     LadderMode,
     NoiseMode,
     OutOfBoundsMode,
+    RandomMode,
     SequenceMode,
     SlewMode,
+    TransitionType,
     WindowMode,
 )
 from pygmu2_tpu_torch.models.noise import NoisePE
-from pygmu2_tpu_torch.models.osc_bandlimited import BlitSawPE
+from pygmu2_tpu_torch.models.osc_bandlimited import AnalogOscPE, BlitSawPE, SuperSawPE
 from pygmu2_tpu_torch.models.oscillators import FunctionGenPE, SinePE
 from pygmu2_tpu_torch.models.physical import CombPE, KarplusStrongPE, LadderPE, rho_for_decay_db
+from pygmu2_tpu_torch.models.piecewise import PiecewisePE
+from pygmu2_tpu_torch.models.portamento import PortamentoPE
+from pygmu2_tpu_torch.models.random_control import RandomPE
 from pygmu2_tpu_torch.models.reverse_echo import ReversePitchEchoPE
+from pygmu2_tpu_torch.models.spatial import (
+    SpatialAdapter,
+    SpatialConstantPower,
+    SpatialHRTF,
+    SpatialLinear,
+    SpatialMethod,
+    SpatialPE,
+)
 from pygmu2_tpu_torch.models.tralfam import TralfamPE
+from pygmu2_tpu_torch.models.trigger_restart import (
+    RandomSelectPE,
+    ResetPE,
+    TriggerMode,
+    TriggerPE,
+    TriggerRestartPE,
+)
 from pygmu2_tpu_torch.models.window import CropPE, SetExtentPE
 from pygmu2_tpu_torch.soundfont import (
     MidiFile,
@@ -130,7 +158,46 @@ from pygmu2_tpu_torch.soundfont.offline import (
     render_midi_offline_hostctl,
     render_midi_offline_streamed,
 )
-from pygmu2_tpu_torch.utils.playback import render_to_array, render_to_file
+from pygmu2_tpu_torch.utils.conversions import (
+    db_to_ratio,
+    freq_to_pitch,
+    pitch_to_freq,
+    ratio_to_db,
+    ratio_to_semitones,
+    samples_to_seconds,
+    seconds_to_samples,
+    semitones_to_ratio,
+)
+from pygmu2_tpu_torch.utils.assets import (
+    AssetLoader,
+    AssetManager,
+    AudioLibrary,
+    GithubUserContentAssetLoader,
+    GoogleDriveAssetLoader,
+)
+from pygmu2_tpu_torch.utils.debug import print_pe_tree
+from pygmu2_tpu_torch.utils.playback import (
+    play,
+    play_offline,
+    render_to_array,
+    render_to_file,
+)
+from pygmu2_tpu_torch.utils.temperament import (
+    CustomTemperament,
+    EqualTemperament,
+    JustIntonation,
+    PythagoreanTuning,
+    Temperament,
+    get_reference_frequency,
+    get_temperament,
+    set_baroque_pitch,
+    set_concert_pitch,
+    set_reference_frequency,
+    set_temperament,
+    set_verdi_tuning,
+)
+
+__version__ = "0.1.0"
 
 __all__ = [
     # configuration and engine
@@ -232,4 +299,56 @@ __all__ = [
     "render_midi_offline",
     "render_midi_offline_hostctl",
     "render_midi_offline_streamed",
+    # the generative and control PEs
+    "RandomPE",
+    "RandomMode",
+    "RandomSelectPE",
+    "TriggerPE",
+    "TriggerMode",
+    "TriggerRestartPE",
+    "ResetPE",
+    "PiecewisePE",
+    "TransitionType",
+    "PortamentoPE",
+    "SuperSawPE",
+    "AnalogOscPE",
+    # spatialisation
+    "SpatialPE",
+    "SpatialAdapter",
+    "SpatialLinear",
+    "SpatialConstantPower",
+    "SpatialHRTF",
+    "SpatialMethod",
+    # tuning and conversions
+    "Temperament",
+    "EqualTemperament",
+    "JustIntonation",
+    "PythagoreanTuning",
+    "CustomTemperament",
+    "pitch_to_freq",
+    "freq_to_pitch",
+    "ratio_to_db",
+    "db_to_ratio",
+    "semitones_to_ratio",
+    "ratio_to_semitones",
+    "samples_to_seconds",
+    "seconds_to_samples",
+    "set_temperament",
+    "get_temperament",
+    "set_reference_frequency",
+    "get_reference_frequency",
+    "set_concert_pitch",
+    "set_verdi_tuning",
+    "set_baroque_pitch",
+    # assets, debugging, playback
+    "print_pe_tree",
+    "AssetManager",
+    "AssetLoader",
+    "GithubUserContentAssetLoader",
+    "GoogleDriveAssetLoader",
+    "AudioLibrary",
+    "AudioRenderer",
+    "play",
+    "play_offline",
+    "__version__",
 ]

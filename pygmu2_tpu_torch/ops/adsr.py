@@ -80,8 +80,10 @@ def adsr_scan_ref(gate, state, *, dA, dD, dR, sus, sustain_samples=None):
     """Plain PyTorch version of :func:`adsr_scan` (same arguments and
     result). A Python loop over samples: keep T small.
 
-    The gate edges are read on the host (``gate.tolist()``); the clip
-    transitions, which depend on the envelope, stay tensor selects.
+    Also takes C independent machines at once: a (T, C) gate and a (4, C)
+    state give (T, C), (4, C) and (C,) results, each column the one-column
+    call's. Every step is a tensor select, so a loop over many columns
+    costs about what one column does.
     """
     gated = sustain_samples is None
     dev = gate.device
@@ -90,29 +92,24 @@ def adsr_scan_ref(gate, state, *, dA, dD, dR, sus, sustain_samples=None):
     c0, c1 = f(0.0), f(1.0)
     sA, sD, sS, sR, sI = f(_ATTACK), f(_DECAY), f(_SUSTAIN), f(_RELEASE), f(_IDLE)
     state = state.to(torch.float32)
-    stage, e0, n = state[0], state[1], state[2]
-    pg = float(state[3])
+    stage, e0, n, pg = state[0], state[1], state[2], state[3]
     envs = []
-    for g in gate.tolist():
+    for g in gate.to(torch.float32):
         d = torch.where(stage == _ATTACK, cA, torch.where(stage == _DECAY, cD, cR))
         env = torch.where(
             stage == _IDLE, c0, torch.where(stage == _SUSTAIN, csus, fmaf(n, d, e0))
         )
         envs.append(env)
         if gated:
-            rising = pg == 0.0 and g == 1.0
-            falling = pg == 1.0 and g == 0.0
-            if rising:
-                stage = sA
-            elif falling:
-                stage = sR
-            edge = rising or falling
+            rising = (pg == 0.0) & (g == 1.0)
+            falling = (pg == 1.0) & (g == 0.0)
+            stage = torch.where(rising, sA, torch.where(falling, sR, stage))
+            edge = rising | falling
         else:
             edge = g > 0.0
-            if edge:
-                stage = sA
-        if edge:
-            e0, n = env, c0
+            stage = torch.where(edge, sA, stage)
+        e0 = torch.where(edge, env, e0)
+        n = torch.where(edge, c0, n)
 
         d2 = torch.where(stage == _ATTACK, cA, torch.where(stage == _DECAY, cD, cR))
         n1 = n + 1.0
@@ -134,7 +131,7 @@ def adsr_scan_ref(gate, state, *, dA, dD, dR, sus, sustain_samples=None):
         n = torch.where(hit_a | hit_d | hit_r | expire, c0, n1)
         stage = stage2
         pg = g
-    new_state = torch.stack([stage, e0, n, f(pg)])
+    new_state = torch.stack([stage, e0, n, pg])
     return torch.stack(envs), new_state, env_of_state(new_state, dA=dA, dD=dD, dR=dR, sus=sus)
 
 

@@ -38,14 +38,18 @@ def _mode_mix(mode_index: int, u, s1, s2, s3, s4):
 def ladder_scan_ref(x, al, qa, ki, dsc, state, *, os_n, pbg, mode_index,
                     input_threshold, state_decay):
     """Plain PyTorch version of :func:`ladder_scan` (same arguments and
-    result). A Python loop over samples: keep T small."""
+    result). A Python loop over samples: keep T small.
+
+    The coefficient columns may also be (T, C), one per channel: C
+    independent filters at once, each channel the one-channel call's."""
     os_recip = 1.0 / os_n
     dec = torch.tensor(state_decay, dtype=torch.float32, device=x.device)
     one = torch.ones((), dtype=torch.float32, device=x.device)
     z0 = [state[k] for k in range(4)]
     z1 = [state[4 + k] for k in range(4)]
     old = state[8]
-    cols = zip(x, al.tolist(), qa.tolist(), ki.tolist(), dsc.tolist())
+    coeffs = (al, qa, ki, dsc)
+    cols = zip(x, *(c if c.dim() == 2 else c.tolist() for c in coeffs))
     ys = []
     for xi, al_, qa_, ki_, dsc_ in cols:
         input_sample = xi * dsc_

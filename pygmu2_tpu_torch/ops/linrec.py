@@ -2,7 +2,8 @@
 
 Counterparts of ``pygmu2_tpu.ops.linrec.affine_scan_1``,
 ``affine_scan_2``, ``affine_scan_2_auto``, ``affine_scan_2_seg``,
-``biquad_filter`` and ``clamp_accum_scan`` (a saturating accumulator). A
+``affine_scan_nd``, ``biquad_filter``, ``one_pole_smooth`` and
+``clamp_accum_scan`` (a saturating accumulator). A
 (possibly time-varying) affine recurrence
 
     s[t] = A[t] @ s[t-1] + u[t]
@@ -299,3 +300,77 @@ def clamp_accum_scan(d, lo, hi, s0):
 
     S, L, H = _associative_scan(combine, (d, torch.full_like(d, lo), torch.full_like(d, hi)))
     return torch.minimum(torch.maximum(s0 + S, L), H)
+
+
+def affine_scan_nd(A, u, s0):
+    """D-dimensional affine recurrence ``s[t] = A[t] @ s[t-1] + u[t]``.
+
+    Counterpart of ``pygmu2_tpu.ops.linrec.affine_scan_nd``, in the tree
+    of ``jax.lax.associative_scan``.
+
+    Args:
+        A: (T, ..., D, D) per-step transition matrices.
+        u: (T, ..., D) per-step inputs.
+        s0: (..., D) initial state, or None for zeros.
+
+    Returns:
+        s: (T, ..., D) states after each step.
+
+    D == 2 scans six (T, ...) component planes elementwise, as the JAX
+    package does.
+    """
+    u = u.clone()
+    if s0 is not None:
+        if A.shape[-1] == 2:
+            a = A[0]
+            u[0] += torch.stack(
+                [
+                    a[..., 0, 0] * s0[..., 0] + a[..., 0, 1] * s0[..., 1],
+                    a[..., 1, 0] * s0[..., 0] + a[..., 1, 1] * s0[..., 1],
+                ],
+                dim=-1,
+            )
+        else:
+            u[0] += torch.einsum("...ij,...j->...i", A[0], s0)
+
+    if A.shape[-1] == 2:
+        comp = (A[..., 0, 0], A[..., 0, 1], A[..., 1, 0], A[..., 1, 1], u[..., 0], u[..., 1])
+
+        def combine2(left, right):
+            a1, b1, c1, d1, p1, q1 = left
+            a2, b2, c2, d2, p2, q2 = right
+            return (
+                a2 * a1 + b2 * c1,
+                a2 * b1 + b2 * d1,
+                c2 * a1 + d2 * c1,
+                c2 * b1 + d2 * d1,
+                a2 * p1 + b2 * q1 + p2,
+                c2 * p1 + d2 * q1 + q2,
+            )
+
+        out = _associative_scan(combine2, comp)
+        return torch.stack([out[4], out[5]], dim=-1)
+
+    def combine(left, right):
+        A1, u1 = left
+        A2, u2 = right
+        return (
+            torch.einsum("...ij,...jk->...ik", A2, A1),
+            torch.einsum("...ij,...j->...i", A2, u1) + u2,
+        )
+
+    _, s = _associative_scan(combine, (A, u))
+    return s
+
+
+def one_pole_smooth(x, coef, s0=None):
+    """Exponential smoother ``y[t] = y[t-1] + coef[t]·(x[t] − y[t-1])``.
+
+    Counterpart of ``pygmu2_tpu.ops.linrec.one_pole_smooth``; coef may be
+    per-sample (time-varying). Returns (y, y_final).
+    """
+    coef = torch.as_tensor(coef, dtype=x.dtype, device=x.device).expand(x.shape)
+    a = 1.0 - coef
+    u = coef * x
+    y = affine_scan_1(a, u, s0)
+    return y, y[-1]

@@ -954,9 +954,11 @@ def _gain_rows(ctrl, master):
 def _audio_pass(ctrl, wave, N: int, master: float, state=None, unfused=False):
     """Control planes -> ((B·N, 2) float32 audio, (4, P) carried state).
 
-    ``unfused``: the oscillator in plain tensor ops, then
+    The streamed render's segment pass, and the unfused pass
+    (``unfused``: the oscillator in plain tensor ops, then
     :func:`~pygmu2_tpu_torch.soundfont.filter_kernels.filter_gain_mix`; a
-    whole render from zero state (``state`` must be None), no state out.
+    whole render from zero state, ``state`` must be None, no state out).
+    The other fused renders take :func:`_render_segments`.
     """
     rows = dict(_gain_rows(ctrl, master), **_osc_rows(ctrl, wave))
     if not unfused:
@@ -1012,17 +1014,26 @@ def _to_wire(out, wire: str):
 
 
 def render_midi_offline(synth, midi_file, seconds: float, wire: str = "f32",
-                        device="cuda") -> np.ndarray:
-    """Render ``seconds`` of ``midi_file`` in one pass on ``device``.
+                        pipeline: int | None = None, device="cuda") -> np.ndarray:
+    """Render ``seconds`` of ``midi_file`` on ``device``.
 
     The host simulates the score into a schedule; control and audio run
     on the device; returns (samples, 2) float32 (``wire="int16"``: int16
     PCM). Where the JAX package's audio pass is unfused (a large font
     played above its window, :func:`_out_of_window`) and N and the voice
     count are multiples of 128, so is this one.
+
+    ``pipeline``, as the JAX package's: the fused audio pass in K
+    segments of blocks, the (4, P) filter state carried from one to the
+    next, each segment's download started as soon as it is queued so it
+    overlaps the next segment's work. ``None`` (automatic) renders in one
+    pass: no timing on the card has shown segments to help yet; 0 or 1 is
+    one pass; K > 1 is clamped to the block count, and the segments'
+    block counts differ by at most one. The unfused pass renders in one
+    pass whatever ``pipeline`` asks.
     """
     N = synth.block_size
-    par_np, ch_np, snap_idx, _n_blocks = synth.build_schedule(midi_file, seconds)
+    par_np, ch_np, snap_idx, n_blocks = synth.build_schedule(midi_file, seconds)
     unfused = (_out_of_window(synth, par_np, ch_np)
                and N % 128 == 0 and synth.maximum_polyphony % 128 == 0)
     planes, flags = schedule_to_torch(par_np, ch_np, snap_idx, device)
@@ -1031,10 +1042,48 @@ def render_midi_offline(synth, midi_file, seconds: float, wire: str = "f32",
         float(synth.sample_rate),
     )
     wave = to_torch(synth._wave, device)
-    out, _state = _audio_pass(ctrl, wave, N, float(synth.master_volume), unfused=unfused)
+    master = float(synth.master_volume)
     total = int(round(seconds * synth.sample_rate))
+    n_blocks = int(n_blocks)
+    if unfused:
+        out, _state = _audio_pass(ctrl, wave, N, master, unfused=True)
+        out = _to_wire(out, wire).cpu().numpy()
+    else:
+        segments = int(pipeline) if pipeline is not None and pipeline > 1 else 1
+        out = _render_segments(ctrl, wave, N, master, segments, wire)
     synth.reset()
-    return _to_wire(out[:total], wire).cpu().numpy()
+    return out[:total]
+
+
+def _render_segments(ctrl, wave, N: int, master: float, segments: int,
+                     wire: str) -> np.ndarray:
+    """The fused audio pass in ``segments`` runs of blocks (1: one pass;
+    clamped to the block count; the first ``n_blocks % K`` runs one block
+    longer), the (4, P) filter state threaded between them. On the card
+    each run's download goes to pinned host memory without waiting, so it
+    overlaps the next run's kernel; the one wait is at the end."""
+    rows = dict(_gain_rows(ctrl, master), **_osc_rows(ctrl, wave))
+    n_blocks, P = rows["ratio"].shape
+    K = max(1, min(int(segments), n_blocks))
+    base, rem = divmod(n_blocks, K)
+    state = torch.zeros((4, P), dtype=torch.float32, device=wave.device)
+    on_card = wave.device.type == "cuda"
+    parts = []
+    b0 = 0
+    for k in range(K):
+        sb = base + (1 if k < rem else 0)
+        seg_rows = {name: plane[b0:b0 + sb] for name, plane in rows.items()}
+        out, state = filter_kernels.osc_filter_gain_mix(seg_rows, wave, N, state)
+        out = _to_wire(out, wire)
+        if on_card:
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            host.copy_(out, non_blocking=True)
+            out = host
+        parts.append(out)
+        b0 += sb
+    if on_card:
+        torch.cuda.synchronize(wave.device)
+    return torch.cat([p.cpu() for p in parts]).numpy()
 
 
 def render_midi_offline_streamed(synth, midi_file, seconds: float,
@@ -1069,7 +1118,7 @@ def render_midi_offline_streamed(synth, midi_file, seconds: float,
         midi_file, seconds, seg_blocks
     ):
         if _out_of_window(synth, par_np, ch_np):
-            return render_midi_offline(synth, midi_file, seconds, wire, device)
+            return render_midi_offline(synth, midi_file, seconds, wire, device=device)
         planes, flags = schedule_to_torch(par_np, ch_np, snap_idx, device)
         ctrl, carry = _control_device(
             *planes, N, flags, min_dur, sr, b0=b0, carry=carry, with_carry=True
@@ -1093,7 +1142,11 @@ def render_midi_offline_hostctl(synth, midi_file, seconds: float, device="cuda")
                and N % 128 == 0 and synth.maximum_polyphony % 128 == 0)
     ctrl = to_torch(compute_control(synth, par_np, ch_np, snap_idx), device)
     wave = to_torch(synth._wave, device)
-    out, _state = _audio_pass(ctrl, wave, N, float(synth.master_volume), unfused=unfused)
+    master = float(synth.master_volume)
+    if unfused:
+        out = _audio_pass(ctrl, wave, N, master, unfused=True)[0].cpu().numpy()
+    else:
+        out = _render_segments(ctrl, wave, N, master, 1, "f32")
     total = int(round(seconds * synth.sample_rate))
     synth.reset()
-    return out[:total].cpu().numpy()
+    return out[:total]

@@ -1,12 +1,20 @@
-"""Offline-render conveniences (counterpart of ``pygmu2_tpu.utils.playback``).
+"""Playback / offline-render conveniences (counterpart of
+``pygmu2_tpu.utils.playback``).
 
 ``render_to_array`` and ``render_to_file`` render a finite PE graph on a
 device (default ``"cuda"``; ``device="cpu"`` runs the kernels' plain
 PyTorch versions) block by block through
-:func:`pygmu2_tpu_torch.core.engine.render_scan`.
+:func:`pygmu2_tpu_torch.core.engine.render_scan`. ``play`` streams a graph
+through :class:`~pygmu2_tpu_torch.core.audio_renderer.AudioRenderer`
+(rendered on ``device``), and ``play_offline`` renders to a WAV file and
+plays that back. The JAX package's ``browse`` (a jog/shuttle player in a
+separate process) has no counterpart yet.
 """
 
 from __future__ import annotations
+
+import os
+import tempfile
 
 import numpy as np
 
@@ -69,3 +77,55 @@ def render_to_file(
     sr = _resolve_sample_rate(sample_rate)
     data = render_to_array(source, extent=extent, device=device)
     wavio.write_wav(out_path, data, sr, fmt="float32")
+
+
+def play(source: ProcessingElement, sample_rate: int | None = None, *,
+         device="cuda") -> None:
+    """Play a PE in real time through the audio output, rendering it on
+    ``device``."""
+    from pygmu2_tpu_torch.core.audio_renderer import AudioRenderer
+
+    sr = _resolve_sample_rate(sample_rate)
+    renderer = AudioRenderer(sample_rate=sr, device=device)
+    renderer.set_source(source)
+    with renderer:
+        renderer.start()
+        renderer.play_extent()
+
+
+def play_offline(
+    source: ProcessingElement,
+    sample_rate: int | None = None,
+    path: str | None = None,
+    omit_playback: bool | None = None,
+    *,
+    device="cuda",
+) -> None:
+    """Render to a WAV file offline on ``device``, then play it back.
+
+    With ``path=None`` a temp file is used and removed afterwards.
+    """
+    sr = _resolve_sample_rate(sample_rate)
+    extent = source.extent()
+    if extent.start is None or extent.end is None:
+        raise RuntimeError("Cannot render offline: source has infinite extent.")
+
+    def render_and_play(out_path):
+        render_to_file(source, out_path, sample_rate=sr, extent=extent, device=device)
+        if omit_playback is not True:
+            from pygmu2_tpu_torch.models.io_pes import WavReaderPE
+
+            play(WavReaderPE(out_path), sample_rate=sr, device=device)
+
+    if path is not None:
+        render_and_play(path)
+        return
+    fd, tmp_path = tempfile.mkstemp(suffix=".wav")
+    os.close(fd)
+    try:
+        render_and_play(tmp_path)
+    finally:
+        try:
+            os.remove(tmp_path)
+        except FileNotFoundError:
+            pass

@@ -26,7 +26,7 @@ def test_port_imports_no_jax():
         ".".join(path.relative_to(ROOT).with_suffix("").parts)
         for path in pkg.rglob("*.py")
         if path.name != "__init__.py"
-    )
+    ) + ["pygmu2_tpu_torch.assets"]
     assert "pygmu2_tpu_torch.core.engine" in modules
     assert "pygmu2_tpu_torch.ops.ladder" in modules
     for name in ("ops.ks", "ops.envelope", "ops.slew", "ops.reverse_echo",
@@ -35,7 +35,11 @@ def test_port_imports_no_jax():
                  "ops.xla_math", "filter_workload", "ops.interp", "ops.noise",
                  "ops.fftconv", "models.io_pes", "models.lookup", "models.delay",
                  "models.loop_slice", "models.noise", "models.tralfam",
-                 "models.convolve", "utils.flacio", "studio_workload"):
+                 "models.convolve", "utils.flacio", "studio_workload",
+                 "utils.temperament", "utils.conversions", "models.piecewise",
+                 "models.portamento", "models.random_control", "models.trigger_restart",
+                 "models.spatial", "utils.debug", "utils.assets", "utils.profiling",
+                 "core.audio_renderer", "perform_workload", "__main__"):
         assert f"pygmu2_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
@@ -154,3 +158,42 @@ def test_streaming_synth_on_a_missing_card_raises():
     synth.note_on(0, 60, 100)
     with pytest.raises((RuntimeError, AssertionError)):
         synth.render_stereo(256)
+
+
+def test_port_exports_cover_the_jax_package():
+    """Every public name of the JAX package but ``browse`` (its player is
+    not ported yet) is exported by the port, and resolves."""
+    import pygmu2_tpu
+    import pygmu2_tpu_torch
+
+    missing = set(pygmu2_tpu.__all__) - set(pygmu2_tpu_torch.__all__)
+    assert missing == {"browse"}
+    assert len(set(pygmu2_tpu_torch.__all__)) == len(pygmu2_tpu_torch.__all__)
+    for name in pygmu2_tpu_torch.__all__:
+        assert hasattr(pygmu2_tpu_torch, name), name
+    assert pygmu2_tpu_torch.__version__ == pygmu2_tpu.__version__
+
+
+def test_cpu_performance_launches_no_kernel():
+    import pygmu2_tpu_torch as pg
+    from pygmu2_tpu_torch import perform_workload
+    from pygmu2_tpu_torch.ops import adsr, ladder
+
+    before = (ladder.ladder_scan.launches, adsr.adsr_scan.launches)
+    out = pg.render_to_array(perform_workload.build_performance(pg, 0.01), device="cpu")
+    assert out.shape == (441, 2) and abs(out).max() > 0.01
+    assert (ladder.ladder_scan.launches, adsr.adsr_scan.launches) == before
+
+
+def test_main_renders_on_the_cpu():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-m", "pygmu2_tpu_torch", "0.2", "--device", "cpu"], cwd=ROOT,
+        env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "realtime" in proc.stdout and "device=cpu" in proc.stdout
+    if not torch.cuda.is_available():
+        proc = subprocess.run([sys.executable, "-m", "pygmu2_tpu_torch", "0.2"], cwd=ROOT,
+                              env=env, capture_output=True, text=True, timeout=120)
+        assert proc.returncode != 0 and "no CUDA device" in proc.stderr

@@ -166,12 +166,40 @@ Drives the port's main paths through their user entry points:
    first 16 blocks: device ops a block, idle share, the largest device
    items.
 
+15. the training path (``pygmu2_tpu_torch/fit_workload.py``):
+   ``torch.autograd`` of ``engine.render_functional`` with ParamPE
+   bindings on the card, through the hand-written backward kernels of the
+   ladder, the comb (``csrc/{ladder,comb}_scan_bwd.cu``) and the order-2
+   affine scan (one more launch of ``csrc/affine_scan_2.cu``). (a) The
+   gradient probe of ``bench.py:_grad_probe`` (4096 samples, block 1024,
+   loss mean(out^2)): 4 launches each of the ladder's and the comb's
+   forward and backward kernels; each gradient within 0.1 relative of the
+   central finite difference on the card (eps 2 for the cutoff, 1e-3 for
+   the feedback) and within 1e-3 relative of the port's CPU gradient (its
+   plain versions, in a second process); every backward launch against
+   autograd of the plain version on its recorded inputs and cotangents,
+   each output within 1e-4 of its largest plain cotangent. (b) The fit
+   patch, 10 s mono at block 16384 (27 blocks), 5 Adam steps from a
+   1500 Hz cutoff centre and feedback 0.6 towards a target rendered at
+   1100 Hz and 0.45: the loss must fall; per step the wall time, the
+   device span (CUDA events), the launches (27 of each kernel) and the
+   peak memory; one T = 16384 launch of each backward kernel against
+   autograd of its plain version (on the host, in a second process).
+   (c) The fit bank, 2 s of 128 channels at block 16384 (6 blocks), 3
+   Adam steps on the BiquadPE's and the SVFilterPE's sweep centres: 12
+   launches of the scan's backward a step, the loss must fall, one
+   launch against autograd of the plain chunked scan on the card. Each
+   backward kernel timed (CUDA events) at the probe's and the patch's
+   shapes (the scan's at the bank's), beside its bound and its plain
+   version's autograd.
+
 Phase 4 also renders the 3 s chord through the small font with
 ``render_midi_offline(pipeline=4)``: four launches of the SoundFont kernel,
 equal to the one-pass render within 1e-6.
 
 ``python3 chip_smoke.py 13`` runs phases 1, 2 and 13 only, ``python3
-chip_smoke.py 14`` phases 1, 2 and 14 only (no kernels line).
+chip_smoke.py 14`` phases 1, 2 and 14 only, ``python3 chip_smoke.py 15``
+phases 1, 2 and 15 only (no kernels line).
 
 Prints a JSON line of per-kernel results, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, before any result, on
@@ -259,6 +287,7 @@ def main() -> None:
         sys.exit(2)
     only_studio = sys.argv[1:] == ["13"]
     only_perform = sys.argv[1:] == ["14"]
+    only_training = sys.argv[1:] == ["15"]
     from pygmu2_tpu_torch import _ext, bench_workload
     from pygmu2_tpu_torch.soundfont import MidiFile
     from pygmu2_tpu_torch.soundfont import filter_kernels as fk
@@ -290,10 +319,10 @@ def main() -> None:
     # while nvcc builds; the phases after wait for both
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        setup = None if only_perform else pool.submit(studio_setup)
+        setup = None if only_perform or only_training else pool.submit(studio_setup)
         _ext.load()
         print(f"kernel build+load: {time.perf_counter() - t0:.2f} s")
-        studio_inputs = None if only_perform else setup.result()
+        studio_inputs = None if setup is None else setup.result()
     if studio_inputs is not None:
         print(f"the studio's files made and the FLAC decoded: {studio_inputs[2]:.2f} s, "
               f"{time.perf_counter() - t0:.2f} s with the build")
@@ -305,6 +334,10 @@ def main() -> None:
         perform(dev, card)
         print_ok()
         return
+    if only_training:
+        training(dev, card)
+        print_ok()
+        return
 
     # ---- 3. kernel vs plain at the main path's shapes ----
     def bench_rows(large: bool, seconds: float):
@@ -314,18 +347,6 @@ def main() -> None:
         if seconds != 3.0:
             midi = MidiFile(bench_workload.build_midi_bytes(repeats=15))
         return bench_workload.audio_pass_rows(synth, midi, seconds, dev)
-
-    def device_ms(fn, reps: int) -> float:
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
 
     max_err = 0.0
     timings, osc_shapes = {}, {}
@@ -490,13 +511,30 @@ def main() -> None:
     pe_launches["envelope_ar_scan"] += studio(dev, card, studio_inputs)["envelope_ar_scan"]
     for name, n in perform(dev, card).items():
         pe_launches[name] += n
+    backward = training(dev, card)
     osc_entries[0]["launches"] += stream["osc_filter_gain_mix"]  # the small font's
     entries = list(osc_entries)
     for name, info in serial.items():
         entries.append({"name": name, "route": "cuda", **info,
                         "launches": pe_launches[name], "library_ms": None})
+    entries.extend(backward)
     print(json.dumps({"kernels": entries}))
     print_ok()
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean ms of ``reps`` calls of ``fn`` by CUDA events, after a warm-up
+    call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def print_ok() -> None:
@@ -2188,6 +2226,412 @@ def _perform(dev, card, cpu_job) -> dict:
                    "cuFFT": ("fft",), "copies": ("memcpy",)})
     print(f"performance: phase took {time.perf_counter() - t0:.1f} s")
     return launches
+
+
+TRAIN_PATCH_S = 10.0  # the fit patch: 27 blocks of BLOCK
+TRAIN_PATCH_STEPS = 5
+TRAIN_BANK_S = 2.0  # the fit bank: 6 blocks of BLOCK, 128 channels
+TRAIN_BANK_STEPS = 3
+TRAIN_LR = 0.05
+PROBE_THETA = {"cutoff": 1500.0, "fb": 0.6}
+PATCH_HIDDEN = {"cutoff": 1100.0, "fb": 0.45}
+BANK_START, BANK_HIDDEN = {"low_hz": 1500.0, "band_hz": 800.0}, {"low_hz": 1100.0,
+                                                                  "band_hz": 600.0}
+FD_EPS = {"cutoff": 2.0, "fb": 1e-3}  # bench.py:_grad_probe's
+FD_TOL = 0.1  # relative, bench.py's
+CPU_GRAD_TOL = 1e-3  # relative: the card's probe gradients against the CPU's
+BWD_TOL = 1e-4  # of the largest plain cotangent of each output
+# The backward kernels' bounds count what the gradient needs: each input
+#   read once, each output written once, the forward's and the adjoint's
+#   operations. What a kernel's design adds (its scratch, the steps it
+#   recomputes) is left out of bound_ms and printed as scratch_bytes.
+# ladder backward per (sample, channel), os_n = 2: the forward's 82 (the
+#   primal values the adjoint reads); two steps' adjoints: four stages 7
+#   each, mix 4, tanh 3, feedback 8, input 4: 2 x 47; the decay's 9
+#   products and the input's 2: 11. (The kernel recomputes each sample's
+#   steps from its entering state, (1 + 2) x 35 more: not counted.)
+LADDER_BWD_OPS = LADDER_OPS + 2 * 47 + 11
+# comb backward: per sample the smoother and delay 13 and the smoother's
+#   adjoint 3; per (sample, channel) the feedback multiply-add 2, the
+#   feedback's part 1, the channel sum 1; the output ring's cotangent added
+#   where the ring overlaps the call's samples, 1 per (sample, channel) there
+COMB_BWD_OPS_SAMPLE, COMB_BWD_OPS_CHANNEL = 16, 4
+# the scan's backward per (sample, channel): the adjoint recurrence (a
+#   transposed 2x2 product and the cotangent added) 8, gA's 4 products; a
+#   plane shared by the channels summed over them, 1 more each
+SCAN_BWD_OPS, SCAN_BWD_OPS_SHARED = 12, 1
+
+
+# each backward as its wrapper's call, (arguments, results), from what
+# diffable.on_backward is given: the forward's arguments, outputs and
+# cotangents, and the backward's results
+BWD_CALLS = {
+    "ladder_scan": ("ladder_scan_bwd", lambda args, outs, grads, got: (
+        [*args, *grads], list(got))),
+    "comb_scan": ("comb_scan_bwd", lambda args, outs, grads, got: (
+        [*args, outs[0], grads[0], grads[1], grads[3]], [got[i] for i in (0, 1, 2, 3, 5)])),
+    "affine_scan_2": ("affine_scan_2_bwd", lambda args, outs, grads, got: (
+        [*args, *outs, *grads], list(got))),
+}
+
+
+@contextlib.contextmanager
+def recording(keep: dict):
+    """Records, through ``diffable.on_backward``, copies (on the card) of
+    the arguments, keywords and results of the first ``keep[name]`` calls
+    of each backward wrapper ``name``; yields {name: [(args, kw, out)]}.
+    The hook is cleared on the way out."""
+    from pygmu2_tpu_torch.ops import diffable
+
+    calls = {name: [] for name in keep}
+
+    def copy(a):  # a plane shared by the channels stays one column
+        if not isinstance(a, torch.Tensor):
+            return a
+        if a.dim() == 2 and a.shape[1] > 1 and a.stride(1) == 0:
+            return a[:, :1].clone().expand(a.shape)
+        return a.clone()
+
+    def hook(fwd_name, args, outs, grads, kw, got):
+        name, as_call = BWD_CALLS[fwd_name]
+        if len(calls.get(name, ())) < keep.get(name, 0):
+            bargs, bout = as_call(args, outs, grads, got)
+            calls[name].append(([copy(a) for a in bargs], kw, [copy(o) for o in bout]))
+
+    diffable.on_backward = hook
+    try:
+        yield calls
+    finally:
+        diffable.on_backward = None
+
+
+def training_cpu_probe():
+    """The probe's loss and gradients through the port's plain versions on
+    the CPU (run in a second process)."""
+    import pygmu2_tpu_torch as pg
+    from pygmu2_tpu_torch import fit_workload as fw
+    from pygmu2_tpu_torch.core import engine
+
+    t = time.perf_counter()
+    graph = fw.build_probe(pg)
+    theta = {k: torch.tensor(v, requires_grad=True) for k, v in PROBE_THETA.items()}
+    out = engine.render_functional(graph, 0, fw.PROBE_N, fw.PROBE_BLOCK, theta, device="cpu")
+    loss = torch.mean(out ** 2)
+    grads = torch.autograd.grad(loss, list(theta.values()))
+    return (loss.item(), {k: g.item() for k, g in zip(theta, grads)},
+            time.perf_counter() - t)
+
+
+def _bwd_errors(got, want):
+    """[(max abs difference, max |plain|)] per output."""
+    return [(float((torch.as_tensor(g).float() - w.float()).abs().max()),
+             float(w.float().abs().max())) for g, w in zip(got, want)]
+
+
+def plain_backward_on_host(kind: str, args, kw, got):
+    """A backward launch's results (numpy) against autograd of the plain
+    version on its recorded arguments (numpy), on the CPU (run in a
+    second process): per output (max abs difference, max |plain|)."""
+    from pygmu2_tpu_torch.ops import comb, ladder
+
+    args = [torch.from_numpy(a) if isinstance(a, np.ndarray) else a for a in args]
+    ref = ladder.ladder_scan_bwd_ref if kind == "ladder" else comb.comb_scan_bwd_ref
+    t = time.perf_counter()
+    want = ref(*args, **kw)
+    return _bwd_errors([torch.from_numpy(g) for g in got], want), time.perf_counter() - t
+
+
+def _host(calls):
+    """A recorded call's tensors as numpy arrays (for a second process)."""
+    args, kw, out = calls[0]
+    to_np = lambda v: v.cpu().numpy() if isinstance(v, torch.Tensor) else v  # noqa: E731
+    return [to_np(a) for a in args], kw, [to_np(o) for o in out]
+
+
+def _check_bwd(name, errs, what):
+    """Each output's error within BWD_TOL of its largest plain cotangent;
+    returns the largest error."""
+    for i, (err, scale) in enumerate(errs):
+        check(err <= BWD_TOL * scale, f"{name} {what}: output {i} differs from autograd "
+              f"of the plain version by {err} (largest plain {scale})")
+    return max(err for err, _ in errs)
+
+
+def training(dev, card) -> list:
+    """Phase 15: the training path, ``torch.autograd`` through
+    ``render_functional`` with ParamPE bindings on the card; returns the
+    three backward kernels' JSON entries. Host work (the probe on the CPU,
+    the plain backward versions of two T = 16384 launches) runs in two
+    more processes while the card works; they are stopped on the way out,
+    whatever happens."""
+    pool = concurrent.futures.ProcessPoolExecutor(
+        2, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        return _training(dev, card, pool)
+    finally:
+        for proc in list(getattr(pool, "_processes", {}).values()):
+            proc.terminate()
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def _training(dev, card, pool) -> list:
+    import pygmu2_tpu_torch as pg
+    from pygmu2_tpu_torch import fit_workload as fw
+    from pygmu2_tpu_torch.core import engine
+    from pygmu2_tpu_torch.ops import comb, ladder, linrec_kernel
+
+    t0 = time.perf_counter()
+    cpu_job = pool.submit(training_cpu_probe)
+    fwd = {"ladder": ladder.ladder_scan, "comb": comb.comb_scan,
+           "scan": linrec_kernel.affine_scan_2_kernel}
+    bwd = {"ladder": ladder.ladder_scan_bwd, "comb": comb.comb_scan_bwd,
+           "scan": linrec_kernel.affine_scan_2_bwd}
+
+    def counts(fns):
+        return {k: f.launches for k, f in fns.items()}
+
+    def zero():
+        for f in (*fwd.values(), *bwd.values()):
+            f.launches = 0
+
+    def theta_on(values, grad):
+        return {k: torch.tensor(v, dtype=torch.float32, device=dev, requires_grad=grad)
+                for k, v in values.items()}
+
+    total = {"ladder": 0, "comb": 0, "scan": 0}  # backward launches on the path
+
+    # ---- (a) the probe: gradients, finite differences, the CPU's ----
+    probe = fw.build_probe(pg)
+
+    def probe_loss(theta):
+        out = engine.render_functional(probe, 0, fw.PROBE_N, fw.PROBE_BLOCK, theta, device=dev)
+        return torch.mean(out ** 2)
+
+    zero()  # the main path's run starts here
+    with recording({"ladder_scan_bwd": 8, "comb_scan_bwd": 8}) as rec:
+        theta = theta_on(PROBE_THETA, True)
+        loss = probe_loss(theta)
+        grads = dict(zip(theta, torch.autograd.grad(loss, list(theta.values()))))
+        torch.cuda.synchronize()
+    n_fwd, n_bwd = counts(fwd), counts(bwd)
+    rec_l, rec_c = rec["ladder_scan_bwd"], rec["comb_scan_bwd"]
+    n_blocks = fw.PROBE_N // fw.PROBE_BLOCK
+    check(n_fwd["ladder"] == n_fwd["comb"] == n_bwd["ladder"] == n_bwd["comb"] == n_blocks
+          and n_bwd["scan"] == 0,
+          f"probe: launches forward {n_fwd}, backward {n_bwd}, expected {n_blocks} each")
+    for k in total:
+        total[k] += n_bwd[k]
+    res = {"loss": loss.item()}
+    with torch.no_grad():
+        for k, eps in FD_EPS.items():
+            lo, hi = (torch.tensor(PROBE_THETA[k], dtype=torch.float32) + s * eps
+                      for s in (-1.0, 1.0))
+            fd = ((probe_loss(theta_on({**PROBE_THETA, k: float(hi)}, False))
+                   - probe_loss(theta_on({**PROBE_THETA, k: float(lo)}, False)))
+                  / float(hi - lo)).item()
+            g = grads[k].item()
+            rel = abs(g - fd) / max(abs(fd), 1e-9)
+            check(np.isfinite(g) and rel < FD_TOL, f"probe: grad_{k} {g} vs fd {fd} (rel {rel})")
+            res.update({f"grad_{k}": g, f"fd_{k}": fd, f"rel_err_{k}": rel})
+    print(f"training probe (n={fw.PROBE_N}, block {fw.PROBE_BLOCK}, launches forward "
+          f"{n_fwd}, backward {n_bwd}): {json.dumps(res)} [{card}]")
+
+    # every backward launch of the probe against autograd of the plain
+    # version on its own recorded inputs and cotangents: the ladder's side
+    # by side as channels of one plain loop on the host, the comb's one by one
+    errs = {"ladder_scan_bwd": 0.0, "comb_scan_bwd": 0.0}
+    t = time.perf_counter()
+    ladder_kw = rec_l[0][1]
+    args = [[a.cpu() for a in call[0]] for call in rec_l]
+    widths = [a[0].shape[1] for a in args]
+    joined = [torch.cat([a[i] for a in args], 1) for i in (0,)]
+    cols = [torch.cat([a[i][:, None].expand(-1, w) for a, w in zip(args, widths)], 1)
+            for i in range(1, 5)]
+    rest = [torch.cat([a[i] for a in args], 1) for i in (5, 6, 7)]
+    want = ladder.ladder_scan_bwd_ref(*joined, *cols, *rest, **ladder_kw)
+    for j, (_, _, got) in enumerate(rec_l):
+        lo = sum(widths[:j])
+        sl = slice(lo, lo + widths[j])
+        per = [want[0][:, sl], *(w[:, sl].sum(1) for w in want[1:5]), want[5][:, sl]]
+        errs["ladder_scan_bwd"] = max(errs["ladder_scan_bwd"], _check_bwd(
+            "ladder_scan_bwd", _bwd_errors([g.cpu() for g in got], per), f"probe launch {j}"))
+    for j, (cargs, kw, got) in enumerate(rec_c):
+        want = comb.comb_scan_bwd_ref(*(a.cpu() for a in cargs), **kw)
+        errs["comb_scan_bwd"] = max(errs["comb_scan_bwd"], _check_bwd(
+            "comb_scan_bwd", _bwd_errors([g.cpu() for g in got], want), f"probe launch {j}"))
+    print(f"training probe: all {len(rec_l)} ladder and {len(rec_c)} comb backward launches "
+          f"against autograd of the plain versions on their inputs and cotangents (host, "
+          f"{time.perf_counter() - t:.1f} s): max abs err ladder "
+          f"{errs['ladder_scan_bwd']:.3g}, comb {errs['comb_scan_bwd']:.3g}")
+    probe_calls = {"ladder_scan_bwd": rec_l[0], "comb_scan_bwd": rec_c[0]}
+
+    # ---- (b) the fit patch and (c) the fit bank, by Adam ----
+    def fit_run(label, graph, seconds, start, hidden, steps, keep):
+        n = int(round(seconds * SR))
+        with torch.no_grad():
+            target = engine.render_functional(graph, 0, n, BLOCK, hidden, device=dev)
+        rows, mark = [], {}
+
+        def begin():
+            zero()
+            torch.cuda.reset_peak_memory_stats()
+            mark["event"] = torch.cuda.Event(enable_timing=True)
+            mark["event"].record()
+            mark["t"] = time.perf_counter()
+
+        def on_step(step, loss, values):
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            v = float(loss)  # waits for the card
+            wall = time.perf_counter() - mark["t"]
+            end.synchronize()
+            rows.append((step, v, wall, mark["event"].elapsed_time(end), counts(fwd),
+                         counts(bwd), torch.cuda.max_memory_allocated() / 2**20,
+                         {k: float(x) for k, x in values.items()}))
+            begin()
+
+        with recording({name: 1 for name in keep}) as recs:
+            begin()
+            losses, fitted = fw.fit(graph, target, start, steps, TRAIN_LR, block=BLOCK,
+                                    device=dev, on_step=on_step)
+        for step, v, wall, span, nf, nb, peak, vals in rows:
+            print(f"{label} step {step}: loss {v:.6g}, wall {wall * 1e3:.1f} ms, device span "
+                  f"(CUDA events) {span:.1f} ms, launches forward {nf} backward {nb}, peak "
+                  f"memory {peak:.0f} MiB, then {json.dumps(vals)} [{card}]")
+        check(losses[-1] < losses[0], f"{label}: the loss did not fall {losses}")
+        print(f"{label}: loss {losses[0]:.6g} -> {losses[-1]:.6g} in {steps} Adam steps (lr "
+              f"{TRAIN_LR}), fitted {json.dumps(fitted)}, hidden {json.dumps(hidden)}")
+        return rows, recs
+
+    n_patch = -(-int(round(TRAIN_PATCH_S * SR)) // BLOCK)
+    rows, recs = fit_run("fit patch", fw.build_fit_patch(pg, TRAIN_PATCH_S), TRAIN_PATCH_S,
+                         PROBE_THETA, PATCH_HIDDEN, TRAIN_PATCH_STEPS,
+                         ["ladder_scan_bwd", "comb_scan_bwd"])
+    for step, *_, nf, nb, _, _ in rows:
+        check(nf["ladder"] == nf["comb"] == nb["ladder"] == nb["comb"] == n_patch
+              and nb["scan"] == 0,
+              f"fit patch step {step}: launches forward {nf} backward {nb}, expected {n_patch}")
+        total["ladder"] += nb["ladder"]
+        total["comb"] += nb["comb"]
+    patch_calls = {name: calls[0] for name, calls in recs.items()}
+    host_jobs = {name: pool.submit(plain_backward_on_host, name.split("_")[0],
+                                   *_host(calls))
+                 for name, calls in recs.items()}
+
+    n_bank = -(-int(round(TRAIN_BANK_S * SR)) // BLOCK)
+    rows, recs = fit_run("fit bank", fw.build_fit_bank(pg, TRAIN_BANK_S), TRAIN_BANK_S,
+                         BANK_START, BANK_HIDDEN, TRAIN_BANK_STEPS,
+                         ["affine_scan_2_bwd"])
+    for step, *_, nf, nb, _, _ in rows:
+        check(nf["scan"] == nb["scan"] == 2 * n_bank,
+              f"fit bank step {step}: scan launches forward {nf} backward {nb}, expected "
+              f"{2 * n_bank}")
+        total["scan"] += nb["scan"]
+    bank_call = recs["affine_scan_2_bwd"][0]
+    sargs, skw, sgot = bank_call
+    want = linrec_kernel.affine_scan_2_bwd_ref(*sargs, **skw)
+    pairs = [(g, w.sum_to_size(g.shape)) for g, w in zip(sgot, want) if g is not None]
+    errs["affine_scan_2_bwd"] = _check_bwd(
+        "affine_scan_2_bwd", _bwd_errors(*zip(*pairs)),
+        f"fit bank launch (T={sargs[4].shape[0]} C={sargs[4].shape[1]})")
+    print(f"fit bank: a backward scan launch at T={sargs[4].shape[0]}, C={sargs[4].shape[1]} "
+          f"against autograd of the plain chunked scan on the card: max abs err "
+          f"{errs['affine_scan_2_bwd']:.3g}")
+
+    # ---- times: each backward kernel at its shapes, beside its plain version ----
+    times = {}
+    for name, fn, ref in (("ladder_scan_bwd", bwd["ladder"], ladder.ladder_scan_bwd_ref),
+                          ("comb_scan_bwd", bwd["comb"], comb.comb_scan_bwd_ref)):
+        pargs, pkw, _ = probe_calls[name]
+        fargs, fkw, _ = patch_calls[name]
+        _, plain = timed_plain(lambda: ref(*pargs, **pkw))
+        times[name] = (device_ms(lambda: fn(*pargs, **pkw), 10), plain,
+                       device_ms(lambda: fn(*fargs, **fkw), 5))
+    _, plain = timed_plain(lambda: linrec_kernel.affine_scan_2_bwd_ref(*sargs, **skw))
+    times["affine_scan_2_bwd"] = (device_ms(lambda: bwd["scan"](*sargs, **skw), 10), plain,
+                                  kernel_ms(lambda: bwd["scan"](*sargs, **skw),
+                                            "affine_scan_2"))
+
+    # ---- the host's results ----
+    for name, job in host_jobs.items():
+        got, secs = job.result()
+        T = patch_calls[name][0][0].shape[0]
+        errs[name] = max(errs[name], _check_bwd(name, got, f"fit patch launch (T={T})"))
+        print(f"fit patch: a {name} launch at T={T} against autograd of the plain version on "
+              f"the host ({secs:.1f} s): max abs err {max(e for e, _ in got):.3g} (largest "
+              f"plain cotangent {max(s for _, s in got):.3g})")
+    cpu_loss, cpu_grads, cpu_s = cpu_job.result()
+    for k, g in cpu_grads.items():
+        rel = abs(grads[k].item() - g) / abs(g)
+        check(rel <= CPU_GRAD_TOL, f"probe: grad_{k} on the card {grads[k].item()} vs the "
+              f"CPU's {g} (rel {rel})")
+    print(f"training probe on the CPU (plain versions, {cpu_s:.1f} s in a second process): "
+          f"loss {cpu_loss:.6g}, grads {json.dumps(cpu_grads)}; the card's within "
+          f"{CPU_GRAD_TOL} relative")
+
+    # ---- the kernels line's entries ----
+    entries = []
+    pT, pC = probe_calls["ladder_scan_bwd"][0][0].shape
+    fT = patch_calls["ladder_scan_bwd"][0][0].shape[0]
+    L = patch_calls["comb_scan_bwd"][0][3].shape[0]
+
+    def ladder_bound(T, C):
+        # x, gy, gx; the four columns and their cotangents; the state in,
+        # its cotangent in and out. Scratch: each sample's entering state
+        # (9 a channel) and the columns' per-channel parts (4), each
+        # written and read
+        return (bound(4 * (3 * T * C + 8 * T + 27 * C), LADDER_BWD_OPS * T * C),
+                4 * 2 * (9 + 4) * T * C)
+
+    def comb_bound(T, C):
+        # y, gy, gx; the ring in, its cotangents out and in; freq, fb and
+        # their cotangents. Scratch: the delays and the smoothed values,
+        # the tape's cotangent (L + T rows), the feedback's per-channel
+        # parts, each written and read
+        return (bound(4 * (3 * T * C + 3 * L * C + 4 * T),
+                      COMB_BWD_OPS_SAMPLE * T + COMB_BWD_OPS_CHANNEL * T * C + min(L, T) * C),
+                4 * 2 * (2 * T + (L + T) * C + T * C))
+
+    sT, sC = sargs[4].shape
+    shared = [a.dim() == 2 and (a.shape[1] == 1 or a.stride(1) == 0) for a in sargs[:4]]
+    n_planes = sum(sT if sh else sT * sC for sh in shared)
+    # the matrix planes and their cotangents, s1, s2, g1, g2, the state in
+    # and its cotangent, gu (u is not read). Scratch: the adjoint's planes
+    # reversed and transposed, the cotangents reversed, the shifted
+    # states, each written and read
+    scan_bound = (bound(4 * (2 * n_planes + 6 * sT * sC + 4 * sC),
+                        (SCAN_BWD_OPS + SCAN_BWD_OPS_SHARED * sum(shared)) * sT * sC),
+                  4 * 2 * (n_planes + 4 * sT * sC))
+    for key, name, source, replaces, bnd, bnd_patch in (
+            ("ladder", "ladder_scan_bwd", "pygmu2_tpu_torch/csrc/ladder_scan_bwd.cu",
+             "pygmu2_tpu/ops/ladder_pallas.py:253", ladder_bound(pT, pC), ladder_bound(fT, 1)),
+            ("comb", "comb_scan_bwd", "pygmu2_tpu_torch/csrc/comb_scan_bwd.cu",
+             "pygmu2_tpu/ops/comb_pallas.py:185", comb_bound(pT, pC), comb_bound(fT, 1)),
+            ("scan", "affine_scan_2_bwd", "pygmu2_tpu_torch/csrc/affine_scan_2.cu",
+             "pygmu2_tpu/ops/linrec_pallas.py:95", scan_bound, None)):
+        ms, plain, third = times[name]
+        bnd, scratch = bnd
+        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": total[key], "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
+                 "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+                 "scratch_bytes": scratch}
+        if bnd_patch is None:
+            entry.update(shape=f"T={sT} C={sC}, the fit bank's", kernel_ms=third)
+        else:
+            bnd_patch, scratch_patch = bnd_patch
+            entry.update(shape=f"T={pT} C={pC}, the probe's", ms_patch=third,
+                         bound_ms_patch=bnd_patch[0], scratch_bytes_patch=scratch_patch,
+                         shape_patch=f"T={fT} C=1, the fit patch's")
+        entries.append(entry)
+        print(f"{name} ({entry['shape']}): kernel {ms:.4f} ms, bound {bnd[0]:.4g} ms "
+              f"({bnd[1]}; the design's scratch {scratch} bytes more), plain (autograd) "
+              f"{plain:.1f} ms"
+              + (f"; at {entry['shape_patch']}: {third:.4f} ms, bound {bnd_patch[0]:.4g} ms "
+                 f"(scratch {scratch_patch} bytes)"
+                 if bnd_patch else f"; the scan's launch alone {third:.4f} ms")
+              + f"; {entry['launches']} launches on the training path [{card}]")
+    print(f"training: phase took {time.perf_counter() - t0:.1f} s")
+    return entries
 
 
 if __name__ == "__main__":

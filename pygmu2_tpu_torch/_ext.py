@@ -103,6 +103,13 @@ def load() -> ctypes.CDLL:
         # x, al, qa, ki, dsc, state_in, y, state_out, T, C, os_n, pbg,
         # mode_index, input_threshold, state_decay, stream
         "ladder_scan_launch": [p] * 8 + [i, i, i, f, i, f, f, p],
+        # x, al, qa, ki, dsc, state_in, gy, gstate, gx, gcols, gstate_in, traj,
+        # part, T, C, os_n, pbg, mode_index, input_threshold, state_decay, stream
+        "ladder_scan_bwd_launch": [p] * 13 + [i, i, i, f, i, f, f, p],
+        # freq, fb, buf_in, pos_in, sf_in, y, gy, gbuf, gsf, gx, gfreq, gfb,
+        # gbuf_in, gsf_in, delay, sf_prev, G, part, T, C, L, sr, smooth_alpha,
+        # stream
+        "comb_scan_bwd_launch": [p] * 18 + [i, i, i, f, f, p],
         # x, freq, fb, buf_in, pos_in, sf_in, y, buf_out, pos_out, sf_out,
         # delay, bounds, n_windows, T, C, L, sr, smooth_alpha, stream
         "comb_scan_launch": [p] * 13 + [i, i, i, f, f, p],

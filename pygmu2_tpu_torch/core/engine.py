@@ -22,7 +22,8 @@ package's traced-start branches collapse into its static ones.
 threads the state dict, then leaves the final state on the PE instances
 (``checkpoint_state`` / ``restore_state`` save and load it, in the JAX
 package's format). ``render_functional`` renders from fresh state and
-leaves the instances alone.
+leaves the instances alone; its output is differentiable with respect to
+ParamPE bindings given as tensors that require grad.
 
 Besides rendering, a ``Program`` serves three kinds of PE:
 
@@ -489,6 +490,23 @@ def _scatter_states(root, states: dict) -> None:
             pe._eng_state = states[key]
 
 
+def _detached(states: dict) -> dict:
+    """``states`` with every tensor leaf detached: a state left on a PE
+    instance must not hold a differentiable render's graph alive."""
+    def leaf(v):
+        return v.detach() if isinstance(v, torch.Tensor) else v
+
+    return {k: {**v, "user": tree_map(leaf, v["user"])} for k, v in states.items()}
+
+
+def _bindings_on(bindings, device):
+    """``bindings`` with each tensor on ``device``, copied once per render
+    (a differentiable copy), not once per block."""
+    if not bindings:
+        return bindings
+    return {k: v.to(device) if isinstance(v, torch.Tensor) else v for k, v in bindings.items()}
+
+
 def reset_graph_states(root) -> None:
     """Drop all carried state in the graph (forces re-init on next render)."""
     for pe in _walk(root):
@@ -548,8 +566,9 @@ def render_scan(root, start: int, total: int, block: int, bindings=None, *,
     prog = get_program(root, block, device)
     writers = [pe for pe in prog._walked if hasattr(pe, "_eng_on_block")]
     taps = {f"pe{pe._uid}": [] for pe in writers}
-    out, states = _render_blocks(prog, start, total, _gather_states(root), bindings, taps)
-    _scatter_states(root, states)
+    out, states = _render_blocks(prog, start, total, _gather_states(root),
+                                 _bindings_on(bindings, device), taps)
+    _scatter_states(root, _detached(states))
     for pe in writers:
         parts = taps[f"pe{pe._uid}"]
         if parts:
@@ -566,10 +585,15 @@ def render_functional(root, start: int, total: int, block: int, bindings=None, *
     state and firing no block hook.
 
     ``bindings`` maps ParamPE names to values: a parameter sweep renders
-    the same graph again and again without touching it. (Making the PE
-    instances' state private to the call is what the JAX package needs
-    for ``jax.grad``; gradients through the port's kernels are not
-    wired yet.)
+    the same graph again and again without touching it. A binding may be
+    a scalar or ``(C,)`` tensor that requires grad, on the CPU or the
+    render's device (copied there once): the output's ``grad_fn`` then
+    reaches it, so ``torch.autograd`` of a loss of the render gives the
+    loss's gradient with respect to the bindings, as ``jax.grad`` does in
+    the JAX package. On the CPU autograd differentiates the kernels'
+    plain versions; on the card the ladder, the comb and the order-2
+    affine scan run hand-written backward kernels, and the other kernels'
+    backward raises ``NotImplementedError`` (ROADMAP.md, queue 2).
     """
     device = torch.device(device)
     if total <= 0:
@@ -582,7 +606,7 @@ def render_functional(root, start: int, total: int, block: int, bindings=None, *
     prog = get_program(root, block, device)
     for pe, st in zip(walked, held):
         pe._eng_state = st
-    out, _ = _render_blocks(prog, start, total, None, bindings)
+    out, _ = _render_blocks(prog, start, total, None, _bindings_on(bindings, device))
     return out
 
 

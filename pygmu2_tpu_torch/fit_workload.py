@@ -1,0 +1,124 @@
+"""The training path: patch parameters fitted by gradient descent.
+
+The builders take a package namespace ``pg`` — ``pygmu2_tpu_torch`` or the
+JAX package ``pygmu2_tpu`` — so the same graph can be built from either
+and the two renders (and their gradients) compared. Each sets the sample
+rate to 44.1 kHz. Their ``ParamPE`` values are the parameters: a render
+through ``engine.render_functional`` with bindings that require grad is
+differentiable with respect to them.
+
+- :func:`build_probe`: the JAX package's gradient probe
+  (``bench.py:_grad_probe``): a band-limited saw through a LadderPE whose
+  cutoff is ``ParamPE("cutoff")`` and a CombPE whose feedback is
+  ``ParamPE("fb")``, cropped to ``PROBE_N`` samples (rendered in blocks of
+  ``PROBE_BLOCK``).
+- :func:`build_fit_patch`: ``patch_workload.build_patch`` with the ladder
+  sweep's centre bound to ``ParamPE("cutoff")`` and the comb's feedback to
+  ``ParamPE("fb")``.
+- :func:`build_fit_bank`: ``filter_workload.build_filter_bank`` with the
+  BiquadPE's and the SVFilterPE's sweep centres bound to
+  ``ParamPE("low_hz")`` and ``ParamPE("band_hz")``.
+- :func:`fit`: the loop of ``examples/gradient_fit_eg.py`` on
+  ``torch.optim.Adam`` (optax's Adam there): a mean squared error against a
+  target render, frequencies fitted as their logarithms.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from pygmu2_tpu_torch.patch_workload import SR, _swept, detuned_saws, patch_envelopes
+
+PROBE_N, PROBE_BLOCK = 4096, 1024
+# parameters fitted in log space (well scaled: a frequency's steps are ratios)
+LOG_PARAMS = ("cutoff", "low_hz", "band_hz")
+
+
+def _swept_around(pg, centre, hz: float, depth: float):
+    """``centre + depth * sin(2π hz t)`` as a PE, ``centre`` a PE."""
+    return pg.MixPE(centre, pg.SinePE(hz, amplitude=depth))
+
+
+def build_probe(pg, n: int = PROBE_N):
+    """The gradient probe's graph, cropped to ``n`` samples."""
+    pg.set_sample_rate(SR)
+    osc = pg.BlitSawPE(frequency=110.0, amplitude=0.8)
+    lad = pg.LadderPE(osc, pg.ParamPE("cutoff", default=1500.0), 0.45)
+    return pg.CropPE(pg.CombPE(lad, 220.0, feedback=pg.ParamPE("fb", default=0.6)), 0, n)
+
+
+def build_fit_patch(pg, seconds: float):
+    """The mono patch of ``patch_workload.build_patch`` with its ladder's
+    sweep centre ``ParamPE("cutoff")`` (default 1500 Hz) and its comb's
+    feedback ``ParamPE("fb")`` (default 0.6), cropped to ``seconds``."""
+    pg.set_sample_rate(SR)
+    gated, triggered = patch_envelopes(pg)
+    cutoff = _swept_around(pg, pg.ParamPE("cutoff", default=1500.0), 0.25, 1200.0)
+    lead = pg.LadderPE(pg.BlitSawPE(110.0, amplitude=0.8), cutoff, 0.45)
+    lead = pg.GainPE(lead, gated)
+    pluck = pg.GainPE(pg.BlitSawPE(220.0), triggered)
+    comb = pg.CombPE(pg.MixPE(lead, pluck), _swept(pg, 220.0, 0.5, 20.0),
+                     feedback=pg.ParamPE("fb", default=0.6))
+    return pg.CropPE(comb, 0, int(round(seconds * SR)))
+
+
+def build_fit_bank(pg, seconds: float, seed: int = 0):
+    """The 128-channel filter bank of ``filter_workload.build_filter_bank``
+    with its BiquadPE's sweep centre ``ParamPE("low_hz")`` (default 1500
+    Hz) and its SVFilterPE's ``ParamPE("band_hz")`` (default 800 Hz),
+    cropped to ``seconds``."""
+    pg.set_sample_rate(SR)
+    n = int(round(seconds * SR))
+    saws = pg.ArrayPE(detuned_saws(n, seed))
+    low = pg.BiquadPE(saws, _swept_around(pg, pg.ParamPE("low_hz", default=1500.0), 0.25, 1200.0),
+                      4.0, mode=pg.BiquadMode.LOWPASS)
+    band = pg.SVFilterPE(low, _swept_around(pg, pg.ParamPE("band_hz", default=800.0), 0.4, 500.0),
+                         2.0, mode=pg.BiquadMode.BANDPASS)
+    return pg.CropPE(pg.GainPE(band, 0.5), 0, n)
+
+
+def bindings_of(params: dict) -> dict:
+    """The render's bindings from the fitted parameters (log-space ones
+    exponentiated: the gradient chains through the exp)."""
+    return {k: v.exp() if k in LOG_PARAMS else v for k, v in params.items()}
+
+
+def fit(graph, target, theta: dict, steps: int, lr: float, *, block: int, device="cuda",
+        on_step=None):
+    """Fit ``graph``'s ParamPE values to ``target`` by Adam on the mean
+    squared error of ``engine.render_functional``.
+
+    ``target``: the (n, C) render to match (a tensor or array); ``theta``:
+    name -> starting value (floats). Frequencies in :data:`LOG_PARAMS` are
+    fitted as their logarithms, the rest as they are. ``on_step(step,
+    loss, values)``, if given, is called after each step with the step's
+    loss (a 0-d tensor on ``device``, before the update) and the
+    parameters' values after it. Returns (the losses as floats, the
+    fitted values).
+    """
+    from pygmu2_tpu_torch.core import engine
+
+    device = torch.device(device)
+    target = torch.as_tensor(target, dtype=torch.float32).to(device)
+    params = {k: torch.tensor(math.log(v) if k in LOG_PARAMS else float(v),
+                              dtype=torch.float32, device=device, requires_grad=True)
+              for k, v in theta.items()}
+    opt = torch.optim.Adam(list(params.values()), lr=lr)
+    losses = []
+    for step in range(steps):
+        opt.zero_grad()
+        out = engine.render_functional(graph, 0, target.shape[0], block, bindings_of(params),
+                                       device=device)
+        loss = torch.mean((out - target) ** 2)
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+        if on_step is not None:
+            with torch.no_grad():
+                values = {k: v.detach().clone() for k, v in bindings_of(params).items()}
+            on_step(step, losses[-1], values)
+    with torch.no_grad():
+        fitted = {k: float(v) for k, v in bindings_of(params).items()}
+    return [float(v) for v in losses], fitted

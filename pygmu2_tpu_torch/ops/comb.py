@@ -17,6 +17,13 @@ delay is round(sr / sf) clipped to [1, L-1], and
   only): the smoother alone, serially; every sample's delay from it;
   windows cut greedily so that no sample of a window reads a value the
   window writes; then each window's samples and channels at once.
+
+Differentiable: on the card the launch is a ``torch.autograd.Function``
+(:mod:`~pygmu2_tpu_torch.ops.diffable`) whose backward is
+``comb_scan_bwd``, the hand-written adjoint in ``csrc/comb_scan_bwd.cu``
+(counted in ``comb_scan_bwd.launches``); on the CPU autograd
+differentiates the plain version. ``comb_scan_bwd_ref`` is the backward's
+plain version (autograd of ``comb_scan_ref``).
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from pygmu2_tpu_torch import _ext
+from pygmu2_tpu_torch.ops import diffable
 
 
 def comb_scan_ref(x, freq, fb, buf, pos, sf, *, L, sr, smooth_alpha):
@@ -35,11 +43,11 @@ def comb_scan_ref(x, freq, fb, buf, pos, sf, *, L, sr, smooth_alpha):
     sf = torch.as_tensor(sf, dtype=torch.float32, device=dev).reshape(())
     sr32 = torch.tensor(sr, dtype=torch.float32, device=dev)
     ys = []
-    for xi, fi, fbi in zip(x, freq.tolist(), fb.tolist()):
+    for xi, fi, fbi in zip(x, freq, fb):
         sf = torch.where(sf < 0.0, fi, sf + (fi - sf) * smooth_alpha)
         delay = torch.round(sr32 / sf.clamp(min=1.0)).to(torch.int32).clamp(1, L - 1)
         read = torch.remainder(p - delay + L, L).long()
-        out = xi + fbi * buf[read]
+        out = xi + fbi * buf[read].clone()  # a copy: buf changes in place below
         buf[p] = out
         p = (p + 1) % L
         ys.append(out)
@@ -95,10 +103,44 @@ def comb_scan(x, freq, fb, buf, pos, sf, *, L, sr, smooth_alpha):
         return comb_scan_ref(x, freq, fb, buf, pos, sf, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    return _launch(x, freq, fb, buf, pos, sf, **kw)
+    return _differentiable(x, freq, fb, buf, pos, sf, **kw)
 
 
 comb_scan.launches = 0
+
+
+def comb_scan_bwd(x, freq, fb, buf, pos, sf, y, gy, gbuf, gsf, *, L, sr, smooth_alpha):
+    """The cotangents of :func:`comb_scan`'s float inputs.
+
+    Takes the forward's arguments (the kernel reads all but ``x``) and its
+    output ``y``, and the cotangents ``gy`` (T, C), ``gbuf`` (L, C) and ``gsf`` () of
+    its float outputs; returns (gx (T, C), gfreq (T,), gfb (T,), gbuf_in
+    (L, C), gsf_in ()). CPU tensors take the plain version; CUDA tensors
+    launch the kernel (one count in ``comb_scan_bwd.launches`` per call,
+    which is three launches: the control pass, the walk, the channel sum)
+    or raise.
+    """
+    kw = dict(L=L, sr=sr, smooth_alpha=smooth_alpha)
+    if y.device.type == "cpu":
+        return comb_scan_bwd_ref(x, freq, fb, buf, pos, sf, y, gy, gbuf, gsf, **kw)
+    if y.device.type != "cuda":
+        raise ValueError(f"no kernel for device {y.device}")
+    return _launch_bwd(x, freq, fb, buf, pos, sf, y, gy, gbuf, gsf, **kw)
+
+
+comb_scan_bwd.launches = 0
+
+
+def comb_scan_bwd_ref(x, freq, fb, buf, pos, sf, y, gy, gbuf, gsf, **kw):
+    """Plain PyTorch version of :func:`comb_scan_bwd`: autograd of
+    :func:`comb_scan_ref` (same arguments and result)."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in (x, freq, fb, buf)]
+        sf_in = torch.as_tensor(sf, dtype=torch.float32, device=y.device).reshape(())
+        sf_in = sf_in.detach().requires_grad_()
+        y2, buf2, _, sf2 = comb_scan_ref(*ins, pos, sf_in, **kw)
+        return torch.autograd.grad((y2, buf2, sf2), ins + [sf_in], (gy, gbuf, gsf.reshape(())),
+                                   allow_unused=True, materialize_grads=True)
 
 
 def _launch(x, freq, fb, buf, pos, sf, *, L, sr, smooth_alpha):
@@ -134,3 +176,56 @@ def _launch(x, freq, fb, buf, pos, sf, *, L, sr, smooth_alpha):
     _ext.raise_on_error(err, "comb_scan")
     comb_scan.launches += 1
     return y, buf_out, pos_out, sf_out
+
+
+def _launch_bwd(x, freq, fb, buf, pos, sf, y, gy, gbuf, gsf, *, L, sr, smooth_alpha):
+    dev = y.device
+    if y.dim() != 2 or y.shape[0] < 1 or y.shape[1] < 1 or L < 2:
+        raise ValueError(f"unsupported shape y={tuple(y.shape)} L={L}")
+    T, C = y.shape
+    freq = _ext.checked(freq, "freq", (T,), dev)
+    fb = _ext.checked(fb, "fb", (T,), dev)
+    buf = _ext.checked(buf, "buf", (L, C), dev)
+    sf = _ext.checked(sf.reshape(()), "sf", (), dev)
+    y = _ext.checked(y, "y", (T, C), dev)
+    gy = _ext.checked(gy, "gy", (T, C), dev)
+    gbuf = _ext.checked(gbuf, "gbuf", (L, C), dev)
+    gsf = _ext.checked(gsf.reshape(()), "gsf", (), dev)
+    pos = pos.reshape(())
+    if pos.dtype != torch.int32 or pos.device != dev:
+        raise ValueError("pos must be an int32 scalar tensor on y's device")
+    gx = torch.empty((T, C), dtype=torch.float32, device=dev)
+    gfreq = torch.empty((T,), dtype=torch.float32, device=dev)
+    gfb = torch.empty((T,), dtype=torch.float32, device=dev)
+    gbuf_in = torch.empty((L, C), dtype=torch.float32, device=dev)
+    gsf_in = torch.empty((), dtype=torch.float32, device=dev)
+    # scratch: the delays, the smoother's entering values, the tape's
+    # cotangent, the feedback's per-channel parts
+    delay = torch.empty((T,), dtype=torch.int32, device=dev)
+    sf_prev = torch.empty((T,), dtype=torch.float32, device=dev)
+    G = torch.empty((L + T, C), dtype=torch.float32, device=dev)
+    part = torch.empty((T, C), dtype=torch.float32, device=dev)
+    lib = _ext.load()
+    with torch.cuda.device(dev):
+        err = lib.comb_scan_bwd_launch(
+            freq.data_ptr(), fb.data_ptr(), buf.data_ptr(), pos.data_ptr(), sf.data_ptr(),
+            y.data_ptr(), gy.data_ptr(), gbuf.data_ptr(), gsf.data_ptr(), gx.data_ptr(),
+            gfreq.data_ptr(), gfb.data_ptr(), gbuf_in.data_ptr(), gsf_in.data_ptr(),
+            delay.data_ptr(), sf_prev.data_ptr(), G.data_ptr(), part.data_ptr(), T, C, L,
+            float(sr), float(smooth_alpha), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _ext.raise_on_error(err, "comb_scan_bwd")
+    comb_scan_bwd.launches += 1
+    return gx, gfreq, gfb, gbuf_in, gsf_in
+
+
+def _backward(args, outs, grads, **kw):
+    x, freq, fb, buf, pos, sf = args
+    gy, gbuf, _, gsf = grads
+    gx, gfreq, gfb, gbuf_in, gsf_in = comb_scan_bwd(x, freq, fb, buf, pos, sf, outs[0], gy, gbuf,
+                                                    gsf, **kw)
+    return gx, gfreq, gfb, gbuf_in, None, gsf_in.reshape(sf.shape)
+
+
+# the launch as a torch.autograd.Function, its backward comb_scan_bwd
+_differentiable = diffable.kernel_function("comb_scan", _launch, _backward)

@@ -11,6 +11,14 @@ the state after the last sample.
 - ``ladder_scan_ref`` is the plain PyTorch version: a per-sample loop
   with the JAX package's ``ladder_scan_ref`` op order, float32.
 
+Differentiable: on the card the launch is a ``torch.autograd.Function``
+(:mod:`~pygmu2_tpu_torch.ops.diffable`) whose backward is
+``ladder_scan_bwd``, the hand-written adjoint in
+``csrc/ladder_scan_bwd.cu`` (counted in ``ladder_scan_bwd.launches``);
+on the CPU autograd differentiates the plain version, as JAX
+differentiates its ``lax.scan`` reference. ``ladder_scan_bwd_ref`` is the
+backward's plain version (autograd of ``ladder_scan_ref``).
+
 State rows: z0[0..3], z1[0..3], old (the previous input sample).
 """
 
@@ -19,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from pygmu2_tpu_torch import _ext
+from pygmu2_tpu_torch.ops import diffable
 
 
 def _mode_mix(mode_index: int, u, s1, s2, s3, s4):
@@ -48,10 +57,8 @@ def ladder_scan_ref(x, al, qa, ki, dsc, state, *, os_n, pbg, mode_index,
     z0 = [state[k] for k in range(4)]
     z1 = [state[4 + k] for k in range(4)]
     old = state[8]
-    coeffs = (al, qa, ki, dsc)
-    cols = zip(x, *(c if c.dim() == 2 else c.tolist() for c in coeffs))
     ys = []
-    for xi, al_, qa_, ki_, dsc_ in cols:
+    for xi, al_, qa_, ki_, dsc_ in zip(x, al, qa, ki, dsc):
         input_sample = xi * dsc_
         decay = torch.where(input_sample.abs() < input_threshold, dec, one)
         z0 = [z * decay for z in z0]
@@ -93,10 +100,43 @@ def ladder_scan(x, al, qa, ki, dsc, state, *, os_n, pbg, mode_index,
         return ladder_scan_ref(x, al, qa, ki, dsc, state, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    return _launch(x, al, qa, ki, dsc, state, **kw)
+    return _differentiable(x, al, qa, ki, dsc, state, **kw)
 
 
 ladder_scan.launches = 0
+
+
+def ladder_scan_bwd(x, al, qa, ki, dsc, state, gy, gstate, *, os_n, pbg, mode_index,
+                    input_threshold, state_decay):
+    """The cotangents of :func:`ladder_scan`'s inputs.
+
+    Takes the forward's arguments and the cotangents ``gy`` (T, C) and
+    ``gstate`` (9, C) of its two outputs; returns (gx (T, C), gal, gqa,
+    gki, gdsc (each (T,), summed over the channels), gstate_in (9, C)).
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (one count in ``ladder_scan_bwd.launches`` per call) or raise.
+    """
+    kw = dict(os_n=os_n, pbg=pbg, mode_index=mode_index,
+              input_threshold=input_threshold, state_decay=state_decay)
+    if x.device.type == "cpu":
+        return ladder_scan_bwd_ref(x, al, qa, ki, dsc, state, gy, gstate, **kw)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    return _launch_bwd(x, al, qa, ki, dsc, state, gy, gstate, **kw)
+
+
+ladder_scan_bwd.launches = 0
+
+
+def ladder_scan_bwd_ref(x, al, qa, ki, dsc, state, gy, gstate, **kw):
+    """Plain PyTorch version of :func:`ladder_scan_bwd`: autograd of
+    :func:`ladder_scan_ref` (same arguments and result). The columns may
+    also be (T, C), one per channel; their cotangents are then (T, C)."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in (x, al, qa, ki, dsc, state)]
+        y, st = ladder_scan_ref(*ins, **kw)
+        return torch.autograd.grad((y, st), ins, (gy, gstate), allow_unused=True,
+                                   materialize_grads=True)
 
 
 def _launch(x, al, qa, ki, dsc, state, *, os_n, pbg, mode_index,
@@ -123,3 +163,47 @@ def _launch(x, al, qa, ki, dsc, state, *, os_n, pbg, mode_index,
     _ext.raise_on_error(err, "ladder_scan")
     ladder_scan.launches += 1
     return y, state_out
+
+
+def _launch_bwd(x, al, qa, ki, dsc, state, gy, gstate, *, os_n, pbg, mode_index,
+                input_threshold, state_decay):
+    dev = x.device
+    if x.dim() != 2 or x.shape[0] < 1 or x.shape[1] < 1:
+        raise ValueError(f"x must be (T, C) with T, C >= 1, got {tuple(x.shape)}")
+    T, C = x.shape
+    cols = [_ext.checked(v, f"column {i}", (T,), dev) for i, v in enumerate((al, qa, ki, dsc))]
+    x = _ext.checked(x, "x", (T, C), dev)
+    gy = _ext.checked(gy, "gy", (T, C), dev)
+    state = _ext.checked(state, "state", (9, C), dev)
+    gstate = _ext.checked(gstate, "gstate", (9, C), dev)
+    if os_n < 1 or mode_index not in range(6):
+        raise ValueError(f"unsupported os_n={os_n} mode_index={mode_index}")
+    gx = torch.empty((T, C), dtype=torch.float32, device=dev)
+    gcols = torch.empty((4, T), dtype=torch.float32, device=dev)
+    gstate_in = torch.empty((9, C), dtype=torch.float32, device=dev)
+    # scratch: each sample's entering state, the columns' per-channel parts
+    traj = torch.empty((T, 9, C), dtype=torch.float32, device=dev)
+    part = torch.empty((4, T, C), dtype=torch.float32, device=dev)
+    lib = _ext.load()
+    with torch.cuda.device(dev):
+        err = lib.ladder_scan_bwd_launch(
+            x.data_ptr(), *(c.data_ptr() for c in cols), state.data_ptr(), gy.data_ptr(),
+            gstate.data_ptr(), gx.data_ptr(), gcols.data_ptr(), gstate_in.data_ptr(),
+            traj.data_ptr(), part.data_ptr(), T, C, os_n, float(pbg), mode_index,
+            float(input_threshold), float(state_decay),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _ext.raise_on_error(err, "ladder_scan_bwd")
+    ladder_scan_bwd.launches += 1
+    return gx, gcols[0], gcols[1], gcols[2], gcols[3], gstate_in
+
+
+def _backward(args, outs, grads, **kw):
+    x, al, qa, ki, dsc, state = args
+    gy, gstate = grads
+    got = ladder_scan_bwd(x, al, qa, ki, dsc, state, gy, gstate, **kw)
+    return [g.reshape(a.shape) for g, a in zip(got, args)]
+
+
+# the launch as a torch.autograd.Function, its backward ladder_scan_bwd
+_differentiable = diffable.kernel_function("ladder_scan", _launch, _backward)

@@ -25,6 +25,21 @@ before step 0, and returns the two (T, C) state components.
 A plane that every channel shares may be given as (T, 1) or as a view
 expanded along the channels (stride 0): the kernel then reads one row per
 sample instead of C, with the same result.
+
+Differentiable: on the card the launch is a ``torch.autograd.Function``
+(:mod:`~pygmu2_tpu_torch.ops.diffable`) whose backward is
+``affine_scan_2_bwd``. The adjoint of ``s[t] = A[t] s[t-1] + u[t]`` is
+
+    lam[t] = g[t] + A[t+1]^T lam[t+1],
+
+the same recurrence run backward in time on the transposed matrices, so
+the backward is one launch of the same kernel (counted in
+``affine_scan_2_bwd.launches``) on the time-reversed, transposed, shifted
+planes, a shared plane kept shared; then, in torch ops, ``gu = lam``,
+``gA[t] = lam[t] s[t-1]^T`` (the forward's output the residual),
+``gs0 = A[0]^T lam[0]``. On the CPU the same adjoint runs the plain
+version (``affine_scan_2_bwd``), and autograd differentiates the plain
+forward (``affine_scan_2_bwd_ref``).
 """
 
 from __future__ import annotations
@@ -32,6 +47,7 @@ from __future__ import annotations
 import torch
 
 from pygmu2_tpu_torch import _ext
+from pygmu2_tpu_torch.ops import diffable
 from pygmu2_tpu_torch.ops.xla_math import fmaf
 
 _MAX_CHUNK = 1024  # a chunk's rows in one CUDA block
@@ -108,10 +124,75 @@ def affine_scan_2_kernel(a11, a12, a21, a22, u1, u2, s0=None, *, chunk: int):
         return affine_scan_2_chunked_ref(a11, a12, a21, a22, u1, u2, s0, chunk=chunk)
     if u1.device.type != "cuda":
         raise ValueError(f"no kernel for device {u1.device}")
-    return _launch((a11, a12, a21, a22, u1, u2), s0, chunk)
+    s01, s02 = (None, None) if s0 is None else s0
+    return _differentiable(a11, a12, a21, a22, u1, u2, s01, s02, chunk=chunk)
 
 
 affine_scan_2_kernel.launches = 0
+
+
+def _shifted_transposed(a11, a12, a21, a22, T: int):
+    """The adjoint's planes: b[r] = A[T - r]^T for r >= 1, b[0] = 0 (it
+    multiplies the zero state before the last sample). A shared plane
+    stays one column."""
+    def rev(a):
+        a = a[:, :1] if a.shape[1] == 1 or a.stride(1) == 0 else a
+        return torch.cat([a.new_zeros((1, a.shape[1])), a.flip(0)[:-1]])
+
+    return rev(a11), rev(a21), rev(a12), rev(a22)
+
+
+def affine_scan_2_bwd(a11, a12, a21, a22, u1, u2, s01, s02, s1, s2, g1, g2, *, chunk: int):
+    """The cotangents of :func:`affine_scan_2_kernel`'s inputs.
+
+    Takes the forward's planes (broadcast to (T, C)), its entering state
+    (``s01``, ``s02``: (C,) each, or None), its outputs ``s1``, ``s2`` and
+    their cotangents ``g1``, ``g2``; returns (ga11, ga12, ga21, ga22, gu1,
+    gu2), each (T, C), and (gs01, gs02), each (C,) (None without a state).
+    The adjoint scan is the plain version on CPU tensors; on CUDA tensors
+    it is a launch of the kernel (one count in
+    ``affine_scan_2_bwd.launches`` per call).
+    """
+    a11, a12, a21, a22, u1, u2 = torch.broadcast_tensors(a11, a12, a21, a22, u1, u2)
+    T, C = u1.shape
+    planes = _shifted_transposed(a11, a12, a21, a22, T) + (g1.flip(0), g2.flip(0))
+    if u1.device.type == "cpu":
+        l1, l2 = affine_scan_2_chunked_ref(*planes, chunk=chunk)
+    elif u1.device.type == "cuda":
+        l1, l2 = _launch(planes, None, chunk)
+        affine_scan_2_bwd.launches += 1
+    else:
+        raise ValueError(f"no kernel for device {u1.device}")
+    l1, l2 = l1.flip(0), l2.flip(0)
+    if s01 is None:
+        zero = u1.new_zeros((1, C))
+        p1, p2 = torch.cat([zero, s1[:-1]]), torch.cat([zero, s2[:-1]])
+    else:
+        p1 = torch.cat([(u1.new_zeros((C,)) + s01)[None], s1[:-1]])
+        p2 = torch.cat([(u1.new_zeros((C,)) + s02)[None], s2[:-1]])
+    gs = (None, None)
+    if s01 is not None:
+        gs = (a11[0] * l1[0] + a21[0] * l2[0], a12[0] * l1[0] + a22[0] * l2[0])
+    return (l1 * p1, l1 * p2, l2 * p1, l2 * p2, l1, l2) + gs
+
+
+affine_scan_2_bwd.launches = 0
+
+
+def affine_scan_2_bwd_ref(a11, a12, a21, a22, u1, u2, s01, s02, s1, s2, g1, g2, *,
+                          chunk: int):
+    """Plain PyTorch version of :func:`affine_scan_2_bwd`: autograd of
+    :func:`affine_scan_2_chunked_ref` (same arguments and result)."""
+    a11, a12, a21, a22, u1, u2 = torch.broadcast_tensors(a11, a12, a21, a22, u1, u2)
+    with torch.enable_grad():
+        ins = [t.detach().clone().requires_grad_() for t in (a11, a12, a21, a22, u1, u2)]
+        s0 = None
+        if s01 is not None:
+            s0 = [(u1.new_zeros(u1.shape[1:]) + v).detach().requires_grad_() for v in (s01, s02)]
+        out = affine_scan_2_chunked_ref(*ins, s0, chunk=chunk)
+        got = torch.autograd.grad(out, ins + (s0 or []), (g1, g2), allow_unused=True,
+                                  materialize_grads=True)
+    return tuple(got) + ((None, None) if s0 is None else ())
 
 
 def _plane(x, T: int, C: int, dev, name: str):
@@ -156,5 +237,19 @@ def _launch(planes, s0, chunk: int):
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _ext.raise_on_error(err, "affine_scan_2")
-    affine_scan_2_kernel.launches += 1
     return s1, s2
+
+
+def _launch_forward(a11, a12, a21, a22, u1, u2, s01, s02, *, chunk: int):
+    out = _launch((a11, a12, a21, a22, u1, u2), None if s01 is None else (s01, s02), chunk)
+    affine_scan_2_kernel.launches += 1
+    return out
+
+
+def _backward(args, outs, grads, *, chunk: int):
+    got = affine_scan_2_bwd(*args, *outs, *grads, chunk=chunk)
+    return [None if g is None else g.sum_to_size(a.shape) for g, a in zip(got, args)]
+
+
+# the launch as a torch.autograd.Function, its backward affine_scan_2_bwd
+_differentiable = diffable.kernel_function("affine_scan_2", _launch_forward, _backward)

@@ -34,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from pygmu2_tpu_torch import _ext
+from pygmu2_tpu_torch.ops import diffable
 
 MISC_FIELDS = (
     "cur_is_a", "p_wpos", "p_rpos", "w_idx", "r_idx", "smoothed",
@@ -53,7 +54,11 @@ def _control(blk, ratio, alt, misc, *, sr, plen, cap, min_block, max_block,
     Returns (per-sample steps, misc after the last sample). A step holds
     the pitch line's write slot and read taps with their float32 weights,
     the pass-through flag, the window position, the replay row (None when
-    not playing), the write row and which buffer is current."""
+    not playing), the write row and which buffer is current. The weights
+    and the misc row's read position and smoothed length are 0-d tensors
+    in the graph of ``ratio`` and ``misc`` (the pitch ratio moves the read
+    heads continuously); the block length and the alternation enter only
+    through roundings and compares, as host values."""
     sr32, alpha = _f32(sr), _f32(smooth_alpha)
     inv_plen, fplen, half, inv_half = (
         _f32(1.0 / plen), _f32(plen), _f32(plen / 2.0), _f32(1.0 / (plen / 2.0))
@@ -66,14 +71,14 @@ def _control(blk, ratio, alt, misc, *, sr, plen, cap, min_block, max_block,
     def tap(p):
         i = min(max(int(torch.floor(p)), 0), plen - 1)
         frac = p - _f32(i)
-        return i, (i + 1) % plen, float(one - frac), float(frac)
+        return i, (i + 1) % plen, one - frac, frac
 
-    m = misc.detach().to("cpu", torch.float32)
+    m = misc.to("cpu", torch.float32)
     cur_is_a, p_wpos, w_idx, r_idx = int(m[0]), int(m[1]), int(m[3]), int(m[4])
     cur_block, prev_block, reverse = int(m[6]), int(m[7]), int(m[8])
     p_rpos, smoothed = m[2].clone(), m[5].clone()
     steps = []
-    for b, rt, al in zip(blk.tolist(), ratio.tolist(), alt.tolist()):
+    for b, rt32, al in zip(blk.tolist(), ratio.to("cpu", torch.float32), alt.tolist()):
         tt = _f32(b) * sr32
         if torch.isnan(tt):
             tt = fmin
@@ -86,11 +91,11 @@ def _control(blk, ratio, alt, misc, *, sr, plen, cap, min_block, max_block,
         p_wpos = (p_wpos + 1) % plen
         pos = wrap(p_rpos)
         taps = tap(pos) + tap(wrap(pos + half))
-        dist = torch.abs(p_rpos - _f32(p_wpos))
+        dist = p_rpos - _f32(p_wpos)
+        dist = torch.where(dist >= 0, dist, -dist)  # |d|, with JAX's gradient (1) at d = 0
         if dist > half:
             dist = fplen - dist
         f = dist * inv_half
-        rt32 = _f32(rt)
         near_unity = bool(torch.abs(rt32 - one) < tol)
         p_rpos = wrap(p_rpos + rt32)
 
@@ -98,7 +103,7 @@ def _control(blk, ratio, alt, misc, *, sr, plen, cap, min_block, max_block,
         playing = prev_block > 0 and r_idx < prev_block and 0 <= idx < prev_block
         wpos = _f32(r_idx) / _f32(max(prev_block - 1, 1)) if prev_block > 1 else _f32(0.0)
         steps.append((
-            wslot, taps, float(f), float(one - f), near_unity, float(wpos),
+            wslot, taps, f, one - f, near_unity, float(wpos),
             min(max(idx, 0), cap - 1) if playing else None,
             min(w_idx, cap - 1), cur_is_a == 1,
         ))
@@ -110,8 +115,8 @@ def _control(blk, ratio, alt, misc, *, sr, plen, cap, min_block, max_block,
             prev_block = cur_block
             reverse = 1 - reverse if al >= 0.5 else 1
             w_idx = r_idx = 0
-    misc_out = [cur_is_a, p_wpos, float(p_rpos), w_idx, r_idx, float(smoothed),
-                cur_block, prev_block, reverse]
+    misc_out = torch.stack([_f32(cur_is_a), _f32(p_wpos), p_rpos, _f32(w_idx), _f32(r_idx),
+                            smoothed, _f32(cur_block), _f32(prev_block), _f32(reverse)])
     return steps, misc_out
 
 
@@ -138,17 +143,18 @@ def reverse_echo_scan_ref(x, blk, ratio, fb, alt, buf_a, buf_b, pitch_buf, misc,
         if near_unity:
             pitched = xi
         else:
-            s1 = w0 * pb[i0] + w1 * pb[i1]
-            s2 = w2 * pb[i2] + w3 * pb[i3]
+            r = torch.stack([pb[i0], pb[i1], pb[i2], pb[i3]])  # a copy: pb changes in place
+            s1 = w0 * r[0] + w1 * r[1]
+            s2 = w2 * r[2] + w3 * r[3]
             pitched = f * s1 + omf * s2
         cur, prev = (ba, bb) if write_a else (bb, ba)
         if rrow is None:
             cur[wrow] = pitched
         else:
-            wet = prev[rrow] * window[t]
+            wet = prev[rrow].clone() * window[t]
             y[t] = wet
             cur[wrow] = pitched + wet * fb[t]
-    return y, ba, bb, pb, torch.tensor(misc_out, dtype=torch.float32, device=dev)
+    return y, ba, bb, pb, misc_out.to(dev)
 
 
 def reverse_echo_scan_periods(x, blk, ratio, fb, alt, buf_a, buf_b, pitch_buf, misc,
@@ -176,8 +182,8 @@ def reverse_echo_scan_periods(x, blk, ratio, fb, alt, buf_a, buf_b, pitch_buf, m
     f32 = dict(dtype=torch.float32, device=dev)
     wslot = torch.tensor([s[0] for s in steps], device=dev)
     taps = torch.tensor([[s[1][k] for k in (0, 1, 4, 5)] for s in steps], device=dev)
-    wts = torch.tensor([[s[1][k] for k in (2, 3, 6, 7)] for s in steps], **f32)
-    f, omf = (torch.tensor([s[k] for s in steps], **f32) for k in (2, 3))
+    wts = torch.tensor([[float(s[1][k]) for k in (2, 3, 6, 7)] for s in steps], **f32)
+    f, omf = (torch.tensor([float(s[k]) for s in steps], **f32) for k in (2, 3))
     near_unity = torch.tensor([s[4] for s in steps], device=dev)
     wpos = torch.tensor([s[5] for s in steps], **f32)
     window = 0.5 - 0.5 * torch.cos(torch.full((), _TWO_PI, **f32) * wpos)
@@ -208,7 +214,7 @@ def reverse_echo_scan_periods(x, blk, ratio, fb, alt, buf_a, buf_b, pitch_buf, m
         cur[wrow[a:b]] = torch.where(play[:, None], pitched + wet * fb[a:b, None], pitched)
     last = torch.full((plen,), T - 1, device=dev)
     pb = line[slot(last, wslot[-1], torch.arange(plen, device=dev))]
-    return y, ba, bb, pb, torch.tensor(misc_out, dtype=torch.float32, device=dev)
+    return y, ba, bb, pb, misc_out.detach().to(dev)
 
 
 def reverse_echo_scan(x, blk, ratio, fb, alt, buf_a, buf_b, pitch_buf, misc, *,
@@ -231,7 +237,7 @@ def reverse_echo_scan(x, blk, ratio, fb, alt, buf_a, buf_b, pitch_buf, misc, *,
         return reverse_echo_scan_ref(*args, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    return _launch(*args, **kw)
+    return _differentiable(*args, **kw)
 
 
 reverse_echo_scan.launches = 0
@@ -277,3 +283,8 @@ def _launch(x, blk, ratio, fb, alt, buf_a, buf_b, pitch_buf, misc, *, sr, plen,
     reverse_echo_scan.launches += 1
     return y, ba, bb, pb_out, misc_out
 
+
+# the launches as torch.autograd.Functions whose backward raises on the card:
+# the echo's backward kernel is still to port (ROADMAP.md, queue 2); on the CPU autograd
+# differentiates the plain version
+_differentiable = diffable.kernel_function("reverse_echo_scan", _launch)

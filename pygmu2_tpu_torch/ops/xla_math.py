@@ -33,6 +33,10 @@ computes BiquadPE's coefficients with these functions, op for op.
   product that feeds a sum contracted into a fused multiply-add, the
   result flushed to zero below the normal range); torch's and the C
   library's differ from it on ~10 % of arguments.
+
+Each is differentiable with the gradient of the function it rounds
+(``a·b + c``, ``exp``, ``x ** y``, ``sin``/``cos``, ``sqrt``): the bit
+corrections (the midpoint step, table lookups, bit views) carry none.
 """
 
 from __future__ import annotations
@@ -76,17 +80,18 @@ def fmaf(a, b, c):
     float holding a float32 value; at least one of ``a``, ``b`` a tensor."""
     p = _wide(a) * _wide(b)  # exact: 48 significant bits
     c = _wide(c)
-    s = p + c
-    # s is p + c rounded to float64; err, the part it lost, is exact (TwoSum)
-    bp = s - p
-    err = (p - (s - bp)) + (c - bp)
-    # rounding s to float32 again goes wrong only where s landed on a float32
-    # midpoint (its low 29 mantissa bits 1000...0) that p + c is not on: step
-    # s one float64 ulp towards p + c there
-    mid = (s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000
-    # err * inf is +-inf where err is not 0 (the only places it is used)
-    s = torch.where(mid & (err != 0), torch.nextafter(s, err * torch.inf), s)
-    return s.float()
+    s = p + c  # the gradient of a·b + c flows through these two ops only
+    with torch.no_grad():
+        # s is p + c rounded to float64; err, the part it lost, is exact (TwoSum)
+        bp = s - p
+        err = (p - (s - bp)) + (c - bp)
+        # rounding s to float32 again goes wrong only where s landed on a
+        # float32 midpoint (its low 29 mantissa bits 1000...0) that p + c is
+        # not on: step s one float64 ulp towards p + c there (the step is
+        # exact, and s + step is the neighbour itself)
+        fix = ((s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000) & (err != 0)
+        step = torch.nextafter(s, torch.full_like(s, torch.inf).copysign(err)) - s
+    return torch.where(fix, s + step, s).float()
 
 
 def mod(a, b):
@@ -142,12 +147,33 @@ _EXP_P = (0.00019875691214110702, 0.001398199936375022, 0.008333452045917511,
 _FLT_MIN = 1.1754943508222875e-38
 
 
+class _Exp(torch.autograd.Function):
+    """:func:`expf`'s bits forward; the gradient of ``exp``, ``g·exp(x)``,
+    backward (from the forward's result, as JAX differentiates ``exp``)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = _expf(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g * y
+
+
 def expf(x):
     """Float32 ``exp`` of a float32 tensor, as XLA's CPU program computes
     it: ``n = floor(x log2 e + 1/2)``, ``r = x - n ln 2`` in two fused
     steps, ``1 + r + r^2 p(r)``, scaled by ``2^n``; subnormal results are
-    flushed to zero, as the CPU's flush-to-zero mode does there."""
-    x = x.to(torch.float32).clamp(_EXP_LO, _EXP_HI)
+    flushed to zero, as the CPU's flush-to-zero mode does there.
+    Differentiable: its gradient is ``exp``'s."""
+    return _Exp.apply(x.to(torch.float32))
+
+
+def _expf(x):
+    x = x.clamp(_EXP_LO, _EXP_HI)
     n = torch.floor(fmaf(x, _LOG2E, 0.5)).clamp(-127.0, 127.0)
     r = fmaf(n, -_LN2_HI, x)
     r = fmaf(n, -_LN2_LO, r)
@@ -207,14 +233,38 @@ def _powf_tables(device):
     return invc.to(device), logc.to(device), tab.to(device)
 
 
+class _Pow(torch.autograd.Function):
+    """:func:`powf`'s bits forward; the gradient of ``x ** y`` backward, as
+    JAX differentiates ``pow``: ``y·x^(y-1)`` and ``log(x)·x^y``."""
+
+    @staticmethod
+    def forward(ctx, x, y):
+        out = _powf(x, y)
+        ctx.save_for_backward(x, y, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y, out = ctx.saved_tensors
+        gx = gy = None
+        if ctx.needs_input_grad[0]:
+            gx = (g * (y * torch.pow(x, y - 1.0))).sum_to_size(x.shape)
+        if ctx.needs_input_grad[1]:
+            gy = (g * (torch.log(x) * out)).sum_to_size(y.shape)
+        return gx, gy
+
+
 def powf(x, y):
     """Float32 ``x ** y`` as glibc's ``powf`` computes it, for float32
     tensors of positive normal ``x`` and finite ``y`` (``y == 0`` gives 1).
     Its float64 steps are the library's; where the library fuses a
     product into a sum, the float64 result differs by at most an ulp of a
-    double, which the final rounding to float32 absorbs."""
-    x = x.to(torch.float32)
-    y = y.to(torch.float32)
+    double, which the final rounding to float32 absorbs. Differentiable:
+    its gradient is ``x ** y``'s."""
+    return _Pow.apply(x.to(torch.float32), y.to(torch.float32))
+
+
+def _powf(x, y):
     invc_t, logc_t, tab = _powf_tables(x.device)
     # log2(x): x = 2^k z, z near the table's c, log2(z) = log2(c) + log1p(z/c - 1)/ln 2
     ix = x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF

@@ -62,7 +62,7 @@ def render_to_array(
             source, extent.start, extent.end - extent.start, block,
             bindings=bindings, device=device,
         )
-        return out.cpu().numpy()
+        return out.detach().cpu().numpy()
 
 
 def render_to_file(

@@ -692,3 +692,156 @@ def test_sequencer_matches_plain_on_card(cuda, plain_scan):
         ref = render()
     assert np.isfinite(got).all() and np.abs(ref).max() > 0.1
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)
+
+
+# ---- the backward kernels (the training path) ----
+
+
+def _bwd_close(got, want, what):
+    """Each cotangent within 1e-4 of the largest of its plain version's
+    (autograd of the plain version; the kernels sum in other orders)."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        if w is None:
+            assert g is None
+            continue
+        scale = float(w.abs().max())
+        err = float((g - w).abs().max())
+        assert err <= 1e-4 * scale, f"{what}: output {i} off by {err} (largest {scale})"
+
+
+@pytest.mark.parametrize("os_n,mode,C", [(2, 0, 1), (2, 2, 33), (1, 4, 33), (3, 5, 1),
+                                          (4, 3, 33)])
+def test_ladder_backward_kernel_matches_plain(cuda, os_n, mode, C):
+    """os_n 1, 2 and 4 their own instantiations, 3 the generic one; C = 33
+    a partial block; quiet samples take the decay."""
+    from pygmu2_tpu_torch.ops import ladder
+
+    T = 300
+    x, al, qa, ki, dsc, st, gy, gs = _seeded(cuda, 40 + os_n, (T, C), (T,), (T,), (T,),
+                                             (T,), (9, C), (T, C), (9, C))
+    x = x * 0.3
+    x[20:24] = 1e-7
+    al, qa, ki, dsc = al.abs() * 0.5 + 0.05, qa * 0.1 + 1.0, ki.abs() * 3.0, dsc + 1.5
+    kw = dict(os_n=os_n, pbg=0.3, mode_index=mode, input_threshold=1e-5, state_decay=0.95)
+    before = ladder.ladder_scan_bwd.launches
+    got = ladder.ladder_scan_bwd(x, al, qa, ki, dsc, st * 0.1, gy, gs, **kw)
+    torch.cuda.synchronize()
+    assert ladder.ladder_scan_bwd.launches == before + 1
+    _bwd_close(got, ladder.ladder_scan_bwd_ref(x, al, qa, ki, dsc, st * 0.1, gy, gs, **kw),
+               f"ladder os_n={os_n} mode={mode} C={C}")
+
+
+@pytest.mark.parametrize("T,C,freq,sf", [(300, 23, 220.0, -1.0), (300, 1, "sweep", 230.0),
+                                         (40, 23, "sweep", 230.0), (300, 23, 8000.0, 8000.0)])
+def test_comb_backward_kernel_matches_plain(cuda, T, C, freq, sf):
+    """A ring longer and shorter than the call, a sweep, delay 1 (8 kHz at
+    an 8 kHz rate), a smoothed frequency handed in, C = 23."""
+    from pygmu2_tpu_torch.ops import comb
+
+    L, sr = 97, 8000.0
+    x, fb, buf, gy, gb = _seeded(cuda, T + C, (T, C), (T,), (L, C), (T, C), (L, C))
+    if freq == "sweep":
+        (f,) = _seeded(cuda, 3, (T,), lo=200.0, hi=400.0)
+    else:
+        f = torch.full((T,), freq, device=cuda)
+    pos = torch.tensor(11, dtype=torch.int32, device=cuda)
+    sf = torch.tensor(sf, device=cuda)
+    kw = dict(L=L, sr=sr, smooth_alpha=0.1)
+    y = comb.comb_scan(x, f, fb * 0.9, buf, pos, sf, **kw)[0]
+    gsf = torch.tensor(0.7, device=cuda)
+    args = (x, f, fb * 0.9, buf, pos, sf, y, gy, gb, gsf)
+    got = comb.comb_scan_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    _bwd_close(got, comb.comb_scan_bwd_ref(*args, **kw), f"comb T={T} C={C} freq={freq}")
+
+
+@pytest.mark.parametrize("shared,C", [(True, 128), (False, 4), (True, 5)])
+def test_affine_scan_backward_launch_matches_plain(cuda, shared, C):
+    """The adjoint scan's launch on the reversed planes (the matrices
+    shared or not), then gu, gA, gs0: against autograd of the plain
+    chunked scan; T not a multiple of the chunk."""
+    from pygmu2_tpu_torch.ops import linrec_kernel
+
+    T = 4096 + 5
+    w = 1 if shared else C
+    a11, a12, a21, a22 = _seeded(cuda, C, (T, w), (T, w), (T, w), (T, w))
+    a = [a11 * 0.1 + 0.88, a12 * 0.1, a21 * 0.1, a22 * 0.1 + 0.88]
+    a = [m.expand(T, C) for m in a]
+    u1, u2, g1, g2 = _seeded(cuda, C + 1, (T, C), (T, C), (T, C), (T, C))
+    s01, s02 = _seeded(cuda, C + 2, (C,), (C,))
+    s1, s2 = linrec_kernel.affine_scan_2_kernel(*a, u1, u2, (s01, s02), chunk=1024)
+    before = linrec_kernel.affine_scan_2_bwd.launches
+    args = (*a, u1, u2, s01, s02, s1, s2, g1, g2)
+    got = linrec_kernel.affine_scan_2_bwd(*args, chunk=1024)
+    torch.cuda.synchronize()
+    assert linrec_kernel.affine_scan_2_bwd.launches == before + 1
+    _bwd_close(got, linrec_kernel.affine_scan_2_bwd_ref(*args, chunk=1024),
+               f"scan shared={shared} C={C}")
+
+
+def test_probe_gradient_on_card_matches_cpu(cuda):
+    """bench.py's gradient probe at 1024 samples: the card's gradients
+    (forward and backward kernels, 4 launches each a render) against the
+    CPU's (plain versions), and a render with no gradient launching no
+    backward kernel and leaving no graph."""
+    import pygmu2_tpu_torch as pt
+    from pygmu2_tpu_torch import fit_workload
+    from pygmu2_tpu_torch.core import engine
+    from pygmu2_tpu_torch.ops import comb, ladder
+
+    graph = fit_workload.build_probe(pt, 1024)
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        theta = {k: torch.tensor(v, device=dev, requires_grad=True)
+                 for k, v in (("cutoff", 1500.0), ("fb", 0.6))}
+        before = (ladder.ladder_scan_bwd.launches, comb.comb_scan_bwd.launches)
+        out = engine.render_functional(graph, 0, 1024, 256, theta, device=dev)
+        grads[dev.type] = torch.autograd.grad((out ** 2).mean(), list(theta.values()))
+        after = (ladder.ladder_scan_bwd.launches, comb.comb_scan_bwd.launches)
+        if dev.type == "cuda":
+            assert after == (before[0] + 4, before[1] + 4)
+    for g, w in zip(grads["cuda"], grads["cpu"]):
+        assert abs(float(g) - float(w)) <= 1e-3 * abs(float(w))
+    before = (ladder.ladder_scan.launches, ladder.ladder_scan_bwd.launches)
+    out = engine.render_functional(graph, 0, 1024, 256, {"cutoff": 1500.0, "fb": 0.6},
+                                   device=cuda)
+    assert out.grad_fn is None
+    assert (ladder.ladder_scan.launches, ladder.ladder_scan_bwd.launches) == (before[0] + 4,
+                                                                              before[1])
+
+
+@pytest.mark.parametrize("kernel", ["ks", "adsr", "envelope", "slew", "reverse_echo"])
+def test_backward_without_kernel_raises_on_card(cuda, kernel):
+    """The kernels whose backward is not ported raise NotImplementedError
+    when a gradient is asked for; no plain version runs as a backward."""
+    from pygmu2_tpu_torch.ops import adsr, envelope, ks, reverse_echo, slew
+
+    T = 256
+    (x,) = _seeded(cuda, 5, (T, 2))
+    x = x.abs().requires_grad_()
+    if kernel == "ks":
+        (buf,) = _seeded(cuda, 6, (40,))
+        out = ks.ks_scan(torch.full((T,), 0.99, device=cuda) * x[:, 0], torch.ones(
+            T, dtype=torch.bool, device=cuda), buf, torch.tensor(0, dtype=torch.int32,
+                                                               device=cuda),
+            torch.zeros((), device=cuda), torch.zeros((), device=cuda), L=40,
+            allpass_c=0.3)[0]
+    elif kernel == "adsr":
+        out = adsr.adsr_scan(x[:, 0], torch.zeros(4, device=cuda), dA=0.1, dD=-0.01,
+                             dR=-0.01, sus=0.5)[0]
+    elif kernel == "envelope":
+        out = envelope.envelope_ar_scan(x, torch.zeros(2, device=cuda), atk=0.1, rel=0.01)[0]
+    elif kernel == "slew":
+        out = slew.slew_scan(x[:, 0], torch.zeros((), device=cuda), linear=True,
+                             p_rise=0.01, p_fall=0.01)[0]
+    else:
+        cap, plen = 96, 64
+        out = reverse_echo.reverse_echo_scan(
+            x[:, :1], torch.full((T,), 0.005, device=cuda), torch.full((T,), 1.5, device=cuda),
+            torch.full((T,), 0.4, device=cuda), torch.ones(T, device=cuda),
+            torch.zeros((cap, 1), device=cuda), torch.zeros((cap, 1), device=cuda),
+            torch.zeros((plen, 1), device=cuda),
+            torch.tensor([1, 0, 0.0, 0, 0, 40.0, 40, 0, 1], device=cuda), sr=8000.0,
+            plen=plen, cap=cap, min_block=8, max_block=cap - 1, smooth_alpha=1 / 240)[0]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        out.sum().backward()

@@ -39,7 +39,8 @@ def test_port_imports_no_jax():
                  "utils.temperament", "utils.conversions", "models.piecewise",
                  "models.portamento", "models.random_control", "models.trigger_restart",
                  "models.spatial", "utils.debug", "utils.assets", "utils.profiling",
-                 "core.audio_renderer", "perform_workload", "__main__"):
+                 "core.audio_renderer", "perform_workload", "__main__", "ops.diffable",
+                 "fit_workload"):
         assert f"pygmu2_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"

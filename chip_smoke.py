@@ -27,19 +27,22 @@ Drives the port's main paths through their user entry points:
    plain versions on the card, with a two-call state hand-off: the ladder
    bit for bit at os_n in {1, 2, 4, 3} (3 takes the kernel's generic
    instantiation, the others their own) and C in {1, 33, 128} (33: a
-   partial warp), T = 4096 (os_n <= 2) or 2048; the comb bit for bit at
-   C in {1, 23, 128}, T = 4096, at a constant and a modulated frequency, a
+   partial warp), T = 2048 (os_n <= 2) or 1024; the comb bit for bit at
+   C in {1, 23, 128}, T = 2048, at a constant and a modulated frequency, a
    delay that jumps across window edges, and delays of 1, 2 and 7 samples;
    the ADSR gated and triggered (sustain counts 2206, 1 and 2**24) with a
-   gate of many edges and one with an edge every sample, on its
-   edge-parallel passes and on its per-sample walk, bit for bit, and its
+   gate of many edges (T = 2048) and one with an edge every sample (T =
+   4096: past 2816 edges a tile), on its edge-parallel passes and on its
+   per-sample walk, bit for bit, and its
    absolute-clock machine at sustain_samples 0 and 2**24 - 1 bit for bit
    (from the first state and mid-sustain). At the main path's block,
    T = 16384 (C in {1, 128}), each is held to its plain version again and
    timed with CUDA events (the plain version's one call times it), beside
    its bound: the ADSR on the first block of the patch's own gate and
    trigger (its two PEs' parameters), on the many-edges gate and on the
-   every-sample gate, its kernel alone by torch.profiler's device events;
+   every-sample gate, its kernel alone by torch.profiler's device events
+   (held whole on the patch's gate, on their first 4096 samples on the
+   others; the ladder at C = 1 likewise on its first 4096);
 6. end to end through ``render_to_array(device="cuda")``: the subtractive
    patch for 60 s and the 128-channel bank for 10 s
    (``pygmu2_tpu_torch/patch_workload.py``, default block 16384). Each
@@ -49,7 +52,7 @@ Drives the port's main paths through their user entry points:
    render, by wall clock and by CUDA events;
 7. the effects chain's four serial kernels (Karplus-Strong, envelope
    follower, slew limiter, reverse echo) against their plain versions on
-   the card at T = 4096, with a two-call state hand-off: the string at
+   the card at T = 2048, with a two-call state hand-off: the string at
    L in {2, 7, 133, 535, 51201} (51201: longer than shared memory holds)
    with act starting mid-call, all set, none set and with gaps, handed
    off at a window's edge; the follower at C in {1, 33, 128}, the slew limiter in both
@@ -193,13 +196,44 @@ Drives the port's main paths through their user entry points:
    shapes (the scan's at the bank's), beside its bound and its plain
    version's autograd.
 
+16. training through the effects chain (``fit_workload.py``): the
+   hand-written backward kernels of the follower, the slew limiter, the
+   reverse echo and the ADSR (``csrc/{envelope_ar,slew,reverse_echo,
+   adsr}_scan_bwd.cu``). (a) The fit chain (``fx_workload.build_chain``
+   with the wah's sweep depth and the echo's feedback bound) at 4096
+   samples in blocks of 1024: a backward launch of each of the three a
+   block; each gradient within 0.1 relative of the central finite
+   difference on the card and within 1e-3 relative of the port's CPU
+   gradient (a second process); every backward launch within 1e-5 of its
+   plain adjoint (``*_bwd_ref``) on its recorded inputs and cotangents,
+   relative to the largest plain cotangent of each output. The feedback
+   reaches the output only when a block written under it is replayed, two
+   echo blocks (0.6 s) in, so its gradient is zero there: the feedback and
+   the depth are checked against finite differences again over 0.8 s in
+   blocks of 16384. (The fit variants' compressors take the peak detector:
+   the RMS detector's gradient is NaN where its input falls silent, in the
+   JAX package too.) (b) The ADSR probe
+   (a gated ADSR, its gate scaled by a ParamPE): 4 backward launches, each
+   held to the plain adjoint, and a gradient of exactly 0, the CPU's and
+   the JAX package's. (c) The fit chain, 10 s mono at block 16384, 5 Adam
+   steps from depth 2500 Hz and feedback 0.6 towards a target rendered at
+   1800 Hz and 0.45, and (d) the fit fx bank (a drive gain before the
+   compressor and the feedback bound), 2 s of 128 channels, 3 steps: the
+   losses must fall; per step the wall time, the device span, the
+   backward launches (one of each a block) and the peak memory. Each
+   backward kernel timed (CUDA events) at the fits' shapes (the follower
+   and the echo at C = 1 and 128; the ADSR at the probe's T = 1024 and at
+   T = 16384) beside its plain adjoint, its bound and the peak memory of a
+   launch, and held to the plain adjoint there.
+
 Phase 4 also renders the 3 s chord through the small font with
 ``render_midi_offline(pipeline=4)``: four launches of the SoundFont kernel,
 equal to the one-pass render within 1e-6.
 
 ``python3 chip_smoke.py 13`` runs phases 1, 2 and 13 only, ``python3
 chip_smoke.py 14`` phases 1, 2 and 14 only, ``python3 chip_smoke.py 15``
-phases 1, 2 and 15 only (no kernels line).
+phases 1, 2 and 15 only, ``python3 chip_smoke.py 16`` phases 1, 2 and 16
+only (no kernels line).
 
 Prints a JSON line of per-kernel results, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, before any result, on
@@ -261,7 +295,11 @@ SCAN_OPS_PASS, SCAN_OPS_APPLY = 20, 6
 SCAN_CHUNK = 1024
 # filter_gain_mix per (sample, voice): biquad 9, gain ramps 12, mixdown 2
 FGM_OPS = 23
-FX_T = 4096  # the effects kernels' comparisons with two-call hand-offs
+# the serial kernels' comparisons with two-call hand-offs (their plain
+# versions are Python loops over the samples: most of the smoke's time)
+FX_T = 2048
+SCAN_T = 4096  # the scan's (its plain version is vectorized)
+EVERY_T = 4096  # the ADSR's every-sample gate: past 2816 edges a tile
 FX_CHECK_S = 0.4  # the effects renders' comparison: past the echo's first block
 
 
@@ -288,6 +326,7 @@ def main() -> None:
     only_studio = sys.argv[1:] == ["13"]
     only_perform = sys.argv[1:] == ["14"]
     only_training = sys.argv[1:] == ["15"]
+    only_chain = sys.argv[1:] == ["16"]
     from pygmu2_tpu_torch import _ext, bench_workload
     from pygmu2_tpu_torch.soundfont import MidiFile
     from pygmu2_tpu_torch.soundfont import filter_kernels as fk
@@ -319,7 +358,8 @@ def main() -> None:
     # while nvcc builds; the phases after wait for both
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        setup = None if only_perform or only_training else pool.submit(studio_setup)
+        setup = (None if only_perform or only_training or only_chain
+                 else pool.submit(studio_setup))
         _ext.load()
         print(f"kernel build+load: {time.perf_counter() - t0:.2f} s")
         studio_inputs = None if setup is None else setup.result()
@@ -336,6 +376,10 @@ def main() -> None:
         return
     if only_training:
         training(dev, card)
+        print_ok()
+        return
+    if only_chain:
+        training_chain(dev, card)
         print_ok()
         return
 
@@ -512,6 +556,7 @@ def main() -> None:
     for name, n in perform(dev, card).items():
         pe_launches[name] += n
     backward = training(dev, card)
+    backward += training_chain(dev, card)
     osc_entries[0]["launches"] += stream["osc_filter_gain_mix"]  # the small font's
     entries = list(osc_entries)
     for name, info in serial.items():
@@ -688,7 +733,7 @@ def serial_kernels(dev, card, device_ms) -> dict:
     JSON fields but ``launches``."""
     from pygmu2_tpu_torch.ops import adsr, comb, ladder
 
-    T, L = 4096, 2206  # L: the comb ring at 44.1 kHz, min_frequency 20 Hz
+    T, L = FX_T, 2206  # L: the comb ring at 44.1 kHz, min_frequency 20 Hz
     ladder_kw = dict(os_n=2, pbg=0.5, mode_index=0, input_threshold=1e-5,
                      state_decay=0.95)
     comb_kw = dict(L=L, sr=float(SR), smooth_alpha=1 / 2400)
@@ -749,14 +794,21 @@ def serial_kernels(dev, card, device_ms) -> dict:
         return bound(4 * (2 * BLOCK * C + 4 * BLOCK + 18 * C), LADDER_OPS * BLOCK * C)
 
     times = {}
-    for C in (1, 128):  # the main path's block: timed, and held to plain
+    for C in (1, 128):  # the main path's block: timed, and held to plain (C = 1 on
+        # its first EVERY_T samples; C = 128's plain run times the plain version)
         args = ladder_args(BLOCK, C, seed=10 + C)
-        ref, plain_ms = timed_plain(lambda: ladder.ladder_scan_ref(*args, **ladder_kw))
-        errs.append(compare("ladder_scan", ladder.ladder_scan(*args, **ladder_kw), ref,
-                            0.0, f"C={C} T={BLOCK}"))
+        if C == 128:
+            ref, plain_ms = timed_plain(lambda: ladder.ladder_scan_ref(*args, **ladder_kw))
+            got, n = ladder.ladder_scan(*args, **ladder_kw), BLOCK
+        else:
+            head = [a[:EVERY_T] for a in args[:5]] + [args[5]]
+            ref, plain_ms = ladder.ladder_scan_ref(*head, **ladder_kw), None
+            got, n = ladder.ladder_scan(*head, **ladder_kw), EVERY_T
+        errs.append(compare("ladder_scan", got, ref, 0.0, f"C={C} T={n}"))
         times[C] = (device_ms(lambda: ladder.ladder_scan(*args, **ladder_kw), 10), plain_ms)
         print(f"ladder_scan T={BLOCK} C={C}: kernel {times[C][0]:.4f} ms, bound "
-              f"{ladder_bound(C)[0]:.4g} ms, plain {times[C][1]:.1f} ms [{card}]")
+              f"{ladder_bound(C)[0]:.4g} ms"
+              + (f", plain {plain_ms:.1f} ms" if plain_ms is not None else "") + f" [{card}]")
     C = 128
     ms_bound, by = ladder_bound(C)
     out["ladder_scan"] = {
@@ -811,12 +863,13 @@ def serial_kernels(dev, card, device_ms) -> dict:
         kw = dict(adsr_kw, sustain_samples=S)
         what = "gated" if S is None else f"triggered, sustain_samples={S}"
         for gate, path in (("many edges", "edge walk"), ("an edge every sample", "per-sample walk")):
-            args = gate_args(T, S is not None, every=path == "per-sample walk")
+            n = T if path == "edge walk" else EVERY_T
+            args = gate_args(n, S is not None, every=path == "per-sample walk")
             ref = adsr.adsr_scan_ref(*args, **kw)
             got = adsr.adsr_scan(*args, **kw)
             torch.cuda.synchronize()
-            errs.append(compare("adsr_scan", got, ref, 0.0, f"{what}, {gate} T={T} ({path})"))
-            got, _ = handoff(adsr.adsr_scan, None, args, T // 3 + 50, 1, kw, ref)
+            errs.append(compare("adsr_scan", got, ref, 0.0, f"{what}, {gate} T={n} ({path})"))
+            got, _ = handoff(adsr.adsr_scan, None, args, n // 3 + 50, 1, kw, ref)
             errs.append(compare("adsr_scan", got, ref, 0.0, f"{what}, {gate}, two-call hand-off"))
     # the absolute-clock machine (AdsrTriggeredPE at sustain_samples + 1 of
     # 1 and 2**24): bit for bit, from the first state and mid-sustain
@@ -842,20 +895,27 @@ def serial_kernels(dev, card, device_ms) -> dict:
         errs.append(compare("adsr_clock_scan", [torch.cat([first[0], second[0]]), *second[1]],
                             [ref[0], *ref[1]], 0.0,
                             f"sustain_samples={S - 1} two-call hand-off"))
-    # the main path's block, timed and held to plain: a block of the patch's
-    # own gate and trigger with its two ADSRs' parameters, the many-edges
-    # gate, and an edge every sample
+    # the main path's block, timed: a block of the patch's own gate and
+    # trigger with its two ADSRs' parameters, the many-edges gate, and an
+    # edge every sample; held to plain, the patch's gate whole (its plain
+    # run times the plain version), the others on their first EVERY_T samples
     times, cases = {}, patch_adsr_blocks(dev)
     cases["many edges"] = (gate_args(BLOCK, False), adsr_kw)
     cases["an edge every sample"] = (gate_args(BLOCK, False, every=True), adsr_kw)
-    for what, (args, kw) in cases.items():
-        ref, plain = timed_plain(lambda: adsr.adsr_scan_ref(*args, **kw))
-        errs.append(compare("adsr_scan", adsr.adsr_scan(*args, **kw), ref, 0.0,
-                            f"{what} T={BLOCK}"))
+    for i, (what, (args, kw)) in enumerate(cases.items()):
+        if i == 0:
+            ref, plain = timed_plain(lambda: adsr.adsr_scan_ref(*args, **kw))
+            got, held_on = adsr.adsr_scan(*args, **kw), BLOCK
+        else:
+            head = (args[0][:EVERY_T], args[1])
+            ref, plain = adsr.adsr_scan_ref(*head, **kw), None
+            got, held_on = adsr.adsr_scan(*head, **kw), EVERY_T
+        errs.append(compare("adsr_scan", got, ref, 0.0, f"{what} T={held_on}"))
         times[what] = (kernel_ms(lambda: adsr.adsr_scan(*args, **kw), "adsr_scan"), plain,
                        device_ms(lambda: adsr.adsr_scan(*args, **kw), 10))
         print(f"adsr_scan T={BLOCK} {what}: kernel {times[what][0]:.4f} ms (CUDA events over "
-              f"calls: {times[what][2]:.4f} ms), plain {plain:.1f} ms [{card}]")
+              f"calls: {times[what][2]:.4f} ms)"
+              + (f", plain {plain:.1f} ms" if plain is not None else "") + f" [{card}]")
     args = clock_args(BLOCK, 0, 0.0, 0)
     kw = dict(adsr_kw, t0=0, sustain_samples=0)
     ref, clock_plain = timed_plain(lambda: adsr.adsr_clock_scan_ref(*args, **kw))
@@ -1041,10 +1101,12 @@ def fx_kernels(dev, card, device_ms) -> dict:
             err, _plain, ref = held("ks_scan", ks.ks_scan, ks.ks_scan_ref, args, kw, 0.0,
                                     f"L={L} T={T} act {act}")
             errs.append(err)
-        # the hand-off at a window's edge: the string starts at 100, and
-        # windows hold window_length(L) active samples
+        # the hand-off at a window's edge (the third, or the first where three
+        # pass the call's end): the string starts at 100, and windows hold
+        # window_length(L) active samples
         args = ks_args(T, L, seed=L)
-        cut = 100 + 3 * max(1, ks.window_length(L))
+        w = max(1, ks.window_length(L))
+        cut = 100 + (3 if 100 + 3 * w < T else 1) * w
         got, ref = handoff(ks.ks_scan, ks.ks_scan_ref, args, cut, 4, kw)
         errs.append(compare("ks_scan", got, ref, 0.0, f"L={L} two-call hand-off at {cut}"))
     ms_133_serial, _ = timed("ks_scan", ks.ks_scan, ks.ks_scan_ref,
@@ -1316,13 +1378,13 @@ def scan_kernels(dev, card, device_ms) -> dict:
     errs = []
     for C in (4, 128):
         for chunk in (SCAN_CHUNK, 128):
-            what = f"C={C} T={FX_T} chunk={chunk}"
-            planes, s0 = scan_args(FX_T, C, seed=C + chunk, shared=chunk == 128)
+            what = f"C={C} T={SCAN_T} chunk={chunk}"
+            planes, s0 = scan_args(SCAN_T, C, seed=C + chunk, shared=chunk == 128)
             ref = lk.affine_scan_2_chunked_ref(*planes, s0, chunk=chunk)
             got = lk.affine_scan_2_kernel(*planes, s0, chunk=chunk)
             torch.cuda.synchronize()
             errs.append(compare("affine_scan_2", got, ref, 0.0, what))
-            cut = FX_T // 3  # two calls, the state handed on through s0
+            cut = SCAN_T // 3  # two calls, the state handed on through s0
             first = lk.affine_scan_2_kernel(*(p[:cut] for p in planes), s0, chunk=chunk)
             second = lk.affine_scan_2_kernel(*(p[cut:] for p in planes),
                                              (first[0][-1], first[1][-1]), chunk=chunk)
@@ -2272,6 +2334,15 @@ BWD_CALLS = {
         [*args, outs[0], grads[0], grads[1], grads[3]], [got[i] for i in (0, 1, 2, 3, 5)])),
     "affine_scan_2": ("affine_scan_2_bwd", lambda args, outs, grads, got: (
         [*args, *outs, *grads], list(got))),
+    "envelope_ar_scan": ("envelope_ar_scan_bwd", lambda args, outs, grads, got: (
+        [args[0], args[1], outs[0], grads[0], grads[1]], list(got))),
+    "slew_scan": ("slew_scan_bwd", lambda args, outs, grads, got: (
+        [args[0], args[1], outs[0], grads[0], grads[1]], list(got))),
+    "reverse_echo_scan": ("reverse_echo_scan_bwd", lambda args, outs, grads, got: (
+        [*args[:5], args[7], args[8], outs[0], *grads],
+        [got[i] for i in (0, 2, 3, 5, 6, 7, 8)])),
+    "adsr_scan": ("adsr_scan_bwd", lambda args, outs, grads, got: (
+        [args[0], args[1], outs[0], *grads], [got[1]])),
 }
 
 
@@ -2348,12 +2419,12 @@ def _host(calls):
     return [to_np(a) for a in args], kw, [to_np(o) for o in out]
 
 
-def _check_bwd(name, errs, what):
-    """Each output's error within BWD_TOL of its largest plain cotangent;
+def _check_bwd(name, errs, what, tol=BWD_TOL):
+    """Each output's error within ``tol`` of its largest plain cotangent;
     returns the largest error."""
     for i, (err, scale) in enumerate(errs):
-        check(err <= BWD_TOL * scale, f"{name} {what}: output {i} differs from autograd "
-              f"of the plain version by {err} (largest plain {scale})")
+        check(err <= tol * scale, f"{name} {what}: output {i} differs from its plain "
+              f"version by {err} (largest plain {scale})")
     return max(err for err, _ in errs)
 
 
@@ -2632,6 +2703,352 @@ def _training(dev, card, pool) -> list:
               + f"; {entry['launches']} launches on the training path [{card}]")
     print(f"training: phase took {time.perf_counter() - t0:.1f} s")
     return entries
+
+
+# ---- 16. training through the effects chain ----
+
+CHAIN_N, CHAIN_BLOCK = 4096, 1024  # the chain's gradient check (the probe's size)
+CHAIN_FB_S = 0.8  # the feedback check: past two echo blocks (0.6 s)
+TRAIN_CHAIN_S = 10.0  # the fit chain: 27 blocks of BLOCK, mono
+TRAIN_CHAIN_STEPS = 5
+TRAIN_FXBANK_S = 2.0  # the fit fx bank: 6 blocks of BLOCK, 128 channels
+TRAIN_FXBANK_STEPS = 3
+CHAIN_THETA = {"depth": 2500.0, "fb": 0.6}
+CHAIN_HIDDEN = {"depth": 1800.0, "fb": 0.45}
+FXBANK_THETA, FXBANK_HIDDEN = {"drive": 1.0, "fb": 0.6}, {"drive": 0.7, "fb": 0.45}
+CHAIN_FD_EPS = {"depth": 25.0, "fb": 1e-2}
+ADSR_THETA = {"g": 1.0}
+EFFECTS_BWD_TOL = 1e-5  # of the largest plain cotangent of each output
+# Operations of the effects' backward kernels, counted from their
+# arithmetic as the forward's: the follower per (sample, channel): the
+# compare and 1 - c (the coefficients recomputed), the adjoint's add and
+# multiply, gx's multiply: 5; the slew limiter per sample: the error, the
+# compares or the select, 1 - k, add, multiply, multiply: 7; the echo per
+# sample (shared) the control pass again (ECHO_OPS_SAMPLE) and the ratio's
+# reverse sum 1, per (sample, channel) the rings' cotangents 4, the four
+# taps' 8, the read position's 12, the feedback's and the channel sums 3:
+# 27; the ADSR per sample walked: the edge test 4, the candidate and its
+# compare 3, the two weighted sums 3: 10
+ENV_BWD_OPS, SLEW_BWD_OPS = 5, 7
+ECHO_BWD_OPS_SAMPLE, ECHO_BWD_OPS_CHANNEL = ECHO_OPS_SAMPLE + 1, 27
+ADSR_BWD_OPS = 10
+EFFECTS_BWD = {  # backward wrapper: (source, the JAX custom VJP it replaces, a part of
+    # the names of its own kernels on the card)
+    "envelope_ar_scan_bwd": ("pygmu2_tpu_torch/csrc/envelope_ar_scan_bwd.cu",
+                             "pygmu2_tpu/ops/envelope_pallas.py:134", "adjoint"),
+    "slew_scan_bwd": ("pygmu2_tpu_torch/csrc/slew_scan_bwd.cu",
+                      "pygmu2_tpu/ops/slew_pallas.py:145", "adjoint"),
+    "reverse_echo_scan_bwd": ("pygmu2_tpu_torch/csrc/reverse_echo_scan_bwd.cu",
+                              "pygmu2_tpu/ops/reverse_echo_pallas.py:406", "echo"),
+    "adsr_scan_bwd": ("pygmu2_tpu_torch/csrc/adsr_scan_bwd.cu",
+                      "pygmu2_tpu/ops/adsr_pallas.py:313", "adsr_bwd"),
+}
+
+
+def chain_cpu_grads():
+    """The fit chain's loss and gradients at CHAIN_N samples through the
+    port's plain versions on the CPU (run in a second process)."""
+    import pygmu2_tpu_torch as pg
+    from pygmu2_tpu_torch import fit_workload as fw
+    from pygmu2_tpu_torch.core import engine
+
+    t = time.perf_counter()
+    graph = fw.build_fit_chain(pg, CHAIN_N / SR)
+    theta = {k: torch.tensor(v, requires_grad=True) for k, v in CHAIN_THETA.items()}
+    out = engine.render_functional(graph, 0, CHAIN_N, CHAIN_BLOCK, theta, device="cpu")
+    loss = torch.mean(out ** 2)
+    grads = torch.autograd.grad(loss, list(theta.values()), allow_unused=True,
+                                materialize_grads=True)
+    probe = fw.build_adsr_probe(pg, CHAIN_N)
+    g = {k: torch.tensor(v, requires_grad=True) for k, v in ADSR_THETA.items()}
+    out = engine.render_functional(probe, 0, CHAIN_N, CHAIN_BLOCK, g, device="cpu")
+    (ga,) = torch.autograd.grad(torch.mean(out ** 2), list(g.values()), allow_unused=True,
+                                materialize_grads=True)
+    return (loss.item(), {k: v.item() for k, v in zip(theta, grads)}, ga.item(),
+            time.perf_counter() - t)
+
+
+def training_chain(dev, card) -> list:
+    """Phase 16: training through the effects chain, ``torch.autograd`` of
+    ``render_functional`` through the follower's, the slew limiter's, the
+    echo's and the ADSR's backward kernels; returns their JSON entries.
+    The CPU's gradients are made in a second process while the card works;
+    it is stopped on the way out, whatever happens."""
+    pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        return _training_chain(dev, card, pool)
+    finally:
+        for proc in list(getattr(pool, "_processes", {}).values()):
+            proc.terminate()
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def _training_chain(dev, card, pool) -> list:
+    import pygmu2_tpu_torch as pg
+    from pygmu2_tpu_torch import fit_workload as fw
+    from pygmu2_tpu_torch.core import engine
+    from pygmu2_tpu_torch.ops import adsr, envelope, reverse_echo, slew
+
+    t0 = time.perf_counter()
+    cpu_job = pool.submit(chain_cpu_grads)
+    fwd = {"envelope": envelope.envelope_ar_scan, "slew": slew.slew_scan,
+           "echo": reverse_echo.reverse_echo_scan, "adsr": adsr.adsr_scan}
+    bwd = {"envelope_ar_scan_bwd": envelope.envelope_ar_scan_bwd,
+           "slew_scan_bwd": slew.slew_scan_bwd,
+           "reverse_echo_scan_bwd": reverse_echo.reverse_echo_scan_bwd,
+           "adsr_scan_bwd": adsr.adsr_scan_bwd}
+    refs = {"envelope_ar_scan_bwd": envelope.envelope_ar_scan_bwd_ref,
+            "slew_scan_bwd": slew.slew_scan_bwd_ref,
+            "reverse_echo_scan_bwd": reverse_echo.reverse_echo_scan_bwd_ref,
+            "adsr_scan_bwd": adsr.adsr_scan_bwd_ref}
+
+    def counts(fns):
+        return {k: f.launches for k, f in fns.items()}
+
+    def zero():
+        for f in (*fwd.values(), *bwd.values(), adsr.adsr_clock_scan_bwd):
+            f.launches = 0
+
+    def theta_on(values, grad):
+        return {k: torch.tensor(v, dtype=torch.float32, device=dev, requires_grad=grad)
+                for k, v in values.items()}
+
+    def render_loss(graph, n, block, theta):
+        out = engine.render_functional(graph, 0, n, block, theta, device=dev)
+        return torch.mean(out ** 2)
+
+    errs = dict.fromkeys(bwd, 0.0)
+
+    def hold(calls, what):
+        """Each recorded backward launch against its plain adjoint on the
+        same inputs, on the card."""
+        for name, rec in calls.items():
+            for j, (args, kw, got) in enumerate(rec):
+                want = refs[name](*args, **kw)
+                want = want if isinstance(want, (tuple, list)) else [want]
+                errs[name] = max(errs[name], _check_bwd(
+                    name, _bwd_errors([g for g in got], want), f"{what} launch {j}",
+                    EFFECTS_BWD_TOL))
+
+    # ---- (a) the chain at CHAIN_N samples: gradients, FD, every launch held ----
+    chain = fw.build_fit_chain(pg, CHAIN_N / SR)
+    zero()  # the main path's run starts here
+    keep = dict.fromkeys(bwd, 64)
+    with recording(keep) as rec:
+        theta = theta_on(CHAIN_THETA, True)
+        loss = render_loss(chain, CHAIN_N, CHAIN_BLOCK, theta)
+        grads = dict(zip(theta, torch.autograd.grad(loss, list(theta.values()),
+                                                    allow_unused=True, materialize_grads=True)))
+        torch.cuda.synchronize()
+    n_blocks = CHAIN_N // CHAIN_BLOCK
+    nb = counts(bwd)
+    check(nb == {"envelope_ar_scan_bwd": n_blocks, "slew_scan_bwd": n_blocks,
+                 "reverse_echo_scan_bwd": n_blocks, "adsr_scan_bwd": 0},
+          f"chain: backward launches {nb}, expected {n_blocks} each but the ADSR's")
+    res = {"loss": loss.item()}
+    with torch.no_grad():
+        for k, eps in CHAIN_FD_EPS.items():
+            fd = ((render_loss(chain, CHAIN_N, CHAIN_BLOCK, theta_on(
+                {**CHAIN_THETA, k: CHAIN_THETA[k] + eps}, False))
+                   - render_loss(chain, CHAIN_N, CHAIN_BLOCK, theta_on(
+                       {**CHAIN_THETA, k: CHAIN_THETA[k] - eps}, False))) / (2 * eps)).item()
+            g = grads[k].item()
+            rel = abs(g - fd) / max(abs(fd), 1e-9) if fd != 0.0 or g != 0.0 else 0.0
+            check(np.isfinite(g) and rel < FD_TOL, f"chain: grad_{k} {g} vs fd {fd} (rel {rel})")
+            res.update({f"grad_{k}": g, f"fd_{k}": fd, f"rel_err_{k}": rel})
+    print(f"training chain (n={CHAIN_N}, block {CHAIN_BLOCK}, backward launches {nb}): "
+          f"{json.dumps(res)} (the feedback reaches the output two echo blocks in, 0.6 s: "
+          f"its gradient is zero before) [{card}]")
+    t = time.perf_counter()
+    hold(rec, "chain")
+    print(f"training chain: all {sum(len(v) for v in rec.values())} backward launches against "
+          f"the plain adjoints on their inputs and cotangents (card, "
+          f"{time.perf_counter() - t:.1f} s): max abs err "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items() if rec[k]))
+
+    # the feedback's gradient where the echo replays: CHAIN_FB_S, card only
+    nfb = int(round(CHAIN_FB_S * SR))
+    long_chain = fw.build_fit_chain(pg, CHAIN_FB_S)
+    theta = theta_on(CHAIN_THETA, True)
+    loss = render_loss(long_chain, nfb, BLOCK, theta)
+    g_fb = dict(zip(theta, torch.autograd.grad(loss, list(theta.values()))))
+    with torch.no_grad():
+        for k, eps in CHAIN_FD_EPS.items():
+            fd = ((render_loss(long_chain, nfb, BLOCK, theta_on(
+                {**CHAIN_THETA, k: CHAIN_THETA[k] + eps}, False))
+                   - render_loss(long_chain, nfb, BLOCK, theta_on(
+                       {**CHAIN_THETA, k: CHAIN_THETA[k] - eps}, False))) / (2 * eps)).item()
+            g = g_fb[k].item()
+            rel = abs(g - fd) / max(abs(fd), 1e-9)
+            check(np.isfinite(g) and g != 0.0 and rel < FD_TOL,
+                  f"chain {CHAIN_FB_S} s: grad_{k} {g} vs fd {fd} (rel {rel})")
+            print(f"training chain ({nfb} samples, block {BLOCK}): grad_{k} {g:.6g}, fd "
+                  f"{fd:.6g}, rel {rel:.3g}")
+    nb = counts(bwd)
+
+    # ---- (b) the ADSR probe: its gradient is the JAX package's, zero ----
+    probe = fw.build_adsr_probe(pg, CHAIN_N)
+    with recording({"adsr_scan_bwd": 64}) as rec:
+        theta = theta_on(ADSR_THETA, True)
+        loss = render_loss(probe, CHAIN_N, CHAIN_BLOCK, theta)
+        # the gate reaches the output through compares only: no gradient
+        # flows back to it (None, materialized as the JAX package's 0)
+        (g_adsr,) = torch.autograd.grad(loss, list(theta.values()), allow_unused=True,
+                                        materialize_grads=True)
+        torch.cuda.synchronize()
+    n_adsr = bwd["adsr_scan_bwd"].launches - nb["adsr_scan_bwd"]
+    check(n_adsr == n_blocks, f"ADSR probe: {n_adsr} backward launches, expected {n_blocks}")
+    check(g_adsr.item() == 0.0, f"ADSR probe: gradient {g_adsr.item()}, the JAX package's is 0")
+    hold(rec, "ADSR probe")
+    adsr_calls = rec["adsr_scan_bwd"]
+    print(f"ADSR probe (n={CHAIN_N}, block {CHAIN_BLOCK}): loss {loss.item():.6g}, d/dg "
+          f"{g_adsr.item()} (the gate enters only through compares), {n_adsr} backward "
+          f"launches, each within {EFFECTS_BWD_TOL} of its plain adjoint (max abs err "
+          f"{errs['adsr_scan_bwd']:.3g})")
+    total = counts(bwd)  # the chain's, the feedback check's and the probe's
+
+    # ---- (c) the fit chain and (d) the fit fx bank, by Adam ----
+    def fit_run(label, graph, seconds, start, hidden, steps, keep):
+        n = int(round(seconds * SR))
+        with torch.no_grad():
+            target = engine.render_functional(graph, 0, n, BLOCK, hidden, device=dev)
+        rows, mark = [], {}
+
+        def begin():
+            zero()
+            torch.cuda.reset_peak_memory_stats()
+            mark["event"] = torch.cuda.Event(enable_timing=True)
+            mark["event"].record()
+            mark["t"] = time.perf_counter()
+
+        def on_step(step, loss, values):
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            v = float(loss)
+            wall = time.perf_counter() - mark["t"]
+            end.synchronize()
+            rows.append((step, v, wall, mark["event"].elapsed_time(end), counts(bwd),
+                         torch.cuda.max_memory_allocated() / 2**20,
+                         {k: float(x) for k, x in values.items()}))
+            begin()
+
+        with recording({name: 1 for name in keep}) as recs:
+            begin()
+            losses, fitted = fw.fit(graph, target, start, steps, TRAIN_LR, block=BLOCK,
+                                    device=dev, on_step=on_step)
+        for step, v, wall, span, nbw, peak, vals in rows:
+            print(f"{label} step {step}: loss {v:.6g}, wall {wall * 1e3:.1f} ms, device span "
+                  f"(CUDA events) {span:.1f} ms, backward launches {nbw}, peak memory "
+                  f"{peak:.0f} MiB, then {json.dumps(vals)} [{card}]")
+        check(losses[-1] < losses[0], f"{label}: the loss did not fall {losses}")
+        print(f"{label}: loss {losses[0]:.6g} -> {losses[-1]:.6g} in {steps} Adam steps (lr "
+              f"{TRAIN_LR}), fitted {json.dumps(fitted)}, hidden {json.dumps(hidden)}")
+        return rows, {k: v[0] for k, v in recs.items() if v}
+
+    chain_blocks = -(-int(round(TRAIN_CHAIN_S * SR)) // BLOCK)
+    rows, chain_calls = fit_run(
+        "fit chain", fw.build_fit_chain(pg, TRAIN_CHAIN_S), TRAIN_CHAIN_S, CHAIN_THETA,
+        CHAIN_HIDDEN, TRAIN_CHAIN_STEPS,
+        ["envelope_ar_scan_bwd", "slew_scan_bwd", "reverse_echo_scan_bwd"])
+    for step, _, _, _, nbw, _, _ in rows:
+        check(nbw == {"envelope_ar_scan_bwd": chain_blocks, "slew_scan_bwd": chain_blocks,
+                      "reverse_echo_scan_bwd": chain_blocks, "adsr_scan_bwd": 0},
+              f"fit chain step {step}: backward launches {nbw}, expected {chain_blocks}")
+        for k in total:
+            total[k] += nbw[k]
+    bank_blocks = -(-int(round(TRAIN_FXBANK_S * SR)) // BLOCK)
+    rows, bank_calls = fit_run(
+        "fit fx bank", fw.build_fit_fx_bank(pg, TRAIN_FXBANK_S), TRAIN_FXBANK_S, FXBANK_THETA,
+        FXBANK_HIDDEN, TRAIN_FXBANK_STEPS, ["envelope_ar_scan_bwd", "reverse_echo_scan_bwd"])
+    for step, _, _, _, nbw, _, _ in rows:
+        check(nbw == {"envelope_ar_scan_bwd": bank_blocks, "slew_scan_bwd": 0,
+                      "reverse_echo_scan_bwd": bank_blocks, "adsr_scan_bwd": 0},
+              f"fit fx bank step {step}: backward launches {nbw}, expected {bank_blocks}")
+        for k in total:
+            total[k] += nbw[k]
+
+    # ---- times at the fits' shapes (and the ADSR's at BLOCK), beside the plain adjoints ----
+    adsr_kw = adsr_calls[0][1]
+    T = BLOCK
+    gate = torch.zeros(T, device=dev)
+    for a, b in ((300, 2500), (4000, 4001), (5000, 9000), (12000, T - 100)):
+        gate[a:b] = 1.0
+    state = torch.tensor([4.0, 0.5, 0.0, 1.0], device=dev)
+    env_t, *_ = adsr.adsr_scan(gate, state, **adsr_kw)
+    g_t, gs_t, gn_t = _seeded(dev, 16, (T,), (4,), ())
+    adsr_long = ([gate, state, env_t, g_t, gs_t, gn_t], adsr_kw)
+    cases = {  # name: [(label, args, kw)], the first the row's ms
+        "envelope_ar_scan_bwd": [("C=1", *chain_calls["envelope_ar_scan_bwd"][:2]),
+                                 ("C=128", *bank_calls["envelope_ar_scan_bwd"][:2])],
+        "slew_scan_bwd": [("C=1", *chain_calls["slew_scan_bwd"][:2])],
+        "reverse_echo_scan_bwd": [("C=1", *chain_calls["reverse_echo_scan_bwd"][:2]),
+                                  ("C=128", *bank_calls["reverse_echo_scan_bwd"][:2])],
+        "adsr_scan_bwd": [(f"T={CHAIN_BLOCK}", *adsr_calls[0][:2]),
+                          (f"T={BLOCK}", *adsr_long)],
+    }
+    entries = []
+    for name, shapes in cases.items():
+        times = []
+        for label, args, kw in shapes:
+            want, plain = timed_plain(lambda: refs[name](*args, **kw))
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            got = bwd[name](*args, **kw)
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+            got = got if isinstance(got, (tuple, list)) else [got]
+            want = want if isinstance(want, (tuple, list)) else [want]
+            errs[name] = max(errs[name], _check_bwd(
+                name, _bwd_errors(got, want), f"{label} (T={args[0].shape[0]})",
+                EFFECTS_BWD_TOL))
+            ms = device_ms(lambda: bwd[name](*args, **kw), 10)
+            alone = kernel_ms(lambda: bwd[name](*args, **kw), EFFECTS_BWD[name][2])
+            T, C = args[0].shape[0], (args[0].shape[1] if args[0].dim() == 2 else 1)
+            if name == "envelope_ar_scan_bwd":
+                bnd = bound(4 * (4 * T * C + 3 * C), ENV_BWD_OPS * T * C)
+            elif name == "slew_scan_bwd":
+                bnd = bound(4 * (4 * T + 3), SLEW_BWD_OPS * T)
+            elif name == "reverse_echo_scan_bwd":
+                cap, plen = kw["cap"], kw["plen"]
+                bnd = bound(4 * (4 * T * C + 6 * T + 4 * cap * C + 3 * plen * C + 27),
+                            ECHO_BWD_OPS_SAMPLE * T + ECHO_BWD_OPS_CHANNEL * T * C)
+            else:
+                _, walked = adsr.adsr_scan_bwd_ref(*args, **kw, with_walked=True)
+                bnd = bound(4 * (2 * walked + 13), ADSR_BWD_OPS * walked)
+            times.append((label, T, C, ms, plain, bnd, peak, alone))
+            print(f"{name} ({label}, T={T}): kernel {ms:.4f} ms (CUDA events; its own kernels "
+                  f"alone {alone:.4f} ms, torch.profiler), bound {bnd[0]:.4g} ms "
+                  f"({bnd[1]}), plain adjoint {plain:.1f} ms, peak memory of a launch "
+                  f"{peak:.2f} MiB; within {EFFECTS_BWD_TOL} of the plain adjoint [{card}]")
+        (label, T, C, ms, plain, bnd, peak, alone), *more = times
+        source, replaces, _ = EFFECTS_BWD[name]
+        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": total[name], "max_abs_err": errs[name], "ms": ms,
+                 "plain_ms": plain, "bound_ms": bnd[0], "bound_by": bnd[1],
+                 "library_ms": None, "shape": f"T={T} C={C}", "peak_mib": peak,
+                 "kernel_ms": alone}
+        for label2, T2, C2, ms2, plain2, bnd2, peak2, alone2 in more:
+            entry[f"at_{label2}"] = {"T": T2, "C": C2, "ms": ms2, "plain_ms": plain2,
+                                     "bound_ms": bnd2[0], "bound_by": bnd2[1],
+                                     "peak_mib": peak2, "kernel_ms": alone2}
+        entries.append(entry)
+
+    # ---- the CPU's gradients ----
+    cpu_loss, cpu_grads, cpu_adsr, cpu_s = cpu_job.result()
+    for k, g in cpu_grads.items():
+        got = grads[k].item()
+        rel = abs(got - g) / abs(g) if g != 0.0 else abs(got)
+        check(rel <= CPU_GRAD_TOL, f"chain: grad_{k} on the card {got} vs the CPU's {g} "
+              f"(rel {rel})")
+    check(cpu_adsr == g_adsr.item() == 0.0, f"ADSR probe: the CPU's {cpu_adsr}")
+    print(f"training chain on the CPU (plain versions, {cpu_s:.1f} s in a second process): "
+          f"loss {cpu_loss:.6g}, grads {json.dumps(cpu_grads)}, ADSR probe {cpu_adsr}; the "
+          f"card's within {CPU_GRAD_TOL} relative")
+    print(f"training chain: backward launches on the path {json.dumps(total)}; phase took "
+          f"{time.perf_counter() - t0:.1f} s")
+    return entries
+
 
 
 if __name__ == "__main__":

@@ -129,6 +129,20 @@ def load() -> ctypes.CDLL:
         "envelope_ar_scan_launch": [p] * 4 + [i, i, f, f, p],
         # x, cur_in, y, cur_out, T, linear, p_rise, p_fall, stream
         "slew_scan_launch": [p] * 4 + [i, i, f, f, p],
+        # x, env0, env, genv, genv_final, gx, genv0, T, C, atk, rel, stream
+        "envelope_ar_scan_bwd_launch": [p] * 7 + [i, i, f, f, p],
+        # x, cur_in, y, gy, gcur_out, gx, gcur_in, T, linear, p_rise, p_fall, stream
+        "slew_scan_bwd_launch": [p] * 7 + [i, i, f, f, p],
+        # gate, state_in, env, genv, gstate_out, genv_next, gstate_in, T, dA, dD,
+        # dR, sus, sustain_samples (-1: gated), stream
+        "adsr_scan_bwd_launch": [p] * 7 + [i, f, f, f, f, i, p],
+        # trig, stage_in, env_in, gy, genv_out, genv_in, T, dA, dD, dR, sus, stream
+        "adsr_clock_bwd_launch": [p] * 6 + [i, d, d, d, d, p],
+        # x, blk, ratio, fb, alt, pb_in, misc_in, y, gy, lam_a, lam_b, gpb_out,
+        # gline, gfb, gp, tab, bounds, n_periods, misc_out, gfb_part, gp_part, T,
+        # C, sr, plen, cap, min_block, max_block, smooth_alpha, inv_plen, half,
+        # inv_half, stream
+        "reverse_echo_scan_bwd_launch": [p] * 21 + [i, i, f, i, i, i, i, f, f, f, f, p],
         # x, blk, ratio, fb, alt, buf_a, buf_b, pb_in, misc_in, y, pb_out,
         # misc_out, tab, bounds, n_periods, T, C, sr, plen, cap, min_block,
         # max_block, smooth_alpha, inv_plen, half, inv_half, stream

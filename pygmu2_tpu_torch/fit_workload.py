@@ -18,6 +18,22 @@ differentiable with respect to them.
 - :func:`build_fit_bank`: ``filter_workload.build_filter_bank`` with the
   BiquadPE's and the SVFilterPE's sweep centres bound to
   ``ParamPE("low_hz")`` and ``ParamPE("band_hz")``.
+- :func:`build_fit_chain`: ``fx_workload.build_chain`` with the wah's
+  sweep depth bound to ``ParamPE("depth")`` and the echo's feedback to
+  ``ParamPE("fb")``: the follower's, the slew limiter's and the echo's
+  backward.
+- :func:`build_fit_fx_bank`: ``fx_workload.build_fx_bank`` with a gain
+  ``ParamPE("drive")`` before its compressor and the echo's feedback bound
+  to ``ParamPE("fb")``: the follower's and the echo's backward at 128
+  channels.
+  Both fit their compressor with the peak detector. The RMS detector's
+  gradient is NaN wherever its input falls silent, in the JAX package as
+  in the port: its mean is a difference of two prefix sums over the block,
+  which cancels to exactly 0 there, and the square root's derivative at 0
+  is infinite.
+- :func:`build_adsr_probe`: a gated ADSR whose gate is scaled by
+  ``ParamPE("g")``: the ADSR's backward (the gate enters only through
+  compares, so the gradient is exactly zero, as the JAX package's).
 - :func:`fit`: the loop of ``examples/gradient_fit_eg.py`` on
   ``torch.optim.Adam`` (optax's Adam there): a mean squared error against a
   target render, frequencies fitted as their logarithms.
@@ -29,11 +45,12 @@ import math
 
 import torch
 
+from pygmu2_tpu_torch import fx_workload
 from pygmu2_tpu_torch.patch_workload import SR, _swept, detuned_saws, patch_envelopes
 
 PROBE_N, PROBE_BLOCK = 4096, 1024
 # parameters fitted in log space (well scaled: a frequency's steps are ratios)
-LOG_PARAMS = ("cutoff", "low_hz", "band_hz")
+LOG_PARAMS = ("cutoff", "low_hz", "band_hz", "depth")
 
 
 def _swept_around(pg, centre, hz: float, depth: float):
@@ -77,6 +94,38 @@ def build_fit_bank(pg, seconds: float, seed: int = 0):
     band = pg.SVFilterPE(low, _swept_around(pg, pg.ParamPE("band_hz", default=800.0), 0.4, 500.0),
                          2.0, mode=pg.BiquadMode.BANDPASS)
     return pg.CropPE(pg.GainPE(band, 0.5), 0, n)
+
+
+def build_fit_chain(pg, seconds: float):
+    """The mono effects chain of ``fx_workload.build_chain`` with the wah's
+    sweep depth ``ParamPE("depth")`` (default 2500 Hz) and the echo's
+    feedback ``ParamPE("fb")`` (default 0.6), its compressor's detector the
+    peak one, cropped to ``seconds``."""
+    pg.set_sample_rate(SR)
+    return fx_workload.build_chain(pg, seconds, depth=pg.ParamPE("depth", default=2500.0),
+                                   feedback=pg.ParamPE("fb", default=0.6),
+                                   detection=pg.DetectionMode.PEAK)
+
+
+def build_fit_fx_bank(pg, seconds: float, seed: int = 0, channels: int = 128):
+    """The effects bank of ``fx_workload.build_fx_bank`` with a gain
+    ``ParamPE("drive")`` (default 1.0) before its compressor and the echo's
+    feedback ``ParamPE("fb")`` (default 0.6), its compressor's detector the
+    peak one, cropped to ``seconds``."""
+    pg.set_sample_rate(SR)
+    return fx_workload.build_fx_bank(pg, seconds, seed, drive=pg.ParamPE("drive", default=1.0),
+                                     feedback=pg.ParamPE("fb", default=0.6),
+                                     channels=channels, detection=pg.DetectionMode.PEAK)
+
+
+def build_adsr_probe(pg, n: int = PROBE_N):
+    """A 220 Hz sine under a gated ADSR whose gate, a 20 Hz square gate, is
+    scaled by ``ParamPE("g")`` (default 1.0), cropped to ``n`` samples."""
+    pg.set_sample_rate(SR)
+    gate = pg.GainPE(pg.PeriodicGate(20.0, 0.5), pg.ParamPE("g", default=1.0))
+    env = pg.AdsrGatedPE(gate, attack_time=0.005, decay_time=0.01, sustain_level=0.6,
+                         release_time=0.01)
+    return pg.CropPE(pg.GainPE(pg.SinePE(220.0), env), 0, n)
 
 
 def bindings_of(params: dict) -> dict:

@@ -23,34 +23,51 @@ from __future__ import annotations
 from pygmu2_tpu_torch.patch_workload import SR, detuned_saws
 
 STRINGS = (82.41, 110.0, 146.83, 196.0, 246.94, 329.63)  # guitar open strings, Hz
+ECHO_BLOCK_S = 0.3  # the reverse echo's block: it replays from the second on
 
 
-def _echo_mix(pg, dry):
-    """``dry`` compressed, with a reverse pitch echo (0.3 s blocks, a fifth
-    up, feedback 0.6, 0.5 s of buffer) mixed in at 0.7."""
+def _echo_mix(pg, dry, feedback=0.6):
+    """``dry`` compressed, with a reverse pitch echo (ECHO_BLOCK_S blocks, a fifth
+    up, feedback 0.6 or the PE ``feedback``, 0.5 s of buffer) mixed in at
+    0.7."""
     comp = pg.CachePE(dry)
-    echo = pg.ReversePitchEchoPE(comp, 0.3, 1.5, 0.6, max_delay_seconds=0.5)
+    echo = pg.ReversePitchEchoPE(comp, ECHO_BLOCK_S, 1.5, feedback, max_delay_seconds=0.5)
     return pg.MixPE(comp, pg.GainPE(echo, 0.7))
 
 
-def build_chain(pg, seconds: float):
-    """The mono effects chain, cropped to ``seconds`` at 44.1 kHz."""
+def build_chain(pg, seconds: float, depth=2500.0, feedback=0.6, detection=None):
+    """The mono effects chain, cropped to ``seconds`` at 44.1 kHz. ``depth``
+    (Hz per unit of envelope) and ``feedback`` may be PEs (the training
+    path binds them to ParamPEs); ``detection``, the compressor's detector
+    (the default: RMS)."""
     pg.set_sample_rate(SR)
     strings = pg.MixPE(*(pg.KarplusStrongPE(f, rho=0.9995, seed=i) for i, f in enumerate(STRINGS)))
     src = pg.CachePE(pg.GainPE(strings, pg.PeriodicGate(2.0, 0.45)))
     env = pg.EnvelopePE(src, attack=0.005, release=0.08)
     centre = pg.SlewLimiterPE(
-        pg.MixPE(pg.ConstantPE(300.0), pg.GainPE(env, 2500.0)), 40000.0, 8000.0
+        pg.MixPE(pg.ConstantPE(300.0), pg.GainPE(env, depth)), 40000.0, 8000.0
     )
     wah = pg.BiquadPE(src, centre, 6.0, mode=pg.BiquadMode.BANDPASS)
-    out = _echo_mix(pg, pg.CompressorPE(wah, threshold=-18.0, ratio=6.0))
+    out = _echo_mix(pg, _compressor(pg, wah, detection), feedback)
     return pg.CropPE(out, 0, int(round(seconds * SR)))
 
 
-def build_fx_bank(pg, seconds: float, seed: int = 0):
-    """The 128-channel effects bank, cropped to ``seconds`` at 44.1 kHz."""
+def _compressor(pg, src, detection, **kw):
+    extra = {} if detection is None else {"detection": detection}
+    return pg.CompressorPE(src, threshold=-18.0, ratio=6.0, **kw, **extra)
+
+
+def build_fx_bank(pg, seconds: float, seed: int = 0, drive=None, feedback=0.6,
+                  channels: int = 128, detection=None):
+    """The effects bank (128 channels), cropped to ``seconds`` at 44.1 kHz.
+    ``drive`` (a gain before the compressor, none by default) and
+    ``feedback`` may be PEs (the training path binds them to ParamPEs);
+    ``detection``, the compressor's detector (the default: RMS)."""
     pg.set_sample_rate(SR)
     n = int(round(seconds * SR))
-    saws = pg.GainPE(pg.ArrayPE(detuned_saws(n, seed)), pg.PeriodicGate(3.0, 0.3))
-    comp = pg.CompressorPE(saws, threshold=-18.0, ratio=6.0, stereo_link=False)
-    return pg.CropPE(_echo_mix(pg, comp), 0, n)
+    saws = pg.GainPE(pg.ArrayPE(detuned_saws(n, seed, channels=channels)),
+                     pg.PeriodicGate(3.0, 0.3))
+    if drive is not None:
+        saws = pg.GainPE(saws, drive)
+    comp = _compressor(pg, saws, detection, stereo_link=False)
+    return pg.CropPE(_echo_mix(pg, comp, feedback), 0, n)

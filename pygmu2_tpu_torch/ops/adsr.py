@@ -44,6 +44,19 @@ absolute-clock machine with a float64 envelope and an int64 deadline:
   ``csrc/adsr_scan.cu``, counted in ``adsr_clock_scan.launches``);
 - ``adsr_clock_scan_ref`` is its plain version.
 
+The backward of both: ``adsr_scan_bwd`` and ``adsr_clock_scan_bwd`` launch
+``csrc/adsr_scan_bwd.cu`` for CUDA tensors (counted in their
+``.launches``); on the card the two wrappers' gradients are those
+launches. The gate and the stage enter only through compares: their
+cotangents are zero. The state's e0 and n reach every sample emitted in
+ATTACK, DECAY or RELEASE until the first cut (a hit, an expiry, or an edge
+where the value emitted is a constant), carried across edges (an edge
+re-anchors e0 to the value emitted there); the clock branch's float64
+envelope likewise until its first constant value. ``adsr_scan_bwd_ref``
+and ``adsr_clock_scan_bwd_ref`` are the plain versions: the walk to the
+cut in the kernel's order (the edge-walk segment by segment), and the
+masked sums in torch ops.
+
 Stage codes match models.envelopes: IDLE/ATTACK/DECAY/SUSTAIN/RELEASE.
 """
 
@@ -344,6 +357,160 @@ def _launch(gate, state, *, dA, dD, dR, sus, sustain_samples):
     return env, state_out, env_next
 
 
+def adsr_scan_bwd(gate, state, env, genv, gstate, genv_next, *, dA, dD, dR, sus,
+                  sustain_samples=None):
+    """The cotangent (4,) of :func:`adsr_scan`'s state (the gate's is zero),
+    given its arguments, its output ``env`` and the cotangents of env (T,),
+    the state out (4,) and env_next (). CPU tensors take the plain
+    version; CUDA tensors launch the kernel (one count in
+    ``adsr_scan_bwd.launches`` per call) or raise."""
+    kw = dict(dA=dA, dD=dD, dR=dR, sus=sus, sustain_samples=sustain_samples)
+    args = (gate, state, env, genv, gstate, genv_next)
+    if gate.device.type == "cpu":
+        return adsr_scan_bwd_ref(*args, **kw)
+    if gate.device.type != "cuda":
+        raise ValueError(f"no kernel for device {gate.device}")
+    return _launch_bwd(*args, **kw)
+
+
+adsr_scan_bwd.launches = 0
+
+
+def adsr_scan_bwd_ref(gate, state, env, genv, gstate, genv_next, *, dA, dD, dR, sus,
+                      sustain_samples=None, with_walked=False):
+    """Plain PyTorch version of :func:`adsr_scan_bwd`, in the kernel's
+    order: the gate's edges, then segment by segment to the first cut, a
+    segment's hit found among its candidates ``fmaf(n + 1, d, e0)`` at
+    once, its samples' cotangents summed with the segment's weights (e0's
+    1, n's ``a_n + d b_n``: 0 and 1 before the first edge, the slope there
+    and 0 after). A state outside :func:`in_closed_form` is walked per
+    sample, as the kernel walks it. ``with_walked``: also return how many
+    samples the walk read (to the cut, or all)."""
+    dev = gate.device
+    f = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
+    slopes = {_ATTACK: f(dA), _DECAY: f(dD)}
+    cR, csus = f(dR), f(sus)
+    gated = sustain_samples is None
+    g, gy = gate.to(torch.float32), genv.to(torch.float32)
+    host = state.detach().to("cpu", torch.float32)
+    stage, pg0 = float(host[0]), float(host[3])
+    e0, n = state.detach()[1].to(torch.float32), state.detach()[2].to(torch.float32)
+    T = g.shape[0]
+
+    def slope(st):
+        return slopes.get(st, cR)
+
+    def ramp(st):  # emits fma(n, d, e0)
+        return st not in (_IDLE, _SUSTAIN)
+
+    def cut(st, e0, n1):  # a hit or an expiry at counts n1
+        cand = fmaf(n1, slope(st).expand_as(n1), e0.expand_as(n1))
+        if st == _ATTACK:
+            return cand >= 1.0
+        if st == _DECAY:
+            return cand <= csus
+        if st == _RELEASE:
+            return cand <= 0.0
+        if st == _SUSTAIN and not gated:
+            return n1 >= float(sustain_samples)
+        return torch.zeros_like(n1, dtype=torch.bool)
+
+    pgv = torch.cat([f(pg0).reshape(1), g[:-1]])
+    if gated:
+        rising = (pgv == 0.0) & (g == 1.0)
+        edge = rising | ((pgv == 1.0) & (g == 0.0))
+    else:
+        rising = edge = g > 0.0
+    a_n, b_n, acc_e, acc_n = f(0.0), f(1.0), f(0.0), f(0.0)
+    live, walked = True, T
+    if in_closed_form(host):
+        edges, rise = torch.nonzero(edge)[:, 0].tolist(), rising.tolist()
+        t, k = 0, 0
+        while t < T:
+            p = edges[k] if k < len(edges) else None
+            stop = T if p is None else p  # samples t .. stop - 1 can hit
+            n1 = torch.clamp(n + torch.arange(1, stop - t + 1, device=dev,
+                                              dtype=torch.float32), max=float(N_MAX))
+            hits = torch.nonzero(cut(stage, e0, n1))[:, 0].tolist()
+            last = t + hits[0] if hits else (T - 1 if p is None else p)
+            if ramp(stage):
+                s = gy[t:last + 1].sum()
+                acc_e = acc_e + s
+                acc_n = acc_n + (a_n + slope(stage) * b_n) * s
+            if hits or p is None or not ramp(stage):
+                live = not hits and p is None
+                walked = last + 1
+                break
+            a_n, b_n = a_n + slope(stage) * b_n, f(0.0)  # the edge at p re-anchors e0
+            e0 = env.detach()[p].to(torch.float32)
+            stage = _ATTACK if rise[p] else _RELEASE
+            if bool(cut(stage, e0, f(1.0).reshape(1))[0]):
+                live, walked = False, p + 1
+                break
+            n, t, k = f(1.0), p + 1, k + 1
+    else:
+        for t in range(T):
+            d = slope(stage)
+            value = (f(0.0) if stage == _IDLE else csus if stage == _SUSTAIN
+                     else fmaf(n, d, e0))
+            if ramp(stage):
+                acc_e = acc_e + gy[t]
+                acc_n = acc_n + (a_n + d * b_n) * gy[t]
+            if bool(edge[t]):
+                if not ramp(stage):
+                    live, walked = False, t + 1
+                    break
+                a_n, b_n, e0, n = a_n + d * b_n, f(0.0), value, f(0.0)
+                stage = _ATTACK if bool(rising[t]) else _RELEASE
+            n1 = n + 1.0
+            if bool(cut(stage, e0, n1.reshape(1))[0]):
+                live, walked = False, t + 1
+                break
+            n = n1
+    if live:  # the state out and env_next still carry the state in
+        ge, gn = gstate[1].to(torch.float32), gstate[2].to(torch.float32)
+        if ramp(stage):
+            ge = ge + genv_next.to(torch.float32)
+            gn = gn + slope(stage) * genv_next.to(torch.float32)
+        acc_e = acc_e + ge
+        acc_n = acc_n + a_n * ge + b_n * gn
+    zero = f(0.0)
+    out = torch.stack([zero, acc_e, acc_n, zero])
+    return (out, walked) if with_walked else out
+
+
+def _launch_bwd(gate, state, env, genv, gstate, genv_next, *, dA, dD, dR, sus,
+                sustain_samples):
+    dev = gate.device
+    if gate.dim() != 1 or gate.shape[0] < 1:
+        raise ValueError(f"gate must be (T,) with T >= 1, got {tuple(gate.shape)}")
+    (T,) = gate.shape
+    gate, env, genv = (_ext.checked(v, n, (T,), dev) for v, n in
+                       ((gate, "gate"), (env, "env"), (genv, "genv")))
+    state = _ext.checked(state, "state", (4,), dev)
+    gstate = _ext.checked(gstate, "gstate", (4,), dev)
+    genv_next = _ext.checked(genv_next.reshape(()), "genv_next", (), dev)
+    gstate_in = torch.empty((4,), dtype=torch.float32, device=dev)
+    lib = _ext.load()
+    with torch.cuda.device(dev):
+        err = lib.adsr_scan_bwd_launch(
+            gate.data_ptr(), state.data_ptr(), env.data_ptr(), genv.data_ptr(),
+            gstate.data_ptr(), genv_next.data_ptr(), gstate_in.data_ptr(), T, float(dA),
+            float(dD), float(dR), float(sus),
+            -1 if sustain_samples is None else _count_limit(sustain_samples),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _ext.raise_on_error(err, "adsr_scan_bwd")
+    adsr_scan_bwd.launches += 1
+    return gstate_in
+
+
+def _backward(args, outs, grads, **kw):
+    gate, state = args
+    genv, gstate, genv_next = grads
+    return None, adsr_scan_bwd(gate, state, outs[0], genv, gstate, genv_next, **kw)
+
+
 def _count_limit(sustain_samples) -> int:
     """``sustain_samples`` for the kernel's int argument. A float32 count
     stops at 2**24, so a limit above that never expires, in the kernel as
@@ -446,9 +613,78 @@ def _launch_clock(trig, stage, env, ends, *, t0, dA, dD, dR, sus, sustain_sample
     return y, (stage_out, env_out, ends_out)
 
 
-# the launches as torch.autograd.Functions whose backward raises on the card:
-# the ADSR's backward kernels are still to port (ROADMAP.md, queue 2); on the CPU autograd
-# differentiates the plain version
-_differentiable = diffable.kernel_function("adsr_scan", _launch)
+def adsr_clock_scan_bwd(trig, stage, env, gy, genv_out, *, dA, dD, dR, sus, **_):
+    """The cotangent () float64 of :func:`adsr_clock_scan`'s envelope in
+    (the trigger's and the integer state's are zero), given its arguments
+    and the cotangents of its output (T,) and envelope out (). CPU tensors
+    take the plain version; CUDA tensors launch the kernel (one count in
+    ``adsr_clock_scan_bwd.launches`` per call) or raise."""
+    kw = dict(dA=dA, dD=dD, dR=dR, sus=sus)
+    if trig.device.type == "cpu":
+        return adsr_clock_scan_bwd_ref(trig, stage, env, gy, genv_out, **kw)
+    if trig.device.type != "cuda":
+        raise ValueError(f"no kernel for device {trig.device}")
+    return _launch_clock_bwd(trig, stage, env, gy, genv_out, **kw)
+
+
+adsr_clock_scan_bwd.launches = 0
+
+
+def adsr_clock_scan_bwd_ref(trig, stage, env, gy, genv_out, *, dA, dD, dR, sus, **_):
+    """Plain version of :func:`adsr_clock_scan_bwd`: the machine walked in
+    Python floats (the forward's float64 adds) to its first constant value
+    (IDLE, SUSTAIN, a hit), then the output's cotangents summed up to that
+    sample, and the envelope out's if there is none."""
+    st, e = int(stage), float(env)
+    cut = trig.shape[0]
+    for t, g in enumerate(trig.tolist()):
+        if g > 0.0:
+            st = _A
+        if st in (_I, _S):
+            cut = t
+            break
+        e2 = e + (dA if st == _A else dD if st == _D else dR)
+        if (e2 >= 1.0) if st == _A else (e2 <= sus) if st == _D else (e2 <= 0.0):
+            cut = t
+            break
+        e = e2
+    total = gy[:cut + 1].to(torch.float64).sum()
+    if cut >= trig.shape[0]:
+        total = total + genv_out.to(torch.float64)
+    return total
+
+
+def _launch_clock_bwd(trig, stage, env, gy, genv_out, *, dA, dD, dR, sus):
+    dev = trig.device
+    (T,) = trig.shape
+    trig, gy = (_ext.checked(v, n, (T,), dev) for v, n in ((trig, "trig"), (gy, "gy")))
+    for name, t, dtype in (("stage", stage, torch.int32), ("env", env, torch.float64),
+                           ("genv_out", genv_out, torch.float64)):
+        if t.shape != () or t.dtype != dtype or t.device != dev:
+            raise ValueError(f"{name} must be a {dtype} scalar tensor on trig's device")
+    genv_in = torch.empty((), dtype=torch.float64, device=dev)
+    lib = _ext.load()
+    with torch.cuda.device(dev):
+        err = lib.adsr_clock_bwd_launch(
+            trig.data_ptr(), stage.data_ptr(), env.data_ptr(), gy.data_ptr(),
+            genv_out.data_ptr(), genv_in.data_ptr(), T, float(dA), float(dD), float(dR),
+            float(sus), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _ext.raise_on_error(err, "adsr_clock_scan_bwd")
+    adsr_clock_scan_bwd.launches += 1
+    return genv_in
+
+
+def _backward_clock(args, outs, grads, **kw):
+    trig, stage, env, _ = args
+    gy, _, genv_out, _ = grads
+    return None, None, adsr_clock_scan_bwd(trig, stage, env, gy, genv_out, **kw), None
+
+
+# the launches as torch.autograd.Functions, their backwards adsr_scan_bwd and
+# adsr_clock_scan_bwd
+_differentiable = diffable.kernel_function("adsr_scan", _launch, _backward)
 _differentiable_clock = diffable.kernel_function(
-    "adsr_clock_scan", lambda *args, **kw: (lambda env, st: (env, *st))(*_launch_clock(*args, **kw)))
+    "adsr_clock_scan",
+    lambda *args, **kw: (lambda env, st: (env, *st))(*_launch_clock(*args, **kw)),
+    _backward_clock)

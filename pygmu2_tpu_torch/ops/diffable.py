@@ -9,11 +9,15 @@ tensors with no ``grad_fn``; :func:`kernel_function` makes the launch a
 
 - the forward is the launch as it was; the primal inputs and the outputs
   are saved as residuals (a backward kernel recomputes whatever
-  trajectory it needs from them);
+  trajectory it needs from them), but for a buffer the launch updates in
+  place (the echo's block rings): its old value is gone, and a later
+  launch updates it again, so it is not saved and the backward gets None
+  for it;
 - the backward is a backward kernel's launch (the ladder, the comb, the
-  order-2 affine scan) or, for a kernel whose backward is not ported yet,
-  raises ``NotImplementedError``: the plain version never runs on the card
-  as a backward.
+  order-2 affine scan, the follower, the slew limiter, the reverse echo,
+  the ADSR) or, for a kernel whose backward is not ported yet (the
+  string), raises ``NotImplementedError``: the plain version never runs
+  on the card as a backward.
 
 CPU tensors never come here: the wrappers send them to the plain versions,
 which autograd differentiates, as JAX differentiates the ``lax.scan``
@@ -43,8 +47,9 @@ def kernel_function(name: str, launch, backward=None):
     ``launch(*args, **kw)`` returns a tuple of tensors; ``args`` are
     tensors (or None). ``backward(args, outs, grads, **kw)`` returns one
     cotangent (or None) per argument, given the call's arguments, its
-    outputs and their cotangents (zeros where an output got none; None for
-    an integer output). Without ``backward`` the gradient raises.
+    outputs (None in both for a buffer updated in place) and their
+    cotangents (zeros where an output got none; None for an integer
+    output). Without ``backward`` the gradient raises.
     """
 
     class Fn(torch.autograd.Function):
@@ -58,7 +63,8 @@ def kernel_function(name: str, launch, backward=None):
             ctx.mark_non_differentiable(*(o for o in outs if not o.is_floating_point()))
             ctx.kw, ctx.n_args = kw, len(args)
             if backward is not None:
-                ctx.save_for_backward(*args, *outs)
+                gone = {id(o) for o in dirty}  # not saved: a later launch updates it again
+                ctx.save_for_backward(*(None if id(t) in gone else t for t in (*args, *outs)))
             return outs
 
         @staticmethod
@@ -70,7 +76,8 @@ def kernel_function(name: str, launch, backward=None):
             saved = ctx.saved_tensors
             args, outs = saved[:ctx.n_args], saved[ctx.n_args:]
             grads = tuple(
-                None if not o.is_floating_point() else (torch.zeros_like(o) if g is None else g)
+                None if o is not None and not o.is_floating_point()
+                else torch.zeros_like(o) if g is None and o is not None else g
                 for o, g in zip(outs, grads))
             got = backward(args, outs, grads, **ctx.kw)
             if on_backward is not None:

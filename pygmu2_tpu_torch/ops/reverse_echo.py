@@ -27,6 +27,14 @@ fed back; the buffers swap when the current block is full.
   in torch ops: the control table, then period by period a gather from
   the pitch line and the input and a write of the current block (tests
   hold it to ``reverse_echo_scan_ref`` bit for bit).
+- ``reverse_echo_scan_bwd`` is the backward: the cotangents of x, the
+  pitch ratio, the feedback, the two block buffers, the pitch line and the
+  misc row (its read position and smoothed length; the rest are integers).
+  For CUDA tensors it launches ``csrc/reverse_echo_scan_bwd.cu`` (counted
+  in ``reverse_echo_scan_bwd.launches``); on the card
+  ``reverse_echo_scan``'s gradient is that launch.
+  ``reverse_echo_scan_bwd_ref`` is its plain version in the kernel's
+  order: the periods in reverse, each in torch ops.
 """
 
 from __future__ import annotations
@@ -54,7 +62,8 @@ def _control(blk, ratio, alt, misc, *, sr, plen, cap, min_block, max_block,
     Returns (per-sample steps, misc after the last sample). A step holds
     the pitch line's write slot and read taps with their float32 weights,
     the pass-through flag, the window position, the replay row (None when
-    not playing), the write row and which buffer is current. The weights
+    not playing), the write row, which buffer is current and the sign of
+    the crossfade's slope in the read position (the backward's). The weights
     and the misc row's read position and smoothed length are 0-d tensors
     in the graph of ``ratio`` and ``misc`` (the pitch ratio moves the read
     heads continuously); the block length and the alternation enter only
@@ -92,9 +101,11 @@ def _control(blk, ratio, alt, misc, *, sr, plen, cap, min_block, max_block,
         pos = wrap(p_rpos)
         taps = tap(pos) + tap(wrap(pos + half))
         dist = p_rpos - _f32(p_wpos)
+        sgn = 1.0 if dist >= 0 else -1.0  # d dist / d p_rpos
         dist = torch.where(dist >= 0, dist, -dist)  # |d|, with JAX's gradient (1) at d = 0
         if dist > half:
             dist = fplen - dist
+            sgn = -sgn
         f = dist * inv_half
         near_unity = bool(torch.abs(rt32 - one) < tol)
         p_rpos = wrap(p_rpos + rt32)
@@ -105,7 +116,7 @@ def _control(blk, ratio, alt, misc, *, sr, plen, cap, min_block, max_block,
         steps.append((
             wslot, taps, f, one - f, near_unity, float(wpos),
             min(max(idx, 0), cap - 1) if playing else None,
-            min(w_idx, cap - 1), cur_is_a == 1,
+            min(w_idx, cap - 1), cur_is_a == 1, sgn,
         ))
 
         w_idx += 1
@@ -136,7 +147,7 @@ def reverse_echo_scan_ref(x, blk, ratio, fb, alt, buf_a, buf_b, pitch_buf, misc,
     fb = fb.to(torch.float32)
     ba, bb, pb = buf_a.clone(), buf_b.clone(), pitch_buf.clone()
     y = torch.zeros_like(x)
-    for t, (wslot, taps, f, omf, near_unity, _w, rrow, wrow, write_a) in enumerate(steps):
+    for t, (wslot, taps, f, omf, near_unity, _w, rrow, wrow, write_a, _s) in enumerate(steps):
         i0, i1, w0, w1, i2, i3, w2, w3 = taps
         xi = x[t]
         pb[wslot] = xi
@@ -217,6 +228,132 @@ def reverse_echo_scan_periods(x, blk, ratio, fb, alt, buf_a, buf_b, pitch_buf, m
     return y, ba, bb, pb, misc_out.detach().to(dev)
 
 
+def _table(steps, dev):
+    """The control steps as per-sample tensors on ``dev`` (the kernel's
+    table): write slot, the four taps (T, 4) and their weights, f, 1 - f,
+    the pass-through flag, the Hann window, the replay row (-1: not
+    playing), the write row, which buffer is current, the slope's sign,
+    and the periods' bounds."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    wpos = torch.tensor([s[5] for s in steps], **f32)
+    write_a = [s[8] for s in steps]
+    T = len(steps)
+    return dict(
+        wslot=torch.tensor([s[0] for s in steps], device=dev),
+        taps=torch.tensor([[s[1][k] for k in (0, 1, 4, 5)] for s in steps], device=dev),
+        wts=torch.tensor([[float(s[1][k]) for k in (2, 3, 6, 7)] for s in steps], **f32),
+        f=torch.tensor([float(s[2]) for s in steps], **f32),
+        omf=torch.tensor([float(s[3]) for s in steps], **f32),
+        near_unity=torch.tensor([s[4] for s in steps], device=dev),
+        window=0.5 - 0.5 * torch.cos(torch.full((), _TWO_PI, **f32) * wpos),
+        rrow=torch.tensor([-1 if s[6] is None else s[6] for s in steps], device=dev),
+        wrow=torch.tensor([s[7] for s in steps], device=dev),
+        write_a=write_a,
+        sgn=torch.tensor([s[9] for s in steps], **f32),
+        starts=[0] + [t for t in range(1, T) if write_a[t] != write_a[t - 1]] + [T],
+    )
+
+
+def _slot(t, ws, i, plen):
+    """Rows of ``[pitch_buf ; x]`` that hold pitch-line slot i at time t
+    (write slot ws)."""
+    src = t - (ws - i) % plen
+    return torch.where(src >= 0, plen + src, i)
+
+
+def _ratio_and_misc(gp, gmisc, T, smooth_alpha):
+    """The ratio's and the misc row's cotangents from p_rpos's per sample
+    (gp, (T,)): p_rpos after sample t is the entering one plus the ratios
+    up to t, so the ratio's is a reverse cumulative sum; the smoothed
+    length passes (1 - alpha) a sample to the entering one."""
+    g_rpos = gmisc[2].to(torch.float32)
+    after = torch.flip(torch.cumsum(torch.flip(gp, (0,)), 0), (0,))  # sum over s >= t
+    gratio = torch.cat([after[1:], after.new_zeros(1)]) + g_rpos
+    gm = torch.zeros(len(MISC_FIELDS), dtype=torch.float32, device=gp.device)
+    gm[2] = after[0] + g_rpos
+    gm[5] = gmisc[5].to(torch.float32) * float((1.0 - smooth_alpha) ** T)
+    return gratio, gm
+
+
+def reverse_echo_scan_bwd(x, blk, ratio, fb, alt, pitch_buf, misc, y, gy, gbuf_a, gbuf_b,
+                          gpb, gmisc, *, sr, plen, cap, min_block, max_block, smooth_alpha):
+    """The cotangents of :func:`reverse_echo_scan`'s inputs: given its
+    arguments but the two block buffers (which the forward overwrote), its
+    output ``y`` and the cotangents of y (T, C), buf_a', buf_b' (cap, C),
+    pitch_buf' (plen, C) and misc' (9,), returns (gx (T, C), gratio (T,),
+    gfb (T,), gbuf_a, gbuf_b (cap, C), gpitch_buf (plen, C), gmisc (9,)).
+    The block length and the alternation get none (roundings and
+    compares). CPU tensors take the plain version; CUDA tensors launch the
+    kernel (one count in ``reverse_echo_scan_bwd.launches`` per call) or
+    raise."""
+    kw = dict(sr=sr, plen=plen, cap=cap, min_block=min_block, max_block=max_block,
+              smooth_alpha=smooth_alpha)
+    args = (x, blk, ratio, fb, alt, pitch_buf, misc, y, gy, gbuf_a, gbuf_b, gpb, gmisc)
+    if x.device.type == "cpu":
+        return reverse_echo_scan_bwd_ref(*args, **kw)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    return _launch_bwd(*args, **kw)
+
+
+reverse_echo_scan_bwd.launches = 0
+
+
+def reverse_echo_scan_bwd_ref(x, blk, ratio, fb, alt, pitch_buf, misc, y, gy, gbuf_a, gbuf_b,
+                              gpb, gmisc, *, sr, plen, cap, min_block, max_block,
+                              smooth_alpha):
+    """Plain PyTorch version of :func:`reverse_echo_scan_bwd`, in the
+    kernel's order: the control table, the pitch line's final cotangent,
+    then the periods in reverse, each period's samples together (a period
+    writes distinct rows of one buffer and reads distinct rows of the
+    other): the written rows' cotangents taken (and cleared), the replayed
+    rows' added, the taps' added to the line ``[pitch_buf ; x]``."""
+    dev = x.device
+    with torch.no_grad():
+        steps, _ = _control(blk, ratio, alt, misc, sr=sr, plen=plen, cap=cap,
+                            min_block=min_block, max_block=max_block,
+                            smooth_alpha=smooth_alpha)
+    tb = _table(steps, dev)
+    T, C = x.shape
+    inv_half = float(torch.tensor(1.0 / (plen / 2.0), dtype=torch.float32))
+    x, y, gy, fb = (v.to(torch.float32) for v in (x, y, gy, fb))
+    lam_a, lam_b = gbuf_a.to(torch.float32).clone(), gbuf_b.to(torch.float32).clone()
+    line = torch.cat([pitch_buf.to(torch.float32), x])
+    gline = torch.zeros_like(line)
+    last = torch.full((plen,), T - 1, device=dev)
+    gline[_slot(last, tb["wslot"][-1], torch.arange(plen, device=dev), plen)] += gpb
+    gfb = torch.zeros(T, dtype=torch.float32, device=dev)
+    gp = torch.zeros(T, dtype=torch.float32, device=dev)
+    starts = tb["starts"]
+    for a, b in reversed(list(zip(starts[:-1], starts[1:]))):
+        t = torch.arange(a, b, device=dev)
+        cur, prev = (lam_a, lam_b) if tb["write_a"][a] else (lam_b, lam_a)
+        wrow, rrow = tb["wrow"][a:b], tb["rrow"][a:b]
+        gc = cur[wrow].clone()
+        cur[wrow] = 0.0
+        play = rrow >= 0
+        gwet = gy[a:b] + gc * fb[a:b, None]
+        prev.index_add_(0, rrow[play], (gwet * tb["window"][a:b, None])[play])
+        gfb[a:b] = torch.where(play, (gc * y[a:b]).sum(1), 0.0)
+        nu = tb["near_unity"][a:b]
+        gline.index_add_(0, plen + t[nu], gc[nu])
+        pitched = ~nu
+        ws = tb["wslot"][a:b]
+        rows = [_slot(t, ws, tb["taps"][a:b, k], plen) for k in range(4)]
+        p = [line[r] for r in rows]
+        w = [tb["wts"][a:b, k, None] for k in range(4)]
+        gs1, gs2 = gc * tb["f"][a:b, None], gc * tb["omf"][a:b, None]
+        for r, gk in zip(rows, (gs1 * w[0], gs1 * w[1], gs2 * w[2], gs2 * w[3])):
+            gline.index_add_(0, r[pitched], gk[pitched])
+        s1 = w[0] * p[0] + w[1] * p[1]
+        s2 = w[2] * p[2] + w[3] * p[3]
+        gpos = (gs1 * (p[1] - p[0]) + gs2 * (p[3] - p[2])
+                + gc * (s1 - s2) * inv_half * tb["sgn"][a:b, None])
+        gp[a:b] = torch.where(pitched, gpos.sum(1), 0.0)
+    gratio, gm = _ratio_and_misc(gp, gmisc, T, smooth_alpha)
+    return gline[plen:], gratio, gfb, lam_a, lam_b, gline[:plen], gm
+
+
 def reverse_echo_scan(x, blk, ratio, fb, alt, buf_a, buf_b, pitch_buf, misc, *,
                       sr, plen, cap, min_block, max_block, smooth_alpha):
     """Reverse pitch echo over T samples and C channels.
@@ -284,7 +421,57 @@ def _launch(x, blk, ratio, fb, alt, buf_a, buf_b, pitch_buf, misc, *, sr, plen,
     return y, ba, bb, pb_out, misc_out
 
 
-# the launches as torch.autograd.Functions whose backward raises on the card:
-# the echo's backward kernel is still to port (ROADMAP.md, queue 2); on the CPU autograd
-# differentiates the plain version
-_differentiable = diffable.kernel_function("reverse_echo_scan", _launch)
+def _launch_bwd(x, blk, ratio, fb, alt, pitch_buf, misc, y, gy, gbuf_a, gbuf_b, gpb, gmisc,
+                *, sr, plen, cap, min_block, max_block, smooth_alpha):
+    dev = x.device
+    if x.dim() != 2 or x.shape[0] < 1 or x.shape[1] < 1 or plen < 2 or cap < 2:
+        raise ValueError(f"unsupported shape x={tuple(x.shape)} plen={plen} cap={cap}")
+    T, C = x.shape
+    x, y, gy = (_ext.checked(v, n, (T, C), dev) for v, n in ((x, "x"), (y, "y"), (gy, "gy")))
+    blk, ratio, fb, alt = (_ext.checked(v, name, (T,), dev) for v, name in
+                           ((blk, "blk"), (ratio, "ratio"), (fb, "fb"), (alt, "alt")))
+    pitch_buf = _ext.checked(pitch_buf, "pitch_buf", (plen, C), dev)
+    gpb = _ext.checked(gpb, "gpb", (plen, C), dev)
+    misc = _ext.checked(misc, "misc", (len(MISC_FIELDS),), dev)
+    # the rings' cotangents, updated in place from buf_a', buf_b''s to buf_a's, buf_b's
+    lam_a = _ext.checked(gbuf_a, "gbuf_a", (cap, C), dev).clone()
+    lam_b = _ext.checked(gbuf_b, "gbuf_b", (cap, C), dev).clone()
+    gline = torch.zeros((plen + T, C), dtype=torch.float32, device=dev)
+    gfb = torch.empty((T,), dtype=torch.float32, device=dev)
+    gp = torch.empty((T,), dtype=torch.float32, device=dev)
+    # scratch: the control pass's table, period bounds and misc; the parts
+    tab = torch.empty((T, 16), dtype=torch.float32, device=dev)
+    bounds = torch.empty((T + 1,), dtype=torch.int32, device=dev)
+    n_periods = torch.empty((1,), dtype=torch.int32, device=dev)
+    misc_out = torch.empty((len(MISC_FIELDS),), dtype=torch.float32, device=dev)
+    gfb_part = torch.empty((T, C), dtype=torch.float32, device=dev)
+    gp_part = torch.empty((T, C), dtype=torch.float32, device=dev)
+    half = plen / 2.0
+    lib = _ext.load()
+    with torch.cuda.device(dev):
+        err = lib.reverse_echo_scan_bwd_launch(
+            x.data_ptr(), blk.data_ptr(), ratio.data_ptr(), fb.data_ptr(), alt.data_ptr(),
+            pitch_buf.data_ptr(), misc.data_ptr(), y.data_ptr(), gy.data_ptr(),
+            lam_a.data_ptr(), lam_b.data_ptr(), gpb.data_ptr(), gline.data_ptr(),
+            gfb.data_ptr(), gp.data_ptr(), tab.data_ptr(), bounds.data_ptr(),
+            n_periods.data_ptr(), misc_out.data_ptr(), gfb_part.data_ptr(), gp_part.data_ptr(),
+            T, C, float(sr), int(plen), int(cap), int(min_block), int(max_block),
+            float(smooth_alpha), 1.0 / plen, half, 1.0 / half,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _ext.raise_on_error(err, "reverse_echo_scan_bwd")
+    reverse_echo_scan_bwd.launches += 1
+    gratio, gm = _ratio_and_misc(gp, gmisc, T, smooth_alpha)
+    return gline[plen:], gratio, gfb, lam_a, lam_b, gline[:plen], gm
+
+
+def _backward(args, outs, grads, **kw):
+    x, blk, ratio, fb, alt, _, _, pitch_buf, misc = args  # the rings: overwritten
+    gx, gratio, gfb, gbuf_a, gbuf_b, gpitch, gm = reverse_echo_scan_bwd(
+        x, blk, ratio, fb, alt, pitch_buf, misc, outs[0], *grads, **kw)
+    return gx, None, gratio, gfb, None, gbuf_a, gbuf_b, gpitch, gm
+
+
+# the launch as a torch.autograd.Function (the rings marked dirty, not
+# saved), its backward reverse_echo_scan_bwd
+_differentiable = diffable.kernel_function("reverse_echo_scan", _launch, _backward)

@@ -13,6 +13,15 @@ hand-written kernel in ``csrc/slew_scan.cu`` and counts the launch in
 ``slew_scan.launches``; for CPU tensors it runs the plain version.
 ``slew_scan_ref`` is the plain PyTorch version: a per-sample loop with the
 JAX package's ``slew_scan_ref`` op order, float32.
+
+``slew_scan_bwd`` is the backward: the cotangents of x and cur0. For CUDA
+tensors it launches ``csrc/slew_scan_bwd.cu`` (counted in
+``slew_scan_bwd.launches``); on the card ``slew_scan``'s gradient is that
+launch. ``slew_scan_bwd_ref`` is its plain version. The limits are
+constants to the gradient, so both modes are ``y = y + k (x - y)``: k the
+chosen coefficient (exponential) or the clip's slope (linear: 1 inside the
+limits, 0 outside, 1/2 at a tie, where autograd of ``torch.minimum`` /
+``torch.maximum`` and ``jax.vjp`` of ``jnp.clip`` split the gradient).
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ import torch
 
 from pygmu2_tpu_torch import _ext
 from pygmu2_tpu_torch.ops import diffable
+from pygmu2_tpu_torch.ops.envelope import order1_adjoint_ref
 
 
 def slew_scan_ref(x, cur0, *, linear, p_rise, p_fall):
@@ -79,7 +89,67 @@ def _launch(x, cur0, *, linear, p_rise, p_fall):
     return y, cur_out
 
 
-# the launches as torch.autograd.Functions whose backward raises on the card:
-# the slew limiter's backward kernel is still to port (ROADMAP.md, queue 2); on the CPU autograd
-# differentiates the plain version
-_differentiable = diffable.kernel_function("slew_scan", _launch)
+def slew_scan_bwd(x, cur0, y, gy, gcur, *, linear, p_rise, p_fall):
+    """The cotangents (gx (T,), gcur0 ()) of :func:`slew_scan`'s inputs,
+    given its arguments, its output ``y`` and the cotangents of ``y`` and
+    the final value. CPU tensors take the plain version; CUDA tensors
+    launch the kernel (one count in ``slew_scan_bwd.launches`` per call)
+    or raise."""
+    kw = dict(linear=linear, p_rise=p_rise, p_fall=p_fall)
+    if x.device.type == "cpu":
+        return slew_scan_bwd_ref(x, cur0, y, gy, gcur, **kw)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    return _launch_bwd(x, cur0, y, gy, gcur, **kw)
+
+
+slew_scan_bwd.launches = 0
+
+
+def slew_scan_bwd_ref(x, cur0, y, gy, gcur, *, linear, p_rise, p_fall):
+    """Plain PyTorch version of :func:`slew_scan_bwd`: each sample's
+    coefficient from the forward's error ``x_t - y_{t-1}``, then
+    ``envelope.order1_adjoint_ref``."""
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=x.device)  # noqa: E731
+    pr, pf = f32(p_rise), f32(p_fall)
+    err = x.to(torch.float32) - torch.cat([cur0.reshape(1).to(torch.float32), y[:-1]])
+    if linear:
+        k = torch.where((err == pr) | (err == -pf), f32(0.5),
+                        ((err < pr) & (err > -pf)).to(torch.float32))
+    else:
+        k = torch.where(err > 0, pr, pf)
+    gx, gcur0 = order1_adjoint_ref(k, gy.to(torch.float32), gcur.reshape(()))
+    return gx, gcur0.reshape(cur0.shape)
+
+
+def _launch_bwd(x, cur0, y, gy, gcur, *, linear, p_rise, p_fall):
+    dev = x.device
+    if x.dim() != 1 or x.shape[0] < 1:
+        raise ValueError(f"unsupported shape x={tuple(x.shape)}")
+    (T,) = x.shape
+    x, y, gy = (_ext.checked(v, n, (T,), dev) for v, n in ((x, "x"), (y, "y"), (gy, "gy")))
+    cur0 = _ext.checked(cur0.reshape(()), "cur0", (), dev)
+    gcur = _ext.checked(gcur.reshape(()), "gcur", (), dev)
+    gx = torch.empty((T,), dtype=torch.float32, device=dev)
+    gcur0 = torch.empty((), dtype=torch.float32, device=dev)
+    lib = _ext.load()
+    with torch.cuda.device(dev):
+        err = lib.slew_scan_bwd_launch(
+            x.data_ptr(), cur0.data_ptr(), y.data_ptr(), gy.data_ptr(), gcur.data_ptr(),
+            gx.data_ptr(), gcur0.data_ptr(), T, int(bool(linear)), float(p_rise),
+            float(p_fall), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _ext.raise_on_error(err, "slew_scan_bwd")
+    slew_scan_bwd.launches += 1
+    return gx, gcur0
+
+
+def _backward(args, outs, grads, **kw):
+    x, cur0 = args
+    (y, _), (gy, gcur) = outs, grads
+    gx, gcur0 = slew_scan_bwd(x, cur0, y, gy, gcur, **kw)
+    return gx, gcur0.reshape(cur0.shape)
+
+
+# the launch as a torch.autograd.Function, its backward slew_scan_bwd
+_differentiable = diffable.kernel_function("slew_scan", _launch, _backward)

@@ -37,9 +37,10 @@ from pygmu2_tpu.ops.adsr_pallas import adsr_scan_ref as jax_adsr_ref
 from pygmu2_tpu.ops.ladder_pallas import ladder_scan_ref as jax_ladder_ref
 from pygmu2_tpu.ops.linrec import affine_scan_2 as jax_affine_scan_2
 from pygmu2_tpu.ops.reverse_echo_pallas import reverse_echo_scan_ref as jax_echo_ref
+from pygmu2_tpu.ops.slew_pallas import slew_scan_ref as jax_slew_ref
 from pygmu2_tpu_torch.core import engine
 from pygmu2_tpu_torch.ops import adsr, comb, diffable, envelope, ks, ladder, linrec
-from pygmu2_tpu_torch.ops import linrec_kernel, reverse_echo, xla_math
+from pygmu2_tpu_torch.ops import linrec_kernel, reverse_echo, slew, xla_math
 
 torch.set_num_threads(1)
 
@@ -303,6 +304,30 @@ def test_envelope_grad_matches_jax_vjp_and_fd():
     _fd_check(loss, _t(x), [(10, 0), (400, 1)])
 
 
+@pytest.mark.parametrize("linear", [True, False], ids=["linear", "exponential"])
+def test_slew_grad_matches_jax_vjp_and_fd(linear):
+    """Steps the limiter climbs and falls in exact quarters and eighths, so
+    x_t - y_{t-1} equals the limit exactly (a tie: autograd of
+    torch.minimum / torch.maximum and jax.vjp of jnp.clip both split the
+    gradient), then noise; finite differences where no sample ties."""
+    rng = np.random.default_rng(6)
+    T = 300
+    x = np.where(np.arange(T) % 40 < 20, 1.0, 0.0).astype(np.float32)
+    x[150:] += rng.uniform(-0.3, 0.3, T - 150).astype(np.float32)
+    kw = dict(linear=linear, p_rise=0.25 if linear else 0.2, p_fall=0.125 if linear else 0.05)
+    y, _ = slew.slew_scan(_t(x), torch.tensor(0.0), **kw)
+    prev = np.concatenate([[0.0], y.numpy()[:-1]]).astype(np.float32)
+    ties = int(np.sum((x - prev == np.float32(0.25)) | (x - prev == np.float32(-0.125))))
+    assert ties >= 4 or not linear
+    _check_vjp(lambda *a: slew.slew_scan(*a, **kw), lambda *a: jax_slew_ref(*a, **kw),
+               [x, np.float32(0.0)], [0, 1], seed=108)
+
+    def loss(x):
+        return (slew.slew_scan(x, torch.tensor(0.0), **kw)[0] ** 2).sum()
+
+    _fd_check(loss, _t(x), [(200,), (260,)], eps=1e-4)
+
+
 def _scan_np(T=300, P=128, seed=4):
     rng = np.random.default_rng(seed)
     mk = lambda lo, hi: rng.uniform(lo, hi, (T, P)).astype(np.float32)  # noqa: E731
@@ -524,5 +549,7 @@ if __name__ == "__main__":
         fn = next(v for k, v in globals().items()
                   if k.startswith(f"test_{name}_grad_matches"))
         run(f"{name} vs jax.vjp (of the largest cotangent)", fn)
+    run("slew vs jax.vjp (of the largest cotangent)", test_slew_grad_matches_jax_vjp_and_fd,
+        (True,), (False,))
     run("scan adjoint vs autograd", test_affine_scan_adjoint_matches_autograd,
         (False, True), (True, True), (True, False))

@@ -697,16 +697,17 @@ def test_sequencer_matches_plain_on_card(cuda, plain_scan):
 # ---- the backward kernels (the training path) ----
 
 
-def _bwd_close(got, want, what):
-    """Each cotangent within 1e-4 of the largest of its plain version's
-    (autograd of the plain version; the kernels sum in other orders)."""
+def _bwd_close(got, want, what, tol=1e-4):
+    """Each cotangent within ``tol`` of the largest of its plain version's
+    (autograd of the plain version, or the plain adjoint; the kernels sum
+    in other orders)."""
     for i, (g, w) in enumerate(zip(got, want)):
         if w is None:
             assert g is None
             continue
         scale = float(w.abs().max())
         err = float((g - w).abs().max())
-        assert err <= 1e-4 * scale, f"{what}: output {i} off by {err} (largest {scale})"
+        assert err <= tol * scale, f"{what}: output {i} off by {err} (largest {scale})"
 
 
 @pytest.mark.parametrize("os_n,mode,C", [(2, 0, 1), (2, 2, 33), (1, 4, 33), (3, 5, 1),
@@ -810,38 +811,219 @@ def test_probe_gradient_on_card_matches_cpu(cuda):
                                                                               before[1])
 
 
-@pytest.mark.parametrize("kernel", ["ks", "adsr", "envelope", "slew", "reverse_echo"])
+@pytest.mark.parametrize("kernel", ["ks", "ks_blocked"])
 def test_backward_without_kernel_raises_on_card(cuda, kernel):
-    """The kernels whose backward is not ported raise NotImplementedError
-    when a gradient is asked for; no plain version runs as a backward."""
-    from pygmu2_tpu_torch.ops import adsr, envelope, ks, reverse_echo, slew
+    """The string, whose backward is not ported (in either order), raises
+    NotImplementedError when a gradient is asked for; no plain version
+    runs as a backward."""
+    from pygmu2_tpu_torch.ops import ks
 
-    T = 256
+    T, L = 256, 40
     (x,) = _seeded(cuda, 5, (T, 2))
     x = x.abs().requires_grad_()
-    if kernel == "ks":
-        (buf,) = _seeded(cuda, 6, (40,))
-        out = ks.ks_scan(torch.full((T,), 0.99, device=cuda) * x[:, 0], torch.ones(
-            T, dtype=torch.bool, device=cuda), buf, torch.tensor(0, dtype=torch.int32,
-                                                               device=cuda),
-            torch.zeros((), device=cuda), torch.zeros((), device=cuda), L=40,
-            allpass_c=0.3)[0]
-    elif kernel == "adsr":
-        out = adsr.adsr_scan(x[:, 0], torch.zeros(4, device=cuda), dA=0.1, dD=-0.01,
-                             dR=-0.01, sus=0.5)[0]
-    elif kernel == "envelope":
-        out = envelope.envelope_ar_scan(x, torch.zeros(2, device=cuda), atk=0.1, rel=0.01)[0]
-    elif kernel == "slew":
-        out = slew.slew_scan(x[:, 0], torch.zeros((), device=cuda), linear=True,
-                             p_rise=0.01, p_fall=0.01)[0]
-    else:
-        cap, plen = 96, 64
-        out = reverse_echo.reverse_echo_scan(
-            x[:, :1], torch.full((T,), 0.005, device=cuda), torch.full((T,), 1.5, device=cuda),
-            torch.full((T,), 0.4, device=cuda), torch.ones(T, device=cuda),
-            torch.zeros((cap, 1), device=cuda), torch.zeros((cap, 1), device=cuda),
-            torch.zeros((plen, 1), device=cuda),
-            torch.tensor([1, 0, 0.0, 0, 0, 40.0, 40, 0, 1], device=cuda), sr=8000.0,
-            plen=plen, cap=cap, min_block=8, max_block=cap - 1, smooth_alpha=1 / 240)[0]
+    (buf,) = _seeded(cuda, 6, (L,))
+    rho = torch.full((T,), 0.99, device=cuda) * x[:, 0]
+    out = ks.ks_scan(rho, torch.ones(T, dtype=torch.bool, device=cuda), buf,
+                     torch.tensor(0, dtype=torch.int32, device=cuda),
+                     torch.zeros((), device=cuda), torch.zeros((), device=cuda), L=L,
+                     allpass_c=0.3, all_active=kernel == "ks_blocked")[0]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         out.sum().backward()
+
+
+# ---- the effects chain's backward kernels: against their plain adjoints ----
+
+BWD_TOL = 1e-5  # of the largest plain cotangent of each output
+
+
+@pytest.mark.parametrize("T,C", [(1001, 1), (4097, 2), (16385, 128), (333, 33)])
+def test_envelope_backward_kernel_matches_plain(cuda, T, C):
+    """The chunked reverse scan against the plain adjoint's serial walk:
+    odd T (a part tile), C = 1, 2, 33 (a part group) and 128, and the state
+    handed across a cut: the first part's backward from the second's
+    cotangent of its entering envelope equals the whole call's."""
+    from pygmu2_tpu_torch.ops import envelope
+
+    x, e0, g, gf = _seeded(cuda, T + C, (T, C), (C,), (T, C), (C,))
+    x = x.abs()
+    kw = dict(atk=0.05, rel=0.002)
+    env, _ = envelope.envelope_ar_scan(x, e0.abs(), **kw)
+    before = envelope.envelope_ar_scan_bwd.launches
+    got = envelope.envelope_ar_scan_bwd(x, e0.abs(), env, g, gf, **kw)
+    torch.cuda.synchronize()
+    assert envelope.envelope_ar_scan_bwd.launches == before + 1
+    want = envelope.envelope_ar_scan_bwd_ref(x, e0.abs(), env, g, gf, **kw)
+    _bwd_close(got, want, f"envelope T={T} C={C}", BWD_TOL)
+    cut = T // 3
+    gx2, g_mid = envelope.envelope_ar_scan_bwd(x[cut:], env[cut - 1], env[cut:], g[cut:], gf, **kw)
+    gx1, g0 = envelope.envelope_ar_scan_bwd(x[:cut], e0.abs(), env[:cut], g[:cut], g_mid, **kw)
+    _bwd_close((torch.cat([gx1, gx2]), g0), want, f"envelope T={T} C={C} cut", BWD_TOL)
+
+
+@pytest.mark.parametrize("linear", [True, False], ids=["linear", "exponential"])
+@pytest.mark.parametrize("T", [777, 16385])
+def test_slew_backward_kernel_matches_plain(cuda, linear, T):
+    """Steps that hit the limits exactly (ties: the gradient split), noise,
+    odd T; and the value handed across a cut."""
+    from pygmu2_tpu_torch.ops import slew
+
+    (noise,) = _seeded(cuda, T, (T,))
+    x = torch.where(torch.arange(T, device=cuda) % 200 < 100, 1.0, 0.0) + 0.25 * noise * (
+        torch.arange(T, device=cuda) > T // 2)
+    g, gc = _seeded(cuda, T + 1, (T,), ())
+    kw = dict(linear=linear, p_rise=0.25 if linear else 0.05, p_fall=0.125 if linear else 0.01)
+    c0 = torch.zeros((), device=cuda)
+    y, _ = slew.slew_scan(x, c0, **kw)
+    before = slew.slew_scan_bwd.launches
+    got = slew.slew_scan_bwd(x, c0, y, g, gc, **kw)
+    torch.cuda.synchronize()
+    assert slew.slew_scan_bwd.launches == before + 1
+    want = slew.slew_scan_bwd_ref(x, c0, y, g, gc, **kw)
+    _bwd_close(got, want, f"slew linear={linear} T={T}", BWD_TOL)
+    cut = T // 2 + 1
+    gx2, g_mid = slew.slew_scan_bwd(x[cut:], y[cut - 1], y[cut:], g[cut:], gc, **kw)
+    gx1, g0 = slew.slew_scan_bwd(x[:cut], c0, y[:cut], g[:cut], g_mid, **kw)
+    _bwd_close((torch.cat([gx1, gx2]), g0), want, f"slew linear={linear} cut", BWD_TOL)
+
+
+@pytest.mark.parametrize("C,ratio,alt,T", [(1, 1.5, 1.0, 4097), (2, "mod", 0.0, 1001),
+                                           (128, 1.5, 1.0, 4097), (3, 1.0, 1.0, 999)])
+def test_reverse_echo_backward_kernel_matches_plain(cuda, C, ratio, alt, T):
+    """The echo's backward launch (the control pass again, the periods in
+    reverse) against the plain adjoint: a fifth up, a modulated ratio, unity
+    (the pass-through), reversed and alternating replay, C = 1, 2, 3 and
+    128, rings and a pitch line handed in; then the state handed across a
+    cut: the two calls' backward, the rings' cotangents passed from the
+    second to the first, equals the whole call's."""
+    from pygmu2_tpu_torch.ops import reverse_echo as re_
+
+    cap, plen, sr = 400, 64, 8000.0
+    x, fb, ba, bb, pb = _seeded(cuda, C + T, (T, C), (T,), (cap, C), (cap, C), (plen, C))
+    if ratio == "mod":
+        (r,) = _seeded(cuda, 9, (T,), lo=0.7, hi=1.6)
+    else:
+        r = torch.full((T,), ratio, device=cuda)
+    blk = torch.full((T,), 150.0 / sr, device=cuda)
+    blk[T // 2:] = 90.0 / sr
+    al = torch.full((T,), alt, device=cuda)
+    misc = torch.tensor([1, 3, 5.5, 10, 10, 150.0, 150, 150, 1], device=cuda)
+    kw = dict(sr=sr, plen=plen, cap=cap, min_block=8, max_block=cap - 1, smooth_alpha=1 / 240)
+    fb = fb * 0.3 + 0.4
+
+    def fwd(x, blk, r, fb, al, ba, bb, pb, misc):
+        return re_.reverse_echo_scan(x, blk, r, fb, al, ba.clone(), bb.clone(), pb, misc, **kw)
+
+    y, ba2, bb2, pb2, misc2 = fwd(x, blk, r, fb, al, ba, bb, pb, misc)
+    gy, gba, gbb, gpb, gm = _seeded(cuda, 3 * C, (T, C), (cap, C), (cap, C), (plen, C), (9,))
+    args = (x, blk, r, fb, al, pb, misc, y, gy, gba, gbb, gpb, gm)
+    before = re_.reverse_echo_scan_bwd.launches
+    got = re_.reverse_echo_scan_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert re_.reverse_echo_scan_bwd.launches == before + 1
+    want = re_.reverse_echo_scan_bwd_ref(*args, **kw)
+    _bwd_close(got, want, f"echo C={C} ratio={ratio} alt={alt}", BWD_TOL)
+    cut = T // 3
+    head = [v[:cut] if v.dim() and v.shape[0] == T else v for v in (x, blk, r, fb, al)]
+    tail = [v[cut:] if v.dim() and v.shape[0] == T else v for v in (x, blk, r, fb, al)]
+    y1, ba1, bb1, pb1, m1 = fwd(*head, ba, bb, pb, misc)
+    gx2, gr2, gfb2, ga1, gb1, gp1, gm1 = re_.reverse_echo_scan_bwd(
+        *tail, pb1, m1, y[cut:], gy[cut:], gba, gbb, gpb, gm, **kw)
+    gx1, gr1, gfb1, ga0, gb0, gp0, gm0 = re_.reverse_echo_scan_bwd(
+        *head, pb, misc, y1, gy[:cut], ga1, gb1, gp1, gm1, **kw)
+    joined = (torch.cat([gx1, gx2]), torch.cat([gr1, gr2]), torch.cat([gfb1, gfb2]), ga0, gb0,
+              gp0, gm0)
+    _bwd_close(joined, want, f"echo C={C} ratio={ratio} cut", BWD_TOL)
+
+
+def _gate(T, kind):
+    g = np.zeros(T, np.float32)
+    if kind == "gated":
+        g[100:1200] = 1.0
+        g[1500:1501] = 1.0
+        g[1700:T - 50] = 1.0
+    else:  # triggers
+        g[[50, 300, 301, 1500, T - 3]] = 1.0
+    return g
+
+
+@pytest.mark.parametrize("kind,state", [
+    ("gated", [4.0, 0.5, 3.0, 1.0]), ("gated", [1.0, 0.2, 3.0, 0.0]),
+    ("gated", [3.0, 0.6, 0.0, 1.0]), ("gated", [2.5, 0.3, 0.5, 1.0]),
+    ("triggered", [1.0, 0.2, 3.0, 0.0]), ("triggered", [3.0, 0.6, 30.0, 0.0]),
+    ("triggered", [4.0, 0.6, 3.0, 0.0])])
+def test_adsr_backward_kernel_matches_plain(cuda, kind, state):
+    """The edge-walk branch's backward (one warp walking windows of 32
+    samples to the cut) against the plain adjoint: a state in every stage,
+    one outside the closed form (the per-sample walk), gated and
+    triggered; and against autograd of the plain forward on the card."""
+    from pygmu2_tpu_torch.ops import adsr
+
+    T = 2049
+    gate = torch.from_numpy(_gate(T, kind)).to(cuda)
+    st = torch.tensor(state, device=cuda)
+    kw = dict(dA=1.0 / 80, dD=-0.4 / 200, dR=-0.6 / 300, sus=0.6,
+              sustain_samples=None if kind == "gated" else 100)
+    env, ns, en = adsr.adsr_scan(gate, st, **kw)
+    g, gs, gn = _seeded(cuda, 11, (T,), (4,), ())
+    before = adsr.adsr_scan_bwd.launches
+    got = adsr.adsr_scan_bwd(gate, st, env, g, gs, gn, **kw)
+    torch.cuda.synchronize()
+    assert adsr.adsr_scan_bwd.launches == before + 1
+    want = adsr.adsr_scan_bwd_ref(gate, st, env, g, gs, gn, **kw)
+    _bwd_close((got,), (want,), f"adsr {kind} {state}", BWD_TOL)
+    sg = st.clone().requires_grad_()
+    outs = adsr.adsr_scan_ref(gate, sg, **kw)
+    pairs = [(o, c) for o, c in zip(outs, (g, gs, gn)) if o.requires_grad]
+    (auto,) = torch.autograd.grad([o for o, _ in pairs], [sg], [c for _, c in pairs])
+    _bwd_close((got,), (auto,), f"adsr {kind} {state} vs autograd", BWD_TOL)
+
+
+@pytest.mark.parametrize("stage,env", [(0, 0.0), (1, 0.3), (4, 0.5), (2, 0.9)])
+def test_adsr_clock_backward_kernel_matches_plain(cuda, stage, env):
+    """The clock branch's backward (one thread walking to the first
+    constant value, the block summing the cotangents before it) against
+    the plain adjoint, a trigger in the call."""
+    from pygmu2_tpu_torch.ops import adsr
+
+    T = 3001
+    trig = torch.from_numpy(_gate(T, "triggered")).to(cuda)
+    kw = dict(dA=1.0 / 400, dD=-0.4 / 200, dR=-0.6 / 3000, sus=0.6)
+    st = torch.tensor(stage, dtype=torch.int32, device=cuda)
+    e = torch.tensor(env, dtype=torch.float64, device=cuda)
+    (g,) = _seeded(cuda, 12, (T,))
+    gout = torch.tensor(0.7, dtype=torch.float64, device=cuda)
+    before = adsr.adsr_clock_scan_bwd.launches
+    got = adsr.adsr_clock_scan_bwd(trig, st, e, g, gout, **kw)
+    torch.cuda.synchronize()
+    assert adsr.adsr_clock_scan_bwd.launches == before + 1
+    want = adsr.adsr_clock_scan_bwd_ref(trig, st, e, g, gout, **kw)
+    assert abs(float(got) - float(want)) <= 1e-9 * max(abs(float(want)), 1.0), (got, want)
+
+
+def test_effects_gradients_on_card_match_cpu(cuda):
+    """The fit chain (1024 samples, block 256) and the ADSR probe: the
+    card's gradients (the four backward kernels) within 1e-3 relative of
+    the CPU's (plain versions), each backward kernel launched once a block
+    (the feedback's gradient is zero in both: no replay yet)."""
+    import pygmu2_tpu_torch as pt
+    from pygmu2_tpu_torch import fit_workload as fw
+    from pygmu2_tpu_torch.core import engine
+    from pygmu2_tpu_torch.ops import adsr, envelope, reverse_echo, slew
+
+    bwd = (envelope.envelope_ar_scan_bwd, slew.slew_scan_bwd,
+           reverse_echo.reverse_echo_scan_bwd, adsr.adsr_scan_bwd)
+    for graph, theta, n, block, want_counts in (
+            (fw.build_fit_chain(pt, 1024 / 44100), {"depth": 2500.0, "fb": 0.6}, 1024, 256,
+             (4, 4, 4, 0)),
+            (fw.build_adsr_probe(pt, 1024), {"g": 1.0}, 1024, 256, (0, 0, 0, 4))):
+        grads = {}
+        for dev in (cuda, torch.device("cpu")):
+            th = {k: torch.tensor(v, device=dev, requires_grad=True) for k, v in theta.items()}
+            before = [f.launches for f in bwd]
+            out = engine.render_functional(graph, 0, n, block, th, device=dev)
+            grads[dev.type] = torch.autograd.grad((out ** 2).mean(), list(th.values()),
+                                                  allow_unused=True, materialize_grads=True)
+            if dev.type == "cuda":
+                assert tuple(f.launches - b for f, b in zip(bwd, before)) == want_counts
+        for g, w in zip(grads["cuda"], grads["cpu"]):
+            assert abs(float(g) - float(w)) <= 1e-3 * abs(float(w)) + 1e-12, (grads,)

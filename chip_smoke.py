@@ -224,7 +224,36 @@ Drives the port's main paths through their user entry points:
    backward kernel timed (CUDA events) at the fits' shapes (the follower
    and the echo at C = 1 and 128; the ADSR at the probe's T = 1024 and at
    T = 16384) beside its plain adjoint, its bound and the peak memory of a
-   launch, and held to the plain adjoint there.
+   launch, and held to the plain adjoint there;
+17. the string's backward kernel (``csrc/ks_scan_bwd.cu``, both orders)
+   and batched bindings. (a) ``ks_scan`` with rho, the string and the
+   allpass state requiring grad, at T = 4096 with a 300-sample pre-t0 head
+   (the per-sample order) and all active (the blocked order) at L in
+   {3, 83, 535}, and at L = 51201 (past ``MAX_KERNEL_L``) at T = 2048: one
+   backward launch each, within 1e-5 of the plain adjoint
+   (``ks_scan_bwd_ref``), within 0.1 of central finite differences along
+   seeded directions on the card and 1e-3 of the CPU's gradients (a
+   second process). (b) The string fit (``fit_workload.fit_string``: L =
+   535, 2 s from t = -64 at block 16384, the first block per sample, the
+   rest blocked, 5 Adam steps): the loss must fall; per step the wall, the
+   device span, each order's forward and backward launches and the peak
+   memory; the backward kernel timed at T = 16384, L in {133, 535}, in
+   both orders' calls, beside its bound and its plain adjoint.
+   (c)-(h) ``torch.func.vmap`` over ``render_functional``: the example's
+   sweep (8 cutoffs, 500-4000 Hz), the fit patch (2 s, 8 cutoff and
+   feedback candidates: the ladder, the comb and the ADSR) and the fit
+   chain (0.8 s, 4 echo feedbacks each with a wah depth: the follower
+   folded, the slew limiter and the echo per member); (f) the fit bank
+   (1 s, 128 channels, 4 candidates of both filters' centres: each scan
+   folded into one launch of 512 channels); (g) the fit fx bank (1 s, 128
+   channels, 4 drives: the follower and the echo folded, the echo's rings
+   fresh and unbatched in the first block); (h) the string (1 s from t =
+   -64, 4 excitations and rhos: a launch per member in each order). Each
+   equal to the loop of renders within 1e-6, its launches a block as each
+   kernel's rule gives them, the summed loss's per-candidate gradients
+   and ``vmap(grad)`` within 1e-5 relative of the loop's (any error of
+   either fails the phase); the walls of the vmapped render and the loop
+   printed.
 
 Phase 4 also renders the 3 s chord through the small font with
 ``render_midi_offline(pipeline=4)``: four launches of the SoundFont kernel,
@@ -233,7 +262,8 @@ equal to the one-pass render within 1e-6.
 ``python3 chip_smoke.py 13`` runs phases 1, 2 and 13 only, ``python3
 chip_smoke.py 14`` phases 1, 2 and 14 only, ``python3 chip_smoke.py 15``
 phases 1, 2 and 15 only, ``python3 chip_smoke.py 16`` phases 1, 2 and 16
-only (no kernels line).
+only, ``python3 chip_smoke.py 17`` phases 1, 2 and 17 only (no kernels
+line).
 
 Prints a JSON line of per-kernel results, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, before any result, on
@@ -327,6 +357,7 @@ def main() -> None:
     only_perform = sys.argv[1:] == ["14"]
     only_training = sys.argv[1:] == ["15"]
     only_chain = sys.argv[1:] == ["16"]
+    only_string = sys.argv[1:] == ["17"]
     from pygmu2_tpu_torch import _ext, bench_workload
     from pygmu2_tpu_torch.soundfont import MidiFile
     from pygmu2_tpu_torch.soundfont import filter_kernels as fk
@@ -358,7 +389,7 @@ def main() -> None:
     # while nvcc builds; the phases after wait for both
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        setup = (None if only_perform or only_training or only_chain
+        setup = (None if only_perform or only_training or only_chain or only_string
                  else pool.submit(studio_setup))
         _ext.load()
         print(f"kernel build+load: {time.perf_counter() - t0:.2f} s")
@@ -380,6 +411,10 @@ def main() -> None:
         return
     if only_chain:
         training_chain(dev, card)
+        print_ok()
+        return
+    if only_string:
+        training_string_vmap(dev, card)
         print_ok()
         return
 
@@ -557,6 +592,10 @@ def main() -> None:
         pe_launches[name] += n
     backward = training(dev, card)
     backward += training_chain(dev, card)
+    string_entries, string_launches = training_string_vmap(dev, card)
+    backward += string_entries
+    for name, n in string_launches.items():
+        pe_launches[name] += n
     osc_entries[0]["launches"] += stream["osc_filter_gain_mix"]  # the small font's
     entries = list(osc_entries)
     for name, info in serial.items():
@@ -3049,6 +3088,372 @@ def _training_chain(dev, card, pool) -> list:
           f"{time.perf_counter() - t0:.1f} s")
     return entries
 
+
+# ---- 17. the string's gradient and batched bindings ----
+
+STRING_T = 4096  # the string probe's calls
+STRING_HEAD_T = 300  # their per-sample order's pre-t0 head
+STRING_LS = (3, 83, 535)
+STRING_LONG_L, STRING_LONG_T = 51201, 2048  # past MAX_KERNEL_L, at a short T
+STRING_AP_C = 0.35
+STRING_FD_EPS = {"rho": 3e-4, "buf": 1e-2, "ap_in": 1e-2, "ap_out": 1e-2}
+STRING_FIT_S = 2.0  # L = 535, 6 blocks of BLOCK
+STRING_FIT_STEPS = 5
+STRING_BWD_LS = (133, 535)
+# the string's backward per active sample: the seed's add, the chain's
+# multiply and add, mu's multiply and add, rho / 2 and its product by mu,
+# grho's add and two multiplies, the tape cotangent's two adds: 12
+KS_BWD_OPS = 12
+SWEEP_CUTOFFS = np.linspace(500.0, 4000.0, 8, dtype=np.float32)  # the example's
+VMAP_PATCH_S, VMAP_CHAIN_S = 2.0, 0.8
+VMAP_PATCH = {"cutoff": np.geomspace(700.0, 2500.0, 8).astype(np.float32),
+              "fb": np.linspace(0.3, 0.72, 8).astype(np.float32)}
+# the chain's 4 echo feedbacks, each with a wah depth: the depth batches the
+# slew limiter (a mono kernel: a launch per member) and the compressor's
+# follower (channel-batched: folded into one launch)
+VMAP_CHAIN = {"depth": np.asarray([1800.0, 2200.0, 2500.0, 3000.0], np.float32),
+              "fb": np.asarray([0.3, 0.45, 0.6, 0.75], np.float32)}
+# the fit bank's and the fit fx bank's 4 candidates (3 blocks each, the last
+# past the scan's 4096-sample routing threshold)
+VMAP_BANK_S, VMAP_STRING_S = 1.0, 1.0
+VMAP_BANK = {"low_hz": np.asarray([900.0, 1200.0, 1500.0, 2000.0], np.float32),
+             "band_hz": np.asarray([500.0, 700.0, 800.0, 1100.0], np.float32)}
+VMAP_FXBANK = {"drive": np.asarray([0.5, 0.8, 1.0, 1.5], np.float32)}
+VMAP_TOL = 1e-6
+VMAP_GRAD_TOL = 1e-5
+
+
+def _string_probe_case(L, T, blocked, seed):
+    """Seeded numpy arguments of a string call, the weights of its linear
+    loss (one per output), and a direction per argument for finite
+    differences."""
+    rng = np.random.default_rng(seed)
+    head = 0 if blocked else STRING_HEAD_T
+    args = dict(rho=rng.uniform(0.97, 0.999, T).astype(np.float32),
+                buf=rng.standard_normal(L).astype(np.float32),
+                ap_in=np.float32(0.1), ap_out=np.float32(-0.2))
+    act = np.arange(T) >= head
+    weights = [rng.standard_normal(T).astype(np.float32),
+               rng.standard_normal(L).astype(np.float32),
+               np.float32(rng.standard_normal()), np.float32(rng.standard_normal())]
+    dirs = dict(rho=rng.uniform(-1, 1, T).astype(np.float32),
+                buf=rng.uniform(-1, 1, L).astype(np.float32),
+                ap_in=np.float32(1.0), ap_out=np.float32(1.0))
+    return args, act, np.int32(L // 3), weights, dirs
+
+
+def _string_loss(args, act, r, weights, L, blocked):
+    """The probe's loss: each output weighted (so the cotangents are the
+    weights), through ks_scan on the tensors' device."""
+    from pygmu2_tpu_torch.ops import ks
+
+    y, buf2, _, ai2, ao2 = ks.ks_scan(args["rho"], act, args["buf"], r, args["ap_in"],
+                                      args["ap_out"], L=L, allpass_c=STRING_AP_C,
+                                      all_active=blocked)
+    return sum((o * w).sum() for o, w in zip((y, buf2, ai2, ao2), weights))
+
+
+def string_cpu_grads(cases):
+    """The string probe's gradients through the port's plain versions on the
+    CPU (run in a second process): [{name: numpy}] per case."""
+    out = []
+    t = time.perf_counter()
+    for L, T, blocked, seed in cases:
+        args, act, r, weights, _ = _string_probe_case(L, T, blocked, seed)
+        ins = {k: torch.tensor(v, requires_grad=True) for k, v in args.items()}
+        loss = _string_loss(ins, torch.from_numpy(act), torch.tensor(r),
+                            [torch.tensor(w) for w in weights], L, blocked)
+        grads = torch.autograd.grad(loss, list(ins.values()))
+        out.append({k: g.numpy() for k, g in zip(ins, grads)})
+    return out, time.perf_counter() - t
+
+
+def training_string_vmap(dev, card):
+    """Phase 17: the string's backward kernel (both orders) and batched
+    bindings, ``torch.func.vmap`` over ``render_functional`` on the card;
+    returns (the backward kernel's JSON entries, the forward launches of
+    each kernel on this phase's path). The CPU's string gradients are made
+    in a second process while the card works; it is stopped on the way
+    out, whatever happens."""
+    pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        return _training_string_vmap(dev, card, pool)
+    finally:
+        for proc in list(getattr(pool, "_processes", {}).values()):
+            proc.terminate()
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def _training_string_vmap(dev, card, pool):
+    import pygmu2_tpu_torch as pg
+    from pygmu2_tpu_torch import fit_workload as fw
+    from pygmu2_tpu_torch.core import engine
+    from pygmu2_tpu_torch.ops import (adsr, comb, envelope, ks, ladder, linrec_kernel,
+                                      reverse_echo, slew)
+
+    t0 = time.perf_counter()
+    fwd = {"ladder_scan": ladder.ladder_scan, "comb_scan": comb.comb_scan,
+           "adsr_scan": adsr.adsr_scan, "ks_scan": ks.ks_scan,
+           "envelope_ar_scan": envelope.envelope_ar_scan, "slew_scan": slew.slew_scan,
+           "reverse_echo_scan": reverse_echo.reverse_echo_scan,
+           "affine_scan_2": linrec_kernel.affine_scan_2_kernel}
+    total = dict.fromkeys(fwd, 0)  # forward launches on this phase's path
+
+    def zero():
+        for f in (*fwd.values(), ks.ks_scan_bwd):
+            f.launches = 0
+        ks.ks_scan.blocked_launches = ks.ks_scan_bwd.blocked_launches = 0
+
+    def take():
+        for k, f in fwd.items():
+            total[k] += f.launches
+
+    cases = [(L, STRING_T, blocked, 17 + L) for L in STRING_LS for blocked in (False, True)]
+    cases += [(STRING_LONG_L, STRING_LONG_T, blocked, 17) for blocked in (False, True)]
+    cpu_job = pool.submit(string_cpu_grads, cases)
+
+    # ---- (a) the string probe: both orders, every L ----
+    on = lambda v, grad=False: torch.tensor(v, device=dev, requires_grad=grad)  # noqa: E731
+    grads_card, bwd_errs, bwd_total = [], [], 0
+    for L, T, blocked, seed in cases:
+        args, act, r, weights, dirs = _string_probe_case(L, T, blocked, seed)
+        act_t, r_t, w_t = on(act), on(r), [on(w) for w in weights]
+        zero()  # the main path's run starts here
+        ins = {k: on(v, True) for k, v in args.items()}
+        loss = _string_loss(ins, act_t, r_t, w_t, L, blocked)
+        got = dict(zip(ins, torch.autograd.grad(loss, list(ins.values()))))
+        torch.cuda.synchronize()
+        check(ks.ks_scan_bwd.launches == 1,
+              f"string L={L} blocked={blocked}: {ks.ks_scan_bwd.launches} backward launches")
+        take()
+        bwd_total += ks.ks_scan_bwd.launches
+        grads_card.append({k: g.cpu().numpy() for k, g in got.items()})
+        # the launch against its plain adjoint on the same inputs, on the card
+        with torch.no_grad():
+            y = ks.ks_scan(on(args["rho"]), act_t, on(args["buf"]), r_t, on(args["ap_in"]),
+                           on(args["ap_out"]), L=L, allpass_c=STRING_AP_C,
+                           all_active=blocked)[0]
+        want = ks.ks_scan_bwd_ref(on(args["rho"]), None if blocked and L >= 16 else act_t,
+                                  on(args["buf"]), r_t, y, *w_t, L=L, allpass_c=STRING_AP_C)
+        errs = _bwd_errors([got[k] for k in ins], want)
+        bwd_errs.append(_check_bwd("ks_scan_bwd", errs, f"L={L} blocked={blocked}",
+                                   EFFECTS_BWD_TOL))
+        fd_rel = {}
+        with torch.no_grad():
+            for k, eps in STRING_FD_EPS.items():
+                shifted = [{**{n: on(v) for n, v in args.items()},
+                            k: on(args[k] + s * eps * dirs[k])} for s in (1.0, -1.0)]
+                lp, lm = (_string_loss(a, act_t, r_t, w_t, L, blocked).item() for a in shifted)
+                fd = (lp - lm) / (2 * eps)
+                g = float((got[k] * on(dirs[k])).sum())
+                fd_rel[k] = abs(g - fd) / max(abs(fd), 1e-9)
+                check(np.isfinite(g) and fd_rel[k] < FD_TOL,
+                      f"string L={L} blocked={blocked}: d/d{k} {g} vs fd {fd}")
+        order = "blocked" if blocked and L >= ks.BLOCKED_MIN_L else "per sample"
+        print(f"string probe L={L} T={T} ({order}{', all active' if blocked else ''}): one "
+              f"backward launch; vs its plain adjoint {max(e for e, _ in errs):.3g} (largest "
+              f"plain {max(s for _, s in errs):.3g}); vs finite differences "
+              + ", ".join(f"{k} {v:.2g}" for k, v in fd_rel.items()) + f" [{card}]")
+
+    # ---- (b) the string fit: L = 535, 2 s at BLOCK, by Adam ----
+    L, c = fw.string_shape()
+    n = int(round(STRING_FIT_S * SR))
+    with torch.no_grad():
+        target = fw.render_string(on(fw.string_excitation(L, fw.STRING_HIDDEN["seed"])),
+                                  on(fw.STRING_HIDDEN["rho"]), n, BLOCK, allpass_c=c)
+    rows, mark = [], {}
+
+    def begin():
+        zero()
+        torch.cuda.reset_peak_memory_stats()
+        mark["event"] = torch.cuda.Event(enable_timing=True)
+        mark["event"].record()
+        mark["t"] = time.perf_counter()
+
+    def on_step(step, loss, rho):
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        v = float(loss)
+        wall = time.perf_counter() - mark["t"]
+        end.synchronize()
+        nf, nfb = ks.ks_scan.launches, ks.ks_scan.blocked_launches
+        nb, nbb = ks.ks_scan_bwd.launches, ks.ks_scan_bwd.blocked_launches
+        rows.append((step, v, wall, mark["event"].elapsed_time(end),
+                     {"per_sample": nf - nfb, "blocked": nfb},
+                     {"per_sample": nb - nbb, "blocked": nbb},
+                     torch.cuda.max_memory_allocated() / 2**20, float(rho)))
+        take()
+        begin()
+
+    begin()
+    losses, rho_fit, _ = fw.fit_string(
+        target, fw.string_excitation(L, fw.STRING_START["seed"]), fw.STRING_START["rho"],
+        STRING_FIT_STEPS, TRAIN_LR, block=BLOCK, allpass_c=c, device=dev, on_step=on_step)
+    n_blocks = len(range(-fw.STRING_HEAD, n, BLOCK))
+    for step, v, wall, span, nf, nb, peak, rho_v in rows:
+        print(f"string fit step {step}: loss {v:.6g}, wall {wall * 1e3:.1f} ms, device span "
+              f"(CUDA events) {span:.1f} ms, forward launches {nf}, backward launches {nb}, "
+              f"peak memory {peak:.0f} MiB, then rho {rho_v:.6g} [{card}]")
+        want_n = {"per_sample": 1, "blocked": n_blocks - 1}
+        check(nf == want_n and nb == want_n,
+              f"string fit step {step}: launches forward {nf} backward {nb}, expected {want_n}")
+        bwd_total += sum(nb.values())
+    check(losses[-1] < losses[0], f"string fit: the loss did not fall {losses}")
+    print(f"string fit (L={L}, {n} samples from t = -{fw.STRING_HEAD}, block {BLOCK}): loss "
+          f"{losses[0]:.6g} -> {losses[-1]:.6g} in {STRING_FIT_STEPS} Adam steps (lr "
+          f"{TRAIN_LR}), rho {fw.STRING_START['rho']} -> {rho_fit:.6g} (hidden "
+          f"{fw.STRING_HIDDEN['rho']})")
+
+    # ---- the backward kernel's times at T = BLOCK, beside its bound and plain adjoint ----
+    timing = {}
+    for Lt in STRING_BWD_LS:
+        for blocked in (True, False):
+            args, act, r, weights, _ = _string_probe_case(Lt, BLOCK, blocked, 3 + Lt)
+            rho_t, buf_t, r_t = on(args["rho"]), on(args["buf"]), on(r)
+            act_t = None if blocked else on(act)
+            y = ks.ks_scan(rho_t, on(act), buf_t, r_t, on(args["ap_in"]), on(args["ap_out"]),
+                           L=Lt, allpass_c=STRING_AP_C, all_active=blocked)[0]
+            call = (rho_t, act_t, buf_t, r_t, y, *(on(w) for w in weights))
+            want, plain = timed_plain(lambda: ks.ks_scan_bwd_ref(*call, L=Lt,
+                                                                  allpass_c=STRING_AP_C))
+            got = ks.ks_scan_bwd(*call, L=Lt, allpass_c=STRING_AP_C)
+            bwd_errs.append(_check_bwd("ks_scan_bwd", _bwd_errors(got, want),
+                                       f"T={BLOCK} L={Lt} blocked={blocked}", EFFECTS_BWD_TOL))
+            ms = device_ms(lambda: ks.ks_scan_bwd(*call, L=Lt, allpass_c=STRING_AP_C), 10)
+            alone = kernel_ms(lambda: ks.ks_scan_bwd(*call, L=Lt, allpass_c=STRING_AP_C),
+                              "ks_scan_bwd")
+            K = int(act.sum())
+            # rho, y, gy and grho (T each), act if given; the string in, its
+            # cotangent out and in (L each); four scalars
+            nbytes = 4 * (4 * BLOCK + 3 * Lt + 4) + (0 if blocked else BLOCK)
+            bnd = bound(nbytes, KS_BWD_OPS * K)
+            timing[(Lt, blocked)] = (ms, plain, bnd, alone)
+            print(f"ks_scan_bwd (T={BLOCK}, L={Lt}, {'blocked' if blocked else 'per sample'} "
+                  f"order's call): kernel {ms:.4f} ms (CUDA events; alone {alone:.4f} ms, "
+                  f"torch.profiler), bound {bnd[0]:.4g} ms ({bnd[1]}), plain adjoint "
+                  f"{plain:.1f} ms [{card}]")
+
+    cpu_grads, cpu_s = cpu_job.result()
+    for (L_, T_, blocked, _), g_card, g_cpu in zip(cases, grads_card, cpu_grads):
+        for k in g_cpu:
+            rel = float(np.abs(g_card[k] - g_cpu[k]).max() / max(np.abs(g_cpu[k]).max(), 1e-30))
+            check(rel <= CPU_GRAD_TOL, f"string L={L_} blocked={blocked}: d/d{k} on the card vs "
+                  f"the CPU's: {rel}")
+    print(f"string probe on the CPU (plain versions, {cpu_s:.1f} s in a second process): every "
+          f"gradient of the {len(cases)} calls within {CPU_GRAD_TOL} relative of the card's")
+
+    # ---- (c)-(g) batched bindings ----
+    def vmapped(label, render, batch, per_block, n_blocks):
+        """``render`` (a dict of one candidate's values -> its output)
+        vmapped over the batch against the loop of renders, its launches a
+        block, the walls; the summed loss's per-candidate gradients and
+        vmap(grad)'s against the loop's."""
+        keys = list(batch)
+        B = len(batch[keys[0]])
+        cols = {k: torch.tensor(v, device=dev) for k, v in batch.items()}
+        members = [{k: cols[k][i] for k in keys} for i in range(B)]
+
+        def loss(b):
+            return torch.mean(render(b) ** 2)
+
+        render(members[0])  # warm-up
+        zero()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = torch.func.vmap(render)(cols)
+        torch.cuda.synchronize()
+        wall_v = time.perf_counter() - t
+        counts = {k: f.launches for k, f in fwd.items() if f.launches}
+        take()
+        t = time.perf_counter()
+        loop = torch.stack([render(m) for m in members])
+        torch.cuda.synchronize()
+        wall_l = time.perf_counter() - t
+        err = float((out - loop).abs().max())
+        check(out.shape == loop.shape and torch.isfinite(out).all().item()
+              and float(out.abs().max()) > 1e-3, f"{label}: vmapped render {tuple(out.shape)}")
+        check(err <= VMAP_TOL, f"{label}: vmapped render vs the loop {err}")
+        for k, want_n in per_block.items():
+            check(counts.get(k, 0) == want_n * n_blocks,
+                  f"{label}: {k} launched {counts.get(k, 0)} times, expected {want_n} a block")
+        want = []
+        for m in members:
+            vals = [m[k].clone().requires_grad_() for k in keys]
+            want.append(torch.autograd.grad(loss(dict(zip(keys, vals))), vals))
+        want = {k: torch.stack([w[i] for w in want]) for i, k in enumerate(keys)}
+        vals = {k: v.clone().requires_grad_() for k, v in cols.items()}
+        zero()
+        summed = torch.autograd.grad(torch.func.vmap(loss)(vals).sum(), list(vals.values()))
+        take()
+        rel = {k: float((s - want[k]).abs().max() / want[k].abs().max())
+               for k, s in zip(keys, summed)}
+        check(all(v <= VMAP_GRAD_TOL for v in rel.values()),
+              f"{label}: the summed loss's per-candidate gradients vs the loop's {rel}")
+        zero()
+        per = torch.func.vmap(torch.func.grad(loss))(cols)
+        take()
+        rel_pg = {k: float((per[k] - want[k]).abs().max() / want[k].abs().max()) for k in keys}
+        check(all(v <= VMAP_GRAD_TOL for v in rel_pg.values()),
+              f"{label}: vmap(grad) vs the loop's gradients {rel_pg}")
+        fmt = lambda d: json.dumps({k: f"{v:.2g}" for k, v in d.items()})  # noqa: E731
+        print(f"{label}: {B} candidates vmapped {tuple(out.shape)}, vs the loop {err:.3g}; "
+              f"launches a block {json.dumps({k: v / n_blocks for k, v in counts.items()})}; "
+              f"wall vmapped {wall_v * 1e3:.1f} ms, loop of {B} {wall_l * 1e3:.1f} ms; the "
+              f"summed loss's gradients vs the loop's {fmt(rel)}; vmap(grad) vs the loop's "
+              f"{fmt(rel_pg)} [{card}]")
+
+    def graph_render(graph, seconds, block=BLOCK):
+        n = int(round(seconds * SR))
+        return (lambda b: engine.render_functional(graph, 0, n, block, b, device=dev),
+                -(-n // block))
+
+    render, nb = graph_render(fw.build_sweep(pg, fw.PROBE_N), fw.PROBE_N / SR, fw.PROBE_BLOCK)
+    vmapped("the example's sweep (8 cutoffs)", render,
+            {"cutoff": SWEEP_CUTOFFS, "gain": np.full(8, 0.42, np.float32)}, {}, nb)
+    render, nb = graph_render(fw.build_fit_patch(pg, VMAP_PATCH_S), VMAP_PATCH_S)
+    vmapped("the fit patch (8 cutoff, fb candidates)", render, VMAP_PATCH,
+            {"ladder_scan": 8, "comb_scan": 8, "adsr_scan": 2}, nb)
+    render, nb = graph_render(fw.build_fit_chain(pg, VMAP_CHAIN_S), VMAP_CHAIN_S)
+    vmapped("the fit chain (4 echo feedbacks and depths)", render, VMAP_CHAIN,
+            {"reverse_echo_scan": 4, "envelope_ar_scan": 2, "slew_scan": 4, "ks_scan": 6}, nb)
+    # (f) the fit bank at its 128 channels: both filters' planes batched, so
+    # each scan folds 4 x 128 channels into one launch
+    render, nb = graph_render(fw.build_fit_bank(pg, VMAP_BANK_S), VMAP_BANK_S)
+    vmapped("the fit bank (4 low_hz, band_hz candidates, 128 channels)", render, VMAP_BANK,
+            {"affine_scan_2": 2}, nb)
+    # (g) the fit fx bank over its drive alone: the follower and the echo see
+    # only their input batched and fold; the echo's rings start fresh and
+    # unbatched, and come back batched after the first block
+    render, nb = graph_render(fw.build_fit_fx_bank(pg, VMAP_BANK_S), VMAP_BANK_S)
+    vmapped("the fit fx bank (4 drives, 128 channels)", render, VMAP_FXBANK,
+            {"envelope_ar_scan": 1, "reverse_echo_scan": 1}, nb)
+    # (h) the string over 4 (excitation, rho) candidates: a mono kernel, a
+    # launch per member in each order, its backward per member
+    L, c = fw.string_shape()
+    n = int(round(VMAP_STRING_S * SR))
+    vmapped("the string (4 excitations and rhos)",
+            lambda b: fw.render_string(b["exc"], b["rho"], n, BLOCK, allpass_c=c),
+            {"exc": np.stack([fw.string_excitation(L, s) for s in range(4)]),
+             "rho": np.asarray([0.996, 0.997, 0.998, 0.999], np.float32)},
+            {"ks_scan": 4}, len(range(-fw.STRING_HEAD, n, BLOCK)))
+
+    # ---- the kernels line's entry ----
+    ms, plain, bnd, alone = timing[(535, True)]
+    entry = {"name": "ks_scan_bwd", "route": "cuda",
+             "source": "pygmu2_tpu_torch/csrc/ks_scan_bwd.cu",
+             "replaces": "pygmu2_tpu/ops/ks_pallas.py:173", "launches": bwd_total,
+             "max_abs_err": max(bwd_errs), "ms": ms, "plain_ms": plain, "bound_ms": bnd[0],
+             "bound_by": bnd[1], "library_ms": None, "shape": f"T={BLOCK} L=535, blocked",
+             "kernel_ms": alone}
+    for (Lt, blocked), (ms2, plain2, bnd2, alone2) in timing.items():
+        if (Lt, blocked) != (535, True):
+            entry[f"at_L{Lt}_{'blocked' if blocked else 'per_sample'}"] = {
+                "ms": ms2, "plain_ms": plain2, "bound_ms": bnd2[0], "bound_by": bnd2[1],
+                "kernel_ms": alone2}
+    print(f"string and batched bindings: forward launches on the path {json.dumps(total)}, "
+          f"{bwd_total} string backward launches; phase took {time.perf_counter() - t0:.1f} s")
+    return [entry], total
 
 
 if __name__ == "__main__":

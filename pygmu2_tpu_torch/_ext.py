@@ -122,6 +122,9 @@ def load() -> ctypes.CDLL:
         # rho, act, buf_in, r_in, ap_in_in, ap_out_in, y, buf_out, r_out,
         # ap_in_out, ap_out_out, idx, rho_c, T, L, allpass_c, stream
         "ks_scan_launch": [p] * 13 + [i, i, f, p],
+        # rho, act (or null), buf, r_in, y, gy, gbuf, gai, gao, grho, gbuf_in,
+        # gap_in, gap_out, idx, ring_global, T, L, W, allpass_c, stream
+        "ks_scan_bwd_launch": [p] * 15 + [i, i, i, f, p],
         # rho, buf_in, r_in, ap_in_in, ap_out_in, diag, powv, y, buf_out,
         # r_out, ap_in_out, ap_out_out, T, L, B, allpass_c, stream
         "ks_blocked_launch": [p] * 12 + [i, i, i, f, p],

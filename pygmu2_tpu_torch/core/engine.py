@@ -591,9 +591,16 @@ def render_functional(root, start: int, total: int, block: int, bindings=None, *
     reaches it, so ``torch.autograd`` of a loss of the render gives the
     loss's gradient with respect to the bindings, as ``jax.grad`` does in
     the JAX package. On the CPU autograd differentiates the kernels'
-    plain versions; on the card the ladder, the comb and the order-2
-    affine scan run hand-written backward kernels, and the other kernels'
-    backward raises ``NotImplementedError`` (ROADMAP.md, queue 2).
+    plain versions; on the card every kernel's backward is a hand-written
+    backward kernel (``ops/diffable.py``).
+
+    Batched bindings: ``torch.func.vmap(lambda b: render_functional(root,
+    start, total, block, b, device=dev))(batch)`` renders a batch of
+    binding sets at once, (B, total, C), the counterpart of ``jax.vmap``
+    over the JAX package's ``render_functional``; on the card each kernel
+    batches by its rule (``ops/diffable.kernel_function``: the batch folded
+    into the channel axis, one launch, or one launch per member), and
+    ``torch.autograd`` or ``torch.func.grad`` differentiates it.
     """
     device = torch.device(device)
     if total <= 0:

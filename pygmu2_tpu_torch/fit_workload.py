@@ -31,18 +31,35 @@ differentiable with respect to them.
   in the port: its mean is a difference of two prefix sums over the block,
   which cancels to exactly 0 there, and the square root's derivative at 0
   is infinite.
+- :func:`build_sweep`: ``examples/gradient_fit_eg.py``'s patch, its
+  cutoff ``ParamPE("cutoff")`` (the example's candidate sweep).
 - :func:`build_adsr_probe`: a gated ADSR whose gate is scaled by
   ``ParamPE("g")``: the ADSR's backward (the gate enters only through
   compares, so the gradient is exactly zero, as the JAX package's).
 - :func:`fit`: the loop of ``examples/gradient_fit_eg.py`` on
   ``torch.optim.Adam`` (optax's Adam there): a mean squared error against a
   target render, frequencies fitted as their logarithms.
+- The string fit (:func:`render_string`, :func:`fit_string`): no PE hands
+  the Karplus-Strong string an input that requires grad, in either
+  package (KarplusStrongPE's ``rho`` is a float, its excitation seeded
+  noise), so its gradient is reached by calling ``ops/ks.ks_scan`` block
+  by block as KarplusStrongPE does, and fitting the excitation (L,) and a
+  scalar ``rho`` to a target rendered from hidden ones: the string's
+  backward in both of its orders, its state's cotangents crossing the
+  blocks.
+
+Under ``torch.func.vmap`` over the bindings (``vmap(lambda b:
+render_functional(graph, 0, n, block, b))``) each builder's render is a
+batch of candidates, the counterpart of ``jax.vmap`` over the JAX
+package's ``render_functional`` (``examples/gradient_fit_eg.py``'s cutoff
+sweep).
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from pygmu2_tpu_torch import fx_workload
@@ -118,6 +135,18 @@ def build_fit_fx_bank(pg, seconds: float, seed: int = 0, channels: int = 128):
                                      channels=channels, detection=pg.DetectionMode.PEAK)
 
 
+def build_sweep(pg, n: int = PROBE_N):
+    """``examples/gradient_fit_eg.py``'s patch: a 110 Hz band-limited saw
+    through a low-pass BiquadPE whose cutoff is ``ParamPE("cutoff")``
+    (default 1500 Hz), then a GainPE of ``ParamPE("gain")`` (default 0.42),
+    cropped to ``n`` samples: its candidate sweep vmaps the cutoff."""
+    pg.set_sample_rate(SR)
+    osc = pg.BlitSawPE(frequency=110.0)
+    filt = pg.BiquadPE(osc, pg.ParamPE("cutoff", default=1500.0), 0.707,
+                       mode=pg.BiquadMode.LOWPASS)
+    return pg.CropPE(pg.GainPE(filt, pg.ParamPE("gain", default=0.42)), 0, n)
+
+
 def build_adsr_probe(pg, n: int = PROBE_N):
     """A 220 Hz sine under a gated ADSR whose gate, a 20 Hz square gate, is
     scaled by ``ParamPE("g")`` (default 1.0), cropped to ``n`` samples."""
@@ -171,3 +200,79 @@ def fit(graph, target, theta: dict, steps: int, lr: float, *, block: int, device
     with torch.no_grad():
         fitted = {k: float(v) for k, v in bindings_of(params).items()}
     return [float(v) for v in losses], fitted
+
+
+# the string fit: the effects chain's low string (fx_workload.STRINGS[0]),
+# whose first block starts STRING_HEAD samples before t = 0
+STRING_HZ = fx_workload.STRINGS[0]
+STRING_HEAD = 64
+STRING_START = {"seed": 0, "rho": 0.999}
+STRING_HIDDEN = {"seed": 1, "rho": 0.996}
+
+
+def string_shape(hz: float = STRING_HZ, sr: int = SR) -> tuple[int, float]:
+    """(L, allpass_c) of a string at ``hz``, as KarplusStrongPE forms them."""
+    delay = sr / hz
+    L = max(2, int(math.floor(delay)))
+    frac = min(1.0, max(0.0, delay - L))
+    return L, (1.0 - frac) / (1.0 + frac)
+
+
+def string_excitation(L: int, seed: int, amplitude: float = 1.0) -> np.ndarray:
+    """KarplusStrongPE's excitation: seeded noise scaled to ``amplitude``."""
+    noise = np.random.default_rng(seed).standard_normal(L).astype(np.float32)
+    return noise * (amplitude / (np.max(np.abs(noise)) + 1e-9))
+
+
+def render_string(excitation, rho, n: int, block: int, *, allpass_c: float,
+                  head: int = STRING_HEAD):
+    """The string's first ``n`` samples from ``excitation`` (L,) and the
+    scalar ``rho``, rendered as KarplusStrongPE renders them from a start
+    ``head`` samples before t = 0: blocks of ``block`` samples through
+    ``ops/ks.ks_scan``, the first with its pre-t0 rows inactive (the
+    per-sample order), the rest all active (the blocked order at L >= 16),
+    the string, its read position and the allpass state carried from block
+    to block. Differentiable in both arguments."""
+    from pygmu2_tpu_torch.ops import ks
+
+    L, dev = excitation.shape[0], excitation.device
+    buf, r = excitation, torch.zeros((), dtype=torch.int32, device=dev)
+    ai = ao = torch.zeros((), dtype=torch.float32, device=dev)
+    outs = []
+    for b0 in range(-head, n, block):
+        T = min(block, n - b0)
+        t = torch.arange(b0, b0 + T, device=dev)
+        y, buf, r, ai, ao = ks.ks_scan(rho.expand(T), t >= 0, buf, r, ai, ao, L=L,
+                                       allpass_c=allpass_c, all_active=b0 >= 0)
+        outs.append(y)
+    return torch.cat(outs)[head:]
+
+
+def fit_string(target, excitation, rho: float, steps: int, lr: float, *, block: int,
+               allpass_c: float, head: int = STRING_HEAD, device="cuda", on_step=None):
+    """Fit a string's excitation and ``rho`` to ``target`` (n,) by Adam on
+    the mean squared error of :func:`render_string`, ``rho`` as
+    ``log(1 - rho)`` (a decay's steps are ratios). ``on_step(step, loss,
+    rho)`` as :func:`fit`'s. Returns (the losses as floats, the fitted
+    rho, the fitted excitation as a numpy array)."""
+    device = torch.device(device)
+    target = torch.as_tensor(target, dtype=torch.float32).to(device)
+    exc = torch.as_tensor(excitation, dtype=torch.float32).to(device).requires_grad_()
+    theta = torch.tensor(math.log(1.0 - rho), dtype=torch.float32, device=device,
+                         requires_grad=True)
+    opt = torch.optim.Adam([exc, theta], lr=lr)
+    losses = []
+    for step in range(steps):
+        opt.zero_grad()
+        out = render_string(exc, 1.0 - theta.exp(), target.shape[0], block,
+                            allpass_c=allpass_c, head=head)
+        loss = torch.mean((out - target) ** 2)
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+        if on_step is not None:
+            with torch.no_grad():
+                on_step(step, losses[-1], 1.0 - theta.exp())
+    with torch.no_grad():
+        return ([float(v) for v in losses], float(1.0 - theta.exp()),
+                exc.detach().cpu().numpy())

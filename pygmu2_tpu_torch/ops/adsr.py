@@ -574,10 +574,12 @@ def adsr_clock_scan(trig, stage, env, ends, *, t0, dA, dD, dR, sus, sustain_samp
     ``adsr_clock_scan.launches`` per call) or raise.
     """
     kw = dict(t0=t0, dA=dA, dD=dD, dR=dR, sus=sus, sustain_samples=sustain_samples)
-    if trig.device.type == "cpu":
+    if trig.device.type == "cpu" and not diffable.transformed(trig, stage, env, ends):
         return adsr_clock_scan_ref(trig, stage, env, ends, **kw)
-    if trig.device.type != "cuda":
+    if trig.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {trig.device}")
+    # the launch; on the CPU under torch.func the plain version's loop, which
+    # reads the trigger on the host, runs as the card's launch does, by its rule
     env_t, *state_out = _differentiable_clock(trig, stage, env, ends, **kw)
     return env_t, tuple(state_out)
 
@@ -682,9 +684,11 @@ def _backward_clock(args, outs, grads, **kw):
 
 
 # the launches as torch.autograd.Functions, their backwards adsr_scan_bwd and
-# adsr_clock_scan_bwd
+# adsr_clock_scan_bwd; on CPU tensors (a call under torch.func) the clock's
+# plain version stands in for its launch
 _differentiable = diffable.kernel_function("adsr_scan", _launch, _backward)
 _differentiable_clock = diffable.kernel_function(
     "adsr_clock_scan",
-    lambda *args, **kw: (lambda env, st: (env, *st))(*_launch_clock(*args, **kw)),
+    lambda *args, **kw: (lambda env, st: (env, *st))(
+        *(_launch_clock if args[0].is_cuda else adsr_clock_scan_ref)(*args, **kw)),
     _backward_clock)

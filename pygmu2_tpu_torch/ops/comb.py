@@ -38,6 +38,7 @@ def comb_scan_ref(x, freq, fb, buf, pos, sf, *, L, sr, smooth_alpha):
     """Plain PyTorch version of :func:`comb_scan` (same arguments and
     result). A Python loop over samples: keep T small."""
     dev = x.device
+    functional = diffable.transformed(x, freq, fb, buf, sf)  # under torch.func
     buf = buf.clone()
     p = int(pos)  # the write position advances by one per sample
     sf = torch.as_tensor(sf, dtype=torch.float32, device=dev).reshape(())
@@ -48,7 +49,7 @@ def comb_scan_ref(x, freq, fb, buf, pos, sf, *, L, sr, smooth_alpha):
         delay = torch.round(sr32 / sf.clamp(min=1.0)).to(torch.int32).clamp(1, L - 1)
         read = torch.remainder(p - delay + L, L).long()
         out = xi + fbi * buf[read].clone()  # a copy: buf changes in place below
-        buf[p] = out
+        buf = diffable.put_row(buf, p, out, functional)
         p = (p + 1) % L
         ys.append(out)
     pos_out = torch.tensor(p, dtype=torch.int32, device=dev)
@@ -227,5 +228,8 @@ def _backward(args, outs, grads, **kw):
     return gx, gfreq, gfb, gbuf_in, None, gsf_in.reshape(sf.shape)
 
 
+# the vmap layout: x and the ring carry the channels; freq, fb, the write
+# position and the smoother are shared by them
+LAYOUT = dict(channels=(1, None, None, 1), out_channels=(1, 1))
 # the launch as a torch.autograd.Function, its backward comb_scan_bwd
-_differentiable = diffable.kernel_function("comb_scan", _launch, _backward)
+_differentiable = diffable.kernel_function("comb_scan", _launch, _backward, **LAYOUT)

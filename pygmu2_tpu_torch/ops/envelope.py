@@ -155,5 +155,7 @@ def _backward(args, outs, grads, *, atk, rel):
     return envelope_ar_scan_bwd(x, env0, env, genv, genv_final, atk=atk, rel=rel)
 
 
+# the vmap layout: every argument and output carries the channels
+LAYOUT = dict(channels=(1, 0), out_channels=(1, 0))
 # the launch as a torch.autograd.Function, its backward envelope_ar_scan_bwd
-_differentiable = diffable.kernel_function("envelope_ar_scan", _launch, _backward)
+_differentiable = diffable.kernel_function("envelope_ar_scan", _launch, _backward, **LAYOUT)

@@ -27,6 +27,16 @@ inactive sample (before t = 0) outputs 0 and leaves the string alone.
   (tests only): the active samples compacted, the two-point average of a
   window of them at once from the string as earlier windows left it, then
   the allpass's serial chain over the window.
+
+Differentiable: on the card both launches are ``torch.autograd.Function``s
+(:mod:`~pygmu2_tpu_torch.ops.diffable`) whose backward is ``ks_scan_bwd``,
+the hand-written adjoint in ``csrc/ks_scan_bwd.cu`` (counted in
+``ks_scan_bwd.launches``), one kernel for both orders; on the CPU
+autograd differentiates the plain versions. ``ks_scan_bwd_ref`` is the
+backward's plain version, in the kernel's order (``ks_blocked_bwd_ref``
+the blocked order's: the same adjoint, every sample active). The string
+has no channel axis: under ``torch.func.vmap`` it launches once per batch
+member.
 """
 
 from __future__ import annotations
@@ -69,6 +79,7 @@ def ks_scan_ref(rho, act, buf, r, ap_in, ap_out, *, L, allpass_c, all_active=Fal
         return ks_blocked_ref(rho, buf, r, ap_in, ap_out, L=L, allpass_c=allpass_c)
     dev = rho.device
     f32 = lambda v: torch.as_tensor(v, dtype=torch.float32, device=dev).reshape(())  # noqa: E731
+    functional = diffable.transformed(rho, buf, ap_in, ap_out)  # under torch.func
     buf = buf.to(torch.float32).clone()
     c, ai, ao = f32(allpass_c), f32(ap_in), f32(ap_out)
     rr = int(r)  # advances only on active samples, known from the mask
@@ -80,7 +91,7 @@ def ks_scan_ref(rho, act, buf, r, ap_in, ap_out, *, L, allpass_c, all_active=Fal
         rn = (rr + 1) % L
         out = rho_t * (buf[rr] + buf[rn]) * 0.5
         ap = fmaf(-c, ao, fmaf(c, out, ai))
-        buf[rr] = ap
+        buf = diffable.put_row(buf, rr, ap, functional)
         rr, ai, ao = rn, out, ap
         ys.append(ap)
     y = torch.stack(ys) if ys else torch.zeros((0,), dtype=torch.float32, device=dev)
@@ -196,8 +207,7 @@ def ks_blocked_ref(rho, buf, r, ap_in, ap_out, *, L, allpass_c):
     if T >= L:
         buf2 = torch.roll(y[T - L:], r2)  # the slot of y[T - L] is r2
     else:
-        buf2 = buf.to(f32).clone()
-        buf2[(r0 + torch.arange(T, device=dev)) % L] = y
+        buf2 = torch.index_put(buf.to(f32), ((r0 + torch.arange(T, device=dev)) % L,), y)
     return (y, buf2, torch.tensor(r2, dtype=torch.int32, device=dev),
             torch.cat(outs)[T - 1], y[T - 1])
 
@@ -226,6 +236,7 @@ def ks_scan(rho, act, buf, r, ap_in, ap_out, *, L, allpass_c, all_active=False):
 
 
 ks_scan.launches = 0
+ks_scan.blocked_launches = 0  # of them, the blocked order's
 
 
 def _launch(rho, act, buf, r, ap_in, ap_out, *, L, allpass_c):
@@ -302,11 +313,166 @@ def _launch_blocked(rho, buf, r, ap_in, ap_out, *, L, allpass_c):
         )
     _ext.raise_on_error(err, "ks_scan")
     ks_scan.launches += 1
+    ks_scan.blocked_launches += 1
     return y, buf_out, r_out, ai_out, ao_out
 
 
-# the launches as torch.autograd.Functions whose backward raises on the card:
-# the string's backward kernels are still to port (ROADMAP.md, queue 2); on the CPU autograd
-# differentiates the plain version
-_differentiable = diffable.kernel_function("ks_scan", _launch)
-_differentiable_blocked = diffable.kernel_function("ks_scan (blocked)", _launch_blocked)
+def ks_scan_bwd(rho, act, buf, r, y, gy, gbuf, gai, gao, *, L, allpass_c):
+    """The cotangents of :func:`ks_scan`'s float inputs, in either order.
+
+    Takes the forward's ``rho``, ``act`` (None: every sample active, the
+    blocked order's calls), the string ``buf`` and read position ``r`` it
+    was given and its output ``y``, and the cotangents ``gy`` (T,),
+    ``gbuf`` (L,), ``gai`` () and ``gao`` () of y, buf', ap_in' and
+    ap_out'; returns (grho (T,), gbuf_in (L,), gap_in (), gap_out ()).
+    The allpass state's values are not needed: the string is linear in
+    them. CPU tensors take the plain version; CUDA tensors launch the
+    kernel in ``csrc/ks_scan_bwd.cu`` (one count in
+    ``ks_scan_bwd.launches`` per call) or raise.
+    """
+    kw = dict(L=L, allpass_c=allpass_c)
+    if rho.device.type == "cpu":
+        return ks_scan_bwd_ref(rho, act, buf, r, y, gy, gbuf, gai, gao, **kw)
+    if rho.device.type != "cuda":
+        raise ValueError(f"no kernel for device {rho.device}")
+    return _launch_bwd(rho, act, buf, r, y, gy, gbuf, gai, gao, **kw)
+
+
+ks_scan_bwd.launches = 0
+ks_scan_bwd.blocked_launches = 0  # of them, the blocked order's (act None)
+
+
+def bwd_window(L: int) -> int:
+    """Active samples per window of the adjoint's walk for a string of L:
+    a window's seeds (the tape cotangents of its outputs) are complete
+    once every later sample is walked when it is at most L - 1 long."""
+    return min(MAX_WINDOW, L - 1)
+
+
+def ks_scan_bwd_ref(rho, act, buf, r, y, gy, gbuf, gai, gao, *, L, allpass_c):
+    """Plain PyTorch version of :func:`ks_scan_bwd` (same arguments and
+    result), in the kernel's order and roundings, so equal to it bit for
+    bit.
+
+    Active samples compacted as k = 0 .. K - 1, the tape S as in
+    :func:`ks_scan_windows` (S[j] = buf[(r + j) % L] for j < L, S[L + k] =
+    sample k's output), G its cotangent, seeded with gbuf at the tape
+    slots the string holds after the call. Walking k down, a window of
+    ``bwd_window(L)`` samples at a time:
+
+    - lam_k = (G[L + k] + gy_k) - c lam_{k+1} (at k = K - 1: + gao), the
+      cotangent of sample k's allpass output; the window's one serial chain;
+    - mu_k = c lam_k + lam_{k+1} (at k = K - 1: + gai), that of its
+      two-point average;
+    - grho_k = (mu_k (S[k] + S[k+1])) / 2, and G[k], then G[k + 1], gain
+      mu_k (rho_k / 2).
+
+    gap_in = lam_0, gap_out = -c lam_0; inactive samples get grho = 0."""
+    dev = rho.device
+    f32 = torch.float32
+    c = torch.as_tensor(allpass_c, dtype=f32, device=dev).reshape(())
+    T = rho.shape[0]
+    idx = (torch.arange(T, device=dev) if act is None else torch.nonzero(act).flatten())
+    K = idx.numel()
+    rho_c, gy_c = rho.to(f32)[idx], gy.to(f32)[idx]
+    r0 = int(r)
+    S = torch.cat([torch.roll(buf.to(f32), -r0), y.to(f32)[idx]])
+    G = torch.zeros(L + K + 1, dtype=f32, device=dev)
+    G[K:K + L] = torch.roll(gbuf.to(f32), -((r0 + K) % L))
+    grho_c = torch.zeros(K, dtype=f32, device=dev)
+    gai = torch.as_tensor(gai, dtype=f32, device=dev).reshape(())
+    gao = torch.as_tensor(gao, dtype=f32, device=dev).reshape(())
+    lam_next, lam, W = gai, None, bwd_window(L)
+    for k0 in reversed(range(0, K, W)):
+        n = min(W, K - k0)
+        g = G[L + k0:L + k0 + n] + gy_c[k0:k0 + n]
+        lams = torch.empty(n, dtype=f32, device=dev)
+        for i in range(n - 1, -1, -1):  # the serial chain
+            lam = g[i] + gao if lam is None else g[i] + (-c) * lam
+            lams[i] = lam
+        mu = c * lams + torch.cat([lams[1:], lam_next[None]])
+        m = mu * (rho_c[k0:k0 + n] * 0.5)
+        grho_c[k0:k0 + n] = (mu * (S[k0:k0 + n] + S[k0 + 1:k0 + n + 1])) * 0.5
+        G[k0:k0 + n] += m
+        G[k0 + 1:k0 + n + 1] += m
+        lam_next = lams[0]
+    grho = torch.zeros(T, dtype=f32, device=dev)
+    grho[idx] = grho_c
+    gbuf_in = torch.roll(G[:L], r0)
+    if lam is None:  # no active sample: the state passes through
+        return grho, gbuf_in, gai.clone(), gao.clone()
+    return grho, gbuf_in, lam_next, (-c) * lam_next
+
+
+def ks_blocked_bwd_ref(rho, buf, r, y, gy, gbuf, gai, gao, *, L, allpass_c):
+    """The blocked order's adjoint: :func:`ks_scan_bwd_ref` with every
+    sample active (same arguments but ``act``, same result). The blocked
+    order computes the per-sample recurrence with other roundings (its
+    allpass a matrix-vector product), so its exact derivative is the
+    per-sample order's, taken at the blocked forward's own tape; the card
+    runs the one backward kernel for both orders."""
+    return ks_scan_bwd_ref(rho, None, buf, r, y, gy, gbuf, gai, gao, L=L,
+                           allpass_c=allpass_c)
+
+
+def _launch_bwd(rho, act, buf, r, y, gy, gbuf, gai, gao, *, L, allpass_c):
+    dev = rho.device
+    if rho.dim() != 1 or rho.shape[0] < 1 or L < 2:
+        raise ValueError(f"unsupported shape rho={tuple(rho.shape)} L={L}")
+    (T,) = rho.shape
+    rho, y, gy = (_ext.checked(v, n, (T,), dev) for v, n in ((rho, "rho"), (y, "y"), (gy, "gy")))
+    buf = _ext.checked(buf, "buf", (L,), dev)
+    gbuf = _ext.checked(gbuf, "gbuf", (L,), dev)
+    gai = _ext.checked(gai.reshape(()), "gai", (), dev)
+    gao = _ext.checked(gao.reshape(()), "gao", (), dev)
+    if act is not None:
+        if act.shape != (T,) or act.dtype != torch.bool or act.device != dev:
+            raise ValueError("act must be a (T,) bool tensor on rho's device")
+        act = act.contiguous()
+    r = r.reshape(())
+    if r.dtype != torch.int32 or r.device != dev:
+        raise ValueError("r must be an int32 scalar tensor on rho's device")
+    grho = torch.empty((T,), dtype=torch.float32, device=dev)
+    gbuf_in = torch.empty((L,), dtype=torch.float32, device=dev)
+    gap_in = torch.empty((), dtype=torch.float32, device=dev)
+    gap_out = torch.empty((), dtype=torch.float32, device=dev)
+    # scratch: the compaction, and the tape's cotangent (a ring of L + 1)
+    # when the string is too long for shared memory
+    idx = torch.empty((T,), dtype=torch.int32, device=dev)
+    ring = torch.empty((L + 1 if L > MAX_KERNEL_L else 1,), dtype=torch.float32, device=dev)
+    lib = _ext.load()
+    with torch.cuda.device(dev):
+        err = lib.ks_scan_bwd_launch(
+            rho.data_ptr(), None if act is None else act.data_ptr(), buf.data_ptr(),
+            r.data_ptr(), y.data_ptr(), gy.data_ptr(), gbuf.data_ptr(), gai.data_ptr(),
+            gao.data_ptr(), grho.data_ptr(), gbuf_in.data_ptr(), gap_in.data_ptr(),
+            gap_out.data_ptr(), idx.data_ptr(), ring.data_ptr(), T, L, bwd_window(L),
+            float(allpass_c), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _ext.raise_on_error(err, "ks_scan_bwd")
+    ks_scan_bwd.launches += 1
+    ks_scan_bwd.blocked_launches += act is None
+    return grho, gbuf_in, gap_in, gap_out
+
+
+def _backward(args, outs, grads, **kw):
+    rho, act, buf, r, ap_in, ap_out = args
+    gy, gbuf, _, gai, gao = grads
+    grho, gbuf_in, gap_in, gap_out = ks_scan_bwd(rho, act, buf, r, outs[0], gy, gbuf, gai, gao,
+                                                 **kw)
+    return grho, None, gbuf_in, None, gap_in.reshape(ap_in.shape), gap_out.reshape(ap_out.shape)
+
+
+def _backward_blocked(args, outs, grads, **kw):
+    rho, buf, r, ap_in, ap_out = args
+    gy, gbuf, _, gai, gao = grads
+    grho, gbuf_in, gap_in, gap_out = ks_scan_bwd(rho, None, buf, r, outs[0], gy, gbuf, gai, gao,
+                                                 **kw)
+    return grho, gbuf_in, None, gap_in.reshape(ap_in.shape), gap_out.reshape(ap_out.shape)
+
+
+# the launches as torch.autograd.Functions, both backwards ks_scan_bwd (the
+# string has no channel axis: under torch.func.vmap one launch per member)
+_differentiable = diffable.kernel_function("ks_scan", _launch, _backward)
+_differentiable_blocked = diffable.kernel_function("ks_scan (blocked)", _launch_blocked,
+                                                   _backward_blocked)

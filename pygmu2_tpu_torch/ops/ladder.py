@@ -205,5 +205,8 @@ def _backward(args, outs, grads, **kw):
     return [g.reshape(a.shape) for g, a in zip(got, args)]
 
 
+# the vmap layout: x and the state carry the channels; the coefficient
+# columns are shared by them (a batched column: one launch per member)
+LAYOUT = dict(channels=(1, None, None, None, None, 1), out_channels=(1, 1))
 # the launch as a torch.autograd.Function, its backward ladder_scan_bwd
-_differentiable = diffable.kernel_function("ladder_scan", _launch, _backward)
+_differentiable = diffable.kernel_function("ladder_scan", _launch, _backward, **LAYOUT)

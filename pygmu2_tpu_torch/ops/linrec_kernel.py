@@ -67,10 +67,9 @@ def affine_scan_2_chunked_ref(a11, a12, a21, a22, u1, u2, s0=None, *, chunk: int
         # maps shared by the channels: their scan runs on one column
         a11, a12, a21, a22 = (m[:, :1] for m in (a11, a12, a21, a22))
     if s0 is not None:
-        s01, s02 = s0
-        u1, u2 = u1.clone(), u2.clone()
-        u1[0] = u1[0] + _dot(a11[0], s01, a12[0], s02)
-        u2[0] = u2[0] + _dot(a21[0], s01, a22[0], s02)
+        s01, s02 = s0  # added to the first row, out of place (torch.func.vmap batches it)
+        u1 = torch.cat([(u1[0] + _dot(a11[0], s01, a12[0], s02))[None], u1[1:]])
+        u2 = torch.cat([(u2[0] + _dot(a21[0], s01, a22[0], s02))[None], u2[1:]])
     L = -(-T // chunk)
     pad = L * chunk - T
 
@@ -251,5 +250,9 @@ def _backward(args, outs, grads, *, chunk: int):
     return [None if g is None else g.sum_to_size(a.shape) for g, a in zip(got, args)]
 
 
+# the vmap layout: the planes' channels (a (T, 1) plane is shared by them)
+# and the entering state's
+LAYOUT = dict(channels=(1, 1, 1, 1, 1, 1, 0, 0), out_channels=(1, 1))
 # the launch as a torch.autograd.Function, its backward affine_scan_2_bwd
-_differentiable = diffable.kernel_function("affine_scan_2", _launch_forward, _backward)
+_differentiable = diffable.kernel_function("affine_scan_2", _launch_forward, _backward,
+                                           **LAYOUT)

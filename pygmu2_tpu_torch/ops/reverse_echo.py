@@ -145,12 +145,14 @@ def reverse_echo_scan_ref(x, blk, ratio, fb, alt, buf_a, buf_b, pitch_buf, misc,
     window = 0.5 - half_cos
     x = x.to(torch.float32)
     fb = fb.to(torch.float32)
-    ba, bb, pb = buf_a.clone(), buf_b.clone(), pitch_buf.clone()
+    functional = diffable.transformed(x, ratio, fb, buf_a, buf_b, pitch_buf)  # torch.func
+    put = lambda buf, i, v: diffable.put_row(buf, i, v, functional)  # noqa: E731
+    rings, pb = [buf_a.clone(), buf_b.clone()], pitch_buf.clone()
     y = torch.zeros_like(x)
     for t, (wslot, taps, f, omf, near_unity, _w, rrow, wrow, write_a, _s) in enumerate(steps):
         i0, i1, w0, w1, i2, i3, w2, w3 = taps
         xi = x[t]
-        pb[wslot] = xi
+        pb = put(pb, wslot, xi)
         if near_unity:
             pitched = xi
         else:
@@ -158,14 +160,14 @@ def reverse_echo_scan_ref(x, blk, ratio, fb, alt, buf_a, buf_b, pitch_buf, misc,
             s1 = w0 * r[0] + w1 * r[1]
             s2 = w2 * r[2] + w3 * r[3]
             pitched = f * s1 + omf * s2
-        cur, prev = (ba, bb) if write_a else (bb, ba)
+        cur = 0 if write_a else 1
         if rrow is None:
-            cur[wrow] = pitched
+            rings[cur] = put(rings[cur], wrow, pitched)
         else:
-            wet = prev[rrow].clone() * window[t]
-            y[t] = wet
-            cur[wrow] = pitched + wet * fb[t]
-    return y, ba, bb, pb, misc_out.to(dev)
+            wet = rings[1 - cur][rrow].clone() * window[t]
+            y = put(y, t, wet)
+            rings[cur] = put(rings[cur], wrow, pitched + wet * fb[t])
+    return y, rings[0], rings[1], pb, misc_out.to(dev)
 
 
 def reverse_echo_scan_periods(x, blk, ratio, fb, alt, buf_a, buf_b, pitch_buf, misc,
@@ -370,10 +372,12 @@ def reverse_echo_scan(x, blk, ratio, fb, alt, buf_a, buf_b, pitch_buf, misc, *,
     kw = dict(sr=sr, plen=plen, cap=cap, min_block=min_block, max_block=max_block,
               smooth_alpha=smooth_alpha)
     args = (x, blk, ratio, fb, alt, buf_a, buf_b, pitch_buf, misc)
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and not diffable.transformed(blk, ratio, alt, misc):
         return reverse_echo_scan_ref(*args, **kw)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {x.device}")
+    # the launch; on the CPU under torch.func (the plain control pass reads
+    # blk, ratio, alt and misc on the host) the plain version by the same rule
     return _differentiable(*args, **kw)
 
 
@@ -472,6 +476,14 @@ def _backward(args, outs, grads, **kw):
     return gx, None, gratio, gfb, None, gbuf_a, gbuf_b, gpitch, gm
 
 
+# the vmap layout: x, the rings and the pitch line carry the channels; the
+# controls and the misc row are shared by them; the rings are updated in place
+LAYOUT = dict(channels=(1, None, None, None, None, 1, 1, 1), out_channels=(1, 1, 1, 1),
+              inplace=(5, 6))
 # the launch as a torch.autograd.Function (the rings marked dirty, not
-# saved), its backward reverse_echo_scan_bwd
-_differentiable = diffable.kernel_function("reverse_echo_scan", _launch, _backward)
+# saved), its backward reverse_echo_scan_bwd; on CPU tensors (a call under
+# torch.func) the plain version stands in for the launch
+_differentiable = diffable.kernel_function(
+    "reverse_echo_scan",
+    lambda *args, **kw: (_launch if args[0].is_cuda else reverse_echo_scan_ref)(*args, **kw),
+    _backward, **LAYOUT)

@@ -66,8 +66,8 @@ _S = (
     float.fromhex("0x1.1107605230bc4p-7"),
     float.fromhex("-0x1.994eb3774cf24p-13"),
 )
-_TINY_TOP = 0x398  # abstop12(2^-12)
-_BIG_TOP = 0x42F  # abstop12(120)
+_TINY = 2.0 ** -12  # the least float32 of abstop12 0x398
+_BIG = 120.0  # the least float32 of abstop12 0x42F
 
 
 def _wide(v):
@@ -89,7 +89,10 @@ def fmaf(a, b, c):
         # float32 midpoint (its low 29 mantissa bits 1000...0) that p + c is
         # not on: step s one float64 ulp towards p + c there (the step is
         # exact, and s + step is the neighbour itself)
-        fix = ((s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000) & (err != 0)
+        # (the bits from frexp's significand, exact in int64: torch.func.vmap
+        # has no rule for a dtype view)
+        low = (torch.frexp(s.abs()).mantissa * 2.0 ** 53).to(torch.int64) & 0x1FFFFFFF
+        fix = (low == 0x10000000) & (err != 0) & torch.isfinite(s)
         step = torch.nextafter(s, torch.full_like(s, torch.inf).copysign(err)) - s
     return torch.where(fix, s + step, s).float()
 
@@ -114,7 +117,10 @@ def sincosf(y):
     by the quadrant's parity (below π/4 the reduction is exact, n = 0)."""
     y = y.to(torch.float32)
     x = y.double()
-    top = (y.abs().view(torch.int32) >> 20) & 0x7FF
+    # abstop12(y) >= abstop12(120) is |y| >= 120 and abstop12(y) <
+    # abstop12(2^-12) is |y| < 2^-12: compares, not a dtype view (which
+    # torch.func.vmap cannot batch)
+    big, tiny = y.abs() >= _BIG, y.abs() < _TINY
     n = (torch.trunc(x * _HPI_INV).to(torch.int64) + 0x800000) >> 24
     nd = n.double()
     r = (x - nd * _HPI_HI) - nd * _HPI_LO
@@ -130,10 +136,9 @@ def sincosf(y):
     cos_p = torch.where((n & 2) != 0, -cos_p, cos_p)
     odd = (n & 1) == 1
     sin_w, cos_w = torch.where(odd, cos_p, sin_p), torch.where(odd, sin_p, cos_p)
-    big = top >= _BIG_TOP  # the library's slow reduction: float64 sin and cos
+    # big: the library's slow reduction, float64 sin and cos
     sin_w = torch.where(big, torch.sin(x), sin_w).float()
     cos_w = torch.where(big, torch.cos(x), cos_w).float()
-    tiny = top < _TINY_TOP
     return torch.where(tiny, y, sin_w), torch.where(tiny, torch.ones_like(y), cos_w)
 
 

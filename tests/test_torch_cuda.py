@@ -813,22 +813,166 @@ def test_probe_gradient_on_card_matches_cpu(cuda):
 
 @pytest.mark.parametrize("kernel", ["ks", "ks_blocked"])
 def test_backward_without_kernel_raises_on_card(cuda, kernel):
-    """The string, whose backward is not ported (in either order), raises
-    NotImplementedError when a gradient is asked for; no plain version
-    runs as a backward."""
-    from pygmu2_tpu_torch.ops import ks
+    """A launch given no backward kernel (here the string's two launches,
+    wrapped without theirs) raises NotImplementedError when a gradient is
+    asked for; no plain version runs as a backward."""
+    from pygmu2_tpu_torch.ops import diffable, ks
 
     T, L = 256, 40
     (x,) = _seeded(cuda, 5, (T, 2))
     x = x.abs().requires_grad_()
     (buf,) = _seeded(cuda, 6, (L,))
     rho = torch.full((T,), 0.99, device=cuda) * x[:, 0]
-    out = ks.ks_scan(rho, torch.ones(T, dtype=torch.bool, device=cuda), buf,
-                     torch.tensor(0, dtype=torch.int32, device=cuda),
-                     torch.zeros((), device=cuda), torch.zeros((), device=cuda), L=L,
-                     allpass_c=0.3, all_active=kernel == "ks_blocked")[0]
+    state = (torch.tensor(0, dtype=torch.int32, device=cuda), torch.zeros((), device=cuda),
+             torch.zeros((), device=cuda))
+    if kernel == "ks":
+        fn = diffable.kernel_function("ks_scan", ks._launch)
+        out = fn(rho, torch.ones(T, dtype=torch.bool, device=cuda), buf, *state, L=L,
+                 allpass_c=0.3)[0]
+    else:
+        fn = diffable.kernel_function("ks_scan (blocked)", ks._launch_blocked)
+        out = fn(rho, buf, *state, L=L, allpass_c=0.3)[0]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         out.sum().backward()
+
+
+# ---- the string's backward kernel: against its plain adjoint ----
+
+@pytest.mark.parametrize("L,T,head,blocked", [(2, 700, 3, False), (3, 1001, 10, False),
+                                              (9, 4097, 0, False), (83, 4096, 100, False),
+                                              (535, 4096, 0, True), (133, 16384, 0, True),
+                                              (51201, 2048, 10, False),
+                                              (51201, 2048, 0, True)])
+def test_string_backward_kernel_matches_plain(cuda, L, T, head, blocked):
+    """ks_scan's gradient on the card (rho, the string, the allpass state)
+    is a launch of csrc/ks_scan_bwd.cu, in either order, within 1e-5 of the
+    plain adjoint (measured bit for bit); a string past MAX_KERNEL_L keeps
+    its tape's cotangent in global memory."""
+    from pygmu2_tpu_torch.ops import ks
+
+    rho, buf, ai, ao = _seeded(cuda, L + T, (T,), (L,), (), (), lo=-1.0, hi=1.0)
+    rho = 0.97 + 0.029 * rho.abs()
+    act = torch.arange(T, device=cuda) >= head
+    if not blocked:
+        act[T // 3:T // 3 + 40] = False
+    r = torch.tensor(L // 3, dtype=torch.int32, device=cuda)
+    ins = [t.clone().requires_grad_() for t in (rho, buf, ai, ao)]
+    before = ks.ks_scan_bwd.launches
+    y, buf2, _, ai2, ao2 = ks.ks_scan(ins[0], act, ins[1], r, ins[2], ins[3], L=L,
+                                      allpass_c=0.35, all_active=blocked)
+    cts = _seeded(cuda, L + T + 1, (T,), (L,), (), ())
+    got = torch.autograd.grad((y, buf2, ai2, ao2), ins, cts)
+    torch.cuda.synchronize()
+    assert ks.ks_scan_bwd.launches == before + 1
+    want = ks.ks_scan_bwd_ref(rho, None if blocked else act, buf, r, y.detach(), *cts, L=L,
+                              allpass_c=0.35)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= BWD_TOL * float(w.abs().max()), (g, w)
+
+
+def test_string_fit_gradient_on_card_matches_cpu(cuda):
+    """fit_workload's string render, four blocks of 512 (the first per
+    sample, the rest blocked): the card's gradients within 1e-3 relative
+    of the CPU's (the plain versions under autograd)."""
+    from pygmu2_tpu_torch import fit_workload as fw
+    from pygmu2_tpu_torch.ops import ks
+
+    L, c = fw.string_shape()
+    exc = torch.from_numpy(fw.string_excitation(L, 0))
+    n = 4 * 512 - fw.STRING_HEAD
+
+    def grads(device):
+        e = exc.to(device).requires_grad_()
+        rho = torch.tensor(0.997, device=device, requires_grad=True)
+        out = fw.render_string(e, rho, n, 512, allpass_c=c)
+        return torch.autograd.grad((out ** 2).mean(), [e, rho])
+
+    before = ks.ks_scan_bwd.launches
+    got = grads(cuda)
+    assert ks.ks_scan_bwd.launches == before + 4
+    for g, w in zip(got, grads("cpu")):
+        assert float((g.cpu() - w).abs().max()) <= 1e-3 * float(w.abs().max())
+
+
+# ---- batched bindings: torch.func.vmap over render_functional on the card ----
+
+@pytest.mark.parametrize("graph", ["probe", "bank"])
+def test_vmap_render_on_card_matches_loop(cuda, graph):
+    """torch.func.vmap over render_functional on the card equals the loop
+    of renders bit for bit: the probe's ladder and comb (batched columns:
+    one launch per member) and the 8-channel bank's scan (batched planes:
+    folded into 16 channels, one launch). The summed loss's gradient gives
+    each candidate's within 1e-5 relative."""
+    import pygmu2_tpu_torch as pt
+    from pygmu2_tpu_torch import fit_workload as fw
+    from pygmu2_tpu_torch import patch_workload
+    from pygmu2_tpu_torch.core import engine
+    from pygmu2_tpu_torch.ops import comb, ladder, linrec_kernel
+
+    pt.set_sample_rate(44100)
+    if graph == "probe":
+        g, n, block = fw.build_probe(pt, 2048), 2048, 512
+        batch = {"cutoff": [900.0, 2500.0], "fb": [0.3, 0.6]}
+        fns, per_block = (ladder.ladder_scan, comb.comb_scan), 2
+    else:
+        saws = pt.ArrayPE(patch_workload.detuned_saws(8192, 0, channels=8))
+        low = pt.BiquadPE(saws, fw._swept_around(pt, pt.ParamPE("low_hz"), 0.25, 1200.0), 4.0,
+                          mode=pt.BiquadMode.LOWPASS)
+        g, n, block = pt.CropPE(pt.GainPE(low, 0.5), 0, 8192), 8192, 4096
+        batch = {"low_hz": [900.0, 1500.0]}
+        fns, per_block = (linrec_kernel.affine_scan_2_kernel,), 1
+    keys = list(batch)
+
+    def render(b):
+        return engine.render_functional(g, 0, n, block, b, device=cuda)
+
+    before = [f.launches for f in fns]
+    out = torch.func.vmap(render)({k: torch.tensor(v, device=cuda) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(fns, before)] == [per_block * (n // block)] * len(fns)
+    loop = [render({k: torch.tensor(v[i], device=cuda) for k, v in batch.items()})
+            for i in range(2)]
+    assert torch.equal(out, torch.stack(loop))
+    vals = {k: torch.tensor(v, device=cuda, requires_grad=True) for k, v in batch.items()}
+    summed = torch.autograd.grad(
+        torch.func.vmap(lambda b: (render(b) ** 2).mean())(vals).sum(), list(vals.values()))
+    for i in range(2):
+        one = {k: torch.tensor(v[i], device=cuda, requires_grad=True) for k, v in batch.items()}
+        want = torch.autograd.grad((render(one) ** 2).mean(), list(one.values()))
+        for s_, w in zip(summed, want):
+            assert abs(float(s_[i]) - float(w)) <= 1e-5 * abs(float(w))
+
+
+def test_vmap_fold_keeps_rings_on_card(cuda):
+    """The echo vmapped over its input with fresh, unbatched rings: one
+    launch on the folded channels, equal to the loop bit for bit, and the
+    rings handed in are not written."""
+    from pygmu2_tpu_torch.ops import reverse_echo
+
+    T, C, cap, plen = 2048, 2, 400, 133
+    kw = dict(sr=8000.0, plen=plen, cap=cap, min_block=64, max_block=cap - 1,
+              smooth_alpha=1 / 2400)
+    (x,) = _seeded(cuda, 9, (3, T, C))
+    col = lambda v: torch.full((T,), v, device=cuda)  # noqa: E731
+    misc = torch.zeros(9, device=cuda)
+    misc[0], misc[5], misc[6], misc[8] = 1, 160.0, 160.0, 1
+    rings = [torch.zeros(cap, C, device=cuda), torch.zeros(cap, C, device=cuda),
+             torch.zeros(plen, C, device=cuda)]
+
+    def call(xb):
+        return reverse_echo.reverse_echo_scan(xb, col(0.02), col(1.5), col(0.6), col(1.0),
+                                              *rings, misc, **kw)
+
+    before = reverse_echo.reverse_echo_scan.launches
+    out = torch.func.vmap(call)(x)
+    torch.cuda.synchronize()
+    assert reverse_echo.reverse_echo_scan.launches == before + 1
+    assert all(float(r.abs().max()) == 0.0 for r in rings)
+    for i in range(3):
+        want = reverse_echo.reverse_echo_scan(x[i], col(0.02), col(1.5), col(0.6), col(1.0),
+                                              *(r.clone() for r in rings), misc, **kw)
+        for o, w in zip(out, want):
+            assert torch.equal(o[i], w)
 
 
 # ---- the effects chain's backward kernels: against their plain adjoints ----

@@ -2349,14 +2349,16 @@ BWD_TOL = 1e-4  # of the largest plain cotangent of each output
 # ladder backward per (sample, channel), os_n = 2: the forward's 82 (the
 #   primal values the adjoint reads); two steps' adjoints: four stages 7
 #   each, mix 4, tanh 3, feedback 8, input 4: 2 x 47; the decay's 9
-#   products and the input's 2: 11. (The kernel recomputes each sample's
-#   steps from its entering state, (1 + 2) x 35 more: not counted.)
+#   products and the input's 2: 11. (The kernel re-walks each chunk from
+#   its checkpoint twice and walks ten cotangents back through the
+#   transfers: not counted.)
 LADDER_BWD_OPS = LADDER_OPS + 2 * 47 + 11
-# comb backward: per sample the smoother and delay 13 and the smoother's
-#   adjoint 3; per (sample, channel) the feedback multiply-add 2, the
-#   feedback's part 1, the channel sum 1; the output ring's cotangent added
-#   where the ring overlaps the call's samples, 1 per (sample, channel) there
-COMB_BWD_OPS_SAMPLE, COMB_BWD_OPS_CHANNEL = 16, 4
+# comb backward: per sample the smoother's adjoint 3 (the delays and the
+#   windows are the forward's residuals); per (sample, channel) the
+#   feedback multiply-add 2, the feedback's part 1, the channel sum 1; the
+#   output ring's cotangent added where the ring overlaps the call's
+#   samples, 1 per (sample, channel) there
+COMB_BWD_OPS_SAMPLE, COMB_BWD_OPS_CHANNEL = 3, 4
 # the scan's backward per (sample, channel): the adjoint recurrence (a
 #   transposed 2x2 product and the cotangent added) 8, gA's 4 products; a
 #   plane shared by the channels summed over them, 1 more each
@@ -2368,9 +2370,10 @@ SCAN_BWD_OPS, SCAN_BWD_OPS_SHARED = 12, 1
 # cotangents, and the backward's results
 BWD_CALLS = {
     "ladder_scan": ("ladder_scan_bwd", lambda args, outs, grads, got: (
-        [*args, *grads], list(got))),
+        [*args, grads[0], grads[1], outs[2]], list(got))),
     "comb_scan": ("comb_scan_bwd", lambda args, outs, grads, got: (
-        [*args, outs[0], grads[0], grads[1], grads[3]], [got[i] for i in (0, 1, 2, 3, 5)])),
+        [*args, outs[0], grads[0], grads[1], grads[3], tuple(outs[4:8])],
+        [got[i] for i in (0, 1, 2, 3, 5)])),
     "affine_scan_2": ("affine_scan_2_bwd", lambda args, outs, grads, got: (
         [*args, *outs, *grads], list(got))),
     "envelope_ar_scan": ("envelope_ar_scan_bwd", lambda args, outs, grads, got: (
@@ -2396,6 +2399,8 @@ def recording(keep: dict):
     calls = {name: [] for name in keep}
 
     def copy(a):  # a plane shared by the channels stays one column
+        if isinstance(a, tuple):  # the comb's residuals
+            return tuple(copy(v) for v in a)
         if not isinstance(a, torch.Tensor):
             return a
         if a.dim() == 2 and a.shape[1] > 1 and a.stride(1) == 0:
@@ -2454,7 +2459,12 @@ def plain_backward_on_host(kind: str, args, kw, got):
 def _host(calls):
     """A recorded call's tensors as numpy arrays (for a second process)."""
     args, kw, out = calls[0]
-    to_np = lambda v: v.cpu().numpy() if isinstance(v, torch.Tensor) else v  # noqa: E731
+
+    def to_np(v):
+        if isinstance(v, tuple):
+            return tuple(to_np(a) for a in v)
+        return v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+
     return [to_np(a) for a in args], kw, [to_np(o) for o in out]
 
 
@@ -2465,6 +2475,42 @@ def _check_bwd(name, errs, what, tol=BWD_TOL):
         check(err <= tol * scale, f"{name} {what}: output {i} differs from its plain "
               f"version by {err} (largest plain {scale})")
     return max(err for err, _ in errs)
+
+
+def order_checks(bwd, rec_l, rec_c, what):
+    """Recorded backward launches of the ladder and the comb against their
+    kernels' order in torch ops on the card (``ladder_scan_bwd_chunked``,
+    ``comb_scan_bwd_windows``): the comb's bit for bit, the ladder's within
+    BWD_TOL of its largest cotangent with its largest difference printed;
+    and each launched again on the same inputs: the same bits."""
+    from pygmu2_tpu_torch.ops import comb, ladder
+
+    t = time.perf_counter()
+    worst, equal = {}, {}
+    for key, calls, order in (("ladder", rec_l, ladder.ladder_scan_bwd_chunked),
+                              ("comb", rec_c, comb.comb_scan_bwd_windows)):
+        worst[key], equal[key] = 0.0, True
+        for j, (args, kw, got) in enumerate(calls):
+            want = order(*args, **kw)
+            again = bwd[key](*args, **kw)
+            for i, (g, a, w) in enumerate(zip(got, again, want)):
+                w = w.reshape(g.shape)
+                check(torch.equal(g, a), f"{key} backward, {what} launch {j}: output {i} "
+                      "differs between two launches")
+                err, scale = float((g - w).abs().max()), float(w.abs().max())
+                worst[key] = max(worst[key], err)
+                equal[key] &= torch.equal(g, w)
+                if key == "comb":
+                    check(err == 0.0, f"comb backward, {what} launch {j}: output {i} differs "
+                          f"from comb_scan_bwd_windows by {err}")
+                else:
+                    check(err <= BWD_TOL * scale, f"ladder backward, {what} launch {j}: output "
+                          f"{i} differs from ladder_scan_bwd_chunked by {err} (largest {scale})")
+    print(f"{what}: {len(rec_l)} ladder and {len(rec_c)} comb backward launches against their "
+          f"kernels' order in torch ops on the card ({time.perf_counter() - t:.1f} s): ladder "
+          f"max abs diff {worst['ladder']:.3g} (bit for bit: {equal['ladder']}), comb "
+          f"{worst['comb']:.3g} (bit for bit: {equal['comb']}); a second launch of each the "
+          f"same bits")
 
 
 def training(dev, card) -> list:
@@ -2566,7 +2612,7 @@ def _training(dev, card, pool) -> list:
         errs["ladder_scan_bwd"] = max(errs["ladder_scan_bwd"], _check_bwd(
             "ladder_scan_bwd", _bwd_errors([g.cpu() for g in got], per), f"probe launch {j}"))
     for j, (cargs, kw, got) in enumerate(rec_c):
-        want = comb.comb_scan_bwd_ref(*(a.cpu() for a in cargs), **kw)
+        want = comb.comb_scan_bwd_ref(*(a.cpu() for a in cargs[:10]), **kw)
         errs["comb_scan_bwd"] = max(errs["comb_scan_bwd"], _check_bwd(
             "comb_scan_bwd", _bwd_errors([g.cpu() for g in got], want), f"probe launch {j}"))
     print(f"training probe: all {len(rec_l)} ladder and {len(rec_c)} comb backward launches "
@@ -2574,6 +2620,21 @@ def _training(dev, card, pool) -> list:
           f"{time.perf_counter() - t:.1f} s): max abs err ladder "
           f"{errs['ladder_scan_bwd']:.3g}, comb {errs['comb_scan_bwd']:.3g}")
     probe_calls = {"ladder_scan_bwd": rec_l[0], "comb_scan_bwd": rec_c[0]}
+    order_checks(bwd, rec_l, rec_c, "probe")
+    # the forward with checkpoints against the forward without, and the
+    # checkpoints against the plain forward's entering states
+    fwd_args, fwd_kw = rec_l[0][0][:6], rec_l[0][1]
+    y0, s0 = ladder.ladder_scan(*fwd_args, **fwd_kw)
+    y1, s1, ckpt = ladder._launch(*fwd_args, **fwd_kw, checkpoints=True)  # as recorded
+    check(torch.equal(y0, y1) and torch.equal(s0, s1),
+          "ladder forward: y or the state differ with checkpoints")
+    check(torch.equal(ckpt, rec_l[0][0][8]), "ladder forward: checkpoints differ from the "
+          "recorded launch's")
+    check(torch.equal(ckpt, ladder.ladder_checkpoints_ref(*fwd_args, **fwd_kw)),
+          "ladder forward: checkpoints differ from the plain forward's entering states")
+    print(f"ladder forward (T={fwd_args[0].shape[0]}): y and the state bit for bit with and "
+          f"without checkpoints; the checkpoints ({tuple(ckpt.shape)}) bit for bit with the "
+          f"recorded launch's and the plain forward's entering states")
 
     # ---- (b) the fit patch and (c) the fit bank, by Adam ----
     def fit_run(label, graph, seconds, start, hidden, steps, keep):
@@ -2624,6 +2685,7 @@ def _training(dev, card, pool) -> list:
         total["ladder"] += nb["ladder"]
         total["comb"] += nb["comb"]
     patch_calls = {name: calls[0] for name, calls in recs.items()}
+    order_checks(bwd, recs["ladder_scan_bwd"], recs["comb_scan_bwd"], "fit patch")
     host_jobs = {name: pool.submit(plain_backward_on_host, name.split("_")[0],
                                    *_host(calls))
                  for name, calls in recs.items()}
@@ -2656,7 +2718,38 @@ def _training(dev, card, pool) -> list:
         fargs, fkw, _ = patch_calls[name]
         _, plain = timed_plain(lambda: ref(*pargs, **pkw))
         times[name] = (device_ms(lambda: fn(*pargs, **pkw), 10), plain,
-                       device_ms(lambda: fn(*fargs, **fkw), 5))
+                       device_ms(lambda: fn(*fargs, **fkw), 10))
+    # the comb at the fit patch's T and 128 channels (the channel tiling):
+    # seeded rows on the patch's control residuals
+    fargs, fkw, _ = patch_calls["comb_scan_bwd"]
+    T, L = fargs[0].shape[0], fargs[3].shape[0]
+    x, buf, y, gy, gbuf = _seeded(dev, 16, (T, 128), (L, 128), (T, 128), (T, 128), (L, 128))
+    wide = [x, fargs[1], fargs[2], buf, fargs[4], fargs[5], y, gy, gbuf, *fargs[9:]]
+    comb_wide_ms = device_ms(lambda: bwd["comb"](*wide, **fkw), 10)
+    # each launch of a call alone (torch.profiler's device events): a call
+    # at the probe's T is short enough that CUDA events count the host too
+    splits = {}
+    for name in ("ladder_scan_bwd", "comb_scan_bwd"):
+        for label, (a, k, _) in (("probe", probe_calls[name]), ("patch", patch_calls[name])):
+            splits[name, label] = launch_split(
+                lambda fn=bwd[name.split("_")[0]], a=a, k=k: fn(*a, **k),
+                key=name.split("_")[0] + "_bwd")
+    splits["comb_scan_bwd", "wide"] = launch_split(lambda: bwd["comb"](*wide, **fkw),
+                                                   key="comb_bwd")
+    # the forward ladder at the fit patch's T, with and without checkpoints
+    largs, lkw, _ = patch_calls["ladder_scan_bwd"]
+    fwd_ms = {False: [], True: []}  # in turns: without, with, without, with
+    for mode in (False, True, False, True):
+        fwd_ms[mode].append(device_ms(
+            lambda: ladder._launch(*largs[:6], **lkw, checkpoints=mode), 10))
+    # the checkpoint interval K: the chosen one against twice it, at the fit
+    # patch's T (each launch alone, summed)
+    by_k = {}
+    for K in (ladder.CHECKPOINT_EVERY, 2 * ladder.CHECKPOINT_EVERY):
+        ck = ladder._launch(*largs[:6], **lkw, checkpoints=True, every=K)[2]
+        by_k[K] = sum(launch_split(
+            lambda: ladder._launch_bwd(*largs[:5], ck, *largs[6:8], **lkw, every=K),
+            key="ladder_bwd").values())
     _, plain = timed_plain(lambda: linrec_kernel.affine_scan_2_bwd_ref(*sargs, **skw))
     times["affine_scan_2_bwd"] = (device_ms(lambda: bwd["scan"](*sargs, **skw), 10), plain,
                                   kernel_ms(lambda: bwd["scan"](*sargs, **skw),
@@ -2686,21 +2779,25 @@ def _training(dev, card, pool) -> list:
     L = patch_calls["comb_scan_bwd"][0][3].shape[0]
 
     def ladder_bound(T, C):
-        # x, gy, gx; the four columns and their cotangents; the state in,
-        # its cotangent in and out. Scratch: each sample's entering state
-        # (9 a channel) and the columns' per-channel parts (4), each
-        # written and read
+        # the function's data alone: x, gy, gx; the four columns and their
+        # cotangents; the state in, its cotangent in and out. Scratch: the
+        # design's own, each written and read: the checkpoints (9 a
+        # channel every K samples), the chunks' transfers (96 a chunk and
+        # channel) and the cotangents leaving them (9), the columns'
+        # per-channel parts (4 a sample and channel)
+        n = -(-T // ladder.CHECKPOINT_EVERY)
         return (bound(4 * (3 * T * C + 8 * T + 27 * C), LADDER_BWD_OPS * T * C),
-                4 * 2 * (9 + 4) * T * C)
+                4 * 2 * (9 * n * C + (n - 1) * (96 + 9) * C + 4 * T * C))
 
     def comb_bound(T, C):
-        # y, gy, gx; the ring in, its cotangents out and in; freq, fb and
-        # their cotangents. Scratch: the delays and the smoothed values,
-        # the tape's cotangent (L + T rows), the feedback's per-channel
-        # parts, each written and read
+        # the function's data alone: y, gy, gx; the ring in, its cotangents
+        # out and in; freq, fb and their cotangents. Scratch: the design's
+        # own, each written and read: the forward's delays, window bounds
+        # and count and smoothed values, the feedback's per-channel parts
+        # (the tape's cotangent stays in shared memory)
         return (bound(4 * (3 * T * C + 3 * L * C + 4 * T),
                       COMB_BWD_OPS_SAMPLE * T + COMB_BWD_OPS_CHANNEL * T * C + min(L, T) * C),
-                4 * 2 * (2 * T + (L + T) * C + T * C))
+                4 * 2 * (3 * T + 2 + T * C))
 
     sT, sC = sargs[4].shape
     shared = [a.dim() == 2 and (a.shape[1] == 1 or a.stride(1) == 0) for a in sargs[:4]]
@@ -2728,6 +2825,22 @@ def _training(dev, card, pool) -> list:
         if bnd_patch is None:
             entry.update(shape=f"T={sT} C={sC}, the fit bank's", kernel_ms=third)
         else:
+            entry.update(kernel_ms=sum(splits[name, "probe"].values()),
+                         kernel_ms_patch=sum(splits[name, "patch"].values()))
+            for label in ("probe", "patch", "wide"):
+                if (name, label) in splits:
+                    print(f"{name} ({label}): each launch alone, ms a call: " + ", ".join(
+                        f"{k[:48]} {v:.4f}" for k, v in splits[name, label].items()))
+        if key == "comb":
+            wide_bnd, wide_scratch = comb_bound(fT, 128)
+            entry.update(ms_wide=comb_wide_ms, bound_ms_wide=wide_bnd[0],
+                         scratch_bytes_wide=wide_scratch,
+                         kernel_ms_wide=sum(splits[name, "wide"].values()),
+                         shape_wide=f"T={fT} C=128, seeded rows on the fit patch's controls")
+        elif key == "ladder":
+            entry.update(forward_ms=fwd_ms[False], forward_ms_checkpoints=fwd_ms[True],
+                         kernel_ms_patch_by_checkpoint_interval=by_k)
+        if bnd_patch is not None:
             bnd_patch, scratch_patch = bnd_patch
             entry.update(shape=f"T={pT} C={pC}, the probe's", ms_patch=third,
                          bound_ms_patch=bnd_patch[0], scratch_bytes_patch=scratch_patch,
@@ -2740,6 +2853,12 @@ def _training(dev, card, pool) -> list:
                  f"(scratch {scratch_patch} bytes)"
                  if bnd_patch else f"; the scan's launch alone {third:.4f} ms")
               + f"; {entry['launches']} launches on the training path [{card}]")
+    print(f"comb_scan_bwd at T={fT} C=128: kernel {comb_wide_ms:.4f} ms [{card}]")
+    print(f"ladder_scan forward at T={fT} C=1, in turns: without checkpoints "
+          f"{', '.join(f'{v:.4f}' for v in fwd_ms[False])} ms, with "
+          f"{', '.join(f'{v:.4f}' for v in fwd_ms[True])} ms [{card}]")
+    print(f"ladder_scan_bwd at T={fT} C=1 by checkpoint interval, launches alone: " + ", ".join(
+        f"K={k} {v:.4f} ms" for k, v in by_k.items()) + f" [{card}]")
     print(f"training: phase took {time.perf_counter() - t0:.1f} s")
     return entries
 

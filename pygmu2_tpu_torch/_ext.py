@@ -100,19 +100,20 @@ def load() -> ctypes.CDLL:
         # rows_f, rows_i, wave, L, state_in, out, state_out, scratch_f, n_f,
         # scratch_i, n_i, B, P, N, stream
         "osc_filter_gain_mix_launch": [p, p, p, i, p, p, p, p, q, p, q, i, i, i, p],
-        # x, al, qa, ki, dsc, state_in, y, state_out, T, C, os_n, pbg,
-        # mode_index, input_threshold, state_decay, stream
-        "ladder_scan_launch": [p] * 8 + [i, i, i, f, i, f, f, p],
-        # x, al, qa, ki, dsc, state_in, gy, gstate, gx, gcols, gstate_in, traj,
-        # part, T, C, os_n, pbg, mode_index, input_threshold, state_decay, stream
-        "ladder_scan_bwd_launch": [p] * 13 + [i, i, i, f, i, f, f, p],
-        # freq, fb, buf_in, pos_in, sf_in, y, gy, gbuf, gsf, gx, gfreq, gfb,
-        # gbuf_in, gsf_in, delay, sf_prev, G, part, T, C, L, sr, smooth_alpha,
-        # stream
-        "comb_scan_bwd_launch": [p] * 18 + [i, i, i, f, f, p],
+        # x, al, qa, ki, dsc, state_in, y, state_out, ckpt (or null), every, T,
+        # C, os_n, pbg, mode_index, input_threshold, state_decay, stream
+        "ladder_scan_launch": [p] * 9 + [i, i, i, i, f, i, f, f, p],
+        # x, al, qa, ki, dsc, ckpt, gy, gstate, gx, gcols, gstate_in, transfers,
+        # g_end, part, T, C, K, os_n, pbg, mode_index, input_threshold,
+        # state_decay, stream
+        "ladder_scan_bwd_launch": [p] * 14 + [i, i, i, i, f, i, f, f, p],
+        # fb, buf_in, pos_in, sf_in, y, gy, gbuf, gsf, delay, bounds, n_windows,
+        # smoothed, gx, gfreq, gfb, gbuf_in, gsf_in, part, ring (or null), T, C,
+        # L, smooth_alpha, stream
+        "comb_scan_bwd_launch": [p] * 19 + [i, i, i, f, p],
         # x, freq, fb, buf_in, pos_in, sf_in, y, buf_out, pos_out, sf_out,
-        # delay, bounds, n_windows, T, C, L, sr, smooth_alpha, stream
-        "comb_scan_launch": [p] * 13 + [i, i, i, f, f, p],
+        # delay, bounds, n_windows, smoothed, T, C, L, sr, smooth_alpha, stream
+        "comb_scan_launch": [p] * 14 + [i, i, i, f, f, p],
         # gate, state_in, env, state_out, env_next, T, dA, dD, dR, sus,
         # sustain_samples (-1: gated), stream
         "adsr_scan_launch": [p] * 5 + [i, f, f, f, f, i, p],

@@ -47,6 +47,9 @@
 //    by one thread per channel instead, with no barrier inside a run of
 //    them. The ring is never kept: its final state is the last L samples
 //    of [ring ; y], gathered at the end.
+// The backward (comb_scan_bwd.cu) reads the delay table, the windows and
+// the smoothed values (`smoothed`, written beside the delays by warps 2-7)
+// as residuals; it runs no control pass of its own.
 // Per-sample arithmetic is that of the plain version, in explicitly
 // rounded float ops, __fdiv_rn and rintf, so the kernel equals the plain
 // PyTorch version bit for bit; only the order in which independent samples
@@ -137,7 +140,7 @@ __device__ __forceinline__ void walk(const float* __restrict__ in, float* __rest
 __global__ void __launch_bounds__(kCtlThreads) comb_control(
     const float* __restrict__ freq, const int* __restrict__ pos_in,
     const float* __restrict__ sf_in, int* __restrict__ delay,
-    int* __restrict__ bounds, int* __restrict__ n_windows,
+    int* __restrict__ bounds, int* __restrict__ n_windows, float* __restrict__ smoothed,
     int* __restrict__ pos_out, float* __restrict__ sf_out, int T, int L,
     float sr, float alpha) {
   // padded by 8: thread 0 reads 16-byte vectors past a chunk's end
@@ -155,6 +158,7 @@ __global__ void __launch_bounds__(kCtlThreads) comb_control(
   auto delays = [&](int j) {  // warps 2-7: chunk j's delays
     const int base = j * kChunk, n = min(kChunk, T - base), b = j & 1;
     for (int i = tid - 64; i < n; i += step) {
+      smoothed[base + i] = s_sf[b][i];
       const int d = (int)rintf(__fdiv_rn(sr, fmaxf(s_sf[b][i], 1.0f)));
       s_d[b][i] = delay[base + i] = min(max(d, 1), L - 1);
     }
@@ -284,17 +288,18 @@ extern "C" {
 // Enqueues the two launches on `stream`; returns the first cudaError_t (0
 // when both were accepted). Device pointers: x / y (T, C) f32, freq / fb
 // (T,) f32, buf_in / buf_out (L, C) f32, pos_in / pos_out () i32, sf_in /
-// sf_out () f32; scratch: delay (T,) i32, bounds (T + 1,) i32, n_windows
-// (1,) i32. Needs L >= 2.
+// sf_out () f32; the control pass's results, kept for the backward: delay
+// (T,) i32, bounds (T + 1,) i32 (the windows' starts, then T), n_windows
+// (1,) i32, smoothed (T,) f32. Needs L >= 2.
 int comb_scan_launch(const float* x, const float* freq, const float* fb,
                      const float* buf_in, const int* pos_in,
                      const float* sf_in, float* y, float* buf_out, int* pos_out,
-                     float* sf_out, int* delay, int* bounds, int* n_windows,
+                     float* sf_out, int* delay, int* bounds, int* n_windows, float* smoothed,
                      int T, int C, int L, float sr, float smooth_alpha,
                      cudaStream_t stream) {
   if (L < 2) return (int)cudaErrorInvalidValue;
   comb_control<<<1, kCtlThreads, 0, stream>>>(freq, pos_in, sf_in, delay, bounds,
-                                              n_windows, pos_out, sf_out, T, L, sr,
+                                              n_windows, smoothed, pos_out, sf_out, T, L, sr,
                                               smooth_alpha);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

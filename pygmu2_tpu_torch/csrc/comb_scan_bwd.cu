@@ -20,110 +20,181 @@
 // the cotangent of the carried smoothed frequency sf_out, walked back
 // through the smoother (as jax.vjp of comb_scan_ref does).
 //
-// Design (simple and right first):
-// 1. comb_bwd_control, one thread: the smoother forward (the forward's
-//    rounded ops, so the same delays), keeping each sample's entering
-//    smoothed value, then its adjoint backward: gfreq and gsf.
-// 2. comb_bwd_walk, one thread per channel: fills its column of G, walks
-//    t backward serially (two reads and a read-modify-write of G a sample,
-//    in global memory), writes gx, the per-channel parts of gfb, and the
-//    entering ring's cotangent.
-// 3. channel_sum (channel_sum.cuh) adds the parts over the channels in
-//    channel order: no atomics, so two runs give the same bits.
+// Design (the first design reran the control pass on one thread and
+// walked G serially through device memory on one thread a channel: 5.1 ms
+// at T = 16384, C = 1 on an H100 80GB HBM3 at 700 W). The forward's control results are residuals (the
+// delay table, its greedy windows, the smoothed values), so no control
+// pass runs here. Three launches on the caller's stream:
+// 1. the smoother's adjoint, a first-order linear recurrence in reverse
+//    (coefficient 1 - alpha, or 0 where the select took f): the chunked
+//    reverse scan of order1_adjoint.cuh at one channel, gfreq and gsf_in;
+// 2. comb_bwd_windows, one CUDA block per group of up to 8 channels, 1024
+//    threads along time and channel: the forward's windows walked from the
+//    last. A forward window has no sample that reads a row the window
+//    writes, so in reverse no sample of a window adds into a row of the
+//    same window: when the walk reaches a window, all of its rows' G are
+//    complete, and all its samples and channels run at once (gx = G,
+//    gfb's part = G * value, G[src] += fb * G). Where the delay steps up,
+//    samples of a window read one row; such runs of equal t - delay_t are
+//    added by one thread, the last sample first, so every row takes its
+//    additions in decreasing t, the serial walk's order. A window whose
+//    t - delay_t falls somewhere (the delay jumping up by two or more), or
+//    shorter than 8 samples (at delay 1 every window is one sample), is
+//    walked by one thread a channel, with no barrier inside a run of such
+//    windows. G's live rows sit in a ring of 2L rows per channel in shared
+//    memory (a window is at most L - 1 samples long and reads at most
+//    L - 1 rows back, so 2L rows are never both live); when a thread reads
+//    a row's final G, it writes into the row's slot the initial value of
+//    the row 2L below, which takes the slot next. Past the shared memory
+//    (2L rows of one channel above 227 KB, L > 29056) the ring is in
+//    device memory.
+// 3. channel_sum (channel_sum.cuh) adds gfb's parts over the channels in
+//    channel order.
+// Every op is rounded once and no float atomics: two launches give the
+// same bits, and the kernel equals ops/comb.comb_scan_bwd_windows (the
+// same order in torch ops) bit for bit.
 //
-// What bounds it on this card: the serial walk, a dependent chain through
-// global memory (a sample's read of G may be the write of a later sample
-// just processed), ~1 us a sample. Bytes at T = 16384, C = 128,
-// L = 2206: x's, y's and gy's rows, G written and read, the parts, ~45 MB
-// (13 us at 3.35 TB/s). The window-parallel reverse (the forward's own
-// design run backward) is later work (ROADMAP queue 2).
+// What bounds it on this card: the windows in turn, one barrier and a few
+// dependent loads (delay, then the delayed value) each: ~80 windows at
+// T = 16384 for a 200-240 Hz sweep at 44.1 kHz. Bytes: y, gy and gx, the
+// ring's cotangents, the parts, the delays and windows, ~0.33 MB at
+// T = 16384, C = 1.
+//
+// Measured (chip_smoke.py phase 15, H100 80GB HBM3, 700 W; the launches
+// alone by torch.profiler): 0.122 ms at T = 16384, C = 1 (the window walk
+// 0.101 of it, the smoother's adjoint 0.020), 0.299-0.306 ms at C = 128, 0.018
+// ms at T = 1024.
 
 #include <cuda_runtime.h>
 
 #include "channel_sum.cuh"
+#include "order1_adjoint.cuh"
 
 namespace {
 
-constexpr int kThreads = 32;  // channels per CUDA block of the walk
+constexpr int kThreads = 1024;
+constexpr int kGroup = 8;        // channels per CUDA block of the walk
+constexpr int kMinParallel = 8;  // shorter windows: one thread per channel
+constexpr int kMaxShared = 232448;
 
-__global__ void comb_bwd_control(const float* __restrict__ freq, const float* __restrict__ sf_in,
-                                 const float* __restrict__ gsf, float* __restrict__ gfreq,
-                                 float* __restrict__ gsf_in, int* __restrict__ delay,
-                                 float* __restrict__ sf_prev, int T, int L, float sr,
-                                 float alpha) {
-  if (threadIdx.x != 0 || blockIdx.x != 0) return;
-  float sf = *sf_in;
-  for (int t = 0; t < T; ++t) {
-    const float f = freq[t];
-    sf_prev[t] = sf;
-    sf = sf < 0.0f ? f : __fadd_rn(sf, __fmul_rn(__fsub_rn(f, sf), alpha));
-    const int d = (int)rintf(__fdiv_rn(sr, fmaxf(sf, 1.0f)));
-    delay[t] = min(max(d, 1), L - 1);
+// the smoother's coefficient: 1 where the select took f (its entering value
+// negative), else alpha
+struct Smoother {
+  const float* smoothed;
+  const float* sf_in;
+  float alpha;
+  __device__ __forceinline__ float at(int t, int) const {
+    const float prev = t == 0 ? *sf_in : smoothed[t - 1];
+    return prev < 0.0f ? 1.0f : alpha;
   }
-  float g = *gsf;  // the cotangent of the smoothed value after sample t
-  for (int t = T - 1; t >= 0; --t) {
-    if (sf_prev[t] < 0.0f) {  // the select took f: sf_prev gets nothing
-      gfreq[t] = g;
-      g = 0.0f;
-    } else {
-      const float ga = g * alpha;
-      gfreq[t] = ga;
-      g = g - ga;
-    }
-  }
-  *gsf_in = g;
-}
+};
 
-__global__ void __launch_bounds__(kThreads) comb_bwd_walk(
+__global__ void __launch_bounds__(kThreads) comb_bwd_windows(
     const float* __restrict__ fb, const float* __restrict__ buf_in, const int* __restrict__ pos_in,
     const float* __restrict__ y, const float* __restrict__ gy, const float* __restrict__ gbuf,
-    const int* __restrict__ delay, float* __restrict__ gx, float* __restrict__ gbuf_in,
-    float* __restrict__ G, float* __restrict__ part, int T, int C, int L) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= C) return;
-  const int p0 = *pos_in;
-  // the tape's cotangent: gy on rows L.., buf_out's on the last L rows
-  for (int q = 0; q < L + T; ++q) {
+    const int* __restrict__ delay, const int* __restrict__ bounds,
+    const int* __restrict__ n_windows, float* __restrict__ gx, float* __restrict__ gbuf_in,
+    float* __restrict__ part, float* ring_global, int T, int C, int L) {
+  extern __shared__ float s_ring[];
+  const int W = blockDim.x, lanes = blockDim.y, tx = threadIdx.x, ty = threadIdx.y;
+  const int c = blockIdx.x * W + tx;
+  const bool live = c < C;
+  const int R = 2 * L;
+  float* ring = ring_global != nullptr ? ring_global + (long)blockIdx.x * R * W : s_ring;
+  const int p0 = *pos_in, nw = *n_windows;
+  auto slot = [&](int q) -> float& { return ring[(q % R) * W + tx]; };
+  auto init = [&](int q) {  // tape row q's cotangent before the walk
     float v = q >= L ? gy[(long)(q - L) * C + c] : 0.0f;
-    if (q >= T) v += gbuf[(long)((p0 + q) % L) * C + c];
-    G[(long)q * C + c] = v;
-  }
-  for (int t = T - 1; t >= 0; --t) {
-    const float g = G[(long)(L + t) * C + c];
-    const int src = L + t - delay[t];
-    const float val = src >= L ? y[(long)(src - L) * C + c] : buf_in[(long)((p0 + src) % L) * C + c];
+    if (q >= T) v = __fadd_rn(v, gbuf[(long)((p0 + q) % L) * C + c]);
+    return v;
+  };
+  // sample t: its row's cotangent out to gx and the part, its slot handed
+  // to the row 2L below, fb * G added into the row it read
+  auto sample = [&](int t) {
+    const int r = L + t, m = t - delay[t];
+    const float g = slot(r);
+    const float v = m >= 0 ? y[(long)m * C + c] : buf_in[(long)((p0 + L + m) % L) * C + c];
     gx[(long)t * C + c] = g;
-    part[(long)t * C + c] = g * val;
-    G[(long)src * C + c] += fb[t] * g;
+    part[(long)t * C + c] = __fmul_rn(g, v);
+    if (r >= R) slot(r) = init(r - R);
+    float& s = slot(L + m);
+    s = __fadd_rn(s, __fmul_rn(fb[t], g));
+  };
+
+  if (live)
+    for (int q = max(L + T - R, 0) + ty; q < L + T; q += lanes) slot(q) = init(q);
+  __syncthreads();
+  bool dirty = false;  // a parallel window wrote since the last barrier
+  for (int k = nw - 1; k >= 0; --k) {
+    const int a = bounds[k], b = bounds[k + 1];
+    bool parallel = false;
+    if (b - a >= kMinParallel) {  // the same branch for the whole block
+      int falls = 0;  // t - delay_t falls somewhere in the window
+      for (int t = a + ty; t + 1 < b; t += lanes) falls |= t + 1 - delay[t + 1] < t - delay[t];
+      parallel = !__syncthreads_or(falls);  // also: the later windows' adds are done
+      dirty = false;
+    }
+    if (parallel) {
+      if (live)
+        for (int t = a + ty; t < b; t += lanes) {
+          const int reads = t - delay[t];
+          if (t + 1 < b && t + 1 - delay[t + 1] == reads) continue;  // not its run's last
+          for (int u = t; u >= a && u - delay[u] == reads; --u) sample(u);
+        }
+      dirty = true;
+    } else {
+      if (dirty) __syncthreads();
+      dirty = false;
+      if (live && ty == 0)
+        for (int t = b - 1; t >= a; --t) sample(t);
+    }
   }
-  for (int q = 0; q < L; ++q) gbuf_in[(long)((p0 + q) % L) * C + c] = G[(long)q * C + c];
+  __syncthreads();
+  if (live)
+    for (int q = ty; q < L; q += lanes) gbuf_in[(long)((p0 + q) % L) * C + c] = slot(q);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Enqueues the control pass, the walk and the channel sum on `stream`;
-// returns the first cudaError_t (0 when all were accepted). Device
-// pointers: freq / fb / gfreq / gfb (T,) f32; buf_in / gbuf / gbuf_in (L, C)
-// f32; pos_in () i32; sf_in / gsf / gsf_in () f32; y / gy / gx (T, C) f32;
-// scratch delay (T,) i32, sf_prev (T,) f32, G (L + T, C) f32, part (T, C)
-// f32. Needs L >= 2.
-int comb_scan_bwd_launch(const float* freq, const float* fb, const float* buf_in,
-                         const int* pos_in, const float* sf_in, const float* y, const float* gy,
-                         const float* gbuf, const float* gsf, float* gx, float* gfreq,
-                         float* gfb, float* gbuf_in, float* gsf_in, int* delay, float* sf_prev,
-                         float* G, float* part, int T, int C, int L, float sr,
-                         float smooth_alpha, cudaStream_t stream) {
+// Enqueues the smoother's adjoint, the window walk and the channel sum on
+// `stream`; returns the first cudaError_t (0 when all were accepted).
+// Device pointers: fb / gfreq / gfb (T,) f32; buf_in / gbuf / gbuf_in
+// (L, C) f32; pos_in () i32; sf_in / gsf / gsf_in () f32; y / gy / gx
+// (T, C) f32; the forward's residuals delay (T,) i32, bounds (T + 1,) i32,
+// n_windows (1,) i32, smoothed (T,) f32; scratch part (T, C) f32 and, where
+// 2L floats exceed the shared memory, ring (C, 2L) f32 (else null). Needs
+// L >= 2.
+int comb_scan_bwd_launch(const float* fb, const float* buf_in, const int* pos_in,
+                         const float* sf_in, const float* y, const float* gy, const float* gbuf,
+                         const float* gsf, const int* delay, const int* bounds,
+                         const int* n_windows, const float* smoothed, float* gx, float* gfreq,
+                         float* gfb, float* gbuf_in, float* gsf_in, float* part, float* ring,
+                         int T, int C, int L, float smooth_alpha, cudaStream_t stream) {
   if (T < 1 || C < 1 || L < 2) return (int)cudaErrorInvalidValue;
-  comb_bwd_control<<<1, 32, 0, stream>>>(freq, sf_in, gsf, gfreq, gsf_in, delay, sf_prev, T, L,
-                                         sr, smooth_alpha);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = order1::launch(Smoother{smoothed, sf_in, smooth_alpha}, nullptr, gsf, gfreq,
+                                   gsf_in, T, 1, stream);
   if (err != cudaSuccess) return (int)err;
-  comb_bwd_walk<<<(C + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      fb, buf_in, pos_in, y, gy, gbuf, delay, gx, gbuf_in, G, part, T, C, L);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  int width = C < kGroup ? C : kGroup;
+  auto ring_bytes = [&](int w) { return 2 * (long)L * w * (long)sizeof(float); };
+  while (width > 1 && ring_bytes(width) > kMaxShared) width /= 2;
+  const long bytes = ring_bytes(width);
+  const bool in_shared = bytes <= kMaxShared;
+  if (!in_shared && ring == nullptr) return (int)cudaErrorInvalidValue;
+  const int smem = in_shared ? (int)bytes : 0;
+  static int allowed = 48 * 1024;  // the dynamic shared memory allowed so far
+  if (smem > allowed) {
+    err = cudaFuncSetAttribute(comb_bwd_windows, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return (int)err;
+    allowed = smem;
+  }
+  const dim3 threads(width, kThreads / width);
+  comb_bwd_windows<<<(C + width - 1) / width, threads, smem, stream>>>(
+      fb, buf_in, pos_in, y, gy, gbuf, delay, bounds, n_windows, gx, gbuf_in, part,
+      in_shared ? nullptr : ring, T, C, L);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   return (int)launch_channel_sum(part, gfb, T, C, stream);
 }
 

@@ -51,6 +51,15 @@
 // sample. Counted again with tanhf at an estimated ~90 cycles (not ~40)
 // the chain comes to ~370; tanhf's SASS is not read. What remains is the
 // chain's own arithmetic, which parity with the plain version fixes.
+//
+// Checkpoints for the backward (csrc/ladder_scan_bwd.cu): given a
+// non-null `ckpt`, the consumer also leaves each channel's entering state
+// (9 floats) in the stage every `every` samples (a multiple of kChunk),
+// and the producer drains it with the y rows into a (ceil(T / every), 9,
+// C) tensor. The consumer only stores to shared memory: a first cut that
+// had the consumer store them to device memory slowed the forward
+// measurably, the stores drained before each release of the stage. y and
+// the state out are the same bits with or without them.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -67,6 +76,7 @@ struct Stage {
   float x[kChunk][kLanes];
   float y[kChunk][kLanes];
   float col[4][kChunk];  // al, qa, ki, dsc
+  float ck[9][kLanes];   // the chunk's entering state, where it is a checkpoint
 };
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
@@ -117,8 +127,9 @@ __global__ void __launch_bounds__(2 * kLanes) ladder_scan(
     const float* __restrict__ x, const float* __restrict__ al,
     const float* __restrict__ qa, const float* __restrict__ ki,
     const float* __restrict__ dsc, const float* __restrict__ state_in,
-    float* __restrict__ y, float* __restrict__ state_out, int T, int C,
-    int os_n_arg, float pbg, int mode, float threshold, float state_decay) {
+    float* __restrict__ y, float* __restrict__ state_out, float* __restrict__ ckpt,
+    int every, int T, int C, int os_n_arg, float pbg, int mode, float threshold,
+    float state_decay) {
   __shared__ Stage ring[kStages];
   __shared__ uint64_t full[kStages], done[kStages];
   const int lane = threadIdx.x & 31;
@@ -140,8 +151,11 @@ __global__ void __launch_bounds__(2 * kLanes) ladder_scan(
       mbar_wait(&done[j % kStages], (j / kStages) & 1);
       const Stage& st = ring[j % kStages];
       const int base = j * kChunk, n = min(kChunk, T - base);
-      if (live)
+      if (live) {
         for (int i = 0; i < n; ++i) y[(long)(base + i) * C + c] = st.y[i][lane];
+        if (ckpt != nullptr && base % every == 0)
+          for (int k = 0; k < 9; ++k) ckpt[((long)(base / every) * 9 + k) * C + c] = st.ck[k][lane];
+      }
     };
     for (int j = 0; j < n_chunks; ++j) {
       if (j >= kStages) drain(j - kStages);
@@ -172,12 +186,22 @@ __global__ void __launch_bounds__(2 * kLanes) ladder_scan(
   // interp = s * os_recip and 1 - interp, each rounded to float once
   const int os_n = OS > 0 ? OS : os_n_arg;
   const double recip = 1.0 / os_n;
+  int ck_count = 0;  // chunks since the last checkpoint
   const float os_recip = (float)recip;
 
   for (int j = 0; j < n_chunks; ++j) {
     Stage& st = ring[j % kStages];
     mbar_wait(&full[j % kStages], (j / kStages) & 1);
     const int n = min(kChunk, T - j * kChunk);
+    if (ckpt != nullptr && ck_count == 0) {  // the entering state, for the producer
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        st.ck[k][lane] = z0[k];
+        st.ck[4 + k][lane] = z1[k];
+      }
+      st.ck[8][lane] = old;
+    }
+    if (++ck_count == every / kChunk) ck_count = 0;
     // sample i's input and decay, computed one sample ahead of the chain
     float in_s = mul(st.x[0][lane], st.col[3][0]);
     float decay = fabsf(in_s) < threshold ? state_decay : 1.0f;
@@ -235,35 +259,28 @@ extern "C" {
 
 // Enqueues one launch on `stream`; returns its cudaError_t (0 when
 // accepted). Device pointers: x / y (T, C) f32, al / qa / ki / dsc (T,)
-// f32, state_in / state_out (9, C) f32.
+// f32, state_in / state_out (9, C) f32; ckpt (ceil(T / every), 9, C) f32
+// or null (no checkpoints), every a multiple of 32.
 int ladder_scan_launch(const float* x, const float* al, const float* qa,
                        const float* ki, const float* dsc,
-                       const float* state_in, float* y, float* state_out,
-                       int T, int C, int os_n, float pbg, int mode_index,
+                       const float* state_in, float* y, float* state_out, float* ckpt,
+                       int every, int T, int C, int os_n, float pbg, int mode_index,
                        float input_threshold, float state_decay,
                        cudaStream_t stream) {
+  if (ckpt != nullptr && (every < kChunk || every % kChunk != 0))
+    return (int)cudaErrorInvalidValue;
   const dim3 grid((C + kLanes - 1) / kLanes), block(2 * kLanes);
+#define PGT_LADDER(OS)                                                                  \
+  ladder_scan<OS><<<grid, block, 0, stream>>>(x, al, qa, ki, dsc, state_in, y, state_out, \
+                                              ckpt, every, T, C, os_n, pbg, mode_index,  \
+                                              input_threshold, state_decay)
   switch (os_n) {
-    case 1:
-      ladder_scan<1><<<grid, block, 0, stream>>>(x, al, qa, ki, dsc, state_in, y, state_out,
-                                                 T, C, os_n, pbg, mode_index,
-                                                 input_threshold, state_decay);
-      break;
-    case 2:
-      ladder_scan<2><<<grid, block, 0, stream>>>(x, al, qa, ki, dsc, state_in, y, state_out,
-                                                 T, C, os_n, pbg, mode_index,
-                                                 input_threshold, state_decay);
-      break;
-    case 4:
-      ladder_scan<4><<<grid, block, 0, stream>>>(x, al, qa, ki, dsc, state_in, y, state_out,
-                                                 T, C, os_n, pbg, mode_index,
-                                                 input_threshold, state_decay);
-      break;
-    default:
-      ladder_scan<0><<<grid, block, 0, stream>>>(x, al, qa, ki, dsc, state_in, y, state_out,
-                                                 T, C, os_n, pbg, mode_index,
-                                                 input_threshold, state_decay);
+    case 1: PGT_LADDER(1); break;
+    case 2: PGT_LADDER(2); break;
+    case 4: PGT_LADDER(4); break;
+    default: PGT_LADDER(0);
   }
+#undef PGT_LADDER
   return (int)cudaGetLastError();
 }
 

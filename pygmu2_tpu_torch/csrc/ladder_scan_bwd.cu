@@ -5,35 +5,65 @@
 // VJP (:253, ops/diffable.kernel_with_scan_vjp) replays jax.vjp of the
 // lax.scan reference ladder_scan_ref.
 //
-// What it computes: given the forward's inputs x (T, C), the four (T,)
-// columns al, qa, ki, dsc and the entering state (9, C), and the
-// cotangents gy (T, C) of the output and gstate (9, C) of the state after
-// the last sample, the cotangents of x, of the four columns (each summed
-// over the channels) and of the entering state: reverse-mode AD of
+// What it computes: given the forward's inputs x (T, C) and the four (T,)
+// columns al, qa, ki, dsc, the forward's checkpoints (each channel's
+// entering state every K samples, (ceil(T / K), 9, C), written by the
+// forward launch that was recorded for this backward), and the cotangents
+// gy (T, C) of the output and gstate (9, C) of the state after the last
+// sample: the cotangents of x, of the four columns (each summed over the
+// channels) and of the entering state, reverse-mode AD of
 // ladder_scan_ref's op order. The quiet-input decay is a select on
-// |x * drive| < threshold: it multiplies the states, and passes no
+// |x * drive| < threshold: it multiplies the states and passes no
 // gradient through its comparison (as JAX's AD of where).
 //
-// Design (simple and right first; one thread per channel):
-// 1. ladder_bwd_walk, pass 1: walks forward over the T samples exactly as
-//    the forward kernel does (the same explicitly rounded ops, so the same
-//    bits) and writes each sample's entering state, 9 floats, to the
-//    trajectory `traj` (T, 9, C): 75 MB at the bank's T = 16384, C = 128.
-// 2. pass 2: walks backward from sample T - 1 to 0. For each sample it
-//    reloads the entering state and, for each oversampled step s from the
-//    last down, recomputes steps 0..s from it (os_n (os_n + 1) / 2 step
-//    forwards a sample) and propagates the cotangents through step s. The
-//    column cotangents' per-channel parts go to `part` (4, T, C).
-// 3. channel_sum (channel_sum.cuh) adds `part` over the channels, one
-//    thread per (column, sample), channel 0 first: no atomics, so two runs
-//    give the same bits.
+// The fact the design rests on: with the forward's states known, the
+// cotangent g (9 floats) of the state obeys a linear recurrence,
+// g(t) = J(t)^T g(t + 1) + h(t), J and h functions of the trajectory, the
+// columns and gy. tanh and the stage values sit off the cotangent's chain;
+// the only truly serial part is the forward's nonlinear walk, and that
+// can start from a checkpoint.
 //
-// What bounds it on this card: the dependent chain, as in the forward. A
-// sample's backward is ~3.5 forward samples' work at os_n = 2 (the
-// recomputed steps and their adjoints), on one thread per channel. Bytes:
-// x, gy and gx, the columns, the 9-float trajectory written and read, the
-// parts; at T = 16384, C = 128, ~193 MB (58 us at 3.35 TB/s). The
-// trajectory and the inputs are loaded one sample ahead of the chain.
+// Design (the first design walked all T samples on one thread a
+// channel, twice, with a (T, 9, C) trajectory in device memory: 14.7 ms at
+// T = 16384, C = 1 on an H100 80GB HBM3 at 700 W). Four launches on the caller's stream, none of which
+// walks more than K samples serially:
+// 1. ladder_bwd_chunks<FINAL = false>, parallel over (chunk, channel),
+//    chunks 1..n-1: a warp holds three chunks, ten lanes each. The lanes
+//    stage the chunk's inputs into shared memory, re-walk the forward
+//    from the checkpoint (the forward's explicitly rounded ops and tanhf:
+//    the same bits) keeping each oversampled step's u, w and four stage
+//    values in shared memory, then walk back together: lane l < 9 from
+//    basis vector l with no output cotangent, lane 9 from zero with gy.
+//    Lane l ends with column l of the chunk's matrix M_j, lane 9 with its
+//    affine part b_j: g(start of chunk j) = M_j g(end of chunk j) + b_j.
+// 2. ladder_bwd_carry, one warp per channel, lanes 0..8 one state row
+//    each: from gstate, the cotangent leaving chunk j - 1 is M_j g + b_j
+//    (summed from b in state order), for j = n-1 down to 1; the transfers
+//    staged in shared memory 32 chunks at a time, the next 32 copied
+//    (cp.async) while the current ones are applied.
+// 3. ladder_bwd_chunks<FINAL = true>: each chunk re-walks again and one
+//    lane walks back from its true cotangent, writing gx, the columns'
+//    per-channel parts and, at chunk 0, gstate_in.
+// 4. channel_sum (channel_sum.cuh) adds the parts over the channels in
+//    channel order.
+// Every op is rounded once (__fmul_rn, __fadd_rn, __fsub_rn: no
+// contraction), no float atomics: two launches give the same bits, and
+// the kernel equals ops/ladder.ladder_scan_bwd_chunked (the same order in
+// torch ops) bit for bit on the card. Against the serial adjoint it
+// differs only in the carry's roundings at the chunk edges.
+//
+// What bounds it on this card: the re-walk, twice, K samples of the
+// forward's chain (~400 cycles a sample at os_n = 2), and the carry,
+// ceil(T / K) dependent 9 x 9 products; at K = 32 and T = 16384 ~13k
+// cycles each re-walk and ~35k for the carry. Bytes are far below: x, gy,
+// gx, the columns, the parts and the transfers (96 floats a chunk and
+// channel), ~2 MB at T = 16384, C = 1.
+//
+// Measured (chip_smoke.py phase 15, H100 80GB HBM3, 700 W; the launches
+// alone by torch.profiler): 0.110 ms at T = 16384, C = 1, of which the
+// carry 0.062 (~121 ns a hop; staged through shared memory in 16-byte
+// pieces, where per-lane 4-byte copies had it at about twice that) and
+// each chunk kernel ~0.023; 0.051 ms at T = 1024.
 
 #include <cuda_runtime.h>
 
@@ -41,35 +71,18 @@
 
 namespace {
 
-constexpr int kThreads = 32;  // channels per CUDA block
+constexpr int kGroup = 10;      // lanes per chunk: nine basis vectors and the affine part
+constexpr int kPerWarp = 3;     // chunks per warp (lanes 30, 31 idle)
+constexpr int kStepFloats = 6;  // u, w, pre[0..3] per oversampled step
+constexpr int kSampleFloats = 7;  // decay, x, gy, a, q, k, dsc per sample
+constexpr int kMaxShared = 232448;
+constexpr int kTransfer = 96;  // floats of a chunk's transfer: ten lanes of nine, padded to 16 B
 constexpr float kC1 = 0.76923077f;  // trapezoidal stage weights
 constexpr float kC2 = 0.23076923f;
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-
-struct Coef {
-  float a, q, k;
-};
-
-// One oversampled step forward, as csrc/ladder_scan.cu rounds it: updates
-// z0, z1 and returns u; pre[m] is stage m's value before its alpha product.
-__device__ __forceinline__ float step_fwd(float* z0, float* z1, float in_i, float pbg,
-                                          const Coef& c, float* pre) {
-  const float u = tanhf(sub(in_i, mul(mul(sub(z1[3], mul(pbg, in_i)), c.k), c.q)));
-  float prev = u;
-#pragma unroll
-  for (int m = 0; m < 4; ++m) {
-    const float a = sub(add(mul(prev, kC1), mul(kC2, z0[m])), z1[m]);
-    const float ft = add(mul(a, c.a), z1[m]);
-    pre[m] = a;
-    z1[m] = ft;
-    z0[m] = prev;
-    prev = ft;
-  }
-  return u;
-}
 
 // d mix / d u and d mix / d stage m, by response mode
 __device__ __forceinline__ float mix_grads(int mode, float* d) {
@@ -84,205 +97,325 @@ __device__ __forceinline__ float mix_grads(int mode, float* d) {
   }
 }
 
-struct Sample {  // one sample's inputs for one channel
-  float x, gy, a, q, k, dsc, st[9];
-};
+// floats of shared memory per chunk, odd so that the three chunks of a warp
+// fall on different banks
+__host__ __device__ __forceinline__ int item_floats(int K, int os_n) {
+  return (K * (kStepFloats * os_n + kSampleFloats)) | 1;
+}
 
-// OS > 0: os_n is OS, folded at compile time; OS == 0: os_n at run time
-template <int OS>
-__global__ void __launch_bounds__(kThreads) ladder_bwd_walk(
+// One chunk's backward walk. FINAL = false: chunks 1..n-1, each lane of
+// ten walks one vector and writes its part of the chunk's transfer.
+// FINAL = true: chunks 0..n-1, lane 9 of each ten walks the true
+// cotangent and writes gx, the parts and (chunk 0) gstate_in.
+// OS > 0: os_n is OS, folded at compile time; OS == 0: os_n at run time.
+template <int OS, bool FINAL>
+__global__ void __launch_bounds__(32) ladder_bwd_chunks(
     const float* __restrict__ x, const float* __restrict__ al, const float* __restrict__ qa,
     const float* __restrict__ ki, const float* __restrict__ dsc,
-    const float* __restrict__ state_in, const float* __restrict__ gy,
-    const float* __restrict__ gstate, float* __restrict__ gx, float* __restrict__ gstate_in,
-    float* __restrict__ traj, float* __restrict__ part, int T, int C, int os_n_arg, float pbg,
-    int mode, float threshold, float state_decay) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= C) return;
+    const float* __restrict__ ckpt, const float* __restrict__ gy,
+    const float* __restrict__ gstate, const float* __restrict__ g_end,
+    float* __restrict__ transfers, float* __restrict__ gx, float* __restrict__ part,
+    float* __restrict__ gstate_in, int T, int C, int K, int os_n_arg, float pbg, int mode,
+    float threshold, float state_decay) {
+  extern __shared__ float smem[];
   const int os_n = OS > 0 ? OS : os_n_arg;
+  const int n = (T + K - 1) / K;
+  const int first = FINAL ? 0 : 1;
+  const long n_items = (long)(n - first) * C;
+  const int lane = threadIdx.x, grp = lane / kGroup, vec = lane % kGroup;
+  const long item = (long)blockIdx.x * kPerWarp + grp;
+  const bool active = grp < kPerWarp && item < n_items;
+  const int j = first + (int)(active ? item / C : 0), c = (int)(active ? item % C : 0);
+  const int t0 = j * K, len = min(K, T - t0);
+  float* sv = smem + grp * item_floats(K, os_n);  // [K][os_n][6] step values
+  float* ss = sv + K * os_n * kStepFloats;          // [K][7] sample values
   const double recip = 1.0 / os_n;
   const float os_recip = (float)recip;
 
-  // ---- pass 1: the forward, writing each sample's entering state ----
-  float z0[4], z1[4], old;
-  for (int k = 0; k < 4; ++k) {
-    z0[k] = state_in[k * C + c];
-    z1[k] = state_in[(4 + k) * C + c];
-  }
-  old = state_in[8 * C + c];
-  float xn = x[c], dn = dsc[0];
-  for (int t = 0; t < T; ++t) {
-    const float xt = xn, dt = dn;
-    const Coef cf{al[t], qa[t], ki[t]};
-    if (t + 1 < T) {
-      xn = x[(long)(t + 1) * C + c];
-      dn = dsc[t + 1];
+  // ---- stage the chunk's inputs, then re-walk the forward ----
+  if (active) {
+    for (int i = vec; i < len; i += kGroup) {
+      const int t = t0 + i;
+      float* s = ss + i * kSampleFloats;
+      s[1] = x[(long)t * C + c];
+      s[2] = gy[(long)t * C + c];
+      s[3] = al[t];
+      s[4] = qa[t];
+      s[5] = ki[t];
+      s[6] = dsc[t];
     }
-    float* row = traj + (long)t * 9 * C + c;
+  }
+  __syncwarp();
+  float g[9];
+  if (active) {
+    float z0[4], z1[4], old;
+    const float* st = ckpt + (long)j * 9 * C + c;
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      row[k * C] = z0[k];
-      row[(4 + k) * C] = z1[k];
+      z0[k] = st[k * C];
+      z1[k] = st[(4 + k) * C];
     }
-    row[8 * C] = old;
-    const float in_s = mul(xt, dt);
-    const float decay = fabsf(in_s) < threshold ? state_decay : 1.0f;
+    old = st[8 * C];
+    const bool writer = vec == kGroup - 1;
+    for (int i = 0; i < len; ++i) {
+      float* s = ss + i * kSampleFloats;
+      const float a = s[3], q = s[4], k = s[5];
+      const float in_s = mul(s[1], s[6]);
+      const float decay = fabsf(in_s) < threshold ? state_decay : 1.0f;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      z0[k] = mul(z0[k], decay);
-      z1[k] = mul(z1[k], decay);
-    }
-    old = mul(old, decay);
-    float pre[4];
+      for (int m = 0; m < 4; ++m) {
+        z0[m] = mul(z0[m], decay);
+        z1[m] = mul(z1[m], decay);
+      }
+      old = mul(old, decay);
 #pragma unroll
-    for (int s = 0; s < os_n; ++s) {
-      const float in_i = add(mul((float)(s * recip), old), mul((float)(1.0 - s * recip), in_s));
-      step_fwd(z0, z1, in_i, pbg, cf, pre);
+      for (int st_i = 0; st_i < os_n; ++st_i) {
+        const float in_i = add(mul((float)(st_i * recip), old),
+                               mul((float)(1.0 - st_i * recip), in_s));
+        const float w = sub(z1[3], mul(pbg, in_i));
+        const float u = tanhf(sub(in_i, mul(mul(w, k), q)));
+        float* v = sv + (i * os_n + st_i) * kStepFloats;
+        float prev = u;
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const float p = sub(add(mul(prev, kC1), mul(kC2, z0[m])), z1[m]);
+          const float ft = add(mul(p, a), z1[m]);
+          if (writer) v[2 + m] = p;
+          z1[m] = ft;
+          z0[m] = prev;
+          prev = ft;
+        }
+        if (writer) {
+          v[0] = u;
+          v[1] = w;
+        }
+      }
+      old = in_s;
+      if (writer) s[0] = decay;
     }
-    old = in_s;
+    // the cotangent leaving the chunk
+    if (FINAL) {
+      const float* src = j == n - 1 ? gstate + c : g_end + (long)j * 9 * C + c;
+#pragma unroll
+      for (int r = 0; r < 9; ++r) g[r] = src[r * C];
+    } else {
+#pragma unroll
+      for (int r = 0; r < 9; ++r) g[r] = r == vec ? 1.0f : 0.0f;
+    }
   }
+  __syncwarp();
+  if (!active || (FINAL && vec != kGroup - 1)) return;
 
-  // ---- pass 2: the reverse walk ----
+  // ---- walk back ----
   float d_mix[4];
   const float d_u = mix_grads(mode, d_mix);
-  float g0[4], g1[4], gold;  // cotangents of the state after the sample
-  for (int k = 0; k < 4; ++k) {
-    g0[k] = gstate[k * C + c];
-    g1[k] = gstate[(4 + k) * C + c];
-  }
-  gold = gstate[8 * C + c];
-  auto load = [&](int t, Sample& s) {
-    s.x = x[(long)t * C + c];
-    s.gy = gy[(long)t * C + c];
-    s.a = al[t];
-    s.q = qa[t];
-    s.k = ki[t];
-    s.dsc = dsc[t];
-    const float* row = traj + (long)t * 9 * C + c;
-#pragma unroll
-    for (int k = 0; k < 9; ++k) s.st[k] = row[k * C];
-  };
-  Sample next;
-  load(T - 1, next);
-  for (int t = T - 1; t >= 0; --t) {
-    const Sample cur = next;
-    if (t > 0) load(t - 1, next);
-    const Coef cf{cur.a, cur.q, cur.k};
-    const float in_s = mul(cur.x, cur.dsc);
-    const float decay = fabsf(in_s) < threshold ? state_decay : 1.0f;
-    float e0[4], e1[4];  // the decayed entering state
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      e0[k] = mul(cur.st[k], decay);
-      e1[k] = mul(cur.st[4 + k], decay);
-    }
-    const float old_d = mul(cur.st[8], decay);
-    const float gmix = cur.gy * os_recip;
-    float g_in = gold;  // the state's `old` after the sample is in_s
+  const bool with_gy = FINAL || vec == kGroup - 1;
+  for (int i = len - 1; i >= 0; --i) {
+    const float* s = ss + i * kSampleFloats;
+    const float a = s[3], q = s[4], k = s[5];
+    const float gmix = mul(with_gy ? s[2] : 0.0f, os_recip);
+    float g_in = g[8];  // the state's `old` after the sample is in_s
     float g_old = 0.0f, ga = 0.0f, gq = 0.0f, gk = 0.0f;
 #pragma unroll
-    for (int s = os_n - 1; s >= 0; --s) {
-      // recompute steps 0..s from the entering state
-      float z0s[4], z1s[4], pre[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        z0s[k] = e0[k];
-        z1s[k] = e1[k];
-      }
-      const float interp = (float)(s * recip), om = (float)(1.0 - s * recip);
-#pragma unroll
-      for (int j = 0; j < s; ++j) {
-        const float in_j = add(mul((float)(j * recip), old_d), mul((float)(1.0 - j * recip), in_s));
-        step_fwd(z0s, z1s, in_j, pbg, cf, pre);
-      }
-      const float in_i = add(mul(interp, old_d), mul(om, in_s));
-      const float w = sub(z1s[3], mul(pbg, in_i));
-      const float wk = mul(w, cf.k);
-      float z0o[4], z1o[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        z0o[k] = z0s[k];
-        z1o[k] = z1s[k];
-      }
-      const float u = step_fwd(z0o, z1o, in_i, pbg, cf, pre);
-      // backward through the four stages, the last first
+    for (int st_i = os_n - 1; st_i >= 0; --st_i) {
+      const float* v = sv + (i * os_n + st_i) * kStepFloats;
+      const float u = v[0], w = v[1];
       float gft[4];
 #pragma unroll
-      for (int m = 0; m < 4; ++m) gft[m] = g1[m] + d_mix[m] * gmix;
-      float gu = d_u * gmix;
+      for (int m = 0; m < 4; ++m) gft[m] = add(g[4 + m], mul(d_mix[m], gmix));
+      float gu = mul(d_u, gmix);
 #pragma unroll
       for (int m = 3; m >= 0; --m) {
-        const float gpre = gft[m] * cf.a;
-        ga += gft[m] * pre[m];
-        const float gprev = g0[m] + gpre * kC1;
-        g0[m] = gpre * kC2;
-        g1[m] = gft[m] - gpre;
+        const float gpre = mul(gft[m], a);
+        if (FINAL) ga = add(ga, mul(gft[m], v[2 + m]));
+        const float gprev = add(g[m], mul(gpre, kC1));
+        g[m] = mul(gpre, kC2);
+        g[4 + m] = sub(gft[m], gpre);
         if (m > 0)
-          gft[m - 1] += gprev;
+          gft[m - 1] = add(gft[m - 1], gprev);
         else
-          gu += gprev;
+          gu = add(gu, gprev);
       }
-      const float gv = gu * (1.0f - u * u);  // tanh
-      const float gwq = -gv;                  // of (w k) q
-      gq += gwq * wk;
-      const float gwk = gwq * cf.q;
-      gk += gwk * w;
-      const float gw = gwk * cf.k;
-      g1[3] += gw;
-      const float gi = gv - pbg * gw;  // of in_i
-      g_old += interp * gi;
-      g_in += om * gi;
+      const float gv = mul(gu, sub(1.0f, mul(u, u)));  // tanh
+      const float gwq = -gv;                           // of (w k) q
+      const float gwk = mul(gwq, q);
+      if (FINAL) {
+        gq = add(gq, mul(gwq, mul(w, k)));
+        gk = add(gk, mul(gwk, w));
+      }
+      const float gw = mul(gwk, k);
+      g[7] = add(g[7], gw);
+      const float gi = sub(gv, mul(pbg, gw));  // of in_i
+      g_old = add(g_old, mul((float)(st_i * recip), gi));
+      g_in = add(g_in, mul((float)(1.0 - st_i * recip), gi));
     }
+    const float decay = s[0];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      g0[k] *= decay;
-      g1[k] *= decay;
+    for (int r = 0; r < 8; ++r) g[r] = mul(g[r], decay);
+    g[8] = mul(g_old, decay);
+    if (FINAL) {
+      const int t = t0 + i;
+      const long row = (long)t * C + c, col = (long)T * C;
+      gx[row] = mul(g_in, s[6]);
+      part[row] = ga;
+      part[col + row] = gq;
+      part[2 * col + row] = gk;
+      part[3 * col + row] = mul(g_in, s[1]);
     }
-    gold = g_old * decay;
-    gx[(long)t * C + c] = g_in * cur.dsc;
-    float* p = part + (long)t * C + c;
-    const long col = (long)T * C;
-    p[0] = ga;
-    p[col] = gq;
-    p[2 * col] = gk;
-    p[3 * col] = g_in * cur.x;
   }
-  for (int k = 0; k < 4; ++k) {
-    gstate_in[k * C + c] = g0[k];
-    gstate_in[(4 + k) * C + c] = g1[k];
+  if (FINAL) {
+    if (j == 0)
+#pragma unroll
+      for (int r = 0; r < 9; ++r) gstate_in[r * C + c] = g[r];
+  } else {
+    float* out = transfers + item * kTransfer + vec * 9;  // [chunk - 1][c][lane][row]
+#pragma unroll
+    for (int r = 0; r < 9; ++r) out[r] = g[r];
   }
-  gstate_in[8 * C + c] = gold;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
+constexpr int kHops = 32;  // transfers staged in shared memory at a time
+
+// The carry over the chunks, one warp per channel: lane r < 9 holds row r
+// of the cotangent leaving the current chunk. The transfers come through
+// shared memory, kHops chunks at a time, the next kHops copied (cp.async)
+// while the current ones are applied: a hop is then nine shuffles and nine
+// dependent multiply-adds, with no device-memory latency on the chain.
+__global__ void __launch_bounds__(32) ladder_bwd_carry(const float* __restrict__ transfers,
+                                                       const float* __restrict__ gstate,
+                                                       float* __restrict__ g_end, int n,
+                                                       int C) {
+  __shared__ __align__(16) float s_t[2][kHops * kTransfer];
+  const int c = blockIdx.x, lane = threadIdx.x;
+  const bool row = lane < 9;
+  const int r = row ? lane : 0;
+  float g = row ? gstate[r * C + c] : 0.0f;
+  const int hops = n - 1, blocks = (hops + kHops - 1) / kHops;
+  // block b: hops j = n - 1 - b kHops down, chunk j's transfer at [j - 1][c]
+  auto stage = [&](int b) {  // a transfer is 24 16-byte pieces: lanes 0..23
+    const int hi = n - 1 - b * kHops, cnt = min(kHops, hi);
+    if (lane < kTransfer / 4) {
+      float* dst = s_t[b & 1] + 4 * lane;
+      const float* src = transfers + ((long)(hi - 1) * C + c) * kTransfer + 4 * lane;
+      for (int h = 0; h < cnt; ++h, dst += kTransfer, src -= (long)C * kTransfer)
+        cp_async16(dst, src);
+    }
+    cp_async_commit();
+  };
+  if (blocks > 0) stage(0);
+  for (int b = 0; b < blocks; ++b) {
+    if (b + 1 < blocks) {
+      stage(b + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncwarp();
+    const int hi = n - 1 - b * kHops, cnt = min(kHops, hi);
+    const float* t = s_t[b & 1];
+    float m[kGroup];  // this hop's row r of M, then b[r]: read a hop ahead
+#pragma unroll
+    for (int i = 0; i < kGroup; ++i) m[i] = t[i * 9 + r];
+    for (int h = 0; h < cnt; ++h) {
+      float gv[9];  // all nine shuffles first: none waits on the sum
+#pragma unroll
+      for (int i = 0; i < 9; ++i) gv[i] = __shfl_sync(0xffffffffu, g, i);
+      float acc = m[9];
+#pragma unroll
+      for (int i = 0; i < 9; ++i) acc = add(acc, mul(m[i], gv[i]));
+      if (h + 1 < cnt)
+#pragma unroll
+        for (int i = 0; i < kGroup; ++i) m[i] = t[(h + 1) * kTransfer + i * 9 + r];
+      g = acc;
+      if (row) g_end[((long)(hi - h - 1) * 9 + r) * C + c] = g;
+    }
+    __syncwarp();  // the buffer is copied into again two blocks on
+  }
+}
+
+// Raises a kernel's dynamic shared memory limit to `bytes` where that is
+// past the default 48 KB, once per kernel and size.
+template <class Kernel>
+cudaError_t allow_shared(Kernel kernel, int bytes, int& allowed) {
+  if (bytes <= 48 * 1024 || bytes <= allowed) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) allowed = bytes;
+  return err;
+}
+
+template <int OS>
+cudaError_t launch_all(const float* x, const float* al, const float* qa, const float* ki,
+                       const float* dsc, const float* ckpt, const float* gy,
+                       const float* gstate, float* gx, float* gstate_in, float* transfers,
+                       float* g_end, float* part, int T, int C, int K, int os_n, float pbg,
+                       int mode, float threshold, float decay, cudaStream_t stream) {
+  const int n = (T + K - 1) / K;
+  const int smem = kPerWarp * item_floats(K, os_n) * (int)sizeof(float);
+  if (smem > kMaxShared) return cudaErrorInvalidValue;
+  cudaError_t err;
+  if (n > 1) {
+    static int allowed_transfers = 0;
+    if ((err = allow_shared(ladder_bwd_chunks<OS, false>, smem, allowed_transfers)) !=
+        cudaSuccess)
+      return err;
+    const long items = (long)(n - 1) * C;
+    ladder_bwd_chunks<OS, false><<<(unsigned)((items + kPerWarp - 1) / kPerWarp), 32, smem,
+                                   stream>>>(x, al, qa, ki, dsc, ckpt, gy, gstate, g_end,
+                                             transfers, gx, part, gstate_in, T, C, K, os_n,
+                                             pbg, mode, threshold, decay);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    ladder_bwd_carry<<<C, 32, 0, stream>>>(transfers, gstate, g_end, n, C);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  static int allowed_final = 0;
+  if ((err = allow_shared(ladder_bwd_chunks<OS, true>, smem, allowed_final)) != cudaSuccess)
+    return err;
+  const long items = (long)n * C;
+  ladder_bwd_chunks<OS, true><<<(unsigned)((items + kPerWarp - 1) / kPerWarp), 32, smem,
+                                stream>>>(x, al, qa, ki, dsc, ckpt, gy, gstate, g_end,
+                                          transfers, gx, part, gstate_in, T, C, K, os_n, pbg,
+                                          mode, threshold, decay);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Enqueues the walk and the channel sum on `stream`; returns the first
-// cudaError_t (0 when both were accepted). Device pointers: x / gy / gx
-// (T, C) f32; al / qa / ki / dsc (T,) f32; state_in / gstate / gstate_in
-// (9, C) f32; gcols (4, T) f32, the cotangents of al, qa, ki, dsc;
-// scratch traj (T, 9, C) and part (4, T, C) f32.
+// Enqueues the transfers, the carry, the final walks and the channel sum
+// on `stream`; returns the first cudaError_t (0 when all were accepted).
+// Device pointers: x / gy / gx (T, C) f32; al / qa / ki / dsc (T,) f32;
+// ckpt (ceil(T / K), 9, C) f32, the forward's checkpoints every K samples;
+// gstate / gstate_in (9, C) f32; gcols (4, T) f32, the cotangents of al,
+// qa, ki, dsc; scratch transfers (ceil(T / K) - 1, C, 96), g_end
+// (ceil(T / K) - 1, 9, C) and part (4, T, C) f32.
 int ladder_scan_bwd_launch(const float* x, const float* al, const float* qa, const float* ki,
-                           const float* dsc, const float* state_in, const float* gy,
+                           const float* dsc, const float* ckpt, const float* gy,
                            const float* gstate, float* gx, float* gcols, float* gstate_in,
-                           float* traj, float* part, int T, int C, int os_n, float pbg,
-                           int mode_index, float input_threshold, float state_decay,
-                           cudaStream_t stream) {
-  if (T < 1 || C < 1 || os_n < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid((C + kThreads - 1) / kThreads), block(kThreads);
-#define PGT_LADDER_BWD(OS)                                                                    \
-  ladder_bwd_walk<OS><<<grid, block, 0, stream>>>(x, al, qa, ki, dsc, state_in, gy, gstate,  \
-                                                  gx, gstate_in, traj, part, T, C, os_n, pbg, \
-                                                  mode_index, input_threshold, state_decay)
+                           float* transfers, float* g_end, float* part, int T, int C, int K,
+                           int os_n, float pbg, int mode_index, float input_threshold,
+                           float state_decay, cudaStream_t stream) {
+  if (T < 1 || C < 1 || os_n < 1 || K < 1) return (int)cudaErrorInvalidValue;
+#define PGT_LADDER_BWD(OS)                                                                   \
+  launch_all<OS>(x, al, qa, ki, dsc, ckpt, gy, gstate, gx, gstate_in, transfers, g_end, part, \
+                 T, C, K, os_n, pbg, mode_index, input_threshold, state_decay, stream)
+  cudaError_t err;
   switch (os_n) {
-    case 1: PGT_LADDER_BWD(1); break;
-    case 2: PGT_LADDER_BWD(2); break;
-    case 4: PGT_LADDER_BWD(4); break;
-    default: PGT_LADDER_BWD(0);
+    case 1: err = PGT_LADDER_BWD(1); break;
+    case 2: err = PGT_LADDER_BWD(2); break;
+    case 4: err = PGT_LADDER_BWD(4); break;
+    default: err = PGT_LADDER_BWD(0);
   }
 #undef PGT_LADDER_BWD
-  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)launch_channel_sum(part, gcols, 4 * T, C, stream);
 }

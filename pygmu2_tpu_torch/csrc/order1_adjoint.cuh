@@ -13,7 +13,8 @@
 //   gx_t = k_t * lambda_t,   gy0 = m_0 * lambda_0 (the state in).
 // Op::at(t, c) gives k_t, recomputed in parallel from the residuals (the
 // input and the saved output: the forward's compares exactly); m_t is
-// 1 - k_t rounded.
+// 1 - k_t rounded. A null g is all zeros: the comb's smoother
+// (comb_scan_bwd.cu), whose only cotangent is the state out's.
 //
 // Design: one CUDA block per group of `width` channels, 1024 threads,
 // (width channels) x (1024 / width lanes along time); width = C / 32
@@ -65,7 +66,7 @@ __global__ void __launch_bounds__(kThreads) adjoint(Op op, const float* __restri
       k[i] = 0.0f, gv[i] = 0.0f;  // outside the call: the identity (m = 1)
       if (live && t >= t0) {
         k[i] = op.at(t, c);
-        gv[i] = g[(long)t * C + c];
+        gv[i] = g != nullptr ? g[(long)t * C + c] : 0.0f;
       }
     }
     // 1. the segment's map from a zero carry

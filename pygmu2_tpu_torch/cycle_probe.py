@@ -369,7 +369,7 @@ def roles(card: str) -> dict:
     result = {"probe": "roles", "card": card, "T": T}
 
     comb = _build("comb_roles", comb_roles_source())
-    comb.comb_scan_launch.argtypes = [p] * 13 + [i, i, i, f, f, p]
+    comb.comb_scan_launch.argtypes = [p] * 14 + [i, i, i, f, f, p]
     C, L = 1, 2206
     x = torch.from_numpy(rng.uniform(-1, 1, (T, C)).astype(np.float32)).to(dev)
     freq = torch.from_numpy(rng.uniform(200, 240, T).astype(np.float32)).to(dev)
@@ -379,7 +379,7 @@ def roles(card: str) -> dict:
             torch.empty((), dtype=torch.int32, device=dev), torch.empty((), device=dev),
             torch.empty(T, dtype=torch.int32, device=dev),
             torch.empty(T + 1, dtype=torch.int32, device=dev),
-            torch.empty(1, dtype=torch.int32, device=dev)]
+            torch.empty(1, dtype=torch.int32, device=dev), torch.empty(T, device=dev)]
     stream = torch.cuda.current_stream().cuda_stream
     comb.comb_scan_launch(*[t.data_ptr() for t in ins + outs], T, C, L, 44100.0, 1 / 2400,
                           stream)

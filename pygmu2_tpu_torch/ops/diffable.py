@@ -10,7 +10,10 @@ launches its kernel through ``ctypes`` and gets tensors with no
 
 - the forward is the launch as it was; the primal inputs and the outputs
   are saved as residuals (a backward kernel recomputes whatever
-  trajectory it needs from them), but for a buffer the launch updates in
+  trajectory it needs from them, or reads what the launch wrote for it:
+  the ladder's checkpoints, written only by a launch that goes through
+  the Function, and the comb's delays and windows), but for a buffer the
+  launch updates in
   place (the echo's block rings): its old value is gone, and a later
   launch updates it again, so it is not saved and the backward gets None
   for it;
@@ -139,7 +142,7 @@ def _fold(apply, box, args, dims, B, channels, out_channels, fresh):
 
 
 def kernel_function(name: str, launch, backward=None, *, channels=(), out_channels=(),
-                    inplace=()):
+                    inplace=(), untracked=None):
     """A differentiable, batchable call of ``launch``.
 
     ``launch(*args, **kw)`` returns a tuple of tensors; ``args`` are
@@ -153,6 +156,13 @@ def kernel_function(name: str, launch, backward=None, *, channels=(), out_channe
     axis of argument i and ``out_channels[j]`` that of output j (None, or
     missing: none); ``inplace`` lists the arguments the launch updates in
     place. With no channel axes the kernel launches once per batch member.
+    ``untracked``, where given, is the launch of a call that goes through
+    no Function (no gradient, no ``torch.func``): one that writes no
+    residuals the backward alone reads (the ladder's checkpoints). A call
+    under ``torch.func`` goes through the Function even where nothing needs
+    a gradient (a no-grad ``vmap`` of a render): the Function cannot tell
+    from its unwrapped arguments whether an outer ``grad`` will read its
+    residuals, so such a call launches ``launch`` and writes them.
     """
 
     class Bwd(torch.autograd.Function):
@@ -228,6 +238,6 @@ def kernel_function(name: str, launch, backward=None, *, channels=(), out_channe
     def call(*args, **kw):
         if _needs_grad(args) or transformed(*args):
             return Fn.apply(_Box(kw), *args)
-        return launch(*args, **kw)
+        return (untracked or launch)(*args, **kw)
 
     return call

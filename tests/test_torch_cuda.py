@@ -724,12 +724,50 @@ def test_ladder_backward_kernel_matches_plain(cuda, os_n, mode, C):
     x[20:24] = 1e-7
     al, qa, ki, dsc = al.abs() * 0.5 + 0.05, qa * 0.1 + 1.0, ki.abs() * 3.0, dsc + 1.5
     kw = dict(os_n=os_n, pbg=0.3, mode_index=mode, input_threshold=1e-5, state_decay=0.95)
+    ckpt = ladder._launch(x, al, qa, ki, dsc, st * 0.1, **kw, checkpoints=True)[2]
     before = ladder.ladder_scan_bwd.launches
-    got = ladder.ladder_scan_bwd(x, al, qa, ki, dsc, st * 0.1, gy, gs, **kw)
+    got = ladder.ladder_scan_bwd(x, al, qa, ki, dsc, st * 0.1, gy, gs, ckpt, **kw)
     torch.cuda.synchronize()
     assert ladder.ladder_scan_bwd.launches == before + 1
     _bwd_close(got, ladder.ladder_scan_bwd_ref(x, al, qa, ki, dsc, st * 0.1, gy, gs, **kw),
                f"ladder os_n={os_n} mode={mode} C={C}")
+
+
+def _ladder_bwd_case(device, T, C, os_n, mode, seed):
+    x, al, qa, ki, dsc, st, gy, gs = _seeded(device, seed, (T, C), (T,), (T,), (T,), (T,),
+                                             (9, C), (T, C), (9, C))
+    x = x * 0.3
+    x[T // 3:T // 3 + 4] = 1e-7
+    cols = (al.abs() * 0.5 + 0.05, qa * 0.1 + 1.0, ki.abs() * 3.0, dsc + 1.5)
+    kw = dict(os_n=os_n, pbg=0.3, mode_index=mode, input_threshold=1e-5, state_decay=0.95)
+    return (x, *cols, st * 0.1), gy, gs, kw
+
+
+@pytest.mark.parametrize("T,C,os_n,mode", [(1024, 1, 2, 0), (16384, 1, 2, 0), (1000, 33, 2, 2),
+                                           (70, 3, 3, 5), (20, 1, 1, 4), (333, 33, 4, 3)])
+def test_ladder_backward_kernel_equals_chunked_order(cuda, T, C, os_n, mode):
+    """The kernel against its order in torch ops (ops/ladder
+    .ladder_scan_bwd_chunked, on the card: torch's tanh is tanhf) bit for
+    bit: T a multiple of the checkpoint interval and not, below it, the
+    fit patch's T = 16384; os_n 1, 2, 4 and 3; C = 33 a partial group of
+    chunks. Two launches give the same bits; the forward's y and state are
+    the same bits with and without checkpoints, and the checkpoints are the
+    plain forward's entering states."""
+    from pygmu2_tpu_torch.ops import ladder
+
+    args, gy, gs, kw = _ladder_bwd_case(cuda, T, C, os_n, mode, T + C)
+    y0, s0 = ladder.ladder_scan(*args, **kw)
+    y1, s1, ckpt = ladder._launch(*args, **kw, checkpoints=True)
+    assert torch.equal(y0, y1) and torch.equal(s0, s1)
+    if T <= 1024:
+        assert torch.equal(ckpt, ladder.ladder_checkpoints_ref(*args, **kw))
+    got = ladder.ladder_scan_bwd(*args, gy, gs, ckpt, **kw)
+    again = ladder.ladder_scan_bwd(*args, gy, gs, ckpt, **kw)
+    want = ladder.ladder_scan_bwd_chunked(*args, gy, gs, ckpt, **kw)
+    torch.cuda.synchronize()
+    for i, (g, a, w) in enumerate(zip(got, again, want)):
+        assert torch.equal(g, a), f"output {i}: two launches differ"
+        assert torch.equal(g, w), f"output {i} off by {float((g - w).abs().max())}"
 
 
 @pytest.mark.parametrize("T,C,freq,sf", [(300, 23, 220.0, -1.0), (300, 1, "sweep", 230.0),
@@ -748,12 +786,52 @@ def test_comb_backward_kernel_matches_plain(cuda, T, C, freq, sf):
     pos = torch.tensor(11, dtype=torch.int32, device=cuda)
     sf = torch.tensor(sf, device=cuda)
     kw = dict(L=L, sr=sr, smooth_alpha=0.1)
-    y = comb.comb_scan(x, f, fb * 0.9, buf, pos, sf, **kw)[0]
+    out = comb._launch(x, f, fb * 0.9, buf, pos, sf, **kw)  # the recorded launch
+    y, residuals = out[0], out[4:]
     gsf = torch.tensor(0.7, device=cuda)
     args = (x, f, fb * 0.9, buf, pos, sf, y, gy, gb, gsf)
-    got = comb.comb_scan_bwd(*args, **kw)
+    got = comb.comb_scan_bwd(*args, residuals, **kw)
     torch.cuda.synchronize()
     _bwd_close(got, comb.comb_scan_bwd_ref(*args, **kw), f"comb T={T} C={C} freq={freq}")
+
+
+@pytest.mark.parametrize("T,C,L,delays", [
+    (16384, 1, 2206, "sweep"), (16384, 128, 2206, "sweep"), (1024, 1, 2206, "sweep"),
+    (300, 23, 97, 37), (40, 2, 97, 1), (400, 9, 97, "step"), (400, 3, 97, "jump"),
+    (60, 3, 97, 50), (3000, 2, 40000, "sweep")])
+def test_comb_backward_kernel_equals_window_order(cuda, T, C, L, delays):
+    """The kernel against its order in torch ops (ops/comb
+    .comb_scan_bwd_windows) bit for bit: the fit patch's 200-240 Hz sweep
+    at T = 16384 (C = 1 and 128: the channel tiling), the probe's T =
+    1024, a constant delay, delay 1 (one-sample windows), a delay stepping
+    up by one (runs of two samples reading one row) and jumping up by
+    four (the serial fallback), reads into the ring handed in with the
+    position wrapping, a ring past the shared memory (L = 40000, in device
+    memory). Two launches give the same bits."""
+    from pygmu2_tpu_torch.ops import comb
+
+    sr = 44100.0
+    x, fb, buf, gy, gb = _seeded(cuda, T + C, (T, C), (T,), (L, C), (T, C), (L, C))
+    t = torch.arange(T, device=cuda)
+    if delays == "sweep":
+        freq, alpha = 200.0 + 40.0 * t / T, 1 / 2400
+    else:
+        d = {"step": torch.where(t < 150, 20, 21), "jump": torch.where(t < 150, 20, 24)}.get(
+            delays, torch.full((T,), delays if isinstance(delays, int) else 1, device=cuda))
+        freq, alpha = sr / d.float(), 1.0
+    pos = torch.tensor(L - 3, dtype=torch.int32, device=cuda)
+    sf = torch.tensor(-1.0, device=cuda)
+    kw = dict(L=L, sr=sr, smooth_alpha=alpha)
+    out = comb._launch(x, freq.float(), fb * 0.9, buf, pos, sf, **kw)  # the recorded launch
+    y, res = out[0], out[4:]
+    args = (x, freq.float(), fb * 0.9, buf, pos, sf, y, gy, gb, torch.tensor(0.7, device=cuda))
+    got = comb.comb_scan_bwd(*args, res, **kw)
+    again = comb.comb_scan_bwd(*args, res, **kw)
+    want = comb.comb_scan_bwd_windows(*args, **kw)
+    torch.cuda.synchronize()
+    for i, (g, a, w) in enumerate(zip(got, again, want)):
+        assert torch.equal(g, a), f"output {i}: two launches differ"
+        assert torch.equal(g, w), f"output {i} off by {float((g - w).abs().max())}"
 
 
 @pytest.mark.parametrize("shared,C", [(True, 128), (False, 4), (True, 5)])

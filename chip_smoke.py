@@ -2381,8 +2381,14 @@ BWD_CALLS = {
     "slew_scan": ("slew_scan_bwd", lambda args, outs, grads, got: (
         [args[0], args[1], outs[0], grads[0], grads[1]], list(got))),
     "reverse_echo_scan": ("reverse_echo_scan_bwd", lambda args, outs, grads, got: (
-        [*args[:5], args[7], args[8], outs[0], *grads],
+        [*args[:5], args[7], args[8], outs[0], *grads[:5], tuple(outs[5:8])],
         [got[i] for i in (0, 2, 3, 5, 6, 7, 8)])),
+    "ks_scan": ("ks_scan_bwd", lambda args, outs, grads, got: (
+        [*args[:4], outs[0], grads[0], grads[1], grads[3], grads[4]],
+        [got[i] for i in (0, 2, 4, 5)])),
+    "ks_scan (blocked)": ("ks_scan_bwd", lambda args, outs, grads, got: (
+        [args[0], None, args[1], args[2], outs[0], grads[0], grads[1], grads[3], grads[4]],
+        [got[i] for i in (0, 1, 3, 4)])),
     "adsr_scan": ("adsr_scan_bwd", lambda args, outs, grads, got: (
         [args[0], args[1], outs[0], *grads], [got[1]])),
 }
@@ -2399,7 +2405,7 @@ def recording(keep: dict):
     calls = {name: [] for name in keep}
 
     def copy(a):  # a plane shared by the channels stays one column
-        if isinstance(a, tuple):  # the comb's residuals
+        if isinstance(a, tuple):  # the comb's and the echo's residuals
             return tuple(copy(v) for v in a)
         if not isinstance(a, torch.Tensor):
             return a
@@ -2882,11 +2888,14 @@ EFFECTS_BWD_TOL = 1e-5  # of the largest plain cotangent of each output
 # compare and 1 - c (the coefficients recomputed), the adjoint's add and
 # multiply, gx's multiply: 5; the slew limiter per sample: the error, the
 # compares or the select, 1 - k, add, multiply, multiply: 7; the echo per
-# sample (shared) the control pass again (ECHO_OPS_SAMPLE) and the ratio's
-# reverse sum 1, per (sample, channel) the rings' cotangents 4, the four
-# taps' 8, the read position's 12, the feedback's and the channel sums 3:
-# 27; the ADSR per sample walked: the edge test 4, the candidate and its
-# compare 3, the two weighted sums 3: 10
+# sample (shared) ECHO_OPS_SAMPLE and the ratio's reverse sum 1 (the control
+# pass's operations, counted as when the backward ran that pass again; it
+# reads the forward's control results now: the bound is kept so the rows
+# compare), per
+# (sample, channel) the rings' cotangents 4, the four taps' 8, the read
+# position's 12, the feedback's and the channel sums 3: 27; the ADSR per
+# sample walked: the edge test 4, the candidate and its compare 3, the two
+# weighted sums 3: 10
 ENV_BWD_OPS, SLEW_BWD_OPS = 5, 7
 ECHO_BWD_OPS_SAMPLE, ECHO_BWD_OPS_CHANNEL = ECHO_OPS_SAMPLE + 1, 27
 ADSR_BWD_OPS = 10
@@ -2977,6 +2986,25 @@ def _training_chain(dev, card, pool) -> list:
         return torch.mean(out ** 2)
 
     errs = dict.fromkeys(bwd, 0.0)
+    echo_orders = []  # the echo's recorded launches held to their kernel's order
+
+    def echo_order(calls, what):
+        """Each recorded echo backward launch against its kernel's order in
+        torch ops on the same control results, on the card
+        (``reverse_echo_scan_bwd_periods``): bit for bit; and launched
+        again: the same bits."""
+        for j, (args, kw, got) in enumerate(calls):
+            want = reverse_echo.reverse_echo_scan_bwd_periods(*args, **kw)
+            n = reverse_echo.reverse_echo_scan_bwd.launches
+            again = reverse_echo.reverse_echo_scan_bwd(*args, **kw)
+            reverse_echo.reverse_echo_scan_bwd.launches = n  # a comparison's: not the path's
+            for i, (g, a, w) in enumerate(zip(got, again, want)):
+                check(torch.equal(g, a), f"echo backward, {what} launch {j}: output {i} differs "
+                      "between two launches")
+                err = float((g - w.reshape(g.shape)).abs().max())
+                check(err == 0.0, f"echo backward, {what} launch {j}: output {i} differs from "
+                      f"reverse_echo_scan_bwd_periods by {err}")
+            echo_orders.append(f"{what} {j} (T={args[0].shape[0]} C={args[0].shape[1]})")
 
     def hold(calls, what):
         """Each recorded backward launch against its plain adjoint on the
@@ -3020,10 +3048,13 @@ def _training_chain(dev, card, pool) -> list:
           f"its gradient is zero before) [{card}]")
     t = time.perf_counter()
     hold(rec, "chain")
+    echo_order(rec["reverse_echo_scan_bwd"], "chain")
     print(f"training chain: all {sum(len(v) for v in rec.values())} backward launches against "
           f"the plain adjoints on their inputs and cotangents (card, "
           f"{time.perf_counter() - t:.1f} s): max abs err "
-          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items() if rec[k]))
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items() if rec[k])
+          + "; the echo's launches bit for bit with reverse_echo_scan_bwd_periods, a second "
+          "launch the same bits")
 
     # the feedback's gradient where the echo replays: CHAIN_FB_S, card only
     nfb = int(round(CHAIN_FB_S * SR))
@@ -3115,6 +3146,7 @@ def _training_chain(dev, card, pool) -> list:
               f"fit chain step {step}: backward launches {nbw}, expected {chain_blocks}")
         for k in total:
             total[k] += nbw[k]
+    echo_order([chain_calls["reverse_echo_scan_bwd"]], "fit chain")
     bank_blocks = -(-int(round(TRAIN_FXBANK_S * SR)) // BLOCK)
     rows, bank_calls = fit_run(
         "fit fx bank", fw.build_fit_fx_bank(pg, TRAIN_FXBANK_S), TRAIN_FXBANK_S, FXBANK_THETA,
@@ -3125,6 +3157,10 @@ def _training_chain(dev, card, pool) -> list:
               f"fit fx bank step {step}: backward launches {nbw}, expected {bank_blocks}")
         for k in total:
             total[k] += nbw[k]
+    echo_order([bank_calls["reverse_echo_scan_bwd"]], "fit fx bank")
+    print(f"echo backward: {len(echo_orders)} recorded launches ({', '.join(echo_orders)}) bit "
+          f"for bit with reverse_echo_scan_bwd_periods on the card, each launched twice: the "
+          f"same bits")
 
     # ---- times at the fits' shapes (and the ADSR's at BLOCK), beside the plain adjoints ----
     adsr_kw = adsr_calls[0][1]
@@ -3163,6 +3199,24 @@ def _training_chain(dev, card, pool) -> list:
             ms = device_ms(lambda: bwd[name](*args, **kw), 10)
             alone = kernel_ms(lambda: bwd[name](*args, **kw), EFFECTS_BWD[name][2])
             T, C = args[0].shape[0], (args[0].shape[1] if args[0].dim() == 2 else 1)
+            extra = {}
+            if name == "reverse_echo_scan_bwd":
+                # each pass alone (the readers' index, the period walk, the
+                # gather, the channel sums, the torch ops around them), and
+                # the design's bytes: the forward's control results kept as
+                # residuals (the table, 64 bytes a sample, the bounds and the
+                # count) and the scratch (gc and the two parts, the index)
+                passes = launch_split(lambda: bwd[name](*args, **kw), key="echo_walk")
+                plen = kw["plen"]
+                tiles = -(-(T + plen) // reverse_echo._TILE_ROWS)
+                extra = {"passes_ms": {k[:48]: v for k, v in passes.items()},
+                         "residual_bytes": 64 * T + 4 * (T + 2),
+                         "scratch_bytes": 12 * T * C + 4 * (2 * (T + plen)
+                                                            + tiles * 4 * (plen + 256))}
+                print(f"{name} ({label}, T={T}): each pass alone, ms a call: " + ", ".join(
+                    f"{k[:48]} {v:.4f}" for k, v in passes.items()) + f"; residuals "
+                    f"{extra['residual_bytes']} bytes, scratch {extra['scratch_bytes']} bytes "
+                    f"[{card}]")
             if name == "envelope_ar_scan_bwd":
                 bnd = bound(4 * (4 * T * C + 3 * C), ENV_BWD_OPS * T * C)
             elif name == "slew_scan_bwd":
@@ -3174,22 +3228,22 @@ def _training_chain(dev, card, pool) -> list:
             else:
                 _, walked = adsr.adsr_scan_bwd_ref(*args, **kw, with_walked=True)
                 bnd = bound(4 * (2 * walked + 13), ADSR_BWD_OPS * walked)
-            times.append((label, T, C, ms, plain, bnd, peak, alone))
+            times.append((label, T, C, ms, plain, bnd, peak, alone, extra))
             print(f"{name} ({label}, T={T}): kernel {ms:.4f} ms (CUDA events; its own kernels "
                   f"alone {alone:.4f} ms, torch.profiler), bound {bnd[0]:.4g} ms "
                   f"({bnd[1]}), plain adjoint {plain:.1f} ms, peak memory of a launch "
                   f"{peak:.2f} MiB; within {EFFECTS_BWD_TOL} of the plain adjoint [{card}]")
-        (label, T, C, ms, plain, bnd, peak, alone), *more = times
+        (label, T, C, ms, plain, bnd, peak, alone, extra), *more = times
         source, replaces, _ = EFFECTS_BWD[name]
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                  "launches": total[name], "max_abs_err": errs[name], "ms": ms,
                  "plain_ms": plain, "bound_ms": bnd[0], "bound_by": bnd[1],
                  "library_ms": None, "shape": f"T={T} C={C}", "peak_mib": peak,
-                 "kernel_ms": alone}
-        for label2, T2, C2, ms2, plain2, bnd2, peak2, alone2 in more:
+                 "kernel_ms": alone, **extra}
+        for label2, T2, C2, ms2, plain2, bnd2, peak2, alone2, extra2 in more:
             entry[f"at_{label2}"] = {"T": T2, "C": C2, "ms": ms2, "plain_ms": plain2,
                                      "bound_ms": bnd2[0], "bound_by": bnd2[1],
-                                     "peak_mib": peak2, "kernel_ms": alone2}
+                                     "peak_mib": peak2, "kernel_ms": alone2, **extra2}
         entries.append(entry)
 
     # ---- the CPU's gradients ----
@@ -3353,11 +3407,18 @@ def _training_string_vmap(dev, card, pool):
             y = ks.ks_scan(on(args["rho"]), act_t, on(args["buf"]), r_t, on(args["ap_in"]),
                            on(args["ap_out"]), L=L, allpass_c=STRING_AP_C,
                            all_active=blocked)[0]
-        want = ks.ks_scan_bwd_ref(on(args["rho"]), None if blocked and L >= 16 else act_t,
-                                  on(args["buf"]), r_t, y, *w_t, L=L, allpass_c=STRING_AP_C)
+        bargs = (on(args["rho"]), None if blocked and L >= 16 else act_t, on(args["buf"]), r_t,
+                 y, *w_t)
+        want = ks.ks_scan_bwd_ref(*bargs, L=L, allpass_c=STRING_AP_C)
         errs = _bwd_errors([got[k] for k in ins], want)
         bwd_errs.append(_check_bwd("ks_scan_bwd", errs, f"L={L} blocked={blocked}",
                                    EFFECTS_BWD_TOL))
+        for name_, order_ in (("ks_scan_bwd_ref", want),
+                              ("ks_scan_bwd_pipelined", ks.ks_scan_bwd_pipelined(
+                                  *bargs, L=L, allpass_c=STRING_AP_C))):
+            for k, o in zip(ins, order_):
+                check(torch.equal(got[k], o.reshape(got[k].shape)),
+                      f"string L={L} blocked={blocked}: d/d{k} differs from {name_}")
         fd_rel = {}
         with torch.no_grad():
             for k, eps in STRING_FD_EPS.items():
@@ -3405,11 +3466,22 @@ def _training_string_vmap(dev, card, pool):
         take()
         begin()
 
-    begin()
-    losses, rho_fit, _ = fw.fit_string(
-        target, fw.string_excitation(L, fw.STRING_START["seed"]), fw.STRING_START["rho"],
-        STRING_FIT_STEPS, TRAIN_LR, block=BLOCK, allpass_c=c, device=dev, on_step=on_step)
     n_blocks = len(range(-fw.STRING_HEAD, n, BLOCK))
+    with recording({"ks_scan_bwd": n_blocks}) as rec:  # the first step's launches
+        begin()
+        losses, rho_fit, _ = fw.fit_string(
+            target, fw.string_excitation(L, fw.STRING_START["seed"]), fw.STRING_START["rho"],
+            STRING_FIT_STEPS, TRAIN_LR, block=BLOCK, allpass_c=c, device=dev, on_step=on_step)
+    t = time.perf_counter()
+    for j, (args_, kw_, got_) in enumerate(rec["ks_scan_bwd"]):
+        want_ = ks.ks_scan_bwd_ref(*args_, **kw_)
+        for i, (g, w) in enumerate(zip(got_, want_)):
+            check(torch.equal(g, w.reshape(g.shape)), f"string fit: backward launch {j} output "
+                  f"{i} differs from ks_scan_bwd_ref by {float((g - w).abs().max())}")
+    check(len(rec["ks_scan_bwd"]) == n_blocks, "string fit: recorded backward launches")
+    print(f"string fit: the first step's {n_blocks} backward launches (one per sample, the rest "
+          f"blocked) bit for bit with ks_scan_bwd_ref on the card "
+          f"({time.perf_counter() - t:.1f} s)")
     for step, v, wall, span, nf, nb, peak, rho_v in rows:
         print(f"string fit step {step}: loss {v:.6g}, wall {wall * 1e3:.1f} ms, device span "
               f"(CUDA events) {span:.1f} ms, forward launches {nf}, backward launches {nb}, "
@@ -3439,6 +3511,11 @@ def _training_string_vmap(dev, card, pool):
             got = ks.ks_scan_bwd(*call, L=Lt, allpass_c=STRING_AP_C)
             bwd_errs.append(_check_bwd("ks_scan_bwd", _bwd_errors(got, want),
                                        f"T={BLOCK} L={Lt} blocked={blocked}", EFFECTS_BWD_TOL))
+            again = ks.ks_scan_bwd(*call, L=Lt, allpass_c=STRING_AP_C)
+            for i, (g, a, w) in enumerate(zip(got, again, want)):
+                check(torch.equal(g, w) and torch.equal(g, a), f"ks_scan_bwd T={BLOCK} L={Lt} "
+                      f"blocked={blocked}: output {i} off ks_scan_bwd_ref (or a second launch) "
+                      f"by {float((g - w).abs().max())}")
             ms = device_ms(lambda: ks.ks_scan_bwd(*call, L=Lt, allpass_c=STRING_AP_C), 10)
             alone = kernel_ms(lambda: ks.ks_scan_bwd(*call, L=Lt, allpass_c=STRING_AP_C),
                               "ks_scan_bwd")
@@ -3451,7 +3528,8 @@ def _training_string_vmap(dev, card, pool):
             print(f"ks_scan_bwd (T={BLOCK}, L={Lt}, {'blocked' if blocked else 'per sample'} "
                   f"order's call): kernel {ms:.4f} ms (CUDA events; alone {alone:.4f} ms, "
                   f"torch.profiler), bound {bnd[0]:.4g} ms ({bnd[1]}), plain adjoint "
-                  f"{plain:.1f} ms [{card}]")
+                  f"{plain:.1f} ms; bit for bit with ks_scan_bwd_ref, two launches the same "
+                  f"bits [{card}]")
 
     cpu_grads, cpu_s = cpu_job.result()
     for (L_, T_, blocked, _), g_card, g_cpu in zip(cases, grads_card, cpu_grads):

@@ -124,8 +124,8 @@ def load() -> ctypes.CDLL:
         # ap_in_out, ap_out_out, idx, rho_c, T, L, allpass_c, stream
         "ks_scan_launch": [p] * 13 + [i, i, f, p],
         # rho, act (or null), buf, r_in, y, gy, gbuf, gai, gao, grho, gbuf_in,
-        # gap_in, gap_out, idx, ring_global, T, L, W, allpass_c, stream
-        "ks_scan_bwd_launch": [p] * 15 + [i, i, i, f, p],
+        # gap_in, gap_out, idx, comp, ring_global, T, L, W, allpass_c, stream
+        "ks_scan_bwd_launch": [p] * 16 + [i, i, i, f, p],
         # rho, buf_in, r_in, ap_in_in, ap_out_in, diag, powv, y, buf_out,
         # r_out, ap_in_out, ap_out_out, T, L, B, allpass_c, stream
         "ks_blocked_launch": [p] * 12 + [i, i, i, f, p],
@@ -142,11 +142,11 @@ def load() -> ctypes.CDLL:
         "adsr_scan_bwd_launch": [p] * 7 + [i, f, f, f, f, i, p],
         # trig, stage_in, env_in, gy, genv_out, genv_in, T, dA, dD, dR, sus, stream
         "adsr_clock_bwd_launch": [p] * 6 + [i, d, d, d, d, p],
-        # x, blk, ratio, fb, alt, pb_in, misc_in, y, gy, lam_a, lam_b, gpb_out,
-        # gline, gfb, gp, tab, bounds, n_periods, misc_out, gfb_part, gp_part, T,
-        # C, sr, plen, cap, min_block, max_block, smooth_alpha, inv_plen, half,
-        # inv_half, stream
-        "reverse_echo_scan_bwd_launch": [p] * 21 + [i, i, f, i, i, i, i, f, f, f, f, p],
+        # x, fb, y, gy, tab, bounds, n_periods, gbuf_a, gbuf_b, gmisc, lam_a,
+        # lam_b, pb_in, gpb_out, gline, gfb, gratio, gm, gp, gcs, gfb_part,
+        # gp_part, first, count, list, T, C, cap, plen, tile_cap, inv_half,
+        # decay, stream
+        "reverse_echo_scan_bwd_launch": [p] * 25 + [i, i, i, i, i, f, f, p],
         # x, blk, ratio, fb, alt, buf_a, buf_b, pb_in, misc_in, y, pb_out,
         # misc_out, tab, bounds, n_periods, T, C, sr, plen, cap, min_block,
         # max_block, smooth_alpha, inv_plen, half, inv_half, stream

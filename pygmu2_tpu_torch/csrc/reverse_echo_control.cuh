@@ -1,7 +1,8 @@
 // The reverse echo's control pass (csrc/reverse_echo_scan.cu) and what its
 // two audio passes share: the forward's (reverse_echo_scan.cu) and the
-// backward's (reverse_echo_scan_bwd.cu), which runs the control pass again
-// rather than keep its table from the forward.
+// backward's (reverse_echo_scan_bwd.cu), which reads the table, the period
+// bounds and their count that the forward's control pass wrote (kept as
+// residuals of the forward launch) and runs no control pass of its own.
 //
 // echo_control, one CUDA block: thread 0 runs only the serial scalars (the
 // smoothed block length and the read position), the other warps stage the

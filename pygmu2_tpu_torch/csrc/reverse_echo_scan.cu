@@ -36,7 +36,8 @@
 // ~0.2 ms per 16384 samples at 1.98 GHz, whatever C.
 //
 // What the design does about it: two launches on the caller's stream.
-// 1. echo_control (reverse_echo_control.cuh, shared with the backward),
+// 1. echo_control (reverse_echo_control.cuh; its table, bounds and count
+//    are the backward's residuals when the launch is recorded for one),
 //    one CUDA block: thread 0 runs only the serial scalars.
 //    Within a period the block length is fixed, so it walks each period
 //    (or the rest of a chunk) as a run of samples with no branch but the

@@ -20,10 +20,14 @@ Each measurement prints one JSON line with the card's name:
    as ``fminf``/``fmaxf``, as ``setp``/``selp``, and as three sums formed
    and one selected, EXPONENTIAL's coefficient selected, and both updates
    formed and one selected.
-2. ``roles``: copies of ``csrc/comb_scan.cu`` and ``csrc/ks_scan.cu`` with
-   ``clock64()`` stamps around each role's work in the pipelined loop
-   (busy) and around its barrier (wait), run at T = 16384: the comb at
-   C = 1 with a 200-240 Hz sweep, the string at L = 133 and 535.
+2. ``roles``: copies of ``csrc/comb_scan.cu``, ``csrc/ks_scan.cu`` and
+   ``csrc/ks_scan_bwd.cu`` with ``clock64()`` stamps around each role's
+   work in the pipelined loop (busy) and around its barrier (wait), run at
+   T = 16384: the comb at C = 1 with a 200-240 Hz sweep, the string and
+   its backward at L = 133 and 535 (the backward in both orders: a
+   100-sample head of inactive samples, and every sample active), with
+   the backward chain's cycles a sample (thread 0's busy cycles over the
+   active samples).
 3. ``follower`` and ``slew``: copies of ``csrc/envelope_ar_scan.cu`` and
    ``csrc/slew_scan.cu`` with ``clock64()`` around each warp's whole run
    and its mbarrier waits, at T = 16384: the follower at C = 1 and 128,
@@ -360,6 +364,15 @@ def ks_roles_source() -> str:
         (0, 32))
 
 
+def ks_bwd_roles_source() -> str:
+    return _instrumented(
+        "ks_scan_bwd.cu", "for (int j = n_win - 1; j >= -1; --j) {", "__syncthreads();",
+        "\n    }\n    if (act",
+        "    lam = copysignf(0.0f, c);",
+        "    if (act != nullptr) {\n#pragma unroll 4\n      for (int k = tid; k < K;",
+        (0, 32))
+
+
 def roles(card: str) -> dict:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     dev = torch.device("cuda")
@@ -408,6 +421,36 @@ def roles(card: str) -> dict:
         result[f"ks L={L}"] = {
             role: {"busy": cycles[2 * k], "wait": cycles[2 * k + 1]}
             for k, role in enumerate(("thread 0: allpass", "warps 1-7: emit, form, stage"))}
+
+    bwd = _build("ks_bwd_roles", ks_bwd_roles_source())
+    bwd.ks_scan_bwd_launch.argtypes = [p] * 16 + [i, i, i, f, p]
+    from pygmu2_tpu_torch.ops import ks as ks_ops
+
+    def vec(n):
+        return torch.from_numpy(rng.uniform(-0.3, 0.3, n).astype(np.float32)).to(dev)
+
+    for L in (133, 535):
+        for head in (100, None):  # the per-sample order's call, and the blocked order's
+            act = None if head is None else torch.arange(T, device=dev) >= head
+            K = T if act is None else int(act.sum())
+            ins = [torch.full((T,), 0.995, device=dev), act, vec(L),
+                   torch.tensor(3, dtype=torch.int32, device=dev), vec(T), vec(T), vec(L),
+                   torch.tensor(0.1, device=dev), torch.tensor(-0.2, device=dev)]
+            outs = [torch.empty(T, device=dev), torch.empty(L, device=dev),
+                    torch.empty((), device=dev), torch.empty((), device=dev),
+                    torch.empty(T, dtype=torch.int32, device=dev), torch.empty(3 * T, device=dev),
+                    torch.empty(1, device=dev)]
+            ptrs = [None if t is None else t.data_ptr() for t in ins + outs]
+            err = bwd.ks_scan_bwd_launch(*ptrs, T, L, ks_ops.bwd_window(L), 0.35, stream)
+            if err:
+                raise RuntimeError(f"cycle_probe: ks_scan_bwd launch failed ({err})")
+            torch.cuda.synchronize()
+            bwd.read_cycles(cycles)
+            key = f"ks_bwd L={L} {'blocked (all active)' if head is None else 'per sample'}"
+            result[key] = {
+                role: {"busy": cycles[2 * k], "wait": cycles[2 * k + 1]}
+                for k, role in enumerate(("thread 0: chain", "warps 1-7: adjoint, seeds, stage"))}
+            result[key]["chain_cycles_per_sample"] = cycles[0] / K
     return result
 
 
@@ -669,6 +712,7 @@ def instrumented_sources() -> dict:
     """Every instrumented copy's source text (no build): each raises if a
     line it stamps is gone from its kernel."""
     out = {"comb roles": comb_roles_source(), "ks roles": ks_roles_source(),
+           "ks bwd roles": ks_bwd_roles_source(),
            "follower roles": follower_roles_source(), "slew roles": slew_roles_source(),
            "osc roles": osc_roles_source()}
     out.update({f"adsr passes, {k}": adsr_passes_source(v) for k, v in ADSR_PATHS.items()})

@@ -12,9 +12,9 @@ launches its kernel through ``ctypes`` and gets tensors with no
   are saved as residuals (a backward kernel recomputes whatever
   trajectory it needs from them, or reads what the launch wrote for it:
   the ladder's checkpoints, written only by a launch that goes through
-  the Function, and the comb's delays and windows), but for a buffer the
-  launch updates in
-  place (the echo's block rings): its old value is gone, and a later
+  the Function, the comb's delays and windows, the echo's control table,
+  written only by such a launch too), but for a buffer the launch updates
+  in place (the echo's block rings): its old value is gone, and a later
   launch updates it again, so it is not saved and the backward gets None
   for it;
 - the backward is a backward kernel's launch (the ladder, the comb, the

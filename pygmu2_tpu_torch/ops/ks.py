@@ -33,8 +33,11 @@ Differentiable: on the card both launches are ``torch.autograd.Function``s
 the hand-written adjoint in ``csrc/ks_scan_bwd.cu`` (counted in
 ``ks_scan_bwd.launches``), one kernel for both orders; on the CPU
 autograd differentiates the plain versions. ``ks_scan_bwd_ref`` is the
-backward's plain version, in the kernel's order (``ks_blocked_bwd_ref``
-the blocked order's: the same adjoint, every sample active). The string
+backward's plain version (``ks_blocked_bwd_ref`` the blocked order's: the
+same adjoint, every sample active); ``ks_scan_bwd_pipelined`` computes it
+in the kernel's schedule (tests and ``chip_smoke.py``): the tape's
+cotangent a ring of L + 1 slots, a window's chain beside the adjoint of
+the window after it and the seeds of the window before it. The string
 has no channel axis: under ``torch.func.vmap`` it launches once per batch
 member.
 """
@@ -344,15 +347,19 @@ ks_scan_bwd.blocked_launches = 0  # of them, the blocked order's (act None)
 
 def bwd_window(L: int) -> int:
     """Active samples per window of the adjoint's walk for a string of L:
-    a window's seeds (the tape cotangents of its outputs) are complete
-    once every later sample is walked when it is at most L - 1 long."""
-    return min(MAX_WINDOW, L - 1)
+    the forward's ``window_length`` (L - 1 for the strings the kernel
+    walks sample by sample). A window's seeds (the tape cotangents of its
+    outputs) are complete once every later sample is walked when it is at
+    most L - 1 long, and need only the windows after the next one when
+    2W + 1 <= L: they form while the chain walks the next one."""
+    return L - 1 if L <= SERIAL_MAX_L else window_length(L)
 
 
 def ks_scan_bwd_ref(rho, act, buf, r, y, gy, gbuf, gai, gao, *, L, allpass_c):
     """Plain PyTorch version of :func:`ks_scan_bwd` (same arguments and
     result), in the kernel's order and roundings, so equal to it bit for
-    bit.
+    bit. Any window of 1 .. L - 1 samples gives the same bits: each tape
+    slot takes its adds in one order whatever the window.
 
     Active samples compacted as k = 0 .. K - 1, the tape S as in
     :func:`ks_scan_windows` (S[j] = buf[(r + j) % L] for j < L, S[L + k] =
@@ -404,6 +411,87 @@ def ks_scan_bwd_ref(rho, act, buf, r, y, gy, gbuf, gai, gao, *, L, allpass_c):
     return grho, gbuf_in, lam_next, (-c) * lam_next
 
 
+def ks_scan_bwd_pipelined(rho, act, buf, r, y, gy, gbuf, gai, gao, *, L, allpass_c):
+    """:func:`ks_scan_bwd_ref` in the schedule of ``csrc/ks_scan_bwd.cu``
+    (same arguments and result, equal bit for bit), for the tests and
+    ``chip_smoke.py``: the tape's cotangent G a ring of L + 1 slots (G[m]
+    at m mod (L + 1), a seed's slot cleared once read: it holds G[k - 1]
+    next); windows of ``bwd_window(L)`` from the last, the call's last
+    seed formed with + gao and the chain started from a zero whose product
+    by -c is -0; beside window j's chain, in order, (1) mu, grho and the
+    tape adds of window j + 1, slot by slot (G[k] + mu_k rho_k / 2, then
+    + mu_{k-1} rho_{k-1} / 2) and (2) the seeds of window j - 1. Strings
+    of L <= SERIAL_MAX_L: the kernel walks them sample by sample, in the
+    plain version's order."""
+    if L <= SERIAL_MAX_L:
+        return ks_scan_bwd_ref(rho, act, buf, r, y, gy, gbuf, gai, gao, L=L,
+                               allpass_c=allpass_c)
+    dev = rho.device
+    f32 = torch.float32
+    c = torch.as_tensor(allpass_c, dtype=f32, device=dev).reshape(())
+    T = rho.shape[0]
+    idx = (torch.arange(T, device=dev) if act is None else torch.nonzero(act).flatten())
+    K = idx.numel()
+    rho_c, gy_c = rho.to(f32)[idx], gy.to(f32)[idx]
+    r0 = int(r)
+    S = torch.cat([torch.roll(buf.to(f32), -r0), y.to(f32)[idx]])  # the tape
+    R = L + 1
+    m = K + torch.arange(L + 1, device=dev)
+    ring = torch.empty(R, dtype=f32, device=dev)
+    ring[m % R] = torch.where(m < K + L, gbuf.to(f32)[(r0 + m) % L], torch.zeros((), device=dev))
+    gai = torch.as_tensor(gai, dtype=f32, device=dev).reshape(())
+    gao = torch.as_tensor(gao, dtype=f32, device=dev).reshape(())
+    grho = torch.zeros(T, dtype=f32, device=dev)
+    if K == 0:
+        return grho, torch.roll(ring[:L], r0), gai.clone(), gao.clone()
+    W = bwd_window(L)
+    n_win = -(-K // W)
+    grho_c = torch.empty(K, dtype=f32, device=dev)
+
+    def span(j):
+        return j * W, min(W, K - j * W)
+
+    def seeds(j, last):
+        k0, n = span(j)
+        s = (L + k0 + torch.arange(n, device=dev)) % R
+        g = ring[s] + gy_c[k0:k0 + n]
+        ring[s] = 0.0
+        if last:
+            g[n - 1] = g[n - 1] + gao
+        return g
+
+    def adjoint(j, lw, after):
+        k0, n = span(j)
+        mu = c * lw + torch.cat([lw[1:], after[None]])
+        m = mu * (rho_c[k0:k0 + n] * 0.5)
+        grho_c[k0:k0 + n] = (mu * (S[k0:k0 + n] + S[k0 + 1:k0 + n + 1])) * 0.5
+        s = (k0 + torch.arange(n + 1, device=dev)) % R
+        g = ring[s]
+        g[:n] = g[:n] + m
+        g[1:] = g[1:] + m
+        ring[s] = g
+
+    seed = {n_win - 1: seeds(n_win - 1, True)}
+    walked = {}
+    lam = torch.copysign(torch.zeros((), device=dev), c)
+    for j in range(n_win - 1, -2, -1):
+        if j >= 0:  # the chain
+            _, n = span(j)
+            after = gai if j == n_win - 1 else lam
+            lw = torch.empty(n, dtype=f32, device=dev)
+            for i in range(n - 1, -1, -1):
+                lam = seed[j][i] + (-c) * lam
+                lw[i] = lam
+            walked[j] = (lw, after)
+            del seed[j]
+        if j + 1 < n_win:  # beside it: (1) window j + 1, then (2) window j - 1's seeds
+            adjoint(j + 1, *walked.pop(j + 1))
+        if j >= 1:
+            seed[j - 1] = seeds(j - 1, False)
+    grho[idx] = grho_c
+    return grho, torch.roll(ring[:L], r0), lam, (-c) * lam
+
+
 def ks_blocked_bwd_ref(rho, buf, r, y, gy, gbuf, gai, gao, *, L, allpass_c):
     """The blocked order's adjoint: :func:`ks_scan_bwd_ref` with every
     sample active (same arguments but ``act``, same result). The blocked
@@ -436,9 +524,11 @@ def _launch_bwd(rho, act, buf, r, y, gy, gbuf, gai, gao, *, L, allpass_c):
     gbuf_in = torch.empty((L,), dtype=torch.float32, device=dev)
     gap_in = torch.empty((), dtype=torch.float32, device=dev)
     gap_out = torch.empty((), dtype=torch.float32, device=dev)
-    # scratch: the compaction, and the tape's cotangent (a ring of L + 1)
-    # when the string is too long for shared memory
+    # scratch: the compaction (the active samples' indices, and their rho,
+    # gy and y), and the tape's cotangent (a ring of L + 1) when the string
+    # is too long for shared memory
     idx = torch.empty((T,), dtype=torch.int32, device=dev)
+    comp = torch.empty((3 * T if act is not None else 1,), dtype=torch.float32, device=dev)
     ring = torch.empty((L + 1 if L > MAX_KERNEL_L else 1,), dtype=torch.float32, device=dev)
     lib = _ext.load()
     with torch.cuda.device(dev):
@@ -446,7 +536,8 @@ def _launch_bwd(rho, act, buf, r, y, gy, gbuf, gai, gao, *, L, allpass_c):
             rho.data_ptr(), None if act is None else act.data_ptr(), buf.data_ptr(),
             r.data_ptr(), y.data_ptr(), gy.data_ptr(), gbuf.data_ptr(), gai.data_ptr(),
             gao.data_ptr(), grho.data_ptr(), gbuf_in.data_ptr(), gap_in.data_ptr(),
-            gap_out.data_ptr(), idx.data_ptr(), ring.data_ptr(), T, L, bwd_window(L),
+            gap_out.data_ptr(), idx.data_ptr(), comp.data_ptr(), ring.data_ptr(), T, L,
+            bwd_window(L),
             float(allpass_c), torch.cuda.current_stream(dev).cuda_stream,
         )
     _ext.raise_on_error(err, "ks_scan_bwd")

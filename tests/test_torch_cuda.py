@@ -948,6 +948,40 @@ def test_string_backward_kernel_matches_plain(cuda, L, T, head, blocked):
         assert float((g - w).abs().max()) <= BWD_TOL * float(w.abs().max()), (g, w)
 
 
+@pytest.mark.parametrize("L,T,blocked", [(3, 1001, False), (9, 4097, False), (133, 16384, False),
+                                         (133, 16384, True), (535, 16384, False),
+                                         (535, 16384, True), (51201, 2048, False),
+                                         (51201, 2048, True)])
+def test_string_backward_kernel_equals_plain_bit_for_bit(cuda, L, T, blocked):
+    """The pipelined backward kernel equals ``ks_scan_bwd_ref`` and its
+    schedule in torch ops (``ks_scan_bwd_pipelined``) bit for bit, in both
+    orders: L = 3 (one thread), 9 (windows of 4), 133 and 535 (2W + 1 = L:
+    a window's last tape add and a seed two windows before share a slot)
+    at T = 16384, and a string past MAX_KERNEL_L (the ring in device
+    memory); a second launch gives the same bits."""
+    from pygmu2_tpu_torch.ops import ks
+
+    rho, buf, ai, ao = _seeded(cuda, 5 * L + T, (T,), (L,), (), ())
+    rho = 0.97 + 0.029 * rho.abs()
+    act = torch.ones(T, dtype=torch.bool, device=cuda)
+    if not blocked:
+        act[:30] = False
+        act[T // 3:T // 3 + 40] = False
+    r = torch.tensor(L // 3, dtype=torch.int32, device=cuda)
+    all_active = blocked and L >= ks.BLOCKED_MIN_L
+    y = ks.ks_scan(rho, act, buf, r, ai, ao, L=L, allpass_c=0.35, all_active=blocked)[0]
+    cts = _seeded(cuda, L + T + 2, (T,), (L,), (), ())
+    call = (rho, None if all_active else act, buf, r, y, *cts)
+    got = ks.ks_scan_bwd(*call, L=L, allpass_c=0.35)
+    again = ks.ks_scan_bwd(*call, L=L, allpass_c=0.35)
+    want = ks.ks_scan_bwd_ref(*call, L=L, allpass_c=0.35)
+    pipelined = ks.ks_scan_bwd_pipelined(*call, L=L, allpass_c=0.35)
+    for i, (g, a, w, p_) in enumerate(zip(got, again, want, pipelined)):
+        assert torch.equal(g, a), f"output {i}: two launches differ"
+        assert torch.equal(g, w), f"output {i}: off the plain adjoint by {(g - w).abs().max()}"
+        assert torch.equal(p_, w)
+
+
 def test_string_fit_gradient_on_card_matches_cpu(cuda):
     """fit_workload's string render, four blocks of 512 (the first per
     sample, the rest blocked): the card's gradients within 1e-3 relative
@@ -1111,35 +1145,20 @@ def test_slew_backward_kernel_matches_plain(cuda, linear, T):
 @pytest.mark.parametrize("C,ratio,alt,T", [(1, 1.5, 1.0, 4097), (2, "mod", 0.0, 1001),
                                            (128, 1.5, 1.0, 4097), (3, 1.0, 1.0, 999)])
 def test_reverse_echo_backward_kernel_matches_plain(cuda, C, ratio, alt, T):
-    """The echo's backward launch (the control pass again, the periods in
-    reverse) against the plain adjoint: a fifth up, a modulated ratio, unity
+    """The echo's backward launch (on the forward launch's control
+    results: the readers' index, the periods in reverse over the card, the
+    gather) against the plain adjoint: a fifth up, a modulated ratio, unity
     (the pass-through), reversed and alternating replay, C = 1, 2, 3 and
     128, rings and a pitch line handed in; then the state handed across a
     cut: the two calls' backward, the rings' cotangents passed from the
     second to the first, equals the whole call's."""
     from pygmu2_tpu_torch.ops import reverse_echo as re_
 
-    cap, plen, sr = 400, 64, 8000.0
-    x, fb, ba, bb, pb = _seeded(cuda, C + T, (T, C), (T,), (cap, C), (cap, C), (plen, C))
-    if ratio == "mod":
-        (r,) = _seeded(cuda, 9, (T,), lo=0.7, hi=1.6)
-    else:
-        r = torch.full((T,), ratio, device=cuda)
-    blk = torch.full((T,), 150.0 / sr, device=cuda)
-    blk[T // 2:] = 90.0 / sr
-    al = torch.full((T,), alt, device=cuda)
-    misc = torch.tensor([1, 3, 5.5, 10, 10, 150.0, 150, 150, 1], device=cuda)
-    kw = dict(sr=sr, plen=plen, cap=cap, min_block=8, max_block=cap - 1, smooth_alpha=1 / 240)
-    fb = fb * 0.3 + 0.4
-
-    def fwd(x, blk, r, fb, al, ba, bb, pb, misc):
-        return re_.reverse_echo_scan(x, blk, r, fb, al, ba.clone(), bb.clone(), pb, misc, **kw)
-
-    y, ba2, bb2, pb2, misc2 = fwd(x, blk, r, fb, al, ba, bb, pb, misc)
-    gy, gba, gbb, gpb, gm = _seeded(cuda, 3 * C, (T, C), (cap, C), (cap, C), (plen, C), (9,))
-    args = (x, blk, r, fb, al, pb, misc, y, gy, gba, gbb, gpb, gm)
+    args, kw, fwd = _echo_case(cuda, C, ratio, alt, T)
+    x, blk, r, fb, al, pb, misc, y, gy, gba, gbb, gpb, gm = args
+    res = fwd(x, blk, r, fb, al, pb, misc)[5:]
     before = re_.reverse_echo_scan_bwd.launches
-    got = re_.reverse_echo_scan_bwd(*args, **kw)
+    got = re_.reverse_echo_scan_bwd(*args, res, **kw)
     torch.cuda.synchronize()
     assert re_.reverse_echo_scan_bwd.launches == before + 1
     want = re_.reverse_echo_scan_bwd_ref(*args, **kw)
@@ -1147,14 +1166,109 @@ def test_reverse_echo_backward_kernel_matches_plain(cuda, C, ratio, alt, T):
     cut = T // 3
     head = [v[:cut] if v.dim() and v.shape[0] == T else v for v in (x, blk, r, fb, al)]
     tail = [v[cut:] if v.dim() and v.shape[0] == T else v for v in (x, blk, r, fb, al)]
-    y1, ba1, bb1, pb1, m1 = fwd(*head, ba, bb, pb, misc)
+    y1, ba1, bb1, pb1, m1, *res1 = fwd(*head, pb, misc)
+    res2 = fwd(*tail, pb1, m1, rings=(ba1, bb1))[5:]
     gx2, gr2, gfb2, ga1, gb1, gp1, gm1 = re_.reverse_echo_scan_bwd(
-        *tail, pb1, m1, y[cut:], gy[cut:], gba, gbb, gpb, gm, **kw)
+        *tail, pb1, m1, y[cut:], gy[cut:], gba, gbb, gpb, gm, res2, **kw)
     gx1, gr1, gfb1, ga0, gb0, gp0, gm0 = re_.reverse_echo_scan_bwd(
-        *head, pb, misc, y1, gy[:cut], ga1, gb1, gp1, gm1, **kw)
+        *head, pb, misc, y1, gy[:cut], ga1, gb1, gp1, gm1, tuple(res1), **kw)
     joined = (torch.cat([gx1, gx2]), torch.cat([gr1, gr2]), torch.cat([gfb1, gfb2]), ga0, gb0,
               gp0, gm0)
     _bwd_close(joined, want, f"echo C={C} ratio={ratio} cut", BWD_TOL)
+
+
+def _echo_case(device, C, ratio, alt, T, seed_shift=0):
+    """A seeded echo call on the card: the backward's arguments (the
+    forward's, its output, the cotangents), the keywords, and the recorded
+    forward launch (its control results after its five outputs)."""
+    from pygmu2_tpu_torch.ops import reverse_echo as re_
+
+    cap, plen, sr = 400, 64, 8000.0
+    x, fb, ba, bb, pb = _seeded(device, C + T + seed_shift, (T, C), (T,), (cap, C), (cap, C),
+                                (plen, C))
+    if ratio == "mod":
+        (r,) = _seeded(device, 9, (T,), lo=0.7, hi=1.6)
+    else:
+        r = torch.full((T,), ratio, device=device)
+    blk = torch.full((T,), 150.0 / sr, device=device)
+    blk[T // 2:] = 90.0 / sr
+    al = torch.full((T,), alt, device=device)
+    misc = torch.tensor([1, 3, 5.5, 10, 10, 150.0, 150, 150, 1], device=device)
+    kw = dict(sr=sr, plen=plen, cap=cap, min_block=8, max_block=cap - 1, smooth_alpha=1 / 240)
+    fb = fb * 0.3 + 0.4
+
+    def fwd(x, blk, r, fb, al, pb, misc, rings=(ba, bb)):
+        return re_._launch(x, blk, r, fb, al, *(v.clone() for v in rings), pb, misc, **kw,
+                           residuals=True)
+
+    y = fwd(x, blk, r, fb, al, pb, misc)[0]
+    gy, gba, gbb, gpb, gm = _seeded(device, 3 * C, (T, C), (cap, C), (cap, C), (plen, C), (9,))
+    return (x, blk, r, fb, al, pb, misc, y, gy, gba, gbb, gpb, gm), kw, fwd
+
+
+@pytest.mark.parametrize("C,ratio,alt,T", [(1, 1.5, 1.0, 4097), (2, "mod", 0.0, 1001),
+                                           (128, "mod", 1.0, 4097), (3, 1.0, 1.0, 999),
+                                           (4, "mod", 1.0, 2500), (1, 0.6, 0.0, 16384)])
+def test_reverse_echo_backward_kernel_equals_period_order(cuda, C, ratio, alt, T):
+    """The echo's backward kernel equals its order in torch ops
+    (``reverse_echo_scan_bwd_periods`` on the same control results) bit for
+    bit, and a second launch gives the same bits (no atomics): C = 1 (a
+    lane a channel), 4 and 128 (16-byte pieces), 2 and 3; T = 16384 one
+    launch of the fit fx bank's length."""
+    from pygmu2_tpu_torch.ops import reverse_echo as re_
+
+    args, kw, fwd = _echo_case(cuda, C, ratio, alt, T, seed_shift=1)
+    res = fwd(*args[:7])[5:]
+    got = re_.reverse_echo_scan_bwd(*args, res, **kw)
+    again = re_.reverse_echo_scan_bwd(*args, res, **kw)
+    want = re_.reverse_echo_scan_bwd_periods(*args, res, **kw)
+    for i, (g, a, w) in enumerate(zip(got, again, want)):
+        assert torch.equal(g, a), f"output {i}: two launches differ"
+        assert torch.equal(g, w), f"output {i}: off the period order by {(g - w).abs().max()}"
+
+
+def test_reverse_echo_backward_source_has_no_atomics():
+    src = Path(__file__).resolve().parents[1] / "pygmu2_tpu_torch/csrc/reverse_echo_scan_bwd.cu"
+    text = src.read_text()
+    assert text.count("atomicAdd") == 0
+    assert "echo_control<<<" not in text
+
+
+def test_reverse_echo_residual_and_untracked_forward(cuda):
+    """The forward launch with and without its control results gives the
+    same bits; through the autograd Function (the recorded launch, its
+    results kept as residuals) the gradient equals the plain adjoint's; an
+    untracked call (no gradient) keeps none and launches once."""
+    from pygmu2_tpu_torch.ops import reverse_echo as re_
+
+    args, kw, fwd = _echo_case(cuda, 3, "mod", 1.0, 3001, seed_shift=2)
+    x, blk, r, fb, al, pb, misc, y, gy, *_ = args
+    cap = kw["cap"]
+    ba, bb = _seeded(cuda, 77, (cap, 3), (cap, 3))
+    plain = re_._launch(x, blk, r, fb, al, ba.clone(), bb.clone(), pb, misc, **kw)
+    recorded = re_._launch(x, blk, r, fb, al, ba.clone(), bb.clone(), pb, misc, **kw,
+                           residuals=True)
+    assert len(plain) == 5 and len(recorded) == 8
+    for a, b in zip(plain, recorded):
+        assert torch.equal(a, b)
+    before = re_.reverse_echo_scan.launches
+    with torch.no_grad():
+        out = re_.reverse_echo_scan(x, blk, r, fb, al, ba.clone(), bb.clone(), pb, misc, **kw)
+    assert len(out) == 5 and re_.reverse_echo_scan.launches == before + 1
+    for a, b in zip(out, plain):
+        assert torch.equal(a, b)
+    ins = [v.clone().requires_grad_() for v in (x, r, fb, pb)]
+    n_bwd = re_.reverse_echo_scan_bwd.launches
+    out = re_.reverse_echo_scan(ins[0], blk, ins[1], ins[2], al, ba.clone(), bb.clone(), ins[3],
+                                misc, **kw)
+    assert len(out) == 5
+    got = torch.autograd.grad(out[0], ins, gy)
+    torch.cuda.synchronize()
+    assert re_.reverse_echo_scan_bwd.launches == n_bwd + 1
+    zeros = [torch.zeros_like(v) for v in (ba, bb, pb)] + [torch.zeros(9, device=cuda)]
+    want = re_.reverse_echo_scan_bwd_ref(x, blk, r, fb, al, pb, misc, out[0].detach(), gy,
+                                         *zeros, **kw)
+    _bwd_close(got, [want[i] for i in (0, 1, 2, 5)], "echo through the Function", BWD_TOL)
 
 
 def _gate(T, kind):

@@ -6,7 +6,8 @@ import pytest
 
 from pygmu2_tpu_torch import cycle_probe
 
-NAMES = ["comb roles", "ks roles", "follower roles", "slew roles", "osc roles"] + [
+NAMES = ["comb roles", "ks roles", "ks bwd roles", "follower roles", "slew roles",
+         "osc roles"] + [
     f"adsr passes, {k}" for k in cycle_probe.ADSR_PATHS]
 
 

@@ -173,7 +173,7 @@ Drives the port's main paths through their user entry points:
    ``torch.autograd`` of ``engine.render_functional`` with ParamPE
    bindings on the card, through the hand-written backward kernels of the
    ladder, the comb (``csrc/{ladder,comb}_scan_bwd.cu``) and the order-2
-   affine scan (one more launch of ``csrc/affine_scan_2.cu``). (a) The
+   affine scan (the adjoint launch of ``csrc/affine_scan_2.cu``). (a) The
    gradient probe of ``bench.py:_grad_probe`` (4096 samples, block 1024,
    loss mean(out^2)): 4 launches each of the ladder's and the comb's
    forward and backward kernels; each gradient within 0.1 relative of the
@@ -191,7 +191,10 @@ Drives the port's main paths through their user entry points:
    (c) The fit bank, 2 s of 128 channels at block 16384 (6 blocks), 3
    Adam steps on the BiquadPE's and the SVFilterPE's sweep centres: 12
    launches of the scan's backward a step, the loss must fall, one
-   launch against autograd of the plain chunked scan on the card. Each
+   launch against autograd of the plain chunked scan on the card, and
+   each of the first step's 12 launches bit for bit with the plain
+   version's order (``affine_scan_2_bwd_plain``) on the card and
+   launched again: the same bits. Each
    backward kernel timed (CUDA events) at the probe's and the patch's
    shapes (the scan's at the bank's), beside its bound and its plain
    version's autograd.
@@ -224,7 +227,11 @@ Drives the port's main paths through their user entry points:
    backward kernel timed (CUDA events) at the fits' shapes (the follower
    and the echo at C = 1 and 128; the ADSR at the probe's T = 1024 and at
    T = 16384) beside its plain adjoint, its bound and the peak memory of a
-   launch, and held to the plain adjoint there;
+   launch, and held to the plain adjoint there. The follower's recorded
+   launches (the chain's 4 at C = 1, the fit chain's first at C = 1, the
+   fit fx bank's first at C = 128) are held bit for bit to its kernel's
+   order in torch ops (``envelope_ar_scan_bwd_chunked``) on the card, and
+   launched again: the same bits;
 17. the string's backward kernel (``csrc/ks_scan_bwd.cu``, both orders)
    and batched bindings. (a) ``ks_scan`` with rho, the string and the
    allpass state requiring grad, at T = 4096 with a 300-sample pre-t0 head
@@ -2667,7 +2674,7 @@ def _training(dev, card, pool) -> list:
                          {k: float(x) for k, x in values.items()}))
             begin()
 
-        with recording({name: 1 for name in keep}) as recs:
+        with recording(keep) as recs:
             begin()
             losses, fitted = fw.fit(graph, target, start, steps, TRAIN_LR, block=BLOCK,
                                     device=dev, on_step=on_step)
@@ -2683,7 +2690,7 @@ def _training(dev, card, pool) -> list:
     n_patch = -(-int(round(TRAIN_PATCH_S * SR)) // BLOCK)
     rows, recs = fit_run("fit patch", fw.build_fit_patch(pg, TRAIN_PATCH_S), TRAIN_PATCH_S,
                          PROBE_THETA, PATCH_HIDDEN, TRAIN_PATCH_STEPS,
-                         ["ladder_scan_bwd", "comb_scan_bwd"])
+                         {"ladder_scan_bwd": 1, "comb_scan_bwd": 1})
     for step, *_, nf, nb, _, _ in rows:
         check(nf["ladder"] == nf["comb"] == nb["ladder"] == nb["comb"] == n_patch
               and nb["scan"] == 0,
@@ -2699,7 +2706,7 @@ def _training(dev, card, pool) -> list:
     n_bank = -(-int(round(TRAIN_BANK_S * SR)) // BLOCK)
     rows, recs = fit_run("fit bank", fw.build_fit_bank(pg, TRAIN_BANK_S), TRAIN_BANK_S,
                          BANK_START, BANK_HIDDEN, TRAIN_BANK_STEPS,
-                         ["affine_scan_2_bwd"])
+                         {"affine_scan_2_bwd": 2 * n_bank})  # the first step's
     for step, *_, nf, nb, _, _ in rows:
         check(nf["scan"] == nb["scan"] == 2 * n_bank,
               f"fit bank step {step}: scan launches forward {nf} backward {nb}, expected "
@@ -2715,6 +2722,27 @@ def _training(dev, card, pool) -> list:
     print(f"fit bank: a backward scan launch at T={sargs[4].shape[0]}, C={sargs[4].shape[1]} "
           f"against autograd of the plain chunked scan on the card: max abs err "
           f"{errs['affine_scan_2_bwd']:.3g}")
+    # every recorded launch of the first step bit for bit with the plain
+    # version's order on the card, and launched again: the same bits
+    t = time.perf_counter()
+    for j, (args, kw, got) in enumerate(recs["affine_scan_2_bwd"]):
+        want = linrec_kernel.affine_scan_2_bwd_plain(*args, **kw)
+        n = linrec_kernel.affine_scan_2_bwd.launches
+        again = bwd["scan"](*args, **kw)
+        linrec_kernel.affine_scan_2_bwd.launches = n  # a comparison's: not the path's
+        for i, (g, a, w) in enumerate(zip(got, again, want)):
+            if w is None:
+                check(g is None and a is None, f"scan backward, fit bank launch {j}: output "
+                      f"{i} is not None")
+                continue
+            check(torch.equal(g, a), f"scan backward, fit bank launch {j}: output {i} differs "
+                  "between two launches")
+            check(g.shape == w.shape and torch.equal(g, w), f"scan backward, fit bank launch "
+                  f"{j}: output {i} differs from affine_scan_2_bwd_plain by "
+                  f"{float((g - w).abs().max()) if g.shape == w.shape else 'shape'}")
+    print(f"fit bank: all {len(recs['affine_scan_2_bwd'])} backward scan launches of the first "
+          f"step bit for bit with affine_scan_2_bwd_plain on the card "
+          f"({time.perf_counter() - t:.1f} s); a second launch of each the same bits")
 
     # ---- times: each backward kernel at its shapes, beside its plain version ----
     times = {}
@@ -2757,9 +2785,11 @@ def _training(dev, card, pool) -> list:
             lambda: ladder._launch_bwd(*largs[:5], ck, *largs[6:8], **lkw, every=K),
             key="ladder_bwd").values())
     _, plain = timed_plain(lambda: linrec_kernel.affine_scan_2_bwd_ref(*sargs, **skw))
+    # alone: the adjoint and the channel sums (the call's memset left out)
+    scan_items = launch_split(lambda: bwd["scan"](*sargs, **skw), key="affine_scan_2")
     times["affine_scan_2_bwd"] = (device_ms(lambda: bwd["scan"](*sargs, **skw), 10), plain,
-                                  kernel_ms(lambda: bwd["scan"](*sargs, **skw),
-                                            "affine_scan_2"))
+                                  sum(v for k, v in scan_items.items()
+                                      if "affine_scan_2" in k or "channel_sum" in k))
 
     # ---- the host's results ----
     for name, job in host_jobs.items():
@@ -2809,12 +2839,17 @@ def _training(dev, card, pool) -> list:
     shared = [a.dim() == 2 and (a.shape[1] == 1 or a.stride(1) == 0) for a in sargs[:4]]
     n_planes = sum(sT if sh else sT * sC for sh in shared)
     # the matrix planes and their cotangents, s1, s2, g1, g2, the state in
-    # and its cotangent, gu (u is not read). Scratch: the adjoint's planes
-    # reversed and transposed, the cotangents reversed, the shifted
-    # states, each written and read
+    # and its cotangent, gu (u is not read). Scratch: the design's own, each
+    # written and read: the tiles' sums of the (T, 1) columns' cotangents
+    # (the six planes' columns, tiles of 8 channels where the four matrices
+    # are shared, else 4) and the chunks' last rows; the flags
+    n_cols = sum(a.dim() == 2 and a.shape[1] == 1 for a in sargs[:6])
+    s_tiles = -(-sC // linrec_kernel.tile_width(all(shared)))
+    s_chunks = -(-sT // skw["chunk"])
     scan_bound = (bound(4 * (2 * n_planes + 6 * sT * sC + 4 * sC),
                         (SCAN_BWD_OPS + SCAN_BWD_OPS_SHARED * sum(shared)) * sT * sC),
-                  4 * 2 * (n_planes + 4 * sT * sC))
+                  4 * 2 * (n_cols * sT * s_tiles + 6 * s_chunks * sC)
+                  + 4 * (1 + s_chunks * sC))
     for key, name, source, replaces, bnd, bnd_patch in (
             ("ladder", "ladder_scan_bwd", "pygmu2_tpu_torch/csrc/ladder_scan_bwd.cu",
              "pygmu2_tpu/ops/ladder_pallas.py:253", ladder_bound(pT, pC), ladder_bound(fT, 1)),
@@ -2829,7 +2864,9 @@ def _training(dev, card, pool) -> list:
                  "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
                  "scratch_bytes": scratch}
         if bnd_patch is None:
-            entry.update(shape=f"T={sT} C={sC}, the fit bank's", kernel_ms=third)
+            entry.update(shape=f"T={sT} C={sC}, the fit bank's", kernel_ms=third,
+                         launches_alone_ms={k[:48]: v for k, v in scan_items.items()},
+                         header="pygmu2_tpu_torch/csrc/channel_sum.cuh")
         else:
             entry.update(kernel_ms=sum(splits[name, "probe"].values()),
                          kernel_ms_patch=sum(splits[name, "patch"].values()))
@@ -2857,7 +2894,8 @@ def _training(dev, card, pool) -> list:
               f"{plain:.1f} ms"
               + (f"; at {entry['shape_patch']}: {third:.4f} ms, bound {bnd_patch[0]:.4g} ms "
                  f"(scratch {scratch_patch} bytes)"
-                 if bnd_patch else f"; the scan's launch alone {third:.4f} ms")
+                 if bnd_patch else f"; its launches alone {third:.4f} ms (" + ", ".join(
+                     f"{k[:48]} {v:.4f}" for k, v in scan_items.items()) + ")")
               + f"; {entry['launches']} launches on the training path [{card}]")
     print(f"comb_scan_bwd at T={fT} C=128: kernel {comb_wide_ms:.4f} ms [{card}]")
     print(f"ladder_scan forward at T={fT} C=1, in turns: without checkpoints "
@@ -3006,6 +3044,25 @@ def _training_chain(dev, card, pool) -> list:
                       f"reverse_echo_scan_bwd_periods by {err}")
             echo_orders.append(f"{what} {j} (T={args[0].shape[0]} C={args[0].shape[1]})")
 
+    follower_orders = []  # the follower's recorded launches held to its kernel's order
+
+    def follower_order(calls, what):
+        """Each recorded follower backward launch against its kernel's order
+        in torch ops on the card (``envelope_ar_scan_bwd_chunked``): bit for
+        bit; and launched again: the same bits."""
+        for j, (args, kw, got) in enumerate(calls):
+            want = envelope.envelope_ar_scan_bwd_chunked(*args, **kw)
+            n = envelope.envelope_ar_scan_bwd.launches
+            again = envelope.envelope_ar_scan_bwd(*args, **kw)
+            envelope.envelope_ar_scan_bwd.launches = n  # a comparison's: not the path's
+            for i, (g, a, w) in enumerate(zip(got, again, want)):
+                check(torch.equal(g, a), f"follower backward, {what} launch {j}: output {i} "
+                      "differs between two launches")
+                err = float((g - w.reshape(g.shape)).abs().max())
+                check(err == 0.0, f"follower backward, {what} launch {j}: output {i} differs "
+                      f"from envelope_ar_scan_bwd_chunked by {err}")
+            follower_orders.append(f"{what} {j} (T={args[0].shape[0]} C={args[0].shape[1]})")
+
     def hold(calls, what):
         """Each recorded backward launch against its plain adjoint on the
         same inputs, on the card."""
@@ -3049,12 +3106,14 @@ def _training_chain(dev, card, pool) -> list:
     t = time.perf_counter()
     hold(rec, "chain")
     echo_order(rec["reverse_echo_scan_bwd"], "chain")
+    follower_order(rec["envelope_ar_scan_bwd"], "chain")
     print(f"training chain: all {sum(len(v) for v in rec.values())} backward launches against "
           f"the plain adjoints on their inputs and cotangents (card, "
           f"{time.perf_counter() - t:.1f} s): max abs err "
           + ", ".join(f"{k} {v:.3g}" for k, v in errs.items() if rec[k])
-          + "; the echo's launches bit for bit with reverse_echo_scan_bwd_periods, a second "
-          "launch the same bits")
+          + "; the echo's and the follower's launches bit for bit with "
+          "reverse_echo_scan_bwd_periods and envelope_ar_scan_bwd_chunked, a second launch "
+          "the same bits")
 
     # the feedback's gradient where the echo replays: CHAIN_FB_S, card only
     nfb = int(round(CHAIN_FB_S * SR))
@@ -3147,6 +3206,7 @@ def _training_chain(dev, card, pool) -> list:
         for k in total:
             total[k] += nbw[k]
     echo_order([chain_calls["reverse_echo_scan_bwd"]], "fit chain")
+    follower_order([chain_calls["envelope_ar_scan_bwd"]], "fit chain")
     bank_blocks = -(-int(round(TRAIN_FXBANK_S * SR)) // BLOCK)
     rows, bank_calls = fit_run(
         "fit fx bank", fw.build_fit_fx_bank(pg, TRAIN_FXBANK_S), TRAIN_FXBANK_S, FXBANK_THETA,
@@ -3158,9 +3218,13 @@ def _training_chain(dev, card, pool) -> list:
         for k in total:
             total[k] += nbw[k]
     echo_order([bank_calls["reverse_echo_scan_bwd"]], "fit fx bank")
+    follower_order([bank_calls["envelope_ar_scan_bwd"]], "fit fx bank")
     print(f"echo backward: {len(echo_orders)} recorded launches ({', '.join(echo_orders)}) bit "
           f"for bit with reverse_echo_scan_bwd_periods on the card, each launched twice: the "
           f"same bits")
+    print(f"follower backward: {len(follower_orders)} recorded launches "
+          f"({', '.join(follower_orders)}) bit for bit with envelope_ar_scan_bwd_chunked on the "
+          f"card, each launched twice: the same bits")
 
     # ---- times at the fits' shapes (and the ADSR's at BLOCK), beside the plain adjoints ----
     adsr_kw = adsr_calls[0][1]
@@ -3219,6 +3283,12 @@ def _training_chain(dev, card, pool) -> list:
                     f"[{card}]")
             if name == "envelope_ar_scan_bwd":
                 bnd = bound(4 * (4 * T * C + 3 * C), ENV_BWD_OPS * T * C)
+                # the design's scratch: the chunks' maps, written and read;
+                # the flags
+                chunks = -(-T // envelope.GRID_ROWS)
+                extra = {"scratch_bytes": 4 * 2 * 2 * chunks * C
+                         + 4 * (1 + chunks * -(-C // envelope.grid_width(C))),
+                         "header": "pygmu2_tpu_torch/csrc/order1_grid.cuh"}
             elif name == "slew_scan_bwd":
                 bnd = bound(4 * (4 * T + 3), SLEW_BWD_OPS * T)
             elif name == "reverse_echo_scan_bwd":

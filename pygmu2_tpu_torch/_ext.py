@@ -133,8 +133,9 @@ def load() -> ctypes.CDLL:
         "envelope_ar_scan_launch": [p] * 4 + [i, i, f, f, p],
         # x, cur_in, y, cur_out, T, linear, p_rise, p_fall, stream
         "slew_scan_launch": [p] * 4 + [i, i, f, f, p],
-        # x, env0, env, genv, genv_final, gx, genv0, T, C, atk, rel, stream
-        "envelope_ar_scan_bwd_launch": [p] * 7 + [i, i, f, f, p],
+        # x, env0, env, genv, genv_final, gx, genv0, agg, flags, T, C, atk, rel,
+        # stream
+        "envelope_ar_scan_bwd_launch": [p] * 9 + [i, i, f, f, p],
         # x, cur_in, y, gy, gcur_out, gx, gcur_in, T, linear, p_rise, p_fall, stream
         "slew_scan_bwd_launch": [p] * 7 + [i, i, f, f, p],
         # gate, state_in, env, genv, gstate_out, genv_next, gstate_in, T, dA, dD,
@@ -154,6 +155,10 @@ def load() -> ctypes.CDLL:
         # a11, a12, a21, a22, u1, u2, s01, s02, s1, s2, agg, flags, T, C, chunk,
         # shared, stream
         "affine_scan_2_launch": [p] * 12 + [i, i, i, i, p],
+        # a11, a12, a21, a22, g1, g2, s01, s02, s1, s2, ga11, ga12, ga21, ga22,
+        # gu1, gu2, gs01, gs02, part, col, agg, flags, T, C, chunk, shared,
+        # summed, stream
+        "affine_scan_2_bwd_launch": [p] * 22 + [i, i, i, i, i, p],
         # xt, rows, out, scratch_f, n_f, scratch_i, n_i, B, P, N, stream
         "filter_gain_mix_launch": [p, p, p, p, q, p, q, i, i, i, p],
     }

@@ -43,6 +43,23 @@
 //            the chunks' last rows by their Kogge-Stone tree alone and then
 //            the scan with the walk, measured slower on both layouts.)
 
+// The adjoint (the backward of the JAX custom VJP, linrec_pallas.py:95-108,
+// which replays jax.vjp of linrec.affine_scan_2): lam[t] = g[t] +
+// A[t+1]^T lam[t+1] is this scan run backward in time on the transposed
+// matrices, so the same chunk code runs it (ADJ), reading its rows by index
+// from the forward's planes with no copy: scan row r is time T - 1 - r, its
+// matrix A[T - r]^T (row 0 the zero matrix: it multiplies the zero state
+// after the last sample), its input (g1, g2)[T - 1 - r]; the padding falls
+// before t = 0. Its epilogue writes, in forward time, gu = lam, gA[t] =
+// lam[t] p[t]^T with p = s[t - 1] (s0 or zero at t = 0), and gs0 = A[0]^T
+// lam[0] (two products and a sum, no fused multiply-add, as the plain
+// version rounds them). A plane that every channel shares gets its column:
+// each tile's channels added in channel order from zero, then (a second
+// launch, channel_sum.cuh) the tiles in tile order from zero. No atomics:
+// two calls give the same bits. Bytes at the fit bank's shapes (T = 16384,
+// C = 128, the matrices shared): g, s and gu, six (T, C) planes, 50 MB; the
+// tiles' partial sums 4 MB more, written and read.
+
 // Explicitly rounded ops in the plain version's order
 // (ops/linrec_kernel.affine_scan_2_chunked_ref): every a*b + c*d is
 // __fmaf_rn(a, b, __fmul_rn(c, d)), the one fused multiply-add XLA's CPU
@@ -52,6 +69,8 @@
 
 #include <cuda_runtime.h>
 #include <cstdint>
+
+#include "channel_sum.cuh"
 
 namespace {
 
@@ -69,24 +88,28 @@ __device__ __forceinline__ float4 mat_mul(const float4& c, const float4& p) {
 }
 
 struct Planes {
-  const float* p[6];  // a11, a12, a21, a22, u1, u2
+  const float* p[6];  // a11, a12, a21, a22, u1, u2 (the adjoint: a11, a21, a12, a22, g1, g2)
   int shared;         // bit k: plane k is a (T,) column shared by the channels
-  bool vec;           // C % 4 == 0 and the full planes 16-byte aligned
+  bool vec;           // C % 4 == 0 and every full plane read or written 16-byte aligned
 };
 
-// K values of plane k at `row`, channels c0 .. c0 + K - 1 (0 past C).
+// The adjoint's other operands (unused by the forward).
+struct Adjoint {
+  const float* s1;  // the forward's outputs, (T, C): p[t] = s[t - 1]
+  const float* s2;
+  float* out[6];    // ga11, ga12, ga21, ga22, gu1, gu2: (T, C), or null where summed
+  float* part;      // the summed outputs' tile sums, (popcount(summed), T, tiles)
+  int summed;       // bit j: output j is a column shared by the channels
+  float* gs01;      // (C,) each, or null without an entering state
+  float* gs02;
+};
+
+// K values of a full (T, C) plane at `row`, channels c0 .. c0 + K - 1 (0 past C).
 template <int K>
-__device__ __forceinline__ void load_plane(const Planes& pl, int k, long row, int C, int c0,
-                                           float (&out)[K]) {
-  const float* p = pl.p[k];
-  if ((pl.shared >> k) & 1) {
-    const float x = __ldg(p + row);
-#pragma unroll
-    for (int j = 0; j < K; ++j) out[j] = x;
-    return;
-  }
+__device__ __forceinline__ void load_full(const float* p, long row, int C, int c0, bool vec,
+                                          float (&out)[K]) {
   const float* q = p + row * C + c0;
-  if (pl.vec) {
+  if (vec) {
 #pragma unroll
     for (int j = 0; j < K / 4; ++j) {
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -96,6 +119,89 @@ __device__ __forceinline__ void load_plane(const Planes& pl, int k, long row, in
   } else {
 #pragma unroll
     for (int j = 0; j < K; ++j) out[j] = c0 + j < C ? __ldg(q + j) : 0.0f;
+  }
+}
+
+// K values of plane k at `row`, channels c0 .. c0 + K - 1 (0 past C).
+template <int K>
+__device__ __forceinline__ void load_plane(const Planes& pl, int k, long row, int C, int c0,
+                                           float (&out)[K]) {
+  if ((pl.shared >> k) & 1) {
+    const float x = __ldg(pl.p[k] + row);
+#pragma unroll
+    for (int j = 0; j < K; ++j) out[j] = x;
+    return;
+  }
+  load_full<K>(pl.p[k], row, C, c0, pl.vec, out);
+}
+
+// K values into a full (T, C) plane at `row`, channels c0 .. (none past C).
+template <int K>
+__device__ __forceinline__ void store_full(float* p, long row, int C, int c0, bool vec,
+                                           const float (&v)[K]) {
+  float* d = p + row * C + c0;
+  if (vec) {
+#pragma unroll
+    for (int j = 0; j < K / 4; ++j)
+      if (c0 + 4 * j < C)
+        reinterpret_cast<float4*>(d)[j] =
+            make_float4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (c0 + k < C) d[k] = v[k];
+  }
+}
+
+// The adjoint's outputs at time tt from its K channels' lam (see the note
+// at the top): gA = lam p^T, gu = lam, each written as a (T, C) row or, where
+// summed, as the tile's sum in channel order; gs0 at tt = 0.
+template <int K>
+__device__ __forceinline__ void adjoint_row(const Planes& pl, const Adjoint& adj,
+                                            const float* s01, const float* s02, long tt, int T,
+                                            int C, int c0, int tile, int tiles,
+                                            const float (&l1)[K], const float (&l2)[K]) {
+  float p1[K], p2[K];
+  if (tt > 0) {
+    load_full<K>(adj.s1, tt - 1, C, c0, pl.vec, p1);
+    load_full<K>(adj.s2, tt - 1, C, c0, pl.vec, p2);
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const bool in = s01 != nullptr && c0 + k < C;
+      p1[k] = in ? s01[c0 + k] : 0.0f;
+      p2[k] = in ? s02[c0 + k] : 0.0f;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    float v[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const float lam = j == 0 || j == 1 || j == 4 ? l1[k] : l2[k];
+      v[k] = j < 4 ? __fmul_rn(lam, j & 1 ? p2[k] : p1[k]) : lam;
+    }
+    if ((adj.summed >> j) & 1) {
+      float s = 0.0f;
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        if (c0 + k < C) s = __fadd_rn(s, v[k]);
+      adj.part[((long)__popc(adj.summed & ((1 << j) - 1)) * T + tt) * tiles + tile] = s;
+    } else {
+      store_full<K>(adj.out[j], tt, C, c0, pl.vec, v);
+    }
+  }
+  if (tt == 0 && adj.gs01 != nullptr) {
+    float a[4][K];  // A[0]: a11, a21, a12, a22 (the adjoint's planes)
+#pragma unroll
+    for (int m = 0; m < 4; ++m) load_plane<K>(pl, m, 0, C, c0, a[m]);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (c0 + k < C) {
+        adj.gs01[c0 + k] = __fadd_rn(__fmul_rn(a[0][k], l1[k]), __fmul_rn(a[1][k], l2[k]));
+        adj.gs02[c0 + k] = __fadd_rn(__fmul_rn(a[2][k], l1[k]), __fmul_rn(a[3][k], l2[k]));
+      }
+    }
   }
 }
 
@@ -183,13 +289,15 @@ __device__ __forceinline__ void store_release(int* p, int v) {
 // chunk's last row, take the entering state from the earlier chunks' rows,
 // apply, write. flags[0] is the ticket counter, flags[1 + ch * tiles + tile]
 // is set once chunk ch's last row of the tile is in agg (all zeroed before
-// the launch).
-template <int K, int R, bool SH>
+// the launch). ADJ: the adjoint, its rows read by index and its epilogue
+// adjoint_row's.
+template <int K, int R, bool SH, bool ADJ>
 __global__ void __launch_bounds__(SH ? 256 : 512, SH ? 2 : 1)
-    affine_scan_2(const __grid_constant__ Planes pl, const float* __restrict__ s01,
-                  const float* __restrict__ s02, float* __restrict__ s1_out,
-                  float* __restrict__ s2_out, float* __restrict__ agg, int* __restrict__ flags,
-                  int T, int C, int chunk, int L) {
+    affine_scan_2(const __grid_constant__ Planes pl, const __grid_constant__ Adjoint adj,
+                  const float* __restrict__ s01, const float* __restrict__ s02,
+                  float* __restrict__ s1_out, float* __restrict__ s2_out,
+                  float* __restrict__ agg, int* __restrict__ flags, int T, int C, int chunk,
+                  int L) {
   extern __shared__ float4 xb[];  // Rows::F x chunk float4; then the entering state
   __shared__ int ticket;
   using RowsT = Rows<K, R, SH>;
@@ -208,22 +316,34 @@ __global__ void __launch_bounds__(SH ? 256 : 512, SH ? 2 : 1)
   for (int r = 0; r < R; ++r) {
     const long row = base + r * nt + t;
     if (row < T) {
+      // the adjoint's row: the matrix A[T - row]^T (zero at row 0), the
+      // input at T - 1 - row
+      const long mrow = ADJ ? T - row : row, urow = ADJ ? T - 1 - row : row;
+      const bool zero = ADJ && row == 0;
       float v[K];
       if (SH) {
-        rows.m[r][0] = make_float4(__ldg(pl.p[0] + row), __ldg(pl.p[1] + row),
-                                   __ldg(pl.p[2] + row), __ldg(pl.p[3] + row));
+        rows.m[r][0] = zero ? make_float4(0.f, 0.f, 0.f, 0.f)
+                            : make_float4(__ldg(pl.p[0] + mrow), __ldg(pl.p[1] + mrow),
+                                          __ldg(pl.p[2] + mrow), __ldg(pl.p[3] + mrow));
       } else {
         float a[4][K];
 #pragma unroll
-        for (int k = 0; k < 4; ++k) load_plane<K>(pl, k, row, C, c0, a[k]);
+        for (int k = 0; k < 4; ++k) {
+          if (zero) {
+#pragma unroll
+            for (int j = 0; j < K; ++j) a[k][j] = 0.0f;
+          } else {
+            load_plane<K>(pl, k, mrow, C, c0, a[k]);
+          }
+        }
 #pragma unroll
         for (int k = 0; k < K; ++k)
           rows.m[r][SH ? 0 : k] = make_float4(a[0][k], a[1][k], a[2][k], a[3][k]);
       }
-      load_plane<K>(pl, 4, row, C, c0, v);
+      load_plane<K>(pl, 4, urow, C, c0, v);
 #pragma unroll
       for (int k = 0; k < K; ++k) rows.v1[r][k] = v[k];
-      load_plane<K>(pl, 5, row, C, c0, v);
+      load_plane<K>(pl, 5, urow, C, c0, v);
 #pragma unroll
       for (int k = 0; k < K; ++k) rows.v2[r][k] = v[k];
     } else {  // the plain version's zero padding
@@ -233,7 +353,7 @@ __global__ void __launch_bounds__(SH ? 256 : 512, SH ? 2 : 1)
       for (int k = 0; k < K; ++k) rows.v1[r][k] = 0.0f, rows.v2[r][k] = 0.0f;
     }
   }
-  if (ch == 0 && t == 0 && s01 != nullptr) {  // fold s0 into u[0]
+  if (!ADJ && ch == 0 && t == 0 && s01 != nullptr) {  // fold s0 into u[0]
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       if (c0 + k < C) {
@@ -338,6 +458,8 @@ __global__ void __launch_bounds__(SH ? 256 : 512, SH ? 2 : 1)
     float* d2 = s2_out + row * C + c0;
     if (row >= T) {
       // past the end: the plain version's padding, not written
+    } else if (ADJ) {
+      adjoint_row<K>(pl, adj, s01, s02, T - 1 - row, T, C, c0, tile, tiles, o1, o2);
     } else if (pl.vec) {
 #pragma unroll
       for (int j = 0; j < K / 4; ++j) {
@@ -356,23 +478,44 @@ __global__ void __launch_bounds__(SH ? 256 : 512, SH ? 2 : 1)
   }
 }
 
-template <int K, int R, bool SH>
-cudaError_t launch(const Planes& pl, const float* s01, const float* s02, float* s1, float* s2,
-                   float* agg, int* flags, int T, int C, int chunk, cudaStream_t stream) {
+template <int K, int R, bool SH, bool ADJ>
+cudaError_t launch(const Planes& pl, const Adjoint& adj, const float* s01, const float* s02,
+                   float* s1, float* s2, float* agg, int* flags, int T, int C, int chunk,
+                   cudaStream_t stream) {
   using RowsT = Rows<K, R, SH>;
   const int L = (T + chunk - 1) / chunk, tiles = (C + K - 1) / K;
   cudaError_t err = cudaMemsetAsync(flags, 0, sizeof(int) * (1 + (size_t)L * tiles), stream);
   if (err != cudaSuccess) return err;
   const size_t smem = sizeof(float4) * RowsT::F * chunk + sizeof(float) * 2 * K;
-  auto kernel = affine_scan_2<K, R, SH>;
+  auto kernel = affine_scan_2<K, R, SH, ADJ>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<L * tiles, chunk / R, smem, stream>>>(pl, s01, s02, s1, s2, agg, flags, T, C, chunk,
-                                                 L);
+  kernel<<<L * tiles, chunk / R, smem, stream>>>(pl, adj, s01, s02, s1, s2, agg, flags, T, C,
+                                                 chunk, L);
   return cudaGetLastError();
 }
 
+// The forward's or the adjoint's launch at its tile width: K = 8 channels a
+// tile where the four matrix planes are one column (BiquadPE, SVFilterPE),
+// else 4.
+template <bool ADJ>
+cudaError_t dispatch(const Planes& pl, const Adjoint& adj, const float* s01, const float* s02,
+                     float* s1, float* s2, float* agg, int* flags, int T, int C, int chunk,
+                     cudaStream_t stream) {
+  if ((pl.shared & 15) == 15)
+    return chunk >= 4
+               ? launch<8, 4, true, ADJ>(pl, adj, s01, s02, s1, s2, agg, flags, T, C, chunk,
+                                         stream)
+               : launch<8, 2, true, ADJ>(pl, adj, s01, s02, s1, s2, agg, flags, T, C, chunk,
+                                         stream);
+  return launch<4, 2, false, ADJ>(pl, adj, s01, s02, s1, s2, agg, flags, T, C, chunk, stream);
+}
+
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+bool valid(int T, int C, int chunk) {
+  return T >= 1 && C >= 1 && chunk >= 2 && chunk <= kMaxChunk && !(chunk & (chunk - 1));
+}
 
 }  // namespace
 
@@ -389,20 +532,49 @@ int affine_scan_2_launch(const float* a11, const float* a12, const float* a21,
                          const float* a22, const float* u1, const float* u2,
                          const float* s01, const float* s02, float* s1, float* s2, float* agg,
                          int* flags, int T, int C, int chunk, int shared, cudaStream_t stream) {
-  if (T < 1 || C < 1 || chunk < 2 || chunk > kMaxChunk || (chunk & (chunk - 1)))
-    return (int)cudaErrorInvalidValue;
+  if (!valid(T, C, chunk)) return (int)cudaErrorInvalidValue;
   Planes pl{{a11, a12, a21, a22, u1, u2}, shared, C % 4 == 0};
   for (int k = 0; k < 6; ++k)
     if (!((shared >> k) & 1) && !aligned16(pl.p[k])) pl.vec = false;
   if (!aligned16(s1) || !aligned16(s2)) pl.vec = false;
-  cudaError_t err;
-  if ((shared & 15) == 15) {  // the matrices one column: BiquadPE, SVFilterPE
-    err = chunk >= 4 ? launch<8, 4, true>(pl, s01, s02, s1, s2, agg, flags, T, C, chunk, stream)
-                     : launch<8, 2, true>(pl, s01, s02, s1, s2, agg, flags, T, C, chunk, stream);
-  } else {
-    err = launch<4, 2, false>(pl, s01, s02, s1, s2, agg, flags, T, C, chunk, stream);
+  return (int)dispatch<false>(pl, Adjoint{}, s01, s02, s1, s2, agg, flags, T, C, chunk, stream);
+}
+
+// The adjoint of a call (its planes, its entering state s01 / s02 or both
+// null, its outputs s1 / s2 and their cotangents g1 / g2, `shared` in the
+// forward's bits, g1's and g2's bits 4 and 5): enqueues the memset of
+// `flags`, the adjoint's launch and, where `summed` (bit j: output j of
+// ga11, ga12, ga21, ga22, gu1, gu2 is a column shared by the channels; its
+// plane's bit must be in `shared`) is not 0, channel_sum's launch; returns
+// the cudaError_t of the first step that failed. Outputs: the six (T, C)
+// planes, each null where summed; gs01 / gs02 (C,), null without s0; col
+// (popcount(summed), T), the summed outputs in bit order; part
+// (popcount(summed), T, ceil(C / K)) f32 scratch, K = 8 where the four
+// matrix planes are shared, else 4; agg and flags as the forward's.
+int affine_scan_2_bwd_launch(const float* a11, const float* a12, const float* a21,
+                             const float* a22, const float* g1, const float* g2,
+                             const float* s01, const float* s02, const float* s1,
+                             const float* s2, float* ga11, float* ga12, float* ga21,
+                             float* ga22, float* gu1, float* gu2, float* gs01, float* gs02,
+                             float* part, float* col, float* agg, int* flags, int T, int C,
+                             int chunk, int shared, int summed, cudaStream_t stream) {
+  if (!valid(T, C, chunk) || (summed & ~shared & 15)) return (int)cudaErrorInvalidValue;
+  // the adjoint's planes: A^T, (a11, a21, a12, a22), then g1, g2
+  const int bits = (shared & 1) | ((shared >> 2) & 1) << 1 | ((shared >> 1) & 1) << 2 |
+                   (shared & 56);
+  Planes pl{{a11, a21, a12, a22, g1, g2}, bits, C % 4 == 0};
+  Adjoint adj{s1, s2, {ga11, ga12, ga21, ga22, gu1, gu2}, part, summed, gs01, gs02};
+  for (int k = 0; k < 6; ++k) {
+    if (!((bits >> k) & 1) && !aligned16(pl.p[k])) pl.vec = false;
+    if (!((summed >> k) & 1) && !aligned16(adj.out[k])) pl.vec = false;
   }
-  return (int)err;
+  if (!aligned16(s1) || !aligned16(s2)) pl.vec = false;
+  cudaError_t err =
+      dispatch<true>(pl, adj, s01, s02, nullptr, nullptr, agg, flags, T, C, chunk, stream);
+  if (err != cudaSuccess || summed == 0) return (int)err;
+  const int K = (bits & 15) == 15 ? 8 : 4;
+  return (int)launch_channel_sum(part, col, __builtin_popcount(summed) * T, (C + K - 1) / K,
+                                 stream);
 }
 
 }  // extern "C"

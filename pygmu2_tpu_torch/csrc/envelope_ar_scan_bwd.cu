@@ -13,29 +13,27 @@
 //   lambda_t = g_t + (1 - c_{t+1}) lambda_{t+1},  lambda_{T-1} += g_final,
 //   gx_t = c_t lambda_t,  genv0 = (1 - c_0) lambda_0.
 // The coefficients are recomputed in parallel from the residuals (the
-// forward's compares exactly); the recurrence runs as order1_adjoint.cuh's
-// chunked reverse scan.
+// forward's compares exactly); the recurrence runs as order1_grid.cuh's
+// adjoint over the card: 256-sample chunks x tiles of channels, the chunks'
+// maps carried in a fixed order (ops/envelope.envelope_ar_scan_bwd_chunked
+// is its order in torch ops, equal to it bit for bit).
 //
 // What bounds it on this card: the bytes. At the fx bank's block
 // (T = 16384, C = 128) it reads x, env and g and writes gx: 33.6 MB, 10 us
-// at 3.35 TB/s; the chain per thread is kSeg = 16 samples and a
-// 5-step scan a tile.
+// at 3.35 TB/s; at the fit chain's (C = 1) 196 KB, where the launch and its
+// dependent steps set the time. (The first design, order1_adjoint.cuh, ran
+// one CUDA block of 1024 threads per C / 32 channels: one SM at C = 1.)
 
 #include <cuda_runtime.h>
 
-#include "order1_adjoint.cuh"
+#include "order1_grid.cuh"
 
 namespace {
 
 struct Follower {
-  const float* x;
-  const float* env;
-  const float* env0;
   float atk, rel;
-  int C;
-  __device__ __forceinline__ float at(int t, int c) const {
-    const float prev = t > 0 ? env[(long)(t - 1) * C + c] : env0[c];
-    return x[(long)t * C + c] > prev ? atk : rel;
+  __device__ __forceinline__ float k(float x, float prev) const {
+    return x > prev ? atk : rel;
   }
 };
 
@@ -43,15 +41,18 @@ struct Follower {
 
 extern "C" {
 
-// Enqueues one launch on `stream`; returns its cudaError_t (0 when
+// Enqueues the call on `stream` (a memset of `flags`, then the kernel);
+// returns the cudaError_t of the first step that failed (0: both
 // accepted). Device pointers: x / env / genv / gx (T, C) f32; env0 /
-// genv_final / genv0 (C,) f32.
+// genv_final / genv0 (C,) f32; agg (2, ceil(T / 256), C) f32 and flags
+// 1 + ceil(T / 256) * ceil(C / W) int32 scratch, W = C rounded up to a
+// power of two, at most 32.
 int envelope_ar_scan_bwd_launch(const float* x, const float* env0, const float* env,
                                 const float* genv, const float* genv_final, float* gx,
-                                float* genv0, int T, int C, float atk, float rel,
-                                cudaStream_t stream) {
-  const Follower op{x, env, env0, atk, rel, C};
-  return (int)order1::launch(op, genv, genv_final, gx, genv0, T, C, stream);
+                                float* genv0, float* agg, int* flags, int T, int C, float atk,
+                                float rel, cudaStream_t stream) {
+  return (int)order1_grid::launch(Follower{atk, rel}, x, env, env0, genv, genv_final, gx, genv0,
+                                  agg, flags, T, C, stream);
 }
 
 }  // extern "C"

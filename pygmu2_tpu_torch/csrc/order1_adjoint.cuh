@@ -1,11 +1,12 @@
 // The adjoint of a first-order recurrence, chunked, for Hopper (sm_90a):
-// the backward of the envelope follower (envelope_ar_scan_bwd.cu) and of
-// the slew limiter (slew_scan_bwd.cu).
+// the backward of the slew limiter (slew_scan_bwd.cu) and the comb's
+// smoother (comb_scan_bwd.cu). (The follower's runs order1_grid.cuh, the
+// design meant to take this one's place.)
 //
-// Both forwards are y_t = y_{t-1} + k_t * (x_t - y_{t-1}) per channel,
+// The forwards are y_t = y_{t-1} + k_t * (x_t - y_{t-1}) per channel,
 // with k_t chosen per sample by a compare against the previous output
-// (the follower: atk or rel; the slew limiter: p_rise or p_fall, or in
-// its linear mode the clip's slope, 1 inside, 0 outside, 1/2 at a tie).
+// (the slew limiter: p_rise or p_fall, or in its linear mode the clip's
+// slope, 1 inside, 0 outside, 1/2 at a tie).
 // The compares carry no gradient, so the backward is linear: with
 // m_t = 1 - k_t and the cotangent lambda_t of y_t,
 //   lambda_t = g_t + m_{t+1} * lambda_{t+1},
@@ -31,7 +32,7 @@
 // 3. each thread walks its segment again from its carry and writes gx.
 // No sample waits on a serial chain longer than kSeg + log2(lanes) steps.
 // The sums run in another order than the plain adjoint's serial walk
-// (ops/envelope.envelope_ar_scan_bwd_ref, ops/slew.slew_scan_bwd_ref), so
+// (ops/slew.slew_scan_bwd_ref, ops/envelope.order1_adjoint_ref), so
 // the two agree to a few float32 roundings, not bit for bit.
 #pragma once
 

@@ -1,18 +1,24 @@
-"""The order-2 affine scan's and the unfused SoundFont pass's kernels timed
-alone on one CUDA card, at the main path's shapes:
+"""The order-2 affine scan's (forward and backward), the follower's
+backward and the unfused SoundFont pass's kernels timed alone on one CUDA
+card, at the main path's shapes:
 ``python pygmu2_tpu_torch/kernel_times.py [--tree DIR]``.
 
 ``--tree`` names the checkout whose ``pygmu2_tpu_torch`` is timed (default:
 this one), so that two trees are timed by the same script in turns (parent,
 change, change, parent: unpack the parent with ``git archive`` into a
-directory that ``.gitignore`` lists). The kernels' APIs are the same in
-both: ``ops.linrec_kernel.affine_scan_2_kernel`` and
+directory that ``.gitignore`` lists). The calls are the same in both:
+``ops.linrec_kernel.affine_scan_2_kernel`` and ``_backward`` (the scan's
+backward as its autograd Function calls it, the channel sums of the shared
+columns included), ``ops.envelope.envelope_ar_scan_bwd`` and
 ``soundfont.filter_kernels.filter_gain_mix``.
 
 Inputs: the scan at T = 16384, C = 128, chunk 1024, once with the four
 matrix planes one column shared by the channels (the filter bank's
-BiquadPE and SVFilterPE) and once with six full planes; the unfused pass on
-the high-register score's rows (3 s, large font: T = 133,120, P = 128,
+BiquadPE and SVFilterPE) and once with six full planes; its backward on
+the shared columns as (T, 1) planes (the fit bank's SVFilterPE), with an
+entering state; the follower's backward at T = 16384, C = 1 (the fit
+chain's) and C = 128 (the fit fx bank's); the unfused pass on the
+high-register score's rows (3 s, large font: T = 133,120, P = 128,
 N = 1024). For each: CUDA events around 10 back-to-back calls after a
 warm-up (these also count the wrapper's host enqueue), and torch.profiler's
 device events of 10 calls: the kernel alone, every kernel of a call summed
@@ -38,8 +44,11 @@ SCAN_T, SCAN_C, SCAN_CHUNK = 16384, 128, 1024
 # the kernels' names (this tree's and the parent's) in the profiler's events
 KERNEL_KEYS = {
     "affine_scan_2": ("affine_scan_2",),
+    "affine_scan_2_bwd": ("affine_scan_2", "channel_sum"),
+    "envelope_ar_scan_bwd": ("adjoint",),
     "filter_gain_mix": ("XtSource", "zero_state", "carry", "render"),
 }
+FOLLOWER_KW = dict(atk=0.05, rel=0.002)
 
 
 def _seeded(dev, seed, *shapes, lo=-1.0, hi=1.0):
@@ -124,6 +133,38 @@ def main() -> None:
         alone, items = device_items(call, KERNEL_KEYS["affine_scan_2"])
         result[name] = {"shape": f"T={T} C={C} chunk={SCAN_CHUNK}", "max_abs_err": err,
                         "events_ms": events_ms(call), "alone_ms": alone, "items_ms": items}
+
+    mats = _seeded(dev, 14, *[(T, 1)] * 4, lo=-0.7, hi=0.7)
+    u1, u2, g1, g2 = _seeded(dev, 15, (T, C), (T, C), (T, C), (T, C))
+    s0 = tuple(_seeded(dev, 16, (C,), (C,)))
+    args = (*mats, u1, u2, *s0)
+    outs = lk.affine_scan_2_kernel(*mats, u1, u2, s0, chunk=SCAN_CHUNK)
+
+    def backward():
+        return lk._backward(args, outs, (g1, g2), chunk=SCAN_CHUNK)
+    got = backward()
+    ref = lk.affine_scan_2_bwd_ref(*args, *outs, g1, g2, chunk=SCAN_CHUNK)
+    err = max((g - r.sum_to_size(g.shape)).abs().max().item() for g, r in zip(got, ref))
+    alone, items = device_items(backward, KERNEL_KEYS["affine_scan_2_bwd"])
+    result["scan backward, matrix planes (T, 1) columns"] = {
+        "shape": f"T={T} C={C} chunk={SCAN_CHUNK}", "max_abs_err": err,
+        "events_ms": events_ms(backward), "alone_ms": alone, "items_ms": items}
+
+    from pygmu2_tpu_torch.ops import envelope
+    for C in (1, 128):
+        x, e0, g, gf = _seeded(dev, 17 + C, (T, C), (C,), (T, C), (C,))
+        x, e0 = x.abs(), e0.abs()
+        env, _ = envelope.envelope_ar_scan(x, e0, **FOLLOWER_KW)
+
+        def follower():
+            return envelope.envelope_ar_scan_bwd(x, e0, env, g, gf, **FOLLOWER_KW)
+        got = follower()
+        ref = envelope.envelope_ar_scan_bwd_ref(x, e0, env, g, gf, **FOLLOWER_KW)
+        err = max((a - b).abs().max().item() for a, b in zip(got, ref))
+        alone, items = device_items(follower, KERNEL_KEYS["envelope_ar_scan_bwd"])
+        result[f"follower backward, C={C}"] = {
+            "shape": f"T={T} C={C}", "max_abs_err": err, "events_ms": events_ms(follower),
+            "alone_ms": alone, "items_ms": items}
 
     seconds = 3.0
     synth, _ = bench_workload.build_workload(True)

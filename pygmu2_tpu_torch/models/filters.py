@@ -319,7 +319,7 @@ class SVFilterPE(_FreqQFilterPE):
             self, init=lambda: torch.zeros((Cch, 2), dtype=prec.AUDIO, device=ctx.device)
         )
         s1, s2 = affine_scan_2_auto(
-            *(a[:, None].expand(T, Cch) for a in A),
+            *(a[:, None] for a in A),  # (T, 1) columns shared by the channels
             B[0][:, None] * x,
             B[1][:, None] * x,
             s0=(s0[:, 0], s0[:, 1]),

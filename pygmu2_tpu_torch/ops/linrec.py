@@ -229,11 +229,12 @@ def biquad_filter(x, b0, b1, b2, a1, a2, zi=None):
     xp = torch.cat([x_tail.flip(0), x])  # rows: x[-2], x[-1], x...
     # as XLA's CPU program fuses it (see affine_scan_2_seg's xla_fma)
     fir = fmaf(b2, xp[:-2], fmaf(b0, xp[2:], b1 * xp[1:-1]))
-    # planes shared by the channels stay (T, 1) views: the kernel reads
-    # them once per sample
-    zeros = x.new_zeros((T, 1)).expand(T, C)
+    # planes shared by the channels stay (T, 1) columns: the kernel reads
+    # them once per sample, and its backward writes their cotangents as
+    # columns
+    zeros = x.new_zeros((T, 1))
     y, _ = affine_scan_2_auto(
-        (-a1).expand(T, C), (-a2).expand(T, C), x.new_ones((T, 1)).expand(T, C), zeros,
+        (-a1).expand(T, 1), (-a2).expand(T, 1), x.new_ones((T, 1)), zeros,
         fir, zeros, s0=(y_tail[0], y_tail[1]), xla_fma=True,
     )
     zf = {

@@ -32,14 +32,17 @@ Differentiable: on the card the launch is a ``torch.autograd.Function``
 
     lam[t] = g[t] + A[t+1]^T lam[t+1],
 
-the same recurrence run backward in time on the transposed matrices, so
-the backward is one launch of the same kernel (counted in
-``affine_scan_2_bwd.launches``) on the time-reversed, transposed, shifted
-planes, a shared plane kept shared; then, in torch ops, ``gu = lam``,
-``gA[t] = lam[t] s[t-1]^T`` (the forward's output the residual),
-``gs0 = A[0]^T lam[0]``. On the CPU the same adjoint runs the plain
-version (``affine_scan_2_bwd``), and autograd differentiates the plain
-forward (``affine_scan_2_bwd_ref``).
+the same recurrence run backward in time on the transposed matrices: the
+same chunked scan on the time-reversed, transposed, shifted planes (row 0
+the zero matrix), then ``gu = lam``, ``gA[t] = lam[t] s[t-1]^T`` (the
+forward's output the residual), ``gs0 = A[0]^T lam[0]``. On the card that
+is one launch of the same kernel, which reads the forward's planes by index
+and writes the cotangents itself (counted in
+``affine_scan_2_bwd.launches``; a plane given as a (T, 1) column gets its
+column, summed over the channels in the kernel's order, by a second,
+small launch). On the CPU ``affine_scan_2_bwd`` runs the plain version of
+that order, ``affine_scan_2_bwd_plain``, and autograd differentiates the
+plain forward (``affine_scan_2_bwd_ref``).
 """
 
 from __future__ import annotations
@@ -141,53 +144,95 @@ def _shifted_transposed(a11, a12, a21, a22, T: int):
     return rev(a11), rev(a21), rev(a12), rev(a22)
 
 
+def _summed(planes) -> list:
+    """Which of the six planes (a11, a12, a21, a22, u1, u2) are given as a
+    (T, 1) column: their cotangents are columns too."""
+    return [p.dim() == 2 and p.shape[1] == 1 for p in planes]
+
+
+def tile_width(all_shared: bool) -> int:
+    """The kernel's tile of channels: 8 where the four matrix planes are
+    shared by the channels, else 4."""
+    return 8 if all_shared else 4
+
+
+def tile_sum(v, width: int):
+    """(T, C) -> (T, 1): the channels summed in the kernel's order, each
+    tile of ``width`` channels in channel order from zero, then the tiles
+    in tile order from zero (``csrc/channel_sum.cuh``)."""
+    T, C = v.shape
+    total = v.new_zeros(T)
+    for c0 in range(0, C, width):
+        part = v.new_zeros(T)
+        for c in range(c0, min(C, c0 + width)):
+            part = part + v[:, c]
+        total = total + part
+    return total[:, None]
+
+
 def affine_scan_2_bwd(a11, a12, a21, a22, u1, u2, s01, s02, s1, s2, g1, g2, *, chunk: int):
     """The cotangents of :func:`affine_scan_2_kernel`'s inputs.
 
-    Takes the forward's planes (broadcast to (T, C)), its entering state
-    (``s01``, ``s02``: (C,) each, or None), its outputs ``s1``, ``s2`` and
-    their cotangents ``g1``, ``g2``; returns (ga11, ga12, ga21, ga22, gu1,
-    gu2), each (T, C), and (gs01, gs02), each (C,) (None without a state).
-    The adjoint scan is the plain version on CPU tensors; on CUDA tensors
-    it is a launch of the kernel (one count in
-    ``affine_scan_2_bwd.launches`` per call).
+    Takes the forward's planes (each (T, C) or a (T, 1) column shared by
+    the channels), its entering state (``s01``, ``s02``: (C,) each, or
+    None), its outputs ``s1``, ``s2`` and their cotangents ``g1``, ``g2``;
+    returns (ga11, ga12, ga21, ga22, gu1, gu2), each (T, C), or (T, 1) for
+    a plane given as a column (the channel sum, :func:`tile_sum`), and
+    (gs01, gs02), each (C,) (None without a state). CPU tensors take the
+    plain version, :func:`affine_scan_2_bwd_plain`; CUDA tensors launch
+    the kernel (one count in ``affine_scan_2_bwd.launches`` per call) or
+    raise.
     """
-    a11, a12, a21, a22, u1, u2 = torch.broadcast_tensors(a11, a12, a21, a22, u1, u2)
-    T, C = u1.shape
-    planes = _shifted_transposed(a11, a12, a21, a22, T) + (g1.flip(0), g2.flip(0))
+    args = (a11, a12, a21, a22, u1, u2, s01, s02, s1, s2, g1, g2)
     if u1.device.type == "cpu":
-        l1, l2 = affine_scan_2_chunked_ref(*planes, chunk=chunk)
-    elif u1.device.type == "cuda":
-        l1, l2 = _launch(planes, None, chunk)
-        affine_scan_2_bwd.launches += 1
-    else:
+        return affine_scan_2_bwd_plain(*args, chunk=chunk)
+    if u1.device.type != "cuda":
         raise ValueError(f"no kernel for device {u1.device}")
-    l1, l2 = l1.flip(0), l2.flip(0)
-    if s01 is None:
-        zero = u1.new_zeros((1, C))
-        p1, p2 = torch.cat([zero, s1[:-1]]), torch.cat([zero, s2[:-1]])
-    else:
-        p1 = torch.cat([(u1.new_zeros((C,)) + s01)[None], s1[:-1]])
-        p2 = torch.cat([(u1.new_zeros((C,)) + s02)[None], s2[:-1]])
-    gs = (None, None)
-    if s01 is not None:
-        gs = (a11[0] * l1[0] + a21[0] * l2[0], a12[0] * l1[0] + a22[0] * l2[0])
-    return (l1 * p1, l1 * p2, l2 * p1, l2 * p2, l1, l2) + gs
+    got = _launch_bwd(*args, chunk=chunk)
+    affine_scan_2_bwd.launches += 1
+    return got
 
 
 affine_scan_2_bwd.launches = 0
 
 
+def affine_scan_2_bwd_plain(a11, a12, a21, a22, u1, u2, s01, s02, s1, s2, g1, g2, *,
+                            chunk: int):
+    """Plain PyTorch version of :func:`affine_scan_2_bwd` (same arguments
+    and result) in the kernel's order: the adjoint scan by
+    :func:`affine_scan_2_chunked_ref` on the reversed, transposed, shifted
+    planes; the products rounded alone; a column's channel sum by
+    :func:`tile_sum`; gs0 two products and a sum."""
+    summed = _summed((a11, a12, a21, a22, u1, u2))
+    a11, a12, a21, a22, u1, u2 = torch.broadcast_tensors(a11, a12, a21, a22, u1, u2)
+    T, C = u1.shape
+    planes = _shifted_transposed(a11, a12, a21, a22, T) + (g1.flip(0), g2.flip(0))
+    l1, l2 = affine_scan_2_chunked_ref(*planes, chunk=chunk)
+    l1, l2 = l1.flip(0), l2.flip(0)
+    zero = u1.new_zeros((1, C))
+    e1, e2 = (zero, zero) if s01 is None else (torch.broadcast_to(s01, (1, C)),
+                                                torch.broadcast_to(s02, (1, C)))
+    p1, p2 = torch.cat([e1, s1[:-1]]), torch.cat([e2, s2[:-1]])
+    width = tile_width(all(m.stride(1) == 0 for m in (a11, a12, a21, a22)))
+    full = (l1 * p1, l1 * p2, l2 * p1, l2 * p2, l1, l2)
+    got = tuple(tile_sum(v, width) if sm else v for v, sm in zip(full, summed))
+    gs = (None, None)
+    if s01 is not None:
+        gs = (a11[0] * l1[0] + a21[0] * l2[0], a12[0] * l1[0] + a22[0] * l2[0])
+    return got + gs
+
+
 def affine_scan_2_bwd_ref(a11, a12, a21, a22, u1, u2, s01, s02, s1, s2, g1, g2, *,
                           chunk: int):
-    """Plain PyTorch version of :func:`affine_scan_2_bwd`: autograd of
-    :func:`affine_scan_2_chunked_ref` (same arguments and result)."""
-    a11, a12, a21, a22, u1, u2 = torch.broadcast_tensors(a11, a12, a21, a22, u1, u2)
+    """Autograd of :func:`affine_scan_2_chunked_ref`: the cotangents of
+    :func:`affine_scan_2_bwd` (same arguments and result; a (T, 1)
+    column's summed by autograd's own order)."""
     with torch.enable_grad():
         ins = [t.detach().clone().requires_grad_() for t in (a11, a12, a21, a22, u1, u2)]
         s0 = None
         if s01 is not None:
-            s0 = [(u1.new_zeros(u1.shape[1:]) + v).detach().requires_grad_() for v in (s01, s02)]
+            C = u1.shape[1]
+            s0 = [(u1.new_zeros((C,)) + v).detach().requires_grad_() for v in (s01, s02)]
         out = affine_scan_2_chunked_ref(*ins, s0, chunk=chunk)
         got = torch.autograd.grad(out, ins + (s0 or []), (g1, g2), allow_unused=True,
                                   materialize_grads=True)
@@ -243,6 +288,58 @@ def _launch_forward(a11, a12, a21, a22, u1, u2, s01, s02, *, chunk: int):
     out = _launch((a11, a12, a21, a22, u1, u2), None if s01 is None else (s01, s02), chunk)
     affine_scan_2_kernel.launches += 1
     return out
+
+
+def _launch_bwd(a11, a12, a21, a22, u1, u2, s01, s02, s1, s2, g1, g2, *, chunk: int):
+    dev = s1.device
+    if s1.dim() != 2 or s1.shape[0] < 1 or s1.shape[1] < 1:
+        raise ValueError(f"s1 must be (T, C) with T, C >= 1, got {tuple(s1.shape)}")
+    if chunk < 2 or chunk > _MAX_CHUNK or chunk & (chunk - 1):
+        raise ValueError(f"chunk must be a power of two in [2, {_MAX_CHUNK}], got {chunk}")
+    T, C = s1.shape
+    for x, n in ((u1, "u1"), (u2, "u2")):
+        if x.dim() != 2 or x.shape[0] != T or x.shape[1] not in (1, C):
+            raise ValueError(f"{n}: expected (T, C) = ({T}, {C}) or (T, 1), got "
+                             f"{tuple(x.shape)}")
+    summed = _summed((a11, a12, a21, a22, u1, u2))
+    read = [_plane(x, T, C, dev, n) for x, n in
+            zip((a11, a12, a21, a22, g1, g2), ("a11", "a12", "a21", "a22", "g1", "g2"))]
+    bits = sum(1 << i for i, (_x, sh) in enumerate(read) if sh)
+    summed_bits = sum(1 << j for j, sm in enumerate(summed) if sm)
+    s1, s2 = (_ext.checked(v, n, (T, C), dev) for v, n in ((s1, "s1"), (s2, "s2")))
+    s0 = None
+    if s01 is not None:
+        s0 = [_ext.checked(torch.as_tensor(v, dtype=torch.float32, device=dev).expand(C),
+                           f"s0[{i}]", (C,), dev) for i, v in enumerate((s01, s02))]
+    planes = [None if sm else torch.empty((T, C), dtype=torch.float32, device=dev)
+              for sm in summed]
+    gs0 = [torch.empty((C,), dtype=torch.float32, device=dev) for _ in range(2)] if s0 else None
+    # the summed outputs' columns and the tiles' sums they add, the chunks'
+    # last rows and the kernel's ticket and flags (zeroed by the launch)
+    n_sum = sum(summed)
+    tiles = -(-C // tile_width(bits & 15 == 15))
+    col = torch.empty((n_sum, T), dtype=torch.float32, device=dev)
+    part = torch.empty((n_sum, T, tiles), dtype=torch.float32, device=dev)
+    L = -(-T // chunk)
+    agg = torch.empty((6, L, C), dtype=torch.float32, device=dev)
+    flags = torch.empty((1 + L * C,), dtype=torch.int32, device=dev)
+
+    def ptr(v):
+        return None if v is None else v.data_ptr()
+
+    lib = _ext.load()
+    with torch.cuda.device(dev):
+        err = lib.affine_scan_2_bwd_launch(
+            *(x.data_ptr() for x, _sh in read),
+            *(ptr(v) for v in (s0 or (None, None))), s1.data_ptr(), s2.data_ptr(),
+            *(ptr(v) for v in planes), *(ptr(v) for v in (gs0 or (None, None))),
+            part.data_ptr(), col.data_ptr(), agg.data_ptr(), flags.data_ptr(), T, C, chunk,
+            bits, summed_bits, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _ext.raise_on_error(err, "affine_scan_2_bwd")
+    columns = iter(col[:, :, None].unbind(0))
+    got = tuple(next(columns) if sm else v for v, sm in zip(planes, summed))
+    return got + (tuple(gs0) if gs0 else (None, None))
 
 
 def _backward(args, outs, grads, *, chunk: int):

@@ -858,6 +858,76 @@ def test_affine_scan_backward_launch_matches_plain(cuda, shared, C):
                f"scan shared={shared} C={C}")
 
 
+@pytest.mark.parametrize("T,C,planes,with_s0,chunk", [
+    (16384, 128, "columns", True, 1024), (4096 + 3, 128, "columns", False, 1024),
+    (1025, 1, "columns", True, 128), (777, 5, "full", True, 128),
+    (4096 + 5, 4, "a12_column", True, 1024), (300, 33, "full", False, 128),
+    (4099, 12, "expanded", True, 1024)])
+def test_affine_scan_backward_kernel_equals_plain_order(cuda, T, C, planes, with_s0, chunk):
+    """The scan's adjoint launch bit for bit with its plain version's
+    order on the card (``affine_scan_2_bwd_plain``): the fit bank's shape,
+    T past a chunk, C = 1, 4, 5, 12, 33 and 128; the matrix planes (T, 1)
+    columns (their cotangents the declared channel sums), full, one column
+    of four, or columns expanded along the channels (read once a row, their
+    cotangents full); with and without s0. A second launch gives the same
+    bits; the launch counter moves by one a call."""
+    from pygmu2_tpu_torch.ops import linrec_kernel as lk
+
+    w = C if planes == "full" else 1
+    a = _seeded(cuda, T + C, (T, w), (T, w), (T, w), (T, w))
+    a = [a[0] * 0.1 + 0.88, a[1] * 0.1, a[2] * 0.1, a[3] * 0.1 + 0.88]
+    if planes == "expanded":
+        a = [m.expand(T, C) for m in a]
+    elif planes == "a12_column":
+        a = [m if i == 1 else m.expand(T, C).contiguous() for i, m in enumerate(a)]
+    u1, u2, g1, g2 = _seeded(cuda, T + C + 1, (T, C), (T, C), (T, C), (T, C))
+    s0 = tuple(_seeded(cuda, T + C + 2, (C,), (C,))) if with_s0 else (None, None)
+    s1, s2 = lk.affine_scan_2_kernel(*a, u1, u2, s0 if with_s0 else None, chunk=chunk)
+    args = (*a, u1, u2, *s0, s1, s2, g1, g2)
+    before = lk.affine_scan_2_bwd.launches
+    got = lk.affine_scan_2_bwd(*args, chunk=chunk)
+    again = lk.affine_scan_2_bwd(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert lk.affine_scan_2_bwd.launches == before + 2
+    want = lk.affine_scan_2_bwd_plain(*args, chunk=chunk)
+    for i, (g, r, w2) in enumerate(zip(got, again, want)):
+        if w2 is None:
+            assert g is None and r is None
+            continue
+        assert g.shape == w2.shape, f"output {i}: {tuple(g.shape)} vs {tuple(w2.shape)}"
+        assert torch.equal(g, r), f"output {i}: two launches differ"
+        assert torch.equal(g, w2), f"output {i} off by {float((g - w2).abs().max())}"
+
+
+@pytest.mark.parametrize("T,C", [(16384, 1), (16384, 128), (16385, 128), (1001, 1), (5, 2),
+                                  (300, 3), (777, 33), (4097, 64)])
+def test_envelope_backward_kernel_equals_grid_order(cuda, T, C):
+    """The follower's adjoint launch (csrc/order1_grid.cuh) bit for bit
+    with its order in torch ops on the card
+    (``envelope_ar_scan_bwd_chunked``): the fits' shapes (C = 1 and 128 at
+    T = 16384), T not a multiple of the 256-sample chunk, tile widths 1, 2,
+    4, 32 and a part tile; ties x == env_{t-1} on some rows. A second launch
+    gives the same bits; the launch counter moves by one a call."""
+    from pygmu2_tpu_torch.ops import envelope
+
+    x, e0, g, gf = _seeded(cuda, 7 * T + C, (T, C), (C,), (T, C), (C,))
+    x, e0 = x.abs(), e0.abs()
+    kw = dict(atk=0.05, rel=0.002)
+    env, _ = envelope.envelope_ar_scan(x, e0, **kw)
+    for t in (t for t in (1, 255, 256, 3000) if t < T):  # x equal to the envelope before it
+        x[t] = env[t - 1]
+        env, _ = envelope.envelope_ar_scan(x, e0, **kw)
+    before = envelope.envelope_ar_scan_bwd.launches
+    got = envelope.envelope_ar_scan_bwd(x, e0, env, g, gf, **kw)
+    again = envelope.envelope_ar_scan_bwd(x, e0, env, g, gf, **kw)
+    torch.cuda.synchronize()
+    assert envelope.envelope_ar_scan_bwd.launches == before + 2
+    want = envelope.envelope_ar_scan_bwd_chunked(x, e0, env, g, gf, **kw)
+    for i, (o, r, w) in enumerate(zip(got, again, want)):
+        assert torch.equal(o, r), f"output {i}: two launches differ"
+        assert torch.equal(o, w), f"output {i} off by {float((o - w).abs().max())}"
+
+
 def test_probe_gradient_on_card_matches_cpu(cuda):
     """bench.py's gradient probe at 1024 samples: the card's gradients
     (forward and backward kernels, 4 launches each a render) against the

@@ -227,11 +227,13 @@ Drives the port's main paths through their user entry points:
    backward kernel timed (CUDA events) at the fits' shapes (the follower
    and the echo at C = 1 and 128; the ADSR at the probe's T = 1024 and at
    T = 16384) beside its plain adjoint, its bound and the peak memory of a
-   launch, and held to the plain adjoint there. The follower's recorded
-   launches (the chain's 4 at C = 1, the fit chain's first at C = 1, the
-   fit fx bank's first at C = 128) are held bit for bit to its kernel's
-   order in torch ops (``envelope_ar_scan_bwd_chunked``) on the card, and
-   launched again: the same bits;
+   launch, and held to the plain adjoint there. The follower's, the slew
+   limiter's and the ADSR's recorded launches (the chain's 4 at C = 1, the
+   fit chain's first at C = 1, the fit fx bank's first at C = 128; the
+   ADSR probe's 4) are held bit for bit to their kernels' orders in torch
+   ops (``envelope_ar_scan_bwd_chunked``, ``slew_scan_bwd_chunked``,
+   ``adsr_scan_bwd_tiled``) on the card, and launched again: the same
+   bits; so are the timed launches;
 17. the string's backward kernel (``csrc/ks_scan_bwd.cu``, both orders)
    and batched bindings. (a) ``ks_scan`` with rho, the string and the
    allpass state requiring grad, at T = 4096 with a 300-sample pre-t0 head
@@ -2547,7 +2549,7 @@ def _training(dev, card, pool) -> list:
     import pygmu2_tpu_torch as pg
     from pygmu2_tpu_torch import fit_workload as fw
     from pygmu2_tpu_torch.core import engine
-    from pygmu2_tpu_torch.ops import comb, ladder, linrec_kernel
+    from pygmu2_tpu_torch.ops import comb, envelope, ladder, linrec_kernel
 
     t0 = time.perf_counter()
     cpu_job = pool.submit(training_cpu_probe)
@@ -2830,10 +2832,12 @@ def _training(dev, card, pool) -> list:
         # out and in; freq, fb and their cotangents. Scratch: the design's
         # own, each written and read: the forward's delays, window bounds
         # and count and smoothed values, the feedback's per-channel parts
-        # (the tape's cotangent stays in shared memory)
+        # (the tape's cotangent stays in shared memory); the smoother's
+        # adjoint's chunk maps, written and read, and its flags
+        chunks = -(-T // envelope.GRID_ROWS)
         return (bound(4 * (3 * T * C + 3 * L * C + 4 * T),
                       COMB_BWD_OPS_SAMPLE * T + COMB_BWD_OPS_CHANNEL * T * C + min(L, T) * C),
-                4 * 2 * (3 * T + 2 + T * C))
+                4 * 2 * (3 * T + 2 + T * C) + 4 * 2 * 2 * chunks + 4 * (1 + chunks))
 
     sT, sC = sargs[4].shape
     shared = [a.dim() == 2 and (a.shape[1] == 1 or a.stride(1) == 0) for a in sargs[:4]]
@@ -3044,24 +3048,31 @@ def _training_chain(dev, card, pool) -> list:
                       f"reverse_echo_scan_bwd_periods by {err}")
             echo_orders.append(f"{what} {j} (T={args[0].shape[0]} C={args[0].shape[1]})")
 
-    follower_orders = []  # the follower's recorded launches held to its kernel's order
+    # the backward kernels held to their orders in torch ops, and the
+    # recorded launches each was held on
+    orders = {"envelope_ar_scan_bwd": envelope.envelope_ar_scan_bwd_chunked,
+              "slew_scan_bwd": slew.slew_scan_bwd_chunked,
+              "adsr_scan_bwd": adsr.adsr_scan_bwd_tiled}
+    held = {name: [] for name in orders}
 
-    def follower_order(calls, what):
-        """Each recorded follower backward launch against its kernel's order
-        in torch ops on the card (``envelope_ar_scan_bwd_chunked``): bit for
+    def kernel_order(name, calls, what):
+        """Each recorded launch of the backward kernel ``name`` against its
+        kernel's order in torch ops on the card (``orders[name]``): bit for
         bit; and launched again: the same bits."""
         for j, (args, kw, got) in enumerate(calls):
-            want = envelope.envelope_ar_scan_bwd_chunked(*args, **kw)
-            n = envelope.envelope_ar_scan_bwd.launches
-            again = envelope.envelope_ar_scan_bwd(*args, **kw)
-            envelope.envelope_ar_scan_bwd.launches = n  # a comparison's: not the path's
+            want = orders[name](*args, **kw)
+            n = bwd[name].launches
+            again = bwd[name](*args, **kw)
+            bwd[name].launches = n  # a comparison's: not the path's
+            got, again, want = ([v] if torch.is_tensor(v) else v for v in (got, again, want))
             for i, (g, a, w) in enumerate(zip(got, again, want)):
-                check(torch.equal(g, a), f"follower backward, {what} launch {j}: output {i} "
-                      "differs between two launches")
+                check(torch.equal(g, a), f"{name}, {what} launch {j}: output {i} differs "
+                      "between two launches")
                 err = float((g - w.reshape(g.shape)).abs().max())
-                check(err == 0.0, f"follower backward, {what} launch {j}: output {i} differs "
-                      f"from envelope_ar_scan_bwd_chunked by {err}")
-            follower_orders.append(f"{what} {j} (T={args[0].shape[0]} C={args[0].shape[1]})")
+                check(err == 0.0, f"{name}, {what} launch {j}: output {i} differs from "
+                      f"{orders[name].__name__} by {err}")
+            T, C = args[0].shape[0], (args[0].shape[1] if args[0].dim() == 2 else 1)
+            held[name].append(f"{what} {j} (T={T} C={C})")
 
     def hold(calls, what):
         """Each recorded backward launch against its plain adjoint on the
@@ -3106,14 +3117,15 @@ def _training_chain(dev, card, pool) -> list:
     t = time.perf_counter()
     hold(rec, "chain")
     echo_order(rec["reverse_echo_scan_bwd"], "chain")
-    follower_order(rec["envelope_ar_scan_bwd"], "chain")
+    kernel_order("envelope_ar_scan_bwd", rec["envelope_ar_scan_bwd"], "chain")
+    kernel_order("slew_scan_bwd", rec["slew_scan_bwd"], "chain")
     print(f"training chain: all {sum(len(v) for v in rec.values())} backward launches against "
           f"the plain adjoints on their inputs and cotangents (card, "
           f"{time.perf_counter() - t:.1f} s): max abs err "
           + ", ".join(f"{k} {v:.3g}" for k, v in errs.items() if rec[k])
-          + "; the echo's and the follower's launches bit for bit with "
-          "reverse_echo_scan_bwd_periods and envelope_ar_scan_bwd_chunked, a second launch "
-          "the same bits")
+          + "; the echo's, the follower's and the slew limiter's launches bit for bit with "
+          "reverse_echo_scan_bwd_periods, envelope_ar_scan_bwd_chunked and "
+          "slew_scan_bwd_chunked, a second launch the same bits")
 
     # the feedback's gradient where the echo replays: CHAIN_FB_S, card only
     nfb = int(round(CHAIN_FB_S * SR))
@@ -3150,6 +3162,7 @@ def _training_chain(dev, card, pool) -> list:
     check(g_adsr.item() == 0.0, f"ADSR probe: gradient {g_adsr.item()}, the JAX package's is 0")
     hold(rec, "ADSR probe")
     adsr_calls = rec["adsr_scan_bwd"]
+    kernel_order("adsr_scan_bwd", adsr_calls, "ADSR probe")
     print(f"ADSR probe (n={CHAIN_N}, block {CHAIN_BLOCK}): loss {loss.item():.6g}, d/dg "
           f"{g_adsr.item()} (the gate enters only through compares), {n_adsr} backward "
           f"launches, each within {EFFECTS_BWD_TOL} of its plain adjoint (max abs err "
@@ -3206,7 +3219,8 @@ def _training_chain(dev, card, pool) -> list:
         for k in total:
             total[k] += nbw[k]
     echo_order([chain_calls["reverse_echo_scan_bwd"]], "fit chain")
-    follower_order([chain_calls["envelope_ar_scan_bwd"]], "fit chain")
+    kernel_order("envelope_ar_scan_bwd", [chain_calls["envelope_ar_scan_bwd"]], "fit chain")
+    kernel_order("slew_scan_bwd", [chain_calls["slew_scan_bwd"]], "fit chain")
     bank_blocks = -(-int(round(TRAIN_FXBANK_S * SR)) // BLOCK)
     rows, bank_calls = fit_run(
         "fit fx bank", fw.build_fit_fx_bank(pg, TRAIN_FXBANK_S), TRAIN_FXBANK_S, FXBANK_THETA,
@@ -3218,13 +3232,14 @@ def _training_chain(dev, card, pool) -> list:
         for k in total:
             total[k] += nbw[k]
     echo_order([bank_calls["reverse_echo_scan_bwd"]], "fit fx bank")
-    follower_order([bank_calls["envelope_ar_scan_bwd"]], "fit fx bank")
+    kernel_order("envelope_ar_scan_bwd", [bank_calls["envelope_ar_scan_bwd"]], "fit fx bank")
     print(f"echo backward: {len(echo_orders)} recorded launches ({', '.join(echo_orders)}) bit "
           f"for bit with reverse_echo_scan_bwd_periods on the card, each launched twice: the "
           f"same bits")
-    print(f"follower backward: {len(follower_orders)} recorded launches "
-          f"({', '.join(follower_orders)}) bit for bit with envelope_ar_scan_bwd_chunked on the "
-          f"card, each launched twice: the same bits")
+    for name, calls in held.items():
+        check(len(calls) > 0, f"{name}: no recorded launch held to {orders[name].__name__}")
+        print(f"{name}: {len(calls)} recorded launches ({', '.join(calls)}) bit for bit with "
+              f"{orders[name].__name__} on the card, each launched twice: the same bits")
 
     # ---- times at the fits' shapes (and the ADSR's at BLOCK), beside the plain adjoints ----
     adsr_kw = adsr_calls[0][1]
@@ -3260,6 +3275,11 @@ def _training_chain(dev, card, pool) -> list:
             errs[name] = max(errs[name], _check_bwd(
                 name, _bwd_errors(got, want), f"{label} (T={args[0].shape[0]})",
                 EFFECTS_BWD_TOL))
+            if name in orders:  # the timed shapes held to the kernel's order too
+                order = orders[name](*args, **kw)
+                order = [order] if torch.is_tensor(order) else order
+                check(all(torch.equal(g, w.reshape(g.shape)) for g, w in zip(got, order)),
+                      f"{name} ({label}): differs from {orders[name].__name__}")
             ms = device_ms(lambda: bwd[name](*args, **kw), 10)
             alone = kernel_ms(lambda: bwd[name](*args, **kw), EFFECTS_BWD[name][2])
             T, C = args[0].shape[0], (args[0].shape[1] if args[0].dim() == 2 else 1)
@@ -3291,6 +3311,9 @@ def _training_chain(dev, card, pool) -> list:
                          "header": "pygmu2_tpu_torch/csrc/order1_grid.cuh"}
             elif name == "slew_scan_bwd":
                 bnd = bound(4 * (4 * T + 3), SLEW_BWD_OPS * T)
+                chunks = -(-T // envelope.GRID_ROWS)  # the design's scratch, as the follower's
+                extra = {"scratch_bytes": 4 * 2 * 2 * chunks + 4 * (1 + chunks),
+                         "header": "pygmu2_tpu_torch/csrc/order1_grid.cuh"}
             elif name == "reverse_echo_scan_bwd":
                 cap, plen = kw["cap"], kw["plen"]
                 bnd = bound(4 * (4 * T * C + 6 * T + 4 * cap * C + 3 * plen * C + 27),
@@ -3298,6 +3321,15 @@ def _training_chain(dev, card, pool) -> list:
             else:
                 _, walked = adsr.adsr_scan_bwd_ref(*args, **kw, with_walked=True)
                 bnd = bound(4 * (2 * walked + 13), ADSR_BWD_OPS * walked)
+                # the design's scratch past one tile of 1024 samples: the
+                # ticket, the finished count, a 64-bit last edge a tile, each
+                # tile's first cut and sum
+                tiles = -(-T // adsr.BWD_TILE)
+                extra = {"walked": walked,
+                         "scratch_bytes": 4 * (2 + 4 * tiles) if tiles > 1 else 0,
+                         "design": "csrc/adsr_scan_bwd.cu adsr_bwd_grid: every sample's cut "
+                                   "test at once, a CUDA block a tile of 1024 samples, the "
+                                   "first cut and the sums combined by the last block"}
             times.append((label, T, C, ms, plain, bnd, peak, alone, extra))
             print(f"{name} ({label}, T={T}): kernel {ms:.4f} ms (CUDA events; its own kernels "
                   f"alone {alone:.4f} ms, torch.profiler), bound {bnd[0]:.4g} ms "

@@ -108,9 +108,9 @@ def load() -> ctypes.CDLL:
         # state_decay, stream
         "ladder_scan_bwd_launch": [p] * 14 + [i, i, i, i, f, i, f, f, p],
         # fb, buf_in, pos_in, sf_in, y, gy, gbuf, gsf, delay, bounds, n_windows,
-        # smoothed, gx, gfreq, gfb, gbuf_in, gsf_in, part, ring (or null), T, C,
-        # L, smooth_alpha, stream
-        "comb_scan_bwd_launch": [p] * 19 + [i, i, i, f, p],
+        # smoothed, gx, gfreq, gfb, gbuf_in, gsf_in, part, ring (or null), agg,
+        # flags, T, C, L, smooth_alpha, stream
+        "comb_scan_bwd_launch": [p] * 21 + [i, i, i, f, p],
         # x, freq, fb, buf_in, pos_in, sf_in, y, buf_out, pos_out, sf_out,
         # delay, bounds, n_windows, smoothed, T, C, L, sr, smooth_alpha, stream
         "comb_scan_launch": [p] * 14 + [i, i, i, f, f, p],
@@ -136,11 +136,13 @@ def load() -> ctypes.CDLL:
         # x, env0, env, genv, genv_final, gx, genv0, agg, flags, T, C, atk, rel,
         # stream
         "envelope_ar_scan_bwd_launch": [p] * 9 + [i, i, f, f, p],
-        # x, cur_in, y, gy, gcur_out, gx, gcur_in, T, linear, p_rise, p_fall, stream
-        "slew_scan_bwd_launch": [p] * 7 + [i, i, f, f, p],
-        # gate, state_in, env, genv, gstate_out, genv_next, gstate_in, T, dA, dD,
-        # dR, sus, sustain_samples (-1: gated), stream
-        "adsr_scan_bwd_launch": [p] * 7 + [i, f, f, f, f, i, p],
+        # x, cur_in, y, gy, gcur_out, gx, gcur_in, agg, flags, T, linear, p_rise,
+        # p_fall, stream
+        "slew_scan_bwd_launch": [p] * 9 + [i, i, f, f, p],
+        # gate, state_in, env, genv, gstate_out, genv_next, gstate_in, flags,
+        # info (both null for one tile), T, dA, dD, dR, sus, sustain_samples
+        # (-1: gated), stream
+        "adsr_scan_bwd_launch": [p] * 9 + [i, f, f, f, f, i, p],
         # trig, stage_in, env_in, gy, genv_out, genv_in, T, dA, dD, dR, sus, stream
         "adsr_clock_bwd_launch": [p] * 6 + [i, d, d, d, d, p],
         # x, fb, y, gy, tab, bounds, n_periods, gbuf_a, gbuf_b, gmisc, lam_a,

@@ -26,8 +26,11 @@
 // delay table, its greedy windows, the smoothed values), so no control
 // pass runs here. Three launches on the caller's stream:
 // 1. the smoother's adjoint, a first-order linear recurrence in reverse
-//    (coefficient 1 - alpha, or 0 where the select took f): the chunked
-//    reverse scan of order1_adjoint.cuh at one channel, gfreq and gsf_in;
+//    (coefficient 1 - alpha, or 0 where the select took f): order1_grid.cuh's
+//    adjoint at one channel (256-sample chunks over the card, a memset of
+//    its flags and one launch), gfreq and gsf_in; its x operand null (the
+//    coefficient is chosen by the smoothed value before alone) and its g
+//    null (the template's all-zero case: the only cotangent is gsf's);
 // 2. comb_bwd_windows, one CUDA block per group of up to 8 channels, 1024
 //    threads along time and channel: the forward's windows walked from the
 //    last. A forward window has no sample that reads a row the window
@@ -62,13 +65,16 @@
 //
 // Measured (chip_smoke.py phase 15, H100 80GB HBM3, 700 W; the launches
 // alone by torch.profiler): 0.122 ms at T = 16384, C = 1 (the window walk
-// 0.101 of it, the smoother's adjoint 0.020), 0.299-0.306 ms at C = 128, 0.018
-// ms at T = 1024.
+// 0.101 of it, the smoother's adjoint 0.020 when it ran the first
+// design's one CUDA block), 0.299-0.306 ms at C = 128, 0.018 ms at
+// T = 1024. With the smoother on order1_grid.cuh (kernel_times.py, the
+// same card): 0.1431-0.1433 -> 0.1297 ms at T = 16384, C = 1, L = 2206,
+// the smoother 0.0196 -> 0.0061-0.0062 of it.
 
 #include <cuda_runtime.h>
 
 #include "channel_sum.cuh"
-#include "order1_adjoint.cuh"
+#include "order1_grid.cuh"
 
 namespace {
 
@@ -80,11 +86,8 @@ constexpr int kMaxShared = 232448;
 // the smoother's coefficient: 1 where the select took f (its entering value
 // negative), else alpha
 struct Smoother {
-  const float* smoothed;
-  const float* sf_in;
   float alpha;
-  __device__ __forceinline__ float at(int t, int) const {
-    const float prev = t == 0 ? *sf_in : smoothed[t - 1];
+  __device__ __forceinline__ float k(float, float prev) const {
     return prev < 0.0f ? 1.0f : alpha;
   }
 };
@@ -158,23 +161,25 @@ __global__ void __launch_bounds__(kThreads) comb_bwd_windows(
 
 extern "C" {
 
-// Enqueues the smoother's adjoint, the window walk and the channel sum on
-// `stream`; returns the first cudaError_t (0 when all were accepted).
-// Device pointers: fb / gfreq / gfb (T,) f32; buf_in / gbuf / gbuf_in
-// (L, C) f32; pos_in () i32; sf_in / gsf / gsf_in () f32; y / gy / gx
-// (T, C) f32; the forward's residuals delay (T,) i32, bounds (T + 1,) i32,
-// n_windows (1,) i32, smoothed (T,) f32; scratch part (T, C) f32 and, where
-// 2L floats exceed the shared memory, ring (C, 2L) f32 (else null). Needs
-// L >= 2.
+// Enqueues the smoother's adjoint (a memset and a launch), the window walk
+// and the channel sum on `stream`; returns the first cudaError_t (0 when
+// all were accepted). Device pointers: fb / gfreq / gfb (T,) f32; buf_in /
+// gbuf / gbuf_in (L, C) f32; pos_in () i32; sf_in / gsf / gsf_in () f32;
+// y / gy / gx (T, C) f32; the forward's residuals delay (T,) i32, bounds
+// (T + 1,) i32, n_windows (1,) i32, smoothed (T,) f32; scratch part (T, C)
+// f32, where 2L floats exceed the shared memory ring (C, 2L) f32 (else
+// null), and the smoother's agg (2, ceil(T / 256)) f32 and flags
+// 1 + ceil(T / 256) int32. Needs L >= 2.
 int comb_scan_bwd_launch(const float* fb, const float* buf_in, const int* pos_in,
                          const float* sf_in, const float* y, const float* gy, const float* gbuf,
                          const float* gsf, const int* delay, const int* bounds,
                          const int* n_windows, const float* smoothed, float* gx, float* gfreq,
                          float* gfb, float* gbuf_in, float* gsf_in, float* part, float* ring,
-                         int T, int C, int L, float smooth_alpha, cudaStream_t stream) {
+                         float* agg, int* flags, int T, int C, int L, float smooth_alpha,
+                         cudaStream_t stream) {
   if (T < 1 || C < 1 || L < 2) return (int)cudaErrorInvalidValue;
-  cudaError_t err = order1::launch(Smoother{smoothed, sf_in, smooth_alpha}, nullptr, gsf, gfreq,
-                                   gsf_in, T, 1, stream);
+  cudaError_t err = order1_grid::launch(Smoother{smooth_alpha}, nullptr, smoothed, sf_in, nullptr,
+                                        gsf, gfreq, gsf_in, agg, flags, T, 1, stream);
   if (err != cudaSuccess) return (int)err;
   int width = C < kGroup ? C : kGroup;
   auto ring_bytes = [&](int w) { return 2 * (long)L * w * (long)sizeof(float); };

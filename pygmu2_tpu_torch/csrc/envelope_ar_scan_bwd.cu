@@ -21,8 +21,8 @@
 // What bounds it on this card: the bytes. At the fx bank's block
 // (T = 16384, C = 128) it reads x, env and g and writes gx: 33.6 MB, 10 us
 // at 3.35 TB/s; at the fit chain's (C = 1) 196 KB, where the launch and its
-// dependent steps set the time. (The first design, order1_adjoint.cuh, ran
-// one CUDA block of 1024 threads per C / 32 channels: one SM at C = 1.)
+// dependent steps set the time. (The first design ran one CUDA block of
+// 1024 threads per C / 32 channels: one SM at C = 1.)
 
 #include <cuda_runtime.h>
 

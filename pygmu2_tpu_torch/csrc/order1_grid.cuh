@@ -1,17 +1,21 @@
 // The adjoint of a first-order recurrence spread over the card, for Hopper
-// (sm_90a): the backward of the envelope follower (envelope_ar_scan_bwd.cu).
+// (sm_90a): the backward of the envelope follower (envelope_ar_scan_bwd.cu),
+// of the slew limiter (slew_scan_bwd.cu) and of the comb's smoother
+// (comb_scan_bwd.cu).
 //
 // The forward is y_t = y_{t-1} + k_t * (x_t - y_{t-1}) per channel, k_t
-// chosen per sample by a compare of x_t against y_{t-1} (Op::k). The
-// compares carry no gradient, so the backward is linear: with m_t = 1 - k_t
-// (rounded) and the cotangent lambda_t of y_t,
+// chosen per sample by a compare of x_t against y_{t-1} (Op::k(x_t,
+// y_{t-1})). The compares carry no gradient, so the backward is linear:
+// with m_t = 1 - k_t (rounded) and the cotangent lambda_t of y_t,
 //   lambda_t = g_t + m_{t+1} * lambda_{t+1},
 //   lambda_{T-1} = g_{T-1} + g_final (the cotangent of the state out),
 //   gx_t = k_t * lambda_t,   g_state_in = m_0 * lambda_0.
 // A segment of samples walked backward from a carry `in` entering at its
 // right is the affine map in -> a * in + b of the carry it hands on (a the
 // product of its m, b its walk from zero); two adjacent segments compose as
-// (a_l a_r, fma(a_l, b_r, b_l)).
+// (a_l a_r, fma(a_l, b_r, b_l)). A null x is not read (Op::k is given 0:
+// the comb's smoother chooses by y_{t-1} alone); a null g is all zeros (the
+// smoother's only cotangent is the state out's).
 //
 // What bounds it on this card: bytes (x, y and g read, gx written: 33.6 MB
 // at T = 16384, C = 128, 10 us at 3.35 TB/s) and, at one channel (196 KB,
@@ -147,9 +151,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   // 1. the chunk's rows
   const long off = (long)t0 * C + c0;
-  stage_in<W>(sx, x + off, layout, n, C, width, tid);
+  if (x != nullptr) stage_in<W>(sx, x + off, layout, n, C, width, tid);
   stage_in<W>(sy, y + off, layout, n, C, width, tid);
-  stage_in<W>(sg, g + off, layout, n, C, width, tid);
+  if (g != nullptr) stage_in<W>(sg, g + off, layout, n, C, width, tid);
   cp_async_arrive(&full);
   mbar_wait(&full, 0);
 
@@ -167,8 +171,8 @@ __global__ void __launch_bounds__(kThreads, 2)
       const float prev = r > 0    ? sy[(r - 1) * W + c]
                          : t0 > 0 ? y[off - C + c]
                                   : y0[c0 + c];
-      k[i] = op.k(sx[r * W + c], prev);
-      gv[i] = sg[r * W + c];
+      k[i] = op.k(x != nullptr ? sx[r * W + c] : 0.0f, prev);
+      gv[i] = g != nullptr ? sg[r * W + c] : 0.0f;
     }
   }
   float a = 1.0f, b = 0.0f;
@@ -293,8 +297,9 @@ inline int width_of(int C) {
 }
 
 // Enqueues the adjoint on `stream` (a memset of `flags`, then the kernel):
-// x, y, g, gx (T, C); y0, g_final, g_state_in (C,); agg (2, ceil(T / 256),
-// C) and flags (1 + ceil(T / 256) * ceil(C / width_of(C))) scratch.
+// x, y, g, gx (T, C) (x or g may be null); y0, g_final, g_state_in (C,);
+// agg (2, ceil(T / 256), C) and flags (1 + ceil(T / 256) * ceil(C /
+// width_of(C))) scratch.
 template <class Op>
 cudaError_t launch(const Op& op, const float* x, const float* y, const float* y0,
                    const float* g, const float* g_final, float* gx, float* g_state_in,

@@ -14,27 +14,31 @@
 // clip's slope: 1 inside the limits, 0 outside, and 1/2 where err_t equals
 // a limit exactly (autograd of torch.minimum / torch.maximum and jax.vjp of
 // jnp.clip both split the gradient at a tie). The backward is then
-// order1_adjoint.cuh's recurrence at one channel, err_t recomputed from x
-// and the saved output with the forward's rounding.
+// order1_grid.cuh's adjoint at one channel, err_t recomputed from x and the
+// saved output with the forward's rounding
+// (ops/slew.slew_scan_bwd_chunked is its order in torch ops, equal to it
+// bit for bit).
 //
 // What bounds it on this card: at the chain's block (T = 16384) it reads
-// x, y and g and writes gx: 256 KB, 0.08 us at 3.35 TB/s; one CUDA block of
-// 1024 lanes, 16 samples each, and a 10-step scan.
+// x, y and g and writes gx: 256 KB, 0.08 us at 3.35 TB/s; the launch and
+// its dependent steps set the time. The grid spreads the call over 64 CUDA
+// blocks of 256-sample chunks (the first design ran one CUDA block of 1024
+// threads, 16 samples each, on one SM). Measured
+// (kernel_times.py, the kernel alone by torch.profiler; NVIDIA H100 80GB
+// HBM3, 700 W): 0.0064-0.0066 ms at T = 16384 in both modes, and the
+// memset's 0.0009; the first design 0.0276-0.0278.
 
 #include <cuda_runtime.h>
 
-#include "order1_adjoint.cuh"
+#include "order1_grid.cuh"
 
 namespace {
 
 struct Slew {
-  const float* x;
-  const float* y;
-  const float* cur0;
   float p_rise, p_fall;
   bool linear;
-  __device__ __forceinline__ float at(int t, int) const {
-    const float err = __fsub_rn(x[t], t > 0 ? y[t - 1] : *cur0);
+  __device__ __forceinline__ float k(float x, float prev) const {
+    const float err = __fsub_rn(x, prev);
     if (!linear) return err > 0.0f ? p_rise : p_fall;
     if (err == p_rise || err == -p_fall) return 0.5f;  // a tie: the gradient split
     return err < p_rise && err > -p_fall ? 1.0f : 0.0f;
@@ -45,14 +49,17 @@ struct Slew {
 
 extern "C" {
 
-// Enqueues one launch on `stream`; returns its cudaError_t (0 when
+// Enqueues the call on `stream` (a memset of `flags`, then the kernel);
+// returns the cudaError_t of the first step that failed (0: both
 // accepted). Device pointers: x / y / gy / gx (T,) f32; cur_in / gcur_out /
-// gcur_in () f32.
+// gcur_in () f32; agg (2, ceil(T / 256)) f32 and flags 1 + ceil(T / 256)
+// int32 scratch.
 int slew_scan_bwd_launch(const float* x, const float* cur_in, const float* y, const float* gy,
-                         const float* gcur_out, float* gx, float* gcur_in, int T, int linear,
-                         float p_rise, float p_fall, cudaStream_t stream) {
-  const Slew op{x, y, cur_in, p_rise, p_fall, linear != 0};
-  return (int)order1::launch(op, gy, gcur_out, gx, gcur_in, T, 1, stream);
+                         const float* gcur_out, float* gx, float* gcur_in, float* agg,
+                         int* flags, int T, int linear, float p_rise, float p_fall,
+                         cudaStream_t stream) {
+  return (int)order1_grid::launch(Slew{p_rise, p_fall, linear != 0}, x, y, cur_in, gy, gcur_out,
+                                  gx, gcur_in, agg, flags, T, 1, stream);
 }
 
 }  // extern "C"

@@ -54,8 +54,10 @@ where the value emitted is a constant), carried across edges (an edge
 re-anchors e0 to the value emitted there); the clock branch's float64
 envelope likewise until its first constant value. ``adsr_scan_bwd_ref``
 and ``adsr_clock_scan_bwd_ref`` are the plain versions: the walk to the
-cut in the kernel's order (the edge-walk segment by segment), and the
-masked sums in torch ops.
+cut segment by segment, and the masked sums in torch ops.
+``adsr_scan_bwd_tiled`` is the kernel's order in torch ops (every sample's
+cut test at once, the sums in the kernel's tiles and trees), equal to it
+bit for bit.
 
 Stage codes match models.envelopes: IDLE/ATTACK/DECAY/SUSTAIN/RELEASE.
 """
@@ -479,6 +481,178 @@ def adsr_scan_bwd_ref(gate, state, env, genv, gstate, genv_next, *, dA, dD, dR, 
     return (out, walked) if with_walked else out
 
 
+# csrc/adsr_scan_bwd.cu's grouping: a CUDA block (a tile) of BWD_THREADS
+# threads, BWD_PER consecutive samples each, in warps of 32
+BWD_THREADS, BWD_PER = 256, 4
+BWD_TILE = BWD_THREADS * BWD_PER
+
+
+def _block_tree(v):
+    """The kernel's sum over a block of (..., BWD_THREADS) values: each
+    warp's 32 by a halving tree (the shuffles), then the warps' sums by the
+    same tree (zeros past the last warp)."""
+    v = v.reshape(*v.shape[:-1], BWD_THREADS // 32, 32)
+    o = 16
+    while o:
+        v = v[..., :o] + v[..., o:2 * o]
+        o //= 2
+    v = torch.cat([v[..., 0], v.new_zeros((*v.shape[:-2], 32 - BWD_THREADS // 32))], dim=-1)
+    o = 16
+    while o:
+        v = v[..., :o] + v[..., o:2 * o]
+        o //= 2
+    return v[..., 0]
+
+
+def adsr_scan_bwd_tiled(gate, state, env, genv, gstate, genv_next, *, dA, dD, dR, sus,
+                        sustain_samples=None):
+    """:func:`adsr_scan_bwd` in the kernel's order (same arguments and
+    result), in torch ops rounded as the kernel's, equal to it bit for bit:
+
+    1. the gate's edges, and for every sample the last edge at or before it
+       (a running maximum): the stage after it (ATTACK or RELEASE), e0 the
+       envelope emitted there, the count ``t - edge + 1``; before the first
+       edge the state in's stage, e0 and ``min(n + t + 1, 2**24)``;
+    2. every sample's cut test at once (the forward's rounded candidate
+       against its clip level, the triggered sustain count, an edge whose
+       entering stage is IDLE or SUSTAIN), the first cut;
+    3. the cotangents up to and including it (where the entering stage
+       ramps) summed as the kernel sums them: each thread's BWD_PER samples
+       in order, a tile's threads by :func:`_block_tree`, the tiles' sums
+       by the same tree (a thread the tiles ``tid``, ``tid +
+       BWD_THREADS``, ... in order); ge0 that sum, gn0 the entering slope
+       times it; where nothing cut, the state out's and env_next's
+       cotangents added with n's weight (the entering slope after an edge,
+       1 before).
+
+    A state outside :func:`in_closed_form` is walked per sample with the
+    kernel's ops (its thread 0's walk)."""
+    dev = gate.device
+    f = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
+    gated = sustain_samples is None
+    limit = None if gated else float(np.float32(_count_limit(sustain_samples)))
+    g, gy = gate.to(torch.float32), genv.to(torch.float32)
+    host = state.detach().to("cpu", torch.float32)
+    st = state.detach().to(torch.float32)
+    stage_in, e0_in, n_in, pg0 = float(host[0]), st[1], st[2], st[3]
+    go, gnext = gstate.to(torch.float32), genv_next.to(torch.float32).reshape(())
+    slope = {_ATTACK: f(dA), _DECAY: f(dD)}
+    cR, csus = f(dR), f(sus)
+
+    def d_of(code):
+        return slope.get(code, cR)
+
+    def ramp(code):
+        return code not in (_IDLE, _SUSTAIN)
+
+    def finish(acc_e, acc_n, live, stage, a_n, b_n):
+        if live:
+            r = ramp(stage)
+            ge = go[1] + (gnext if r else f(0.0))
+            gn = go[2] + (d_of(stage) * gnext if r else f(0.0))
+            acc_e = acc_e + ge
+            acc_n = fmaf(a_n, ge, fmaf(b_n, gn, acc_n))
+        zero = f(0.0)
+        return torch.stack([zero, acc_e.reshape(()), acc_n.reshape(()), zero])
+
+    T = g.shape[0]
+    if not in_closed_form(host):  # thread 0's walk
+        stage, e0, n, pg = stage_in, e0_in, n_in, pg0
+        a_n, b_n, acc_e, acc_n, live = f(0.0), f(1.0), f(0.0), f(0.0), True
+        for t in range(T):
+            d = d_of(stage)
+            value = f(0.0) if stage == _IDLE else csus if stage == _SUSTAIN else fmaf(n, d, e0)
+            if ramp(stage):
+                acc_e = acc_e + gy[t]
+                acc_n = fmaf(fmaf(d, b_n, a_n), gy[t], acc_n)
+            if gated:
+                rising = bool(pg == 0.0) and bool(g[t] == 1.0)
+                edge = rising or (bool(pg == 1.0) and bool(g[t] == 0.0))
+            else:
+                rising = edge = bool(g[t] > 0.0)
+            if edge:
+                if not ramp(stage):
+                    live = False
+                    break
+                a_n, b_n, e0, n = fmaf(d, b_n, a_n), f(0.0), value, f(0.0)
+                stage = _ATTACK if rising else _RELEASE
+            n1 = n + 1.0
+            if bool(_cut_tests(stage, e0, n1, slope_of=d_of, csus=csus, limit=limit)):
+                live = False
+                break
+            n, pg = n1, g[t]
+        return finish(acc_e, acc_n, live, stage, a_n, b_n)
+
+    # 1. edges, and the last edge at or before each sample
+    t_idx = torch.arange(T, device=dev)
+    pgv = torch.cat([pg0.reshape(1), g[:-1]])
+    if gated:
+        rising = (pgv == 0.0) & (g == 1.0)
+        edge = rising | ((pgv == 1.0) & (g == 0.0))
+    else:
+        rising = edge = g > 0.0
+    E = torch.cummax(torch.where(edge, t_idx, torch.full_like(t_idx, -1)), 0).values
+    before = torch.cat([torch.full((1,), -1, device=dev, dtype=E.dtype), E[:-1]])
+    none = E < 0
+    Ec = E.clamp(min=0)
+    stage = torch.where(none, f(stage_in),
+                        torch.where(rising[Ec], f(_ATTACK), f(_RELEASE)))
+    e0 = torch.where(none, e0_in, env.to(torch.float32)[Ec])
+    n1 = torch.where(none, n_in + (t_idx + 1).to(torch.float32),
+                     (t_idx - E + 1).to(torch.float32)).clamp(max=float(N_MAX))
+    # 2. the cut tests, the first cut
+    d = torch.where(stage == _ATTACK, f(dA), torch.where(stage == _DECAY, f(dD), cR))
+    cand = fmaf(n1, d, e0)
+    cut = (((stage == _ATTACK) & (cand >= 1.0)) | ((stage == _DECAY) & (cand <= csus))
+           | ((stage == _RELEASE) & (cand <= 0.0)))
+    if not gated:
+        cut = cut | ((stage == _SUSTAIN) & (n1 >= limit))
+    if not ramp(stage_in):
+        cut = cut | (edge & (before < 0))  # an edge in IDLE or SUSTAIN
+    hits = torch.nonzero(cut)[:, 0]
+    first = int(hits[0]) if len(hits) else None
+    # 3. the sums up to the cut, in the kernel's grouping: each tile's, then
+    # the tiles' (a thread the tiles tid, tid + BWD_THREADS, ... in order)
+    last = T - 1 if first is None else first
+    tiles = -(-T // BWD_TILE)
+    keep = t_idx <= last if ramp(stage_in) else torch.zeros(T, dtype=torch.bool, device=dev)
+    v = torch.zeros(tiles * BWD_TILE, dtype=torch.float32, device=dev)
+    v[:T] = torch.where(keep, gy, f(0.0))
+    v = v.reshape(tiles, BWD_THREADS, BWD_PER)
+    part = torch.zeros((tiles, BWD_THREADS), dtype=torch.float32, device=dev)
+    for i in range(BWD_PER):  # a thread's samples in order
+        part = part + v[..., i]
+    sums = _block_tree(part)  # (tiles,)
+    rows = -(-tiles // BWD_THREADS)
+    sums = torch.cat([sums, sums.new_zeros(rows * BWD_THREADS - tiles)]).reshape(
+        rows, BWD_THREADS)
+    acc = torch.zeros(BWD_THREADS, dtype=torch.float32, device=dev)
+    for r in range(rows):
+        acc = acc + sums[r]
+    total = _block_tree(acc)
+    # without a cut the last edge (if any) sets the stage out; n's weight
+    # is the entering slope after an edge, its own (1) before
+    any_edge = bool(edge.any())
+    d_in, r_in = d_of(stage_in), ramp(stage_in)
+    return finish(total if r_in else f(0.0), d_in * total if r_in else f(0.0), first is None,
+                  float(stage[-1]) if any_edge else stage_in,
+                  d_in if any_edge else f(0.0), f(0.0) if any_edge else f(1.0))
+
+
+def _cut_tests(stage, e0, n1, *, slope_of, csus, limit):
+    """The cut test of one sample's post-step: a hit of its stage's clip
+    level by the rounded candidate, or the triggered sustain count
+    (``limit``, None gated) reached."""
+    cand = fmaf(n1, slope_of(stage), e0)
+    if stage == _ATTACK:
+        return cand >= 1.0
+    if stage == _DECAY:
+        return cand <= csus
+    if stage == _RELEASE:
+        return cand <= 0.0
+    return stage == _SUSTAIN and limit is not None and bool(n1 >= limit)
+
+
 def _launch_bwd(gate, state, env, genv, gstate, genv_next, *, dA, dD, dR, sus,
                 sustain_samples):
     dev = gate.device
@@ -491,12 +665,22 @@ def _launch_bwd(gate, state, env, genv, gstate, genv_next, *, dA, dD, dR, sus,
     gstate = _ext.checked(gstate, "gstate", (4,), dev)
     genv_next = _ext.checked(genv_next.reshape(()), "genv_next", (), dev)
     gstate_in = torch.empty((4,), dtype=torch.float32, device=dev)
+    # past one tile: the tiles' ticket, finished count and last edges (a
+    # 64-bit word each; zeroed by the launch), and each tile's first cut
+    # and sum
+    tiles = -(-T // BWD_TILE)
+    flags = info = None
+    if tiles > 1:
+        flags = torch.empty((2 + 2 * tiles,), dtype=torch.int32, device=dev)
+        info = torch.empty((2 * tiles,), dtype=torch.int32, device=dev)
     lib = _ext.load()
     with torch.cuda.device(dev):
         err = lib.adsr_scan_bwd_launch(
             gate.data_ptr(), state.data_ptr(), env.data_ptr(), genv.data_ptr(),
-            gstate.data_ptr(), genv_next.data_ptr(), gstate_in.data_ptr(), T, float(dA),
-            float(dD), float(dR), float(sus),
+            gstate.data_ptr(), genv_next.data_ptr(), gstate_in.data_ptr(),
+            None if flags is None else flags.data_ptr(),
+            None if info is None else info.data_ptr(), T, float(dA), float(dD), float(dR),
+            float(sus),
             -1 if sustain_samples is None else _count_limit(sustain_samples),
             torch.cuda.current_stream(dev).cuda_stream,
         )

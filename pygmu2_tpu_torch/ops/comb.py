@@ -18,9 +18,9 @@ delay is round(sr / sf) clipped to [1, L-1], and
   windows cut greedily so that no sample of a window reads a value the
   window writes; then each window's samples and channels at once.
 - ``comb_scan_bwd_windows`` is the backward in its kernel's order (tests
-  and ``chip_smoke.py`` only): the smoother's adjoint as the chunked
-  reverse scan of ``csrc/order1_adjoint.cuh``, then the forward's windows
-  walked from the last.
+  and ``chip_smoke.py`` only): the smoother's adjoint in
+  ``csrc/order1_grid.cuh``'s order (``envelope.order1_adjoint_grid``), then
+  the forward's windows walked from the last.
 
 Differentiable: on the card the launch is a ``torch.autograd.Function``
 (:mod:`~pygmu2_tpu_torch.ops.diffable`) whose backward is
@@ -38,7 +38,8 @@ from __future__ import annotations
 import torch
 
 from pygmu2_tpu_torch import _ext
-from pygmu2_tpu_torch.ops import diffable, xla_math
+from pygmu2_tpu_torch.ops import diffable
+from pygmu2_tpu_torch.ops.envelope import GRID_ROWS, order1_adjoint_grid
 
 
 def comb_scan_ref(x, freq, fb, buf, pos, sf, *, L, sr, smooth_alpha):
@@ -139,7 +140,8 @@ def comb_scan_bwd(x, freq, fb, buf, pos, sf, y, gy, gbuf, gsf, residuals=None, *
     (T, C), gfreq (T,), gfb (T,), gbuf_in (L, C), gsf_in ()). CPU tensors
     take the plain version; CUDA tensors launch the kernel (one count in
     ``comb_scan_bwd.launches`` per call, which is three launches: the
-    smoother's adjoint, the window walk, the channel sum) or raise.
+    smoother's adjoint (after a memset of its flags), the window walk, the
+    channel sum) or raise.
     """
     kw = dict(L=L, sr=sr, smooth_alpha=smooth_alpha)
     if y.device.type == "cpu":
@@ -168,64 +170,15 @@ def comb_scan_bwd_ref(x, freq, fb, buf, pos, sf, y, gy, gbuf, gsf, residuals=Non
                                    allow_unused=True, materialize_grads=True)
 
 
-# csrc/order1_adjoint.cuh's shape at one channel: 1024 lanes along time,
-# 16 samples a lane, so tiles of 16384 samples from the end of the call
-_ORDER1_LANES, _ORDER1_SEG = 1024, 16
-
-
-def order1_adjoint_chunked(k, g, g_final):
-    """csrc/order1_adjoint.cuh's chunked reverse scan at one channel, in
-    torch ops rounded as the kernel's (its fused multiply-adds exact, by
-    ``xla_math.fmaf``): lambda_t = g_t + (1 - k_{t+1}) lambda_{t+1} from
-    lambda_{T-1} = g_{T-1} + g_final; returns (k_t lambda_t (T,),
-    (1 - k_0) lambda_0)."""
-    lanes, seg = _ORDER1_LANES, _ORDER1_SEG
-    dev = k.device
-    T = k.shape[0]
-    out = torch.empty(T, dtype=torch.float32, device=dev)
-    carry = g_final.reshape(())
-    lane = torch.arange(lanes, device=dev)
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
-    for t_end in range(T, 0, -lanes * seg):
-        t0 = max(t_end - lanes * seg, 0)
-        idx = t_end - (lanes - lane)[:, None] * seg + torch.arange(seg, device=dev)
-        inside = idx >= t0
-        at = idx.clamp(min=0)
-        kk, gv = torch.where(inside, k[at], zero), torch.where(inside, g[at], zero)
-        # 1. each lane's segment as an affine map of the carry from its right
-        a = torch.ones(lanes, dtype=torch.float32, device=dev)
-        b = torch.zeros(lanes, dtype=torch.float32, device=dev)
-        for i in reversed(range(seg)):
-            m = 1.0 - kk[:, i]
-            b = m * (gv[:, i] + b)
-            a = a * m
-        # 2. the suffix scan of the maps over the lanes (Hillis-Steele)
-        d = 1
-        while d < lanes:
-            na, nb = a.clone(), b.clone()
-            nb[:-d] = xla_math.fmaf(a[:-d], b[d:], b[:-d])
-            na[:-d] = a[:-d] * a[d:]
-            a, b = na, nb
-            d *= 2
-        into = torch.cat([xla_math.fmaf(a[1:], carry, b[1:]), carry.reshape(1)])
-        # 3. each segment again from its carry
-        for i in reversed(range(seg)):
-            lam = gv[:, i] + into
-            hit = inside[:, i]
-            out[idx[hit, i]] = (kk[:, i] * lam)[hit]
-            into = (1.0 - kk[:, i]) * lam
-        carry = xla_math.fmaf(a[0], carry, b[0])
-    return out, carry
-
-
 def comb_scan_bwd_windows(x, freq, fb, buf, pos, sf, y, gy, gbuf, gsf, residuals=None, *, L,
                           sr, smooth_alpha):
     """:func:`comb_scan_bwd` in the kernel's order (same arguments and
     result; the control pass recomputed by :func:`comb_control_ref`), in
     torch ops rounded as the kernel's, equal to it bit for bit:
 
-    1. the smoother's adjoint by :func:`order1_adjoint_chunked`, its
-       coefficient 1 where the select took f, else alpha;
+    1. the smoother's adjoint by ``envelope.order1_adjoint_grid`` at one
+       channel, its coefficient 1 where the select took f, else alpha, its
+       only cotangent gsf's;
     2. the tape's cotangent G (gy on y's rows, plus gbuf where a row ends in
        the ring) walked back window by window, the last first: each
        sample's row is complete when its window is reached; a window's
@@ -239,7 +192,9 @@ def comb_scan_bwd_windows(x, freq, fb, buf, pos, sf, y, gy, gbuf, gsf, residuals
     prev = torch.cat([sf0.reshape(1), smoothed[:-1]])
     k = torch.where(prev < 0.0, torch.ones((), device=dev),
                     torch.full((), smooth_alpha, dtype=torch.float32, device=dev))
-    gfreq, gsf_in = order1_adjoint_chunked(k, torch.zeros(T, device=dev), gsf)
+    gfreq, gsf_in = order1_adjoint_grid(k[:, None], torch.zeros((T, 1), device=dev),
+                                        gsf.reshape(1))
+    gfreq, gsf_in = gfreq[:, 0], gsf_in.reshape(())
 
     p0 = int(pos)
     G = torch.cat([torch.zeros((L, C), dtype=torch.float32, device=dev), gy])
@@ -339,6 +294,11 @@ def _launch_bwd(fb, buf, pos, sf, y, gy, gbuf, gsf, delay, bounds, n_windows, sm
     part = torch.empty((T, C), dtype=torch.float32, device=dev)
     ring = (torch.empty((C, 2 * L), dtype=torch.float32, device=dev)
             if 2 * L * 4 > _MAX_SHARED else None)
+    # the smoother's adjoint: its chunks' maps, and its ticket and flags
+    # (zeroed by the launch)
+    chunks = -(-T // GRID_ROWS)
+    agg = torch.empty((2, chunks), dtype=torch.float32, device=dev)
+    flags = torch.empty((1 + chunks,), dtype=torch.int32, device=dev)
     lib = _ext.load()
     with torch.cuda.device(dev):
         err = lib.comb_scan_bwd_launch(
@@ -346,8 +306,9 @@ def _launch_bwd(fb, buf, pos, sf, y, gy, gbuf, gsf, delay, bounds, n_windows, sm
             gy.data_ptr(), gbuf.data_ptr(), gsf.data_ptr(), delay.contiguous().data_ptr(),
             bounds.contiguous().data_ptr(), n_windows.data_ptr(), smoothed.data_ptr(),
             gx.data_ptr(), gfreq.data_ptr(), gfb.data_ptr(), gbuf_in.data_ptr(),
-            gsf_in.data_ptr(), part.data_ptr(), None if ring is None else ring.data_ptr(), T,
-            C, L, float(smooth_alpha), torch.cuda.current_stream(dev).cuda_stream,
+            gsf_in.data_ptr(), part.data_ptr(), None if ring is None else ring.data_ptr(),
+            agg.data_ptr(), flags.data_ptr(), T, C, L, float(smooth_alpha),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     _ext.raise_on_error(err, "comb_scan_bwd")
     comb_scan_bwd.launches += 1

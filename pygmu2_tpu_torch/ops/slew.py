@@ -17,7 +17,9 @@ JAX package's ``slew_scan_ref`` op order, float32.
 ``slew_scan_bwd`` is the backward: the cotangents of x and cur0. For CUDA
 tensors it launches ``csrc/slew_scan_bwd.cu`` (counted in
 ``slew_scan_bwd.launches``); on the card ``slew_scan``'s gradient is that
-launch. ``slew_scan_bwd_ref`` is its plain version. The limits are
+launch. ``slew_scan_bwd_ref`` is its plain version; ``slew_scan_bwd_chunked``
+is the kernel's order in torch ops (``csrc/order1_grid.cuh``'s, by
+``envelope.order1_adjoint_grid``), equal to it bit for bit. The limits are
 constants to the gradient, so both modes are ``y = y + k (x - y)``: k the
 chosen coefficient (exponential) or the clip's slope (linear: 1 inside the
 limits, 0 outside, 1/2 at a tie, where autograd of ``torch.minimum`` /
@@ -30,7 +32,7 @@ import torch
 
 from pygmu2_tpu_torch import _ext
 from pygmu2_tpu_torch.ops import diffable
-from pygmu2_tpu_torch.ops.envelope import order1_adjoint_ref
+from pygmu2_tpu_torch.ops.envelope import GRID_ROWS, order1_adjoint_grid, order1_adjoint_ref
 
 
 def slew_scan_ref(x, cur0, *, linear, p_rise, p_fall):
@@ -106,20 +108,35 @@ def slew_scan_bwd(x, cur0, y, gy, gcur, *, linear, p_rise, p_fall):
 slew_scan_bwd.launches = 0
 
 
-def slew_scan_bwd_ref(x, cur0, y, gy, gcur, *, linear, p_rise, p_fall):
-    """Plain PyTorch version of :func:`slew_scan_bwd`: each sample's
-    coefficient from the forward's error ``x_t - y_{t-1}``, then
-    ``envelope.order1_adjoint_ref``."""
+def _coefficients(x, cur0, y, linear, p_rise, p_fall):
+    """Each sample's coefficient from the forward's error ``x_t - y_{t-1}``:
+    the chosen one (exponential) or the clip's slope (linear)."""
     f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=x.device)  # noqa: E731
     pr, pf = f32(p_rise), f32(p_fall)
     err = x.to(torch.float32) - torch.cat([cur0.reshape(1).to(torch.float32), y[:-1]])
     if linear:
-        k = torch.where((err == pr) | (err == -pf), f32(0.5),
-                        ((err < pr) & (err > -pf)).to(torch.float32))
-    else:
-        k = torch.where(err > 0, pr, pf)
+        return torch.where((err == pr) | (err == -pf), f32(0.5),
+                           ((err < pr) & (err > -pf)).to(torch.float32))
+    return torch.where(err > 0, pr, pf)
+
+
+def slew_scan_bwd_ref(x, cur0, y, gy, gcur, *, linear, p_rise, p_fall):
+    """Plain PyTorch version of :func:`slew_scan_bwd`: each sample's
+    coefficient from the forward's error ``x_t - y_{t-1}``, then
+    ``envelope.order1_adjoint_ref``."""
+    k = _coefficients(x, cur0, y, linear, p_rise, p_fall)
     gx, gcur0 = order1_adjoint_ref(k, gy.to(torch.float32), gcur.reshape(()))
     return gx, gcur0.reshape(cur0.shape)
+
+
+def slew_scan_bwd_chunked(x, cur0, y, gy, gcur, *, linear, p_rise, p_fall):
+    """:func:`slew_scan_bwd` in the kernel's order (same arguments and
+    result): the coefficients as :func:`slew_scan_bwd_ref` takes them, then
+    ``envelope.order1_adjoint_grid`` at one channel. Equal to the kernel bit
+    for bit."""
+    k = _coefficients(x, cur0, y, linear, p_rise, p_fall)
+    gx, gcur0 = order1_adjoint_grid(k[:, None], gy.to(torch.float32)[:, None], gcur.reshape(1))
+    return gx[:, 0], gcur0.reshape(cur0.shape)
 
 
 def _launch_bwd(x, cur0, y, gy, gcur, *, linear, p_rise, p_fall):
@@ -132,12 +149,17 @@ def _launch_bwd(x, cur0, y, gy, gcur, *, linear, p_rise, p_fall):
     gcur = _ext.checked(gcur.reshape(()), "gcur", (), dev)
     gx = torch.empty((T,), dtype=torch.float32, device=dev)
     gcur0 = torch.empty((), dtype=torch.float32, device=dev)
+    # the chunks' maps, and the kernel's ticket and flags (zeroed by the launch)
+    chunks = -(-T // GRID_ROWS)
+    agg = torch.empty((2, chunks), dtype=torch.float32, device=dev)
+    flags = torch.empty((1 + chunks,), dtype=torch.int32, device=dev)
     lib = _ext.load()
     with torch.cuda.device(dev):
         err = lib.slew_scan_bwd_launch(
             x.data_ptr(), cur0.data_ptr(), y.data_ptr(), gy.data_ptr(), gcur.data_ptr(),
-            gx.data_ptr(), gcur0.data_ptr(), T, int(bool(linear)), float(p_rise),
-            float(p_fall), torch.cuda.current_stream(dev).cuda_stream,
+            gx.data_ptr(), gcur0.data_ptr(), agg.data_ptr(), flags.data_ptr(), T,
+            int(bool(linear)), float(p_rise), float(p_fall),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     _ext.raise_on_error(err, "slew_scan_bwd")
     slew_scan_bwd.launches += 1

@@ -4,17 +4,17 @@
 ``csrc/ladder_scan_bwd.cu``: checkpoints every K samples, each chunk's
 affine map of the cotangent, the serial carry over the chunks, the final
 walks) and ``ops/comb.comb_scan_bwd_windows`` (the order of
-``csrc/comb_scan_bwd.cu``: the smoother's adjoint as the chunked reverse
-scan of ``csrc/order1_adjoint.cuh``, the forward's windows walked from the
-last) on the CPU, each against two references on the same seeded inputs
-and cotangents: autograd of the port's plain forward (``*_scan_bwd_ref``)
+``csrc/comb_scan_bwd.cu``: the smoother's adjoint in the order of
+``csrc/order1_grid.cuh``, the forward's windows walked from the last) on
+the CPU, each against two references on the same seeded inputs and
+cotangents: autograd of the port's plain forward (``*_scan_bwd_ref``)
 and ``jax.vjp`` of the JAX package's ``ladder_scan_ref`` / ``comb_scan_ref``.
 
 Tolerances: 1e-5 of the largest cotangent of each output (float32
 recurrences summed in other orders: the carry's products at the chunk
 edges, autograd's accumulation; observed maxima 5.4e-7, CHANGES.md). The
 comb's smoother outputs (gfreq, gsf_in) against the references: T x 2^-23
-of the output's largest: the chunked scan multiplies by 1 - alpha rounded
+of the output's largest: the grid's scan multiplies by 1 - alpha rounded
 once, autograd by g - g alpha rounded each step, and the two products of T
 factors drift apart by up to a rounding a factor. The kernels themselves
 are held to these versions bit for bit on the card
@@ -30,7 +30,7 @@ import torch
 
 from pygmu2_tpu.ops.comb_pallas import comb_scan_ref as jax_comb_ref
 from pygmu2_tpu.ops.ladder_pallas import ladder_scan_ref as jax_ladder_ref
-from pygmu2_tpu_torch.ops import comb, ladder
+from pygmu2_tpu_torch.ops import comb, envelope, ladder
 
 torch.set_num_threads(1)
 
@@ -199,23 +199,30 @@ def test_comb_residuals_on_the_cpu():
 
 
 @pytest.mark.parametrize("T", [300, 16384 + 77])
-def test_order1_chunked_adjoint_matches_serial(T):
-    """The chunked reverse scan in torch ops (one tile, and two: past
-    16384 samples) against a float64 serial walk: within 1e-5 of the
-    largest output."""
+@pytest.mark.parametrize("g_kind", ["zero", "noise"])
+def test_order1_grid_adjoint_matches_serial(T, g_kind):
+    """The smoother's adjoint in its kernel's order
+    (``envelope.order1_adjoint_grid`` at one channel: 256-sample chunks,
+    T one chunk and past 64 of them) on the comb's coefficients (k in
+    [0, 0.2], 1 where the select took f, every 97th sample) against a
+    float64 serial walk: within 1e-5 of the largest output. ``zero``: g all
+    zeros and only g_final, as the comb's smoother; ``noise``: a cotangent
+    at every sample too."""
     rng = np.random.default_rng(T)
     k = rng.uniform(0.0, 0.2, T).astype(np.float32)
     k[::97] = 1.0  # the select took f: the carry stops
-    g = rng.standard_normal(T).astype(np.float32)
-    gx, g_in = comb.order1_adjoint_chunked(torch.from_numpy(k), torch.from_numpy(g),
-                                           torch.tensor(0.5))
+    g = (rng.standard_normal(T) if g_kind == "noise" else np.zeros(T)).astype(np.float32)
+    gx, g_in = envelope.order1_adjoint_grid(torch.from_numpy(k)[:, None],
+                                            torch.from_numpy(g)[:, None], torch.tensor([0.5]))
     lam, want = 0.5, np.empty(T)
     for t in reversed(range(T)):
         lam = g[t] + lam
         want[t] = k[t] * lam
         lam = (1.0 - float(k[t])) * lam
-    assert _rel(gx.numpy(), want) <= TOL
-    assert abs(float(g_in) - lam) <= TOL * np.abs(want).max()
+    assert gx.shape == (T, 1) and g_in.shape == (1,)
+    assert np.abs(want).max() > 0.0
+    assert _rel(gx[:, 0].numpy(), want) <= TOL
+    assert abs(float(g_in[0]) - lam) <= TOL * np.abs(want).max()
 
 
 if __name__ == "__main__":

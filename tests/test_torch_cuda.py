@@ -1212,6 +1212,45 @@ def test_slew_backward_kernel_matches_plain(cuda, linear, T):
     _bwd_close((torch.cat([gx1, gx2]), g0), want, f"slew linear={linear} cut", BWD_TOL)
 
 
+@pytest.mark.parametrize("linear", [True, False], ids=["linear", "exponential"])
+@pytest.mark.parametrize("T", [16384, 16385, 777, 5])
+def test_slew_backward_kernel_equals_grid_order(cuda, linear, T):
+    """The slew limiter's adjoint launch (csrc/order1_grid.cuh at one
+    channel) bit for bit with its order in torch ops on the card
+    (``slew_scan_bwd_chunked``): the fit chain's T = 16384, T not a multiple
+    of the 256-sample chunk, one short chunk; steps that hit the limits
+    exactly (ties: the coefficient 1/2). A second launch gives the same
+    bits; the launch counter moves by one a call."""
+    from pygmu2_tpu_torch.ops import slew
+
+    (noise,) = _seeded(cuda, 3 * T, (T,))
+    t = torch.arange(T, device=cuda)
+    x = torch.where(t % 200 < 100, 1.0, 0.0) + 0.25 * noise * (t > T // 2)
+    g, gc = _seeded(cuda, 3 * T + 1, (T,), ())
+    kw = dict(linear=linear, p_rise=0.25 if linear else 0.05, p_fall=0.125 if linear else 0.01)
+    c0 = torch.zeros((), device=cuda)
+    y, _ = slew.slew_scan(x, c0, **kw)
+    before = slew.slew_scan_bwd.launches
+    got = slew.slew_scan_bwd(x, c0, y, g, gc, **kw)
+    again = slew.slew_scan_bwd(x, c0, y, g, gc, **kw)
+    torch.cuda.synchronize()
+    assert slew.slew_scan_bwd.launches == before + 2
+    want = slew.slew_scan_bwd_chunked(x, c0, y, g, gc, **kw)
+    for i, (o, r, w) in enumerate(zip(got, again, want)):
+        assert torch.equal(o, r), f"output {i}: two launches differ"
+        assert torch.equal(o, w), f"output {i} off by {float((o - w).abs().max())}"
+
+
+def test_slew_backward_source_is_the_grid():
+    """The slew limiter's and the comb's backward run order1_grid.cuh; the
+    first design's header is gone."""
+    csrc = Path(__file__).resolve().parents[1] / "pygmu2_tpu_torch/csrc"
+    assert not (csrc / "order1_adjoint.cuh").exists()
+    for name in ("slew_scan_bwd.cu", "comb_scan_bwd.cu"):
+        text = (csrc / name).read_text()
+        assert '#include "order1_grid.cuh"' in text and "order1_grid::launch" in text
+
+
 @pytest.mark.parametrize("C,ratio,alt,T", [(1, 1.5, 1.0, 4097), (2, "mod", 0.0, 1001),
                                            (128, 1.5, 1.0, 4097), (3, 1.0, 1.0, 999)])
 def test_reverse_echo_backward_kernel_matches_plain(cuda, C, ratio, alt, T):
@@ -1358,10 +1397,11 @@ def _gate(T, kind):
     ("triggered", [1.0, 0.2, 3.0, 0.0]), ("triggered", [3.0, 0.6, 30.0, 0.0]),
     ("triggered", [4.0, 0.6, 3.0, 0.0])])
 def test_adsr_backward_kernel_matches_plain(cuda, kind, state):
-    """The edge-walk branch's backward (one warp walking windows of 32
-    samples to the cut) against the plain adjoint: a state in every stage,
-    one outside the closed form (the per-sample walk), gated and
-    triggered; and against autograd of the plain forward on the card."""
+    """The edge-walk branch's backward (every sample's cut test at once, the
+    cotangents summed to the first cut) against the plain adjoint: a state
+    in every stage, one outside the closed form (the per-sample walk),
+    gated and triggered; and against autograd of the plain forward on the
+    card."""
     from pygmu2_tpu_torch.ops import adsr
 
     T = 2049
@@ -1382,6 +1422,46 @@ def test_adsr_backward_kernel_matches_plain(cuda, kind, state):
     pairs = [(o, c) for o, c in zip(outs, (g, gs, gn)) if o.requires_grad]
     (auto,) = torch.autograd.grad([o for o, _ in pairs], [sg], [c for _, c in pairs])
     _bwd_close((got,), (auto,), f"adsr {kind} {state} vs autograd", BWD_TOL)
+
+
+@pytest.mark.parametrize("kind,state,T", [
+    ("gated", [4.0, 0.5, 3.0, 1.0], 2049), ("gated", [1.0, 0.2, 3.0, 0.0], 2049),
+    ("gated", [3.0, 0.6, 0.0, 1.0], 2049), ("gated", [2.5, 0.3, 0.5, 1.0], 2049),
+    ("triggered", [1.0, 0.2, 3.0, 0.0], 2049), ("triggered", [3.0, 0.6, 30.0, 0.0], 2049),
+    ("triggered", [4.0, 0.6, 3.0, 0.0], 2049), ("gated", [4.0, 0.5, 3.0, 0.0], 40000),
+    ("gated", [4.0, 0.9, 1.0, 0.0], 16384 + 700), ("gated", [4.0, 0.9, 1.0, 0.0], 1024)])
+def test_adsr_backward_kernel_equals_tiled_order(cuda, kind, state, T):
+    """The ADSR's adjoint launch bit for bit with its order in torch ops on
+    the card (``adsr_scan_bwd_tiled``): the seven states of
+    test_adsr_backward_kernel_matches_plain; T past one tile of 16384
+    samples, with no cut (slow ramps, edges in the first and the last of
+    three tiles) and with the cut in the second tile (an edge at 16380);
+    the probe's T = 1024 (a block of two warps).
+    A second launch gives the same bits."""
+    from pygmu2_tpu_torch.ops import adsr
+
+    gate = torch.from_numpy(_gate(T, kind)).to(cuda)
+    kw = dict(dA=1.0 / 80, dD=-0.4 / 200, dR=-0.6 / 300, sus=0.6,
+              sustain_samples=None if kind == "gated" else 100)
+    if T == 40000:  # slow ramps: nothing cuts
+        kw.update(dA=1.0 / 80000, dR=-0.1 / 300000)
+    elif T != 2049:  # the attack from an edge at 16380 (or past T) hits in the next tile
+        gate = torch.zeros(T, device=cuda)
+        gate[16380:16500] = 1.0
+        kw.update(dR=-0.6 / 300000)
+    st = torch.tensor(state, device=cuda)
+    env, _, _ = adsr.adsr_scan(gate, st, **kw)
+    g, gs, gn = _seeded(cuda, T + 13, (T,), (4,), ())
+    before = adsr.adsr_scan_bwd.launches
+    got = adsr.adsr_scan_bwd(gate, st, env, g, gs, gn, **kw)
+    again = adsr.adsr_scan_bwd(gate, st, env, g, gs, gn, **kw)
+    torch.cuda.synchronize()
+    assert adsr.adsr_scan_bwd.launches == before + 2
+    want = adsr.adsr_scan_bwd_tiled(gate, st, env, g, gs, gn, **kw)
+    assert torch.equal(got, again), "two launches differ"
+    assert torch.equal(got, want), f"off the tiled order by {float((got - want).abs().max())}"
+    plain = adsr.adsr_scan_bwd_ref(gate, st, env, g, gs, gn, **kw)
+    _bwd_close((got,), (plain,), f"adsr {kind} {state} T={T}", BWD_TOL)
 
 
 @pytest.mark.parametrize("stage,env", [(0, 0.0), (1, 0.3), (4, 0.5), (2, 0.9)])

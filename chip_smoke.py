@@ -263,6 +263,27 @@ Drives the port's main paths through their user entry points:
    and ``vmap(grad)`` within 1e-5 relative of the loop's (any error of
    either fails the phase); the walls of the vmapped render and the loop
    printed.
+18. the sharded renders of ``pygmu2_tpu_torch/parallel/render.py`` on a
+   mesh of 4 shards on the card (``Mesh([cuda:0] * 4)``). (a)
+   ``render_midi_offline_sharded``: the 3 s chord (128 voices, block
+   1024) through the small and the large font, one launch of the SoundFont
+   kernel a shard (32 voices), bit for bit with ``render_midi_offline``
+   (the f32 wire, and its int16 conversion against the int16 wire), and
+   within 1e-4 of the same sharded render with the plain version on the
+   card. (b) ``render_midi_sharded``: 1 s of the chord through the small
+   font, within 2e-5 of ``render_midi_schedule``, one scan launch a block
+   and shard. (c) ``render_time_sharded_stateful``, the state relay: the
+   patch for 60 s at block 16384, bit for bit with ``render_scan``, the
+   same ladder, comb and ADSR launches, the PE instances' states
+   untouched. (d) The halo mode (one block of warm-up) on the 10 s filter
+   bank (its scans on kernel #4): past the first span within 1e-5 of
+   ``render_scan``; the gate raises on the patch. (e)
+   ``render_time_sharded_affine`` on a mono two-biquad chain (1 s, block
+   4096) within 1e-5 of ``render_scan``, and ``render_time_sharded_auto``
+   equal to the mode ``select_time_sharding`` names, with and without an
+   ``affine_max_basis``. (f) With two cards or more, (a) and (c) again on
+   a mesh of 4 shards over distinct cards: the same bits. Each sharded
+   render's wall is printed beside its one-device render's.
 
 Phase 4 also renders the 3 s chord through the small font with
 ``render_midi_offline(pipeline=4)``: four launches of the SoundFont kernel,
@@ -271,8 +292,8 @@ equal to the one-pass render within 1e-6.
 ``python3 chip_smoke.py 13`` runs phases 1, 2 and 13 only, ``python3
 chip_smoke.py 14`` phases 1, 2 and 14 only, ``python3 chip_smoke.py 15``
 phases 1, 2 and 15 only, ``python3 chip_smoke.py 16`` phases 1, 2 and 16
-only, ``python3 chip_smoke.py 17`` phases 1, 2 and 17 only (no kernels
-line).
+only, ``python3 chip_smoke.py 17`` phases 1, 2 and 17 only, ``python3
+chip_smoke.py 18`` phases 1, 2 and 18 only (no kernels line).
 
 Prints a JSON line of per-kernel results, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, before any result, on
@@ -367,6 +388,7 @@ def main() -> None:
     only_training = sys.argv[1:] == ["15"]
     only_chain = sys.argv[1:] == ["16"]
     only_string = sys.argv[1:] == ["17"]
+    only_sharded = sys.argv[1:] == ["18"]
     from pygmu2_tpu_torch import _ext, bench_workload
     from pygmu2_tpu_torch.soundfont import MidiFile
     from pygmu2_tpu_torch.soundfont import filter_kernels as fk
@@ -399,7 +421,7 @@ def main() -> None:
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         setup = (None if only_perform or only_training or only_chain or only_string
-                 else pool.submit(studio_setup))
+                 or only_sharded else pool.submit(studio_setup))
         _ext.load()
         print(f"kernel build+load: {time.perf_counter() - t0:.2f} s")
         studio_inputs = None if setup is None else setup.result()
@@ -424,6 +446,10 @@ def main() -> None:
         return
     if only_string:
         training_string_vmap(dev, card)
+        print_ok()
+        return
+    if only_sharded:
+        sharded(dev, card)
         print_ok()
         return
 
@@ -606,6 +632,11 @@ def main() -> None:
     for name, n in string_launches.items():
         pe_launches[name] += n
     osc_entries[0]["launches"] += stream["osc_filter_gain_mix"]  # the small font's
+    for name, n in sharded(dev, card).items():
+        if name.startswith("osc_"):
+            next(e for e in osc_entries if e["name"] == name)["launches"] += n
+        else:
+            pe_launches[name] += n
     entries = list(osc_entries)
     for name, info in serial.items():
         entries.append({"name": name, "route": "cuda", **info,
@@ -3753,6 +3784,194 @@ def _training_string_vmap(dev, card, pool):
     print(f"string and batched bindings: forward launches on the path {json.dumps(total)}, "
           f"{bwd_total} string backward launches; phase took {time.perf_counter() - t0:.1f} s")
     return [entry], total
+
+
+def _same_snapshot(a: dict, b: dict) -> bool:
+    """Two ``checkpoint_state`` snapshots hold the same keys, cursors and bits."""
+    def flat(tree):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in flat(tree[k])]
+        if isinstance(tree, (tuple, list)):
+            return [x for v in tree for x in flat(v)]
+        return [np.asarray(tree)]
+
+    return a.keys() == b.keys() and all(
+        int(a[k]["next"]) == int(b[k]["next"])
+        and len(flat(a[k]["user"])) == len(flat(b[k]["user"]))
+        and all(np.array_equal(x, y) for x, y in zip(flat(a[k]["user"]), flat(b[k]["user"])))
+        for k in a)
+
+
+def sharded(dev, card) -> dict:
+    """Phase 18: the sharded renders of ``parallel/render.py`` on a mesh of
+    4 shards on the card (and over distinct cards where there are two or
+    more). Returns each kernel's launches in the sharded renders."""
+    import pygmu2_tpu_torch as pg
+    from pygmu2_tpu_torch import bench_workload, filter_workload, patch_workload
+    from pygmu2_tpu_torch.core import engine
+    from pygmu2_tpu_torch.ops import adsr, comb, ladder, linrec_kernel
+    from pygmu2_tpu_torch.parallel import render as par
+    from pygmu2_tpu_torch.soundfont import MidiFile
+    from pygmu2_tpu_torch.soundfont import filter_kernels as fk
+    from pygmu2_tpu_torch.soundfont import offline as off
+
+    t0 = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    meshes = [("4 shards on one card", par.Mesh([dev] * 4))]
+    if n_cards >= 2:  # 4 shards over the cards, in turn
+        meshes.append((f"4 shards over {min(n_cards, 4)} cards",
+                       par.Mesh([torch.device("cuda", i % n_cards) for i in range(4)])))
+    else:
+        print("sharded renders: one card, so only shards on one card (virtual shards) ran "
+              f"[{card}]")
+    virtual = meshes[0][1]
+    osc, scan = fk.osc_filter_gain_mix, linrec_kernel.affine_scan_2_kernel
+    serial = {"ladder_scan": ladder.ladder_scan, "comb_scan": comb.comb_scan,
+              "adsr_scan": adsr.adsr_scan}
+    launches = dict.fromkeys(("osc_filter_gain_mix", "osc_window_filter_gain_mix",
+                              "affine_scan_2", *serial), 0)
+
+    def walled(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    def counts():
+        return {k: f.launches for k, f in serial.items()}
+
+    # (a) the offline render, voices sharded: one launch a shard
+    midi = MidiFile(bench_workload.build_midi_bytes())
+    for font, large, key in (("small", False, "osc_filter_gain_mix"),
+                             ("large", True, "osc_window_filter_gain_mix")):
+        synth, _ = bench_workload.build_workload(large, device=dev)
+        one = off.render_midi_offline(synth, midi, 3.0, device=dev)  # warm-up too
+        one16 = off.render_midi_offline(synth, midi, 3.0, wire="int16", device=dev)
+        _, one_wall = walled(lambda: off.render_midi_offline(synth, midi, 3.0, device=dev))
+        check(np.abs(one).max() > 0.01, f"3 s chord, {font} font: silent")
+        for label, mesh in meshes:
+            before = osc.launches
+            got = par.render_midi_offline_sharded(synth, midi, 3.0, mesh)
+            n = osc.launches - before
+            launches[key] += n
+            check(n == mesh.size, f"offline sharded, {font} font, {label}: {n} kernel launches")
+            err = float(np.abs(got - one).max())
+            check(got.shape == one.shape and np.array_equal(got, one),
+                  f"offline sharded, {font} font, {label}: not bit for bit ({err})")
+            got16 = off._to_wire(torch.from_numpy(got), "int16").numpy()
+            check(np.array_equal(got16, one16),
+                  f"offline sharded, {font} font, {label}: int16 not bit for bit")
+            fk.osc_filter_gain_mix = fk.osc_filter_gain_mix_ref
+            try:
+                ref = par.render_midi_offline_sharded(synth, midi, 3.0, mesh)
+            finally:
+                fk.osc_filter_gain_mix = osc
+            err = float(np.abs(got - ref).max())
+            check(err <= TOL, f"offline sharded, {font} font, {label}: vs plain {err}")
+            _, wall = walled(lambda: par.render_midi_offline_sharded(synth, midi, 3.0, mesh))
+            print(f"render_midi_offline_sharded, 3 s chord, {font} font, {label}: {n} kernel "
+                  f"launches; bit for bit with render_midi_offline (f32 and int16); vs the plain "
+                  f"version's sharded render {err:.3g}; wall {wall * 1e3:.1f} ms, one device "
+                  f"{one_wall * 1e3:.1f} ms [{card}]")
+
+    # (b) the streaming voice engine, voices sharded: a scan launch a block and shard
+    synth, _ = bench_workload.build_workload(False, device=dev)
+    one, one_wall = walled(lambda: synth.render_midi_schedule(midi, 1.0))
+    before = scan.launches
+    got, wall = walled(lambda: par.render_midi_sharded(synth, midi, 1.0, virtual))
+    n = scan.launches - before
+    launches["affine_scan_2"] += n
+    n_blocks = -(-SR // 1024)
+    err = float(np.abs(got - one).max())
+    check(n == n_blocks * virtual.size, f"render_midi_sharded: {n} scan launches")
+    check(got.shape == one.shape and err <= 2e-5 and np.abs(one).max() > 0.01,
+          f"render_midi_sharded vs render_midi_schedule {err}")
+    print(f"render_midi_sharded, 1 s chord, small font, 4 shards: {n} scan launches "
+          f"({n_blocks} blocks x 4); vs render_midi_schedule {err:.3g}; wall {wall * 1e3:.1f} ms "
+          f"(the first sharded call), one device {one_wall * 1e3:.1f} ms [{card}]")
+
+    # (c) the state relay on the patch: render_scan's bits and launches
+    total = int(round(60.0 * SR))
+    patch = patch_workload.build_patch(pg, 60.0)
+    before = counts()
+    one, one_wall = walled(lambda: engine.render_scan(patch, 0, total, BLOCK, device=dev).cpu().numpy())
+    one_n = {k: v - before[k] for k, v in counts().items()}
+    snap = engine.checkpoint_state(patch)
+    check(bool(snap) and np.abs(one).max() > 0.1, "patch: no state left or silent")
+    for label, mesh in meshes:
+        before = counts()
+        got, wall = walled(lambda: par.render_time_sharded_stateful(patch, 0, total, mesh,
+                                                                    block=BLOCK))
+        got_n = {k: v - before[k] for k, v in counts().items()}
+        for k, v in got_n.items():
+            launches[k] += v
+        check(got.shape == one.shape and np.array_equal(got, one),
+              f"relay, {label}: not bit for bit ({float(np.abs(got - one).max())})")
+        check(got_n == one_n, f"relay, {label}: launches {got_n}, render_scan's {one_n}")
+        check(_same_snapshot(engine.checkpoint_state(patch), snap),
+              f"relay, {label}: the PE instances' states changed")
+        print(f"render_time_sharded_stateful (relay), patch 60 s, {label}: bit for bit with "
+              f"render_scan; launches {got_n} (render_scan's the same); instance states "
+              f"untouched; wall {wall * 1e3:.1f} ms, one device {one_wall * 1e3:.1f} ms [{card}]")
+
+    # (d) the halo mode on the filter bank, and its gate on the patch
+    try:
+        par.render_time_sharded_stateful(patch, 0, total, virtual, block=BLOCK, halo=4096)
+        fail("halo: the gate did not raise on the patch")
+    except ValueError as exc:
+        gate = str(exc)
+    seconds = 10.0
+    total = int(round(seconds * SR))
+    bank = filter_workload.build_filter_bank(pg, seconds, seed=0)
+    one, one_wall = walled(lambda: engine.render_scan(bank, 0, total, BLOCK, device=dev).cpu().numpy())
+    before = scan.launches
+    got, wall = walled(lambda: par.render_time_sharded_stateful(bank, 0, total, virtual,
+                                                                block=BLOCK, halo=BLOCK))
+    n = scan.launches - before
+    launches["affine_scan_2"] += n
+    span = par._spans(total, virtual.size, BLOCK)[0]
+    err = float(np.abs(got[span:] - one[span:]).max())
+    check(n > 0, "halo: the scan kernel was not launched")
+    check(got.shape == one.shape and err <= 1e-5 and np.abs(one).max() > 0.05,
+          f"halo vs render_scan past the first span {err}")
+    print(f"render_time_sharded_stateful (halo {BLOCK}), filter bank 10 s x 128, 4 shards: "
+          f"{n} scan launches; past the first span vs render_scan {err:.3g}, in it "
+          f"{float(np.abs(got[:span] - one[:span]).max()):.3g}; wall {wall * 1e3:.1f} ms, one "
+          f"device {one_wall * 1e3:.1f} ms [{card}]; the gate on the patch: {gate[:90]}...")
+
+    # (e) the affine mode, and the automatic choice
+    def chain():
+        src = pg.SinePE(frequency=220.0, amplitude=0.7)
+        return pg.BiquadPE(pg.BiquadPE(src, 3000.0, 1.2), 800.0, 0.9)
+
+    total, block = SR, 4096
+    one = engine.render_scan(chain(), 0, total, block, device=dev).cpu().numpy()  # warm-up
+    one, one_wall = walled(lambda: engine.render_scan(chain(), 0, total, block,
+                                                      device=dev).cpu().numpy())
+    got, wall = walled(lambda: par.render_time_sharded_affine(chain(), 0, total, virtual,
+                                                              block=block))
+    err = float(np.abs(got - one).max())
+    check(got.shape == one.shape and err <= 1e-5, f"affine vs render_scan {err}")
+    modes = []
+    for cap in (None, 16):
+        graph = chain()
+        mode, d = par.select_time_sharding(graph, virtual, block=block, affine_max_basis=cap)
+        auto = par.render_time_sharded_auto(graph, 0, total, virtual, block=block,
+                                            affine_max_basis=cap)
+        named = (par.render_time_sharded_affine if mode == "affine"
+                 else par.render_time_sharded_stateful)(chain(), 0, total, virtual, block=block)
+        check(mode == ("relay" if cap is None else "affine") and d == 8,
+              f"select_time_sharding: {mode}, {d}")
+        check(np.array_equal(auto, named), f"auto ({mode}) differs from the mode's render")
+        modes.append(f"{mode} (D = {d}, cap {cap})")
+    print(f"render_time_sharded_affine, two biquads 1 s, 4 shards: vs render_scan {err:.3g}; "
+          f"wall {wall * 1e3:.1f} ms, one device {one_wall * 1e3:.1f} ms; "
+          f"render_time_sharded_auto takes {', '.join(modes)} "
+          f"bit for bit [{card}]")
+    print(f"sharded renders: launches {json.dumps(launches)}; phase took "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 if __name__ == "__main__":

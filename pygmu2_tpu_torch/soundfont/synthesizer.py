@@ -306,9 +306,9 @@ class Synthesizer:
                 self._default_preset = preset
 
         # host copy; the offline renderer moves it to its device, the
-        # streaming engine to the synthesizer's once (_device_wave)
+        # streaming engine to each device it runs on, once (_device_wave)
         self._wave = np.asarray(sound_font.wave_data, np.float32)
-        self._wave_dev = None
+        self._wave_dev = {}  # by device
         # Loop-view offsets (the ``lv_off`` schedule plane). The JAX
         # package's windowed-DMA oscillator reads them; the port keeps
         # them only so its schedule stays bit-identical to the JAX one.
@@ -342,7 +342,7 @@ class Synthesizer:
         self._block_cache = np.zeros((self._block_size, 2), np.float32)
         self._block_read = self._block_size
         self._block_cache_dev = None  # the same block on the device
-        self._consts = None  # per-block constants on the device (_engine_consts)
+        self._consts = {}  # per-block constants by device (_engine_consts)
 
     # ---- public properties ----------------------------------------------
 
@@ -1002,10 +1002,11 @@ class Synthesizer:
             self._host_active &= self._dyn["active"].cpu().numpy()
             self._invalidate_pri()
 
-    def _init_dyn(self, polyphony: int | None = None):
-        """The voices' device state before their first block."""
+    def _init_dyn(self, polyphony: int | None = None, device=None):
+        """The voices' device state before their first block, on ``device``
+        (the synthesizer's by default)."""
         P = polyphony or self._maximum_polyphony
-        dev = self._device
+        dev = self._device if device is None else torch.device(device)
 
         def full(value, dtype):
             return torch.full((P,), value, dtype=dtype, device=dev)
@@ -1029,23 +1030,23 @@ class Synthesizer:
             "prev_gr": full(0.0, f32),
         }
 
-    def _device_wave(self):
-        """The wavetable on the synthesizer's device, moved there once."""
-        if self._wave_dev is None:
-            self._wave_dev = to_torch(self._wave, self._device)
-        return self._wave_dev
+    def _device_wave(self, dev):
+        """The wavetable on ``dev``, moved there once."""
+        if dev not in self._wave_dev:
+            self._wave_dev[dev] = to_torch(self._wave, dev)
+        return self._wave_dev[dev]
 
-    def _engine_consts(self):
-        """Per-block constants on the device, made once: the sample steps,
-        the gain ramp, and the scan's shared (N, 1) columns of ones and
+    def _engine_consts(self, dev):
+        """Per-block constants on ``dev``, made once: the sample steps, the
+        gain ramp, and the scan's shared (N, 1) columns of ones and
         zeros."""
-        if self._consts is None:
-            N, dev = self._block_size, self._device
+        if dev not in self._consts:
+            N = self._block_size
             steps = torch.arange(N, dtype=torch.float32, device=dev)
             ones = torch.ones((N, 1), dtype=torch.float32, device=dev)
             zeros = torch.zeros((N, 1), dtype=torch.float32, device=dev)
-            self._consts = (steps, steps / N, ones, zeros)
-        return self._consts
+            self._consts[dev] = (steps, steps / N, ones, zeros)
+        return self._consts[dev]
 
     # ---- device kernel ---------------------------------------------------
 
@@ -1056,15 +1057,16 @@ class Synthesizer:
         parameter planes, (P,) tensors by name; ``ch``: the channel fields,
         (16,) tensors; ``master``: the master volume (a float). Tensor ops
         only, with no host sync: the DF1 feedback is one launch of the
-        order-2 scan kernel.
+        order-2 scan kernel. Runs on ``dyn``'s device.
         """
         N = self._block_size
         sr = float(self._sample_rate)
-        wave = self._device_wave()
+        dev = dyn["epoch"].device
+        wave = self._device_wave(dev)
         min_dur = self._minimum_voice_duration
         f32, f64 = torch.float32, torch.float64
         P = par["epoch"].shape[0]
-        steps, ramp, ones, zeros = self._engine_consts()
+        steps, ramp, ones, zeros = self._engine_consts(dev)
         where = torch.where
 
         fresh = par["epoch"] != dyn["epoch"]
@@ -1298,8 +1300,8 @@ class Synthesizer:
         """Run the streaming engine on ``device`` from now on (the voice
         state, if any, moves with it)."""
         self._device = torch.device(device)
-        self._wave_dev = None
-        self._consts = None
+        self._wave_dev = {}
+        self._consts = {}
         if self._dyn is not None:
             self._dyn = {k: v.to(self._device) for k, v in self._dyn.items()}
         if self._block_cache_dev is not None:

@@ -1513,3 +1513,145 @@ def test_effects_gradients_on_card_match_cpu(cuda):
                 assert tuple(f.launches - b for f, b in zip(bwd, before)) == want_counts
         for g, w in zip(grads["cuda"], grads["cpu"]):
             assert abs(float(g) - float(w)) <= 1e-3 * abs(float(w)) + 1e-12, (grads,)
+
+
+# ---- multi-device rendering (parallel/render.py) on 2 shards of one card ----
+
+
+def _two_shards(cuda):
+    from pygmu2_tpu_torch.parallel import render as par
+
+    return par.Mesh([cuda, cuda])
+
+
+def _chain(pt):
+    src = pt.SinePE(frequency=220.0, amplitude=0.7)
+    return pt.BiquadPE(pt.BiquadPE(src, 3000.0, 1.2), 800.0, 0.9)
+
+
+def test_sharded_pure_equals_render_scan(cuda):
+    import pygmu2_tpu_torch as pt
+    from pygmu2_tpu_torch.core import engine
+    from pygmu2_tpu_torch.parallel import render as par
+
+    pt.set_sample_rate(44100)
+    total = 3 * 4096 + 100
+    graph = pt.GainPE(pt.SinePE(frequency=441.0), 0.5)
+    got = par.render_time_sharded(graph, 300, total, _two_shards(cuda), block=4096)
+    want = engine.render_scan(graph, 300, total, 4096, device=cuda).cpu().numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_sharded_relay_equals_render_scan_on_kernels(cuda):
+    """The patch's ladder, comb and ADSR kernels: the relay renders
+    render_scan's blocks from the same states (same bits, same launches)
+    and leaves the instances' states as they were."""
+    import pygmu2_tpu_torch as pt
+    from pygmu2_tpu_torch import patch_workload
+    from pygmu2_tpu_torch.core import engine
+    from pygmu2_tpu_torch.ops import adsr, comb, ladder
+    from pygmu2_tpu_torch.parallel import render as par
+
+    kernels = (ladder.ladder_scan, comb.comb_scan, adsr.adsr_scan)
+    total = int(0.5 * 44100)
+    patch = patch_workload.build_patch(pt, 0.5)
+    before = [f.launches for f in kernels]
+    want = engine.render_scan(patch, 0, total, 4096, device=cuda).cpu().numpy()
+    one = [f.launches - b for f, b in zip(kernels, before)]
+    snap = engine.checkpoint_state(patch)
+    before = [f.launches for f in kernels]
+    got = par.render_time_sharded_stateful(patch, 0, total, _two_shards(cuda), block=4096)
+    assert [f.launches - b for f, b in zip(kernels, before)] == one and min(one) > 0
+    np.testing.assert_array_equal(got, want)
+    after = engine.checkpoint_state(patch)
+    assert snap.keys() == after.keys()
+    for key in snap:
+        assert int(snap[key]["next"]) == int(after[key]["next"])
+        for a, b in zip(torch.utils._pytree.tree_leaves(snap[key]["user"]),
+                        torch.utils._pytree.tree_leaves(after[key]["user"])):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_sharded_halo_on_the_filter_bank(cuda):
+    """The 128-channel bank's scans on the kernel: past the first span
+    within 1e-5 of render_scan; the gate raises on the patch."""
+    import pygmu2_tpu_torch as pt
+    from pygmu2_tpu_torch import filter_workload, patch_workload
+    from pygmu2_tpu_torch.core import engine
+    from pygmu2_tpu_torch.ops import linrec_kernel
+    from pygmu2_tpu_torch.parallel import render as par
+
+    total = int(0.5 * 44100)
+    bank = filter_workload.build_filter_bank(pt, 0.5)
+    want = engine.render_scan(bank, 0, total, 4096, device=cuda).cpu().numpy()
+    before = linrec_kernel.affine_scan_2_kernel.launches
+    got = par.render_time_sharded_stateful(bank, 0, total, _two_shards(cuda), block=4096,
+                                           halo=4096)
+    assert linrec_kernel.affine_scan_2_kernel.launches > before
+    span = par._spans(total, 2, 4096)[0]
+    np.testing.assert_allclose(got[span:], want[span:], rtol=0, atol=1e-5)
+    with pytest.raises(ValueError, match="non-decaying"):
+        par.render_time_sharded_stateful(patch_workload.build_patch(pt, 0.5), 0, total,
+                                         _two_shards(cuda), block=4096, halo=4096)
+
+
+def test_sharded_affine_and_auto(cuda):
+    import pygmu2_tpu_torch as pt
+    from pygmu2_tpu_torch.core import engine
+    from pygmu2_tpu_torch.parallel import render as par
+
+    pt.set_sample_rate(44100)
+    mesh, total = _two_shards(cuda), 44100
+    want = engine.render_scan(_chain(pt), 0, total, 4096, device=cuda).cpu().numpy()
+    got = par.render_time_sharded_affine(_chain(pt), 0, total, mesh, block=4096)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    assert par.select_time_sharding(_chain(pt), mesh, block=4096) == ("relay", 8)
+    assert par.select_time_sharding(_chain(pt), mesh, block=4096,
+                                    affine_max_basis=16) == ("affine", 8)
+    auto = par.render_time_sharded_auto(_chain(pt), 0, total, mesh, block=4096,
+                                        affine_max_basis=16)
+    np.testing.assert_array_equal(auto, got)
+    auto = par.render_time_sharded_auto(_chain(pt), 0, total, mesh, block=4096)
+    np.testing.assert_array_equal(auto, want)
+
+
+def test_midi_sharded_matches_schedule(cuda):
+    from pygmu2_tpu_torch.ops import linrec_kernel
+    from pygmu2_tpu_torch.parallel import render as par
+
+    synth, midi = bench_workload.build_workload(False, device=cuda)
+    want = synth.render_midi_schedule(midi, SECONDS)
+    before = linrec_kernel.affine_scan_2_kernel.launches
+    got = par.render_midi_sharded(synth, midi, SECONDS, _two_shards(cuda))
+    n_blocks = -(-int(SECONDS * 44100) // 1024)
+    assert linrec_kernel.affine_scan_2_kernel.launches - before == 2 * n_blocks
+    assert np.abs(want).max() > 0.01
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("large", [False, True], ids=["small_font", "large_font"])
+def test_midi_offline_sharded_bit_for_bit(cuda, large):
+    """Shards of 32 voices (one CUDA block of voices each): the shards'
+    mixes summed in mesh order are the kernel's own sum, so 64 voices on
+    two shards equal the one-device render bit for bit (f32 and int16);
+    128 voices (64 a shard) within 1e-6."""
+    from pygmu2_tpu_torch.parallel import render as par
+    from pygmu2_tpu_torch.soundfont import SoundFont, Synthesizer, SynthesizerSettings
+
+    _, midi = bench_workload.build_workload(large, device=cuda)
+    for poly, bits in ((64, True), (128, False)):
+        synth = Synthesizer(SoundFont(bench_workload.build_font_bytes(large=large)),
+                            SynthesizerSettings(sample_rate=44100, block_size=1024,
+                                                maximum_polyphony=poly), device=cuda)
+        want = off.render_midi_offline(synth, midi, SECONDS, device=cuda)
+        want16 = off.render_midi_offline(synth, midi, SECONDS, wire="int16", device=cuda)
+        before = fk.osc_filter_gain_mix.launches
+        got = par.render_midi_offline_sharded(synth, midi, SECONDS, _two_shards(cuda))
+        assert fk.osc_filter_gain_mix.launches - before == 2
+        assert np.abs(want).max() > 0.01
+        if bits:
+            np.testing.assert_array_equal(got, want)
+            np.testing.assert_array_equal(
+                off._to_wire(torch.from_numpy(got), "int16").numpy(), want16)
+        else:
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)

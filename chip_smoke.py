@@ -284,6 +284,27 @@ Drives the port's main paths through their user entry points:
    ``affine_max_basis``. (f) With two cards or more, (a) and (c) again on
    a mesh of 4 shards over distinct cards: the same bits. Each sharded
    render's wall is printed beside its one-device render's.
+19. the slice of the player, the examples and the block orders. The main
+   path, its counts from 0: (a) a gradient through a LadderPE
+   (``render_functional``, T = 1024, C = 1) at oversample 99, 100, 128 and
+   320, one backward launch each and none of the plain adjoint; (b)
+   SinePE, closed form and carried phase; (c) the heads (16384 samples) of
+   the repo's 34 runnable examples (``pygmu2_tpu_torch.example_loader``);
+   (e) ``JogShuttleCore`` over a stand-in sound card, stepped so that
+   each control change lands between two renders: load a 1 s tone, play,
+   shuttle to -2x and +4x, scrub, poll to the end; (f) the MIDI demo's
+   scripted arpeggio. Then: every ladder backward launch, the recorded
+   ones and seeded ones at C = 4, bit for bit with
+   ``ladder_scan_bwd_chunked`` and with a second launch, each launch alone
+   timed beside its bound; the kernel at T = 64, C = 4 within 1e-5 of the
+   plain adjoint on the host; SinePE, the examples, the player's blocks
+   and the arpeggio against the port's CPU renders (1e-4; the arpeggio
+   2e-5); SinePE's device ops a block with glibc's sine mirrored and with
+   ``torch.sin``; (d) the comb kernel at a static delay of 37 and the echo
+   kernel at a static block with unity pitch against ``comb_const_delay``
+   and ``reverse_echo_aligned`` (1e-5: the block orders contract x + fb *
+   y as XLA's program, the kernels do not). The CPU renders run in three
+   more processes.
 
 Phase 4 also renders the 3 s chord through the small font with
 ``render_midi_offline(pipeline=4)``: four launches of the SoundFont kernel,
@@ -293,7 +314,8 @@ equal to the one-pass render within 1e-6.
 chip_smoke.py 14`` phases 1, 2 and 14 only, ``python3 chip_smoke.py 15``
 phases 1, 2 and 15 only, ``python3 chip_smoke.py 16`` phases 1, 2 and 16
 only, ``python3 chip_smoke.py 17`` phases 1, 2 and 17 only, ``python3
-chip_smoke.py 18`` phases 1, 2 and 18 only (no kernels line).
+chip_smoke.py 18`` phases 1, 2 and 18 only, ``python3 chip_smoke.py 19``
+phases 1, 2 and 19 only (no kernels line).
 
 Prints a JSON line of per-kernel results, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, before any result, on
@@ -309,7 +331,9 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -389,6 +413,7 @@ def main() -> None:
     only_chain = sys.argv[1:] == ["16"]
     only_string = sys.argv[1:] == ["17"]
     only_sharded = sys.argv[1:] == ["18"]
+    only_examples = sys.argv[1:] == ["19"]
     from pygmu2_tpu_torch import _ext, bench_workload
     from pygmu2_tpu_torch.soundfont import MidiFile
     from pygmu2_tpu_torch.soundfont import filter_kernels as fk
@@ -421,7 +446,7 @@ def main() -> None:
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         setup = (None if only_perform or only_training or only_chain or only_string
-                 or only_sharded else pool.submit(studio_setup))
+                 or only_sharded or only_examples else pool.submit(studio_setup))
         _ext.load()
         print(f"kernel build+load: {time.perf_counter() - t0:.2f} s")
         studio_inputs = None if setup is None else setup.result()
@@ -450,6 +475,10 @@ def main() -> None:
         return
     if only_sharded:
         sharded(dev, card)
+        print_ok()
+        return
+    if only_examples:
+        examples_and_players(dev, card)
         print_ok()
         return
 
@@ -637,6 +666,11 @@ def main() -> None:
             next(e for e in osc_entries if e["name"] == name)["launches"] += n
         else:
             pe_launches[name] += n
+    ladder_past, more, ladder_bwd_at_99 = examples_and_players(dev, card)
+    for name, n in more.items():
+        pe_launches[name] = pe_launches.get(name, 0) + n
+    next(e for e in backward if e["name"] == "ladder_scan_bwd")["launches"] += ladder_bwd_at_99
+    backward.append(ladder_past)
     entries = list(osc_entries)
     for name, info in serial.items():
         entries.append({"name": name, "route": "cuda", **info,
@@ -3972,6 +4006,540 @@ def sharded(dev, card) -> dict:
     print(f"sharded renders: launches {json.dumps(launches)}; phase took "
           f"{time.perf_counter() - t0:.1f} s")
     return launches
+
+
+# ---- 19. the ladder backward past shared memory, SinePE's sine, the repo's
+# examples, the block-order functions, the player and the MIDI demo ----
+
+LADDER_OS = (99, 100, 128, 320)  # 99: today's launch; 100, 128: one chunk a
+# block; 320: each sample's steps re-walked from its entering state
+LADDER_T = 1024
+LADDER_HOST_T = 64  # the plain adjoint on the host: two chunks, a per-step loop
+LADDER_BWD_FIT_TOL = 1e-5  # of the call's largest plain cotangent
+JOG_QUEUE_S = 0.1  # the stand-in stream's read-ahead: 4 blocks of 1024
+JOG_TOL = 1e-4
+DEMO_TOL = 2e-5  # the streaming synth's (tests/test_torch_meltysynth_pe.py)
+BLOCK_ORDER_TOL = 1e-5  # XLA's contraction of x + fb * y in the block orders
+
+
+def ladder_bwd_ops(os_n: int) -> int:
+    """The ladder backward's operations per (sample, channel) at ``os_n``
+    (LADDER_BWD_OPS's count at os_n = 2): the forward's input and decay 12
+    and 35 a step, the adjoint's 47 a step, the decay's products and the
+    input's 11."""
+    return 23 + 82 * os_n
+
+
+def _ladder_case(dev, T, C, os_n, seed):
+    x, al, qa, ki, dsc, st, gy, gs = _seeded(dev, seed, (T, C), (T,), (T,), (T,), (T,),
+                                             (9, C), (T, C), (9, C))
+    x = x * 0.3
+    x[T // 3:T // 3 + 4] = 1e-7  # quiet samples take the decay
+    cols = (al.abs() * 0.5 + 0.05, qa * 0.1 + 1.0, ki.abs() * 3.0, dsc + 1.5)
+    kw = dict(os_n=os_n, pbg=0.3, mode_index=os_n % 6, input_threshold=1e-5,
+              state_decay=0.95)
+    return (x, *cols, st * 0.1), gy, gs, kw
+
+
+def ladder_plain_on_host(cases):
+    """Each case's kernel results (numpy) against autograd of the plain
+    ladder on the CPU (run in a second process): {os_n: ([(max abs
+    difference, max |plain|)], seconds)}."""
+    from pygmu2_tpu_torch.ops import ladder
+
+    out = {}
+    for os_n, args, gy, gs, kw, got in cases:
+        t = time.perf_counter()
+        want = ladder.ladder_scan_bwd_ref(*(torch.from_numpy(a) for a in args),
+                                          torch.from_numpy(gy), torch.from_numpy(gs), **kw)
+        out[os_n] = (_bwd_errors([torch.from_numpy(g) for g in got], want),
+                     time.perf_counter() - t)
+    return out
+
+
+def example_heads_on_cpu(names, folder):
+    """The examples' heads through the port on the CPU (run in a second
+    process), SuperSawPE's free phases pinned: {name: (head, seconds)}."""
+    import pygmu2_tpu_torch as pg
+    from pygmu2_tpu_torch import example_loader as ex
+    from pygmu2_tpu_torch.models import osc_bandlimited
+
+    torch.set_num_threads(1)
+    osc_bandlimited.np = ex.pinned_numpy()
+    out = {}
+    for name in names:
+        t = time.perf_counter()
+        head = ex.render_head(name, pg, Path(folder) / "cpu" / name, device="cpu")
+        out[name] = (head, time.perf_counter() - t)
+    return out
+
+
+def demo_on_cpu(sf_path):
+    from pygmu2_tpu_torch.utils import meltysynth_midi_demo as demo
+
+    torch.set_num_threads(1)
+    t = time.perf_counter()
+    return demo.scripted_arpeggio(sf_path, device="cpu"), time.perf_counter() - t
+
+
+class _JogStream:
+    """A stand-in sounddevice output stream: the script calls its callback
+    (``pull``), a block at a time, in place of a sound card."""
+
+    def __init__(self, samplerate, channels, blocksize, device=None, latency=None,
+                 dtype="float32", callback=None, finished_callback=None):
+        self.blocksize, self.channels, self.callback = blocksize, channels, callback
+        self.writes = []
+
+    def start(self):
+        pass
+
+    def stop(self):
+        pass
+
+    def close(self):
+        pass
+
+    def pull(self, n: int) -> None:
+        for _ in range(n):
+            out = np.full((self.blocksize, self.channels), np.nan, np.float32)
+            self.callback(out, self.blocksize, None, None)
+            self.writes.append(out.copy())
+
+
+class _JogSD:
+    OutputStream = _JogStream
+
+    class CallbackStop(Exception):
+        pass
+
+    @staticmethod
+    def query_devices():
+        return [{"name": "stand-in out", "max_output_channels": 2}]
+
+
+def jog_script(dev, wav_path: str):
+    """JogShuttleCore on ``dev`` over the stand-in stream, stepped so that
+    every control change lands between renders: the feeder renders one
+    block a call and stops when its queue is full (4 blocks, and 1 in
+    hand); each step waits for that. Load, play, shuttle to -2x and +4x,
+    scrub, poll to the end. Returns (the stream's blocks, the tape
+    positions after each step, the poll steps to the end)."""
+    import pygmu2_tpu_torch as pg
+    from pygmu2_tpu_torch.core import audio_renderer as ar_mod
+    from pygmu2_tpu_torch.utils import jogshuttle as js
+
+    renderers = []
+
+    class Stepped(pg.AudioRenderer):
+        def stream_start(self, start=0, end=None, **kw):
+            src, render = self._source, self._source.render
+            self.renders = 0
+
+            def counted(*a, **k):
+                out = render(*a, **k)
+                self.renders += 1
+                return out
+
+            src.render = counted
+            renderers.append(self)
+            super().stream_start(start, end, batch_blocks=1, queue_seconds=JOG_QUEUE_S)
+
+    saved = ar_mod._sd
+    ar_mod._sd = _JogSD
+    core = js.JogShuttleCore(
+        renderer_factory=lambda sr: Stepped(sample_rate=sr, blocksize=1024, latency="low",
+                                            device=dev), device=dev)
+    try:
+        core.load_file(wav_path)
+        (r,) = renderers
+        stream = r._cb_stream
+        ahead = max(4, int(round(JOG_QUEUE_S * SR / 1024))) + 1
+        pulled = [0]
+        positions = []
+
+        def settle():
+            t = time.perf_counter()
+            while r.renders < pulled[0] + ahead:
+                check(time.perf_counter() - t < 120, f"jog/shuttle on {dev}: the feeder "
+                      f"stalled at {r.renders} renders, {pulled[0]} blocks played")
+                time.sleep(0.0005)
+            time.sleep(0.002)
+            check(r.renders == pulled[0] + ahead, f"jog/shuttle on {dev}: {r.renders} renders")
+
+        def pull(n):  # a block at a time: the feeder refills the queue between
+            for _ in range(n):
+                stream.pull(1)
+                pulled[0] += 1
+                settle()
+
+        settle()
+        for step, n in ((core.play, 8),
+                        (lambda: core.shuttle_changed(js.rate_to_slider(-2.0)), 6),
+                        (lambda: core.shuttle_changed(js.rate_to_slider(4.0)), 6),
+                        (lambda: core.scrub_start(0.5), 2), (lambda: core.scrub_move(0.25), 2),
+                        (core.scrub_end, 2)):
+            step()
+            pull(n)
+            positions.append(core.position)
+        steps = 0
+        while core.poll()["playing"] and steps < 100:
+            pull(1)
+            steps += 1
+        check(not core.poll()["playing"], f"jog/shuttle on {dev}: never stopped at the end")
+        pull(6)  # the blocks rendered at rate 0 after the stop
+        positions.append(core.position)
+        return np.concatenate(stream.writes), positions, steps
+    finally:
+        core.close()
+        ar_mod._sd = saved
+
+
+def _sine_graphs(pg):
+    return {"SinePE closed form (440 Hz)": lambda: pg.SinePE(440.0, 0.7),
+            "SinePE carried phase (FM)": lambda: pg.SinePE(
+                pg.MixPE(pg.ConstantPE(300.0), pg.SinePE(5.0, 40.0)), 0.8)}
+
+
+def examples_and_players(dev, card):
+    """Phase 19: the ladder's backward past os_n = 99 (and at 99), SinePE
+    on glibc's sine and the flanger, the repo's 34 runnable example heads,
+    the comb's and the echo's kernels against their block orders, the
+    jog/shuttle player's core and the MIDI demo, all on the card. Returns
+    (the new ladder backward entry, the forward kernels' launches, the
+    ladder backward launches at os_n <= 99). Host work (the examples' CPU
+    heads, the plain adjoint, the demo's CPU render) runs in three more
+    processes; they are stopped on the way out, whatever happens."""
+    from pygmu2_tpu_torch.models import osc_bandlimited
+
+    pool = concurrent.futures.ProcessPoolExecutor(
+        3, mp_context=multiprocessing.get_context("spawn"))
+    free_np = osc_bandlimited.np
+    try:
+        return _examples_and_players(dev, card, pool)
+    finally:
+        osc_bandlimited.np = free_np
+        for proc in list(getattr(pool, "_processes", {}).values()):
+            proc.terminate()
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def _examples_and_players(dev, card, pool):
+    import pygmu2_tpu_torch as pg
+    from pygmu2_tpu_torch import example_loader as ex
+    from pygmu2_tpu_torch.core import engine
+    from pygmu2_tpu_torch.models import osc_bandlimited
+    from pygmu2_tpu_torch.ops import (adsr, comb, envelope, ks, ladder, linrec_kernel,
+                                      reverse_echo, slew)
+    from pygmu2_tpu_torch.ops.comb_block import comb_const_delay
+    from pygmu2_tpu_torch.ops.reverse_echo_block import reverse_echo_aligned
+    from pygmu2_tpu_torch.utils import meltysynth_midi_demo as demo
+    from pygmu2_tpu_torch.utils.wavio import write_wav
+
+    t0 = time.perf_counter()
+    folder = Path(__file__).resolve().parent / "build" / "smoke" / "examples"
+    folder.mkdir(parents=True, exist_ok=True)
+    osc_bandlimited.np = ex.pinned_numpy()  # SuperSawPE's free phases, as on the CPU
+    names = list(ex.RUNNABLE)
+    check(len(names) == 34, f"{len(names)} runnable examples")
+    cpu_jobs = [pool.submit(example_heads_on_cpu, names[i::2], str(folder)) for i in range(2)]
+    font = folder / "demo.sf2"
+    font.write_bytes(demo.demo_font_bytes())
+    demo_job = pool.submit(demo_on_cpu, str(font))
+
+    # ---- (a) the ladder backward: the kernel at T = LADDER_HOST_T against
+    # the plain adjoint on the host (submitted first: a per-step loop) ----
+    host_cases = []
+    for os_n in LADDER_OS:
+        args, gy, gs, kw = _ladder_case(dev, LADDER_HOST_T, 4, os_n, 300 + os_n)
+        ckpt = ladder._launch(*args, **kw, checkpoints=True)[2]
+        got = ladder._launch_bwd(*args[:5], ckpt, gy, gs, **kw)
+        host_cases.append((os_n, [a.cpu().numpy() for a in args], gy.cpu().numpy(),
+                           gs.cpu().numpy(), kw, [g.cpu().numpy() for g in got]))
+    host_job = pool.submit(ladder_plain_on_host, host_cases)
+
+    # ---- the main path: counts from 0 ----
+    counters = {"ladder_scan": ladder.ladder_scan, "comb_scan": comb.comb_scan,
+                "adsr_scan": adsr.adsr_scan, "ks_scan": ks.ks_scan,
+                "envelope_ar_scan": envelope.envelope_ar_scan, "slew_scan": slew.slew_scan,
+                "reverse_echo_scan": reverse_echo.reverse_echo_scan,
+                "affine_scan_2": linrec_kernel.affine_scan_2_kernel}
+    for fn in (*counters.values(), ladder.ladder_scan_bwd):
+        fn.launches = 0
+    plain_bwd = ladder.ladder_scan_bwd_ref
+    plain_calls = [0]
+
+    def counted_plain(*a, **k):
+        plain_calls[0] += 1
+        return plain_bwd(*a, **k)
+
+    ladder.ladder_scan_bwd_ref = counted_plain
+    grads, walls = {}, {}
+    try:
+        # (a) a gradient through a LadderPE at each os_n, render_functional
+        with recording({"ladder_scan_bwd": len(LADDER_OS)}) as recs:
+            for os_n in LADDER_OS:
+                pg.set_sample_rate(SR)
+                graph = pg.CropPE(pg.GainPE(pg.LadderPE(
+                    pg.BlitSawPE(110.0, 0.6), pg.ParamPE("cutoff"), 0.6, oversample=os_n),
+                    pg.ParamPE("gain")), 0, LADDER_T)
+                th = {k: torch.tensor(v, device=dev, requires_grad=True)
+                      for k, v in (("cutoff", 1800.0), ("gain", 0.7))}
+                t = time.perf_counter()
+                out = engine.render_functional(graph, 0, LADDER_T, LADDER_T, th, device=dev)
+                g = torch.autograd.grad((out ** 2).mean(), list(th.values()))
+                grads[os_n] = [float(v) for v in g]
+                walls[os_n] = time.perf_counter() - t
+                check(all(np.isfinite(grads[os_n])) and grads[os_n][1] != 0.0,
+                      f"LadderPE oversample={os_n}: gradient {grads[os_n]}")
+        bwd_launches = ladder.ladder_scan_bwd.launches
+        # (b) SinePE and the flanger's head
+        sine_card = {label: pg.render_to_array(pg.CropPE(build(), 0, BLOCK), device=dev)
+                     for label, build in _sine_graphs(pg).items()}
+        # (c) the examples' heads
+        heads, ex_walls = {}, {}
+        for name in names:
+            t = time.perf_counter()
+            heads[name] = ex.render_head(name, pg, folder / "cuda" / name, device=dev)
+            torch.cuda.synchronize()
+            ex_walls[name] = time.perf_counter() - t
+        # (e) the player's core
+        tone = folder / "tone.wav"
+        tt = np.arange(SR) / SR
+        write_wav(str(tone), (0.5 * np.sin(2 * np.pi * 220.0 * tt)).astype(np.float32)[:, None],
+                  SR)
+        t = time.perf_counter()
+        jog_card, jog_pos_card, jog_steps = jog_script(dev, str(tone))
+        jog_wall = time.perf_counter() - t
+        # (f) the MIDI demo's scripted arpeggio
+        t = time.perf_counter()
+        demo_card = demo.scripted_arpeggio(str(font), device=dev)
+        demo_wall = time.perf_counter() - t
+    finally:
+        ladder.ladder_scan_bwd_ref = plain_bwd
+    launches = {name: fn.launches for name, fn in counters.items()}
+    check(plain_calls[0] == 0, f"the card's ladder backward reached the plain version "
+          f"{plain_calls[0]} times")
+    check(bwd_launches == len(LADDER_OS) and len(recs["ladder_scan_bwd"]) == len(LADDER_OS),
+          f"ladder backward: {bwd_launches} launches for {len(LADDER_OS)} gradients")
+    print(f"phase 19 main path: launches {json.dumps(launches)}, ladder_scan_bwd "
+          f"{bwd_launches} (no call of the plain adjoint on the card) [{card}]")
+    # the kernels its graphs reach (no example has a SlewLimiterPE)
+    for name in ("ladder_scan", "comb_scan", "adsr_scan", "ks_scan", "envelope_ar_scan",
+                 "reverse_echo_scan", "affine_scan_2"):
+        check(launches[name] > 0, f"phase 19's main path launched no {name}")
+
+    # ---- (a) the ladder backward: bit for bit with its order, two launches
+    # the same bits, each launch alone timed. At each os_n the recorded
+    # launch (C = 1) and a seeded one on its columns (C = 4) run their order
+    # in torch ops as one call of five channels, each summing its own ----
+    saved = (ladder.ladder_scan_bwd.launches, ladder.ladder_scan.launches)
+    t = time.perf_counter()
+    rows, times, order_diff = [], {}, 0.0
+    for i, os_n in enumerate(LADDER_OS):
+        rargs, kw, rgot = recs["ladder_scan_bwd"][i]
+        T = rargs[0].shape[0]
+        check(kw["os_n"] == os_n and T == LADDER_T and rargs[0].shape[1] == 1,
+              f"ladder case {os_n}: {kw} {tuple(rargs[0].shape)}")
+        x, st, gy, gs = _seeded(dev, 100 + os_n, (T, 4), (9, 4), (T, 4), (9, 4))
+        x[T // 3:T // 3 + 4] = 1e-7  # quiet samples take the decay
+        sargs = [x * 0.3, *rargs[1:5], st * 0.1]
+        ckpt = ladder._launch(*sargs, **kw, checkpoints=True)[2]
+        sargs += [gy, gs, ckpt]
+        sgot = list(ladder.ladder_scan_bwd(*sargs, **kw))
+        both = [a if a.dim() == 1 else torch.cat([a, b], -1) for a, b in zip(rargs, sargs)]
+        gx, parts, gst = ladder.ladder_scan_bwd_parts(*both, **kw)
+        for what, args, got, lo, hi in (("recorded", rargs, rgot, 0, 1),
+                                         ("seeded", sargs, sgot, 1, 5)):
+            C = hi - lo
+            want = [gx[:, lo:hi], *ladder.channel_sums(parts, lo, hi), gst[:, lo:hi]]
+            again = ladder.ladder_scan_bwd(*args, **kw)
+            for j, (g, a, w) in enumerate(zip(got, again, want)):
+                w = w.reshape(g.shape)
+                order_diff = max(order_diff, float((g - w).abs().max()))
+                check(torch.equal(g, a), f"ladder backward os_n={os_n} ({what}, C={C}): "
+                      f"output {j} differs between two launches")
+                check(torch.equal(g, w), f"ladder backward os_n={os_n} ({what}, C={C}): "
+                      f"output {j} differs from ladder_scan_bwd_chunked by "
+                      f"{float((g - w).abs().max())}")
+            split = launch_split(lambda: ladder.ladder_scan_bwd(*args, **kw), key="ladder_bwd")
+            alone = sum(v for k, v in split.items() if "ladder_bwd" in k or "channel_sum" in k)
+            events = device_ms(lambda: ladder.ladder_scan_bwd(*args, **kw), 5)
+            layout = ladder._bwd_layout(os_n, ladder.CHECKPOINT_EVERY)
+            n = -(-T // ladder.CHECKPOINT_EVERY)
+            bnd = bound(4 * (3 * T * C + 8 * T + 27 * C), ladder_bwd_ops(os_n) * T * C)
+            scratch = 4 * 2 * (9 * n * C + (n - 1) * (96 + 9) * C + 4 * T * C) + (
+                4 * n * C * 6 * os_n if layout[2] else 0)
+            times[os_n, C] = (alone, events, bnd, scratch, layout)
+            rows.append(f"os_n={os_n} C={C} ({what}; layout {layout}): alone {alone:.4f} ms ("
+                        + ", ".join(f"{k[:40]} {v:.4f}" for k, v in split.items())
+                        + f"), CUDA events {events:.4f} ms, bound {bnd[0]:.4g} ms ({bnd[1]}), "
+                        f"scratch {scratch} bytes")
+    ladder.ladder_scan_bwd.launches, ladder.ladder_scan.launches = saved
+    print(f"ladder backward: {2 * len(LADDER_OS)} launches (T={LADDER_T}, C=1 recorded from "
+          f"render_functional, C=4 seeded on its columns) bit for bit with "
+          f"ladder_scan_bwd_chunked on the card, two launches the same bits "
+          f"({time.perf_counter() - t:.1f} s) [{card}]")
+    for row in rows:
+        print(f"  ladder_scan_bwd {row} [{card}]")
+    for os_n in LADDER_OS:
+        print(f"  LadderPE oversample={os_n}: gradient (cutoff, gain) {grads[os_n]}, forward and "
+              f"backward {walls[os_n] * 1e3:.1f} ms [{card}]")
+
+    # ---- (b) SinePE: the card against the port's CPU render ----
+    for label, build in _sine_graphs(pg).items():
+        want = pg.render_to_array(pg.CropPE(build(), 0, BLOCK), device="cpu")
+        got = sine_card[label]
+        err = float(np.abs(got.astype(np.float64) - want).max())
+        check(got.shape == want.shape and err <= TOL, f"{label}: card vs CPU {err}")
+        print(f"{label}: card vs the port's CPU render, max abs diff {err:.3g} (bit for bit: "
+              f"{bool(np.array_equal(got, want))}) [{card}]")
+    # SinePE's device ops a block: glibc's sinf mirrored, and torch.sin as before
+
+    def sine_block():
+        return pg.render_to_array(pg.CropPE(pg.SinePE(440.0, 0.7), 0, BLOCK), block=BLOCK,
+                                  device=dev)
+
+    from pygmu2_tpu_torch.models import oscillators
+
+    ops = {}
+    for label in ("sincosf", "torch.sin"):
+        if label == "torch.sin":
+            oscillators.xla_math = types.SimpleNamespace(
+                sincosf=lambda y: (torch.sin(y), None))
+        try:
+            ev = device_events(sine_block, reps=1)
+        finally:
+            oscillators.xla_math = sys.modules["pygmu2_tpu_torch.ops.xla_math"]
+        ops[label] = None if ev is None else sum(len(v) for v in ev.values())
+    print(f"SinePE(440 Hz) one block of {BLOCK} through render_to_array, device ops (kernels and "
+          f"copies, torch.profiler): glibc's sinf mirrored {ops['sincosf']}, torch.sin "
+          f"{ops['torch.sin']} [{card}]")
+
+    # ---- (c) the examples: the card against the port's CPU heads ----
+    cpu_heads = {}
+    for job in cpu_jobs:
+        cpu_heads.update(job.result())
+    worst = 0.0
+    for name in names:
+        want, cpu_s = cpu_heads[name]
+        got = heads[name]
+        err = float(np.abs(got.astype(np.float64) - want).max())
+        check(got.shape == want.shape and np.isfinite(got).all() and err <= TOL,
+              f"example {name}: card vs CPU {err}")
+        check(np.abs(want).max() > 1e-4, f"example {name}: silent")
+        worst = max(worst, err)
+        print(f"example {name}: head of {ex.HEAD} on the card vs the port's CPU, max abs diff "
+              f"{err:.3g}; card wall {ex_walls[name] * 1e3:.1f} ms (CPU {cpu_s:.2f} s) [{card}]")
+    print(f"examples: {len(names)} heads within {TOL} of the CPU (largest {worst:.3g}); "
+          f"05_flanging {float(np.abs(heads['05_flanging'] - cpu_heads['05_flanging'][0]).max()):.3g}"
+          f"; not run: {', '.join(ex.CANNOT_RUN)} ({next(iter(ex.CANNOT_RUN.values()))}) "
+          f"[{card}]")
+
+    # ---- (d) the comb's and the echo's kernels against their block orders ----
+    saved = (comb.comb_scan.launches, reverse_echo.reverse_echo_scan.launches)
+    T, L, d, C = BLOCK, 2206, 37, 4  # 37 divides neither T nor L
+    f = np.float32(SR / d)
+    check(int(np.rint(np.float32(SR) / f)) == d, "comb: the static delay")
+    x, fb, buf = _seeded(dev, 19, (T, C), (T,), (L, C))
+    fb = fb * 0.9
+    pos = torch.tensor(1000, dtype=torch.int32, device=dev)
+    ky, kbuf, kpos, _ = comb.comb_scan(x, torch.full((T,), float(f), device=dev), fb, buf.clone(),
+                                       pos, torch.tensor(float(f), device=dev), L=L, sr=float(SR),
+                                       smooth_alpha=0.01)
+    by, bbuf, bpos = comb_const_delay(x, fb, buf, pos, d=d, L=L)
+    err_comb = max(float((ky - by).abs().max()), float((kbuf - bbuf).abs().max()))
+    check(int(kpos) == int(bpos) and err_comb <= BLOCK_ORDER_TOL,
+          f"comb kernel vs comb_const_delay {err_comb}")
+    Lb, plen, cap = 2048, 735, 22050
+    x, fb, ba, bb, pb = _seeded(dev, 20, (T, C), (T,), (cap, C), (cap, C), (plen, C))
+    fb = fb.abs() * 0.9
+    ones = torch.ones(T, device=dev)
+    misc = torch.tensor([1, 17, 40.25, 100, 100, Lb, Lb, Lb, 1], dtype=torch.float32,
+                        device=dev)
+    kw = dict(sr=float(SR), plen=plen, cap=cap, min_block=64, max_block=cap - 1,
+              smooth_alpha=0.001)
+    err_echo = 0.0
+    for alt in (1.0, 0.0):
+        kout = reverse_echo.reverse_echo_scan(x, torch.full((T,), Lb / SR, device=dev), ones, fb,
+                                              torch.full((T,), alt, device=dev), ba.clone(),
+                                              bb.clone(), pb.clone(), misc, **kw)
+        bout = reverse_echo_aligned(x, fb, ba, bb, pb, 1, 17, 40.25, 100, Lb, 1, Lb=Lb,
+                                    plen=plen, ratio=1.0, alternate=alt >= 0.5)
+        err = max(float((a - b).abs().max()) for a, b in zip(kout[:3], bout[:3]))
+        check(torch.equal(kout[3], bout[3]) and err <= BLOCK_ORDER_TOL,
+              f"echo kernel vs reverse_echo_aligned (alternate {alt}) {err}")
+        for k, i in ((0, 4), (1, 5), (3, 7), (7, 8), (8, 9)):
+            check(int(kout[4][k]) == int(bout[i]), f"echo state {k}: {kout[4][k]} {bout[i]}")
+        err_echo = max(err_echo, err)
+    comb.comb_scan.launches, reverse_echo.reverse_echo_scan.launches = saved
+    print(f"comb kernel (T={T} C={C} L={L}, static delay {d}) vs comb_const_delay: max abs diff "
+          f"{err_comb:.3g}; echo kernel (T={T} C={C}, block {Lb}, unity pitch, alternating "
+          f"and not) vs reverse_echo_aligned: {err_echo:.3g} (the block orders contract x + "
+          f"fb * y into one rounding as XLA's program, the kernels round twice: not bit for "
+          f"bit) [{card}]")
+
+    # ---- (e) the player's core: the card against a CPU core ----
+    t = time.perf_counter()
+    jog_cpu, jog_pos_cpu, _ = jog_script("cpu", str(tone))
+    err = float(np.abs(jog_card.astype(np.float64) - jog_cpu).max())
+    check(jog_card.shape == jog_cpu.shape and np.isfinite(jog_card).all() and err <= JOG_TOL
+          and np.abs(jog_cpu).max() > 0.1, f"jog/shuttle: card vs CPU {err}")
+    check(np.allclose(jog_pos_card, jog_pos_cpu, atol=1e-3), "jog/shuttle: tape positions")
+    print(f"jog/shuttle core on the card (play, -2x, +4x, scrub, {jog_steps} polls to the end): "
+          f"{jog_card.shape[0] // 1024} blocks vs a CPU core's, max abs diff {err:.3g}; tape "
+          f"positions {[round(p) for p in jog_pos_card]}; card {jog_wall:.2f} s, CPU "
+          f"{time.perf_counter() - t:.2f} s [{card}]")
+
+    # ---- (f) the MIDI demo's arpeggio ----
+    demo_cpu, demo_cpu_s = demo_job.result()
+    err = float(np.abs(demo_card.astype(np.float64) - demo_cpu).max())
+    check(demo_card.shape == demo_cpu.shape and err <= DEMO_TOL
+          and np.abs(demo_cpu).max() > 0.05, f"MIDI demo: card vs CPU {err}")
+    print(f"MIDI demo arpeggio on the card vs the CPU: max abs diff {err:.3g} (of {DEMO_TOL}); "
+          f"card {demo_wall:.2f} s, CPU {demo_cpu_s:.2f} s [{card}]")
+
+    # ---- (a) the plain adjoint on the host: every output within 1e-5 of
+    # the call's largest cotangent, and each within BWD_TOL of its own
+    # largest (phase 15's criterion); each output's own share printed ----
+    plain_err = 0.0
+    for os_n, (errs, secs) in host_job.result().items():
+        top = max(s for _, s in errs)
+        e = max(err for err, _ in errs)
+        check(e <= LADDER_BWD_FIT_TOL * top, f"ladder backward os_n={os_n}: {e} off the plain "
+              f"adjoint (largest cotangent {top})")
+        _check_bwd(f"ladder_scan_bwd os_n={os_n}", errs,
+                   f"T={LADDER_HOST_T} C=4 vs the plain adjoint")
+        if os_n > 99:
+            plain_err = max(plain_err, e)
+        print(f"ladder backward os_n={os_n} T={LADDER_HOST_T} C=4 against autograd of the plain "
+              f"ladder on the host ({secs:.1f} s): max abs err {e:.3g} (largest cotangent "
+              f"{top:.3g}); each output's error over its own largest: "
+              + ", ".join(f"{err / sc:.2e}" for err, sc in errs))
+    plain_s = host_job.result()[128][1]
+
+    past = [o for o in LADDER_OS if o > 99]
+    print(f"ladder backward past os_n 99: max abs err against the plain adjoint {plain_err:.3g}, "
+          f"against its order in torch ops {order_diff:.3g}")
+    a128, e128, b128, s128, lay128 = times[128, 1]
+    entry = {
+        "name": "ladder_scan_bwd (os_n > 99)", "route": "cuda",
+        "source": "pygmu2_tpu_torch/csrc/ladder_scan_bwd.cu",
+        "replaces": "pygmu2_tpu/ops/ladder_pallas.py:253",
+        "launches": sum(1 for _, kw, _ in recs["ladder_scan_bwd"] if kw["os_n"] > 99),
+        "max_abs_err": plain_err, "max_abs_diff_chunked_order": order_diff,
+        "ms": a128, "events_ms": e128,
+        "plain_ms": plain_s * 1e3, "plain_shape": f"T={LADDER_HOST_T} C=4 os_n=128, the "
+        "plain adjoint on the host's CPU", "bound_ms": b128[0], "bound_by": b128[1],
+        "library_ms": None, "shape": f"T={LADDER_T} C=1 os_n=128, layout {lay128}",
+        "scratch_bytes": s128,
+        "by_case_ms": {f"os_n={o} C={c}": times[o, c][0] for o in LADDER_OS for c in (1, 4)},
+        "by_case_bound_ms": {f"os_n={o} C={c}": times[o, c][2][0]
+                             for o in LADDER_OS for c in (1, 4)},
+    }
+    print(f"phase 19 took {time.perf_counter() - t0:.1f} s; the ladder backward past os_n 99 "
+          f"({', '.join(map(str, past))}) launched {entry['launches']} times on its path")
+    return entry, launches, bwd_launches - entry["launches"]
 
 
 if __name__ == "__main__":

@@ -33,7 +33,11 @@ The slices so far:
   AnalogOscPE, SpatialPE with the KEMAR HRTF (read by path from the JAX
   package's asset folder), temperaments and conversions, print_pe_tree,
   the asset loaders, and AudioRenderer with ``play`` / ``play_offline``;
-  ``perform_workload`` drives them with the ladder and ADSR kernels.
+  ``perform_workload`` drives them with the ladder and ADSR kernels;
+- ``browse`` with the jog/shuttle player (``utils/jogshuttle.py``), the
+  live MIDI demo (``utils/meltysynth_midi_demo.py``), and the comb's and
+  the echo's block-order functions (``ops/comb_block.py``,
+  ``ops/reverse_echo_block.py``) in plain torch.
 
 Every public render function takes an explicit ``device`` (default
 ``"cuda"``); CPU tensors run the kernels' plain PyTorch versions.
@@ -177,6 +181,7 @@ from pygmu2_tpu_torch.utils.assets import (
 )
 from pygmu2_tpu_torch.utils.debug import print_pe_tree
 from pygmu2_tpu_torch.utils.playback import (
+    browse,
     play,
     play_offline,
     render_to_array,
@@ -350,5 +355,6 @@ __all__ = [
     "AudioRenderer",
     "play",
     "play_offline",
+    "browse",
     "__version__",
 ]

@@ -104,9 +104,9 @@ def load() -> ctypes.CDLL:
         # C, os_n, pbg, mode_index, input_threshold, state_decay, stream
         "ladder_scan_launch": [p] * 9 + [i, i, i, i, f, i, f, f, p],
         # x, al, qa, ki, dsc, ckpt, gy, gstate, gx, gcols, gstate_in, transfers,
-        # g_end, part, T, C, K, os_n, pbg, mode_index, input_threshold,
-        # state_decay, stream
-        "ladder_scan_bwd_launch": [p] * 14 + [i, i, i, i, f, i, f, f, p],
+        # g_end, part, steps (or null), T, C, K, os_n, per, rewalk, pbg,
+        # mode_index, input_threshold, state_decay, stream
+        "ladder_scan_bwd_launch": [p] * 15 + [i] * 6 + [f, i, f, f, p],
         # fb, buf_in, pos_in, sf_in, y, gy, gbuf, gsf, delay, bounds, n_windows,
         # smoothed, gx, gfreq, gfb, gbuf_in, gsf_in, part, ring (or null), agg,
         # flags, T, C, L, smooth_alpha, stream

@@ -28,7 +28,8 @@
 // T = 16384, C = 1 on an H100 80GB HBM3 at 700 W). Four launches on the caller's stream, none of which
 // walks more than K samples serially:
 // 1. ladder_bwd_chunks<FINAL = false>, parallel over (chunk, channel),
-//    chunks 1..n-1: a warp holds three chunks, ten lanes each. The lanes
+//    chunks 1..n-1: a warp holds three chunks (or one, see below), ten
+//    lanes each. The lanes
 //    stage the chunk's inputs into shared memory, re-walk the forward
 //    from the checkpoint (the forward's explicitly rounded ops and tanhf:
 //    the same bits) keeping each oversampled step's u, w and four stage
@@ -64,6 +65,19 @@
 // carry 0.062 (~121 ns a hop; staged through shared memory in 16-byte
 // pieces, where per-lane 4-byte copies had it at about twice that) and
 // each chunk kernel ~0.023; 0.051 ms at T = 1024.
+//
+// Where a chunk's steps do not fit (the layout, chosen by the wrapper,
+// ops/ladder._bwd_layout): three chunks a warp keep every oversampled
+// step of their K samples in shared memory, (6 os_n + 7) floats a sample,
+// up to os_n = 99 at K = 32; one chunk a warp up to os_n = 301. Past that
+// the chunk keeps only each sample's entering state (REWALK): the first
+// re-walk stores the nine state values a sample, and the walk back re-walks
+// each sample's os_n steps again from its state into a buffer of 6 os_n
+// floats (the group's writer lane, then a __syncwarp of the group) before
+// walking them back. The same ops on the same values: the bits do not
+// change, at the cost of a third forward walk. The buffer sits in shared
+// memory up to os_n ~ 9600 (one chunk a warp; three up to ~3100), in device
+// memory (a slice of `steps` per item) past that.
 
 #include <cuda_runtime.h>
 
@@ -72,9 +86,10 @@
 namespace {
 
 constexpr int kGroup = 10;      // lanes per chunk: nine basis vectors and the affine part
-constexpr int kPerWarp = 3;     // chunks per warp (lanes 30, 31 idle)
+constexpr int kMaxPerWarp = 3;  // chunks per warp (lanes 30, 31 idle)
 constexpr int kStepFloats = 6;  // u, w, pre[0..3] per oversampled step
 constexpr int kSampleFloats = 7;  // decay, x, gy, a, q, k, dsc per sample
+constexpr int kStateFloats = 9;   // a sample's entering state (REWALK)
 constexpr int kMaxShared = 232448;
 constexpr int kTransfer = 96;  // floats of a chunk's transfer: ten lanes of nine, padded to 16 B
 constexpr float kC1 = 0.76923077f;  // trapezoidal stage weights
@@ -98,9 +113,54 @@ __device__ __forceinline__ float mix_grads(int mode, float* d) {
 }
 
 // floats of shared memory per chunk, odd so that the three chunks of a warp
-// fall on different banks
-__host__ __device__ __forceinline__ int item_floats(int K, int os_n) {
-  return (K * (kStepFloats * os_n + kSampleFloats)) | 1;
+// fall on different banks: all the chunk's steps, or (REWALK) the samples'
+// entering states and one sample's steps (none where those are in `steps`)
+__host__ __device__ __forceinline__ int item_floats(int K, int os_n, bool rewalk,
+                                                    bool steps_global) {
+  if (!rewalk) return (K * (kStepFloats * os_n + kSampleFloats)) | 1;
+  return (K * (kSampleFloats + kStateFloats) + (steps_global ? 0 : kStepFloats * os_n)) | 1;
+}
+
+// One sample of the forward from the state (z0, z1, old) entering it, in
+// ladder_scan_ref's op order; writes each step's u, w, pre[0..3] to v
+// (where v is not null) and returns the sample's decay.
+template <int OS>
+__device__ __forceinline__ float forward_sample(float* z0, float* z1, float& old,
+                                                const float* s, float* v, int os_n,
+                                                double recip, float pbg, float threshold,
+                                                float state_decay) {
+  const float a = s[3], q = s[4], k = s[5];
+  const float in_s = mul(s[1], s[6]);
+  const float decay = fabsf(in_s) < threshold ? state_decay : 1.0f;
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    z0[m] = mul(z0[m], decay);
+    z1[m] = mul(z1[m], decay);
+  }
+  old = mul(old, decay);
+#pragma unroll
+  for (int st_i = 0; st_i < (OS > 0 ? OS : os_n); ++st_i) {
+    const float in_i = add(mul((float)(st_i * recip), old),
+                           mul((float)(1.0 - st_i * recip), in_s));
+    const float w = sub(z1[3], mul(pbg, in_i));
+    const float u = tanhf(sub(in_i, mul(mul(w, k), q)));
+    float prev = u;
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const float p = sub(add(mul(prev, kC1), mul(kC2, z0[m])), z1[m]);
+      const float ft = add(mul(p, a), z1[m]);
+      if (v) v[st_i * kStepFloats + 2 + m] = p;
+      z1[m] = ft;
+      z0[m] = prev;
+      prev = ft;
+    }
+    if (v) {
+      v[st_i * kStepFloats] = u;
+      v[st_i * kStepFloats + 1] = w;
+    }
+  }
+  old = in_s;
+  return decay;
 }
 
 // One chunk's backward walk. FINAL = false: chunks 1..n-1, each lane of
@@ -108,27 +168,36 @@ __host__ __device__ __forceinline__ int item_floats(int K, int os_n) {
 // FINAL = true: chunks 0..n-1, lane 9 of each ten walks the true
 // cotangent and writes gx, the parts and (chunk 0) gstate_in.
 // OS > 0: os_n is OS, folded at compile time; OS == 0: os_n at run time.
-template <int OS, bool FINAL>
+// `per` chunks a warp; REWALK: a sample's steps re-walked from its entering
+// state before its walk back, into shared memory or (steps not null) into
+// the item's slice of `steps`.
+template <int OS, bool FINAL, bool REWALK>
 __global__ void __launch_bounds__(32) ladder_bwd_chunks(
     const float* __restrict__ x, const float* __restrict__ al, const float* __restrict__ qa,
     const float* __restrict__ ki, const float* __restrict__ dsc,
     const float* __restrict__ ckpt, const float* __restrict__ gy,
     const float* __restrict__ gstate, const float* __restrict__ g_end,
     float* __restrict__ transfers, float* __restrict__ gx, float* __restrict__ part,
-    float* __restrict__ gstate_in, int T, int C, int K, int os_n_arg, float pbg, int mode,
-    float threshold, float state_decay) {
+    float* __restrict__ gstate_in, float* __restrict__ steps, int T, int C, int K,
+    int os_n_arg, int per, float pbg, int mode, float threshold, float state_decay) {
   extern __shared__ float smem[];
   const int os_n = OS > 0 ? OS : os_n_arg;
   const int n = (T + K - 1) / K;
   const int first = FINAL ? 0 : 1;
   const long n_items = (long)(n - first) * C;
   const int lane = threadIdx.x, grp = lane / kGroup, vec = lane % kGroup;
-  const long item = (long)blockIdx.x * kPerWarp + grp;
-  const bool active = grp < kPerWarp && item < n_items;
+  const long item = (long)blockIdx.x * per + grp;
+  const bool active = grp < per && item < n_items;
   const int j = first + (int)(active ? item / C : 0), c = (int)(active ? item % C : 0);
   const int t0 = j * K, len = min(K, T - t0);
-  float* sv = smem + grp * item_floats(K, os_n);  // [K][os_n][6] step values
-  float* ss = sv + K * os_n * kStepFloats;          // [K][7] sample values
+  // [K][7] sample values, then [K][os_n][6] step values or (REWALK) [K][9]
+  // entering states and [os_n][6] one sample's step values
+  float* ss = smem + grp * item_floats(K, os_n, REWALK, steps != nullptr);
+  float* sst = ss + K * kSampleFloats;
+  float* sv = REWALK ? (steps ? steps + item * os_n * kStepFloats : sst + K * kStateFloats)
+                     : ss + K * kSampleFloats;
+  // the lanes that walk back together: the group's ten, or (FINAL) lane 9
+  const unsigned walkers = FINAL ? 1u << lane : 0x3ffu << (grp * kGroup);
   const double recip = 1.0 / os_n;
   const float os_recip = (float)recip;
 
@@ -159,38 +228,18 @@ __global__ void __launch_bounds__(32) ladder_bwd_chunks(
     const bool writer = vec == kGroup - 1;
     for (int i = 0; i < len; ++i) {
       float* s = ss + i * kSampleFloats;
-      const float a = s[3], q = s[4], k = s[5];
-      const float in_s = mul(s[1], s[6]);
-      const float decay = fabsf(in_s) < threshold ? state_decay : 1.0f;
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        z0[m] = mul(z0[m], decay);
-        z1[m] = mul(z1[m], decay);
-      }
-      old = mul(old, decay);
-#pragma unroll
-      for (int st_i = 0; st_i < os_n; ++st_i) {
-        const float in_i = add(mul((float)(st_i * recip), old),
-                               mul((float)(1.0 - st_i * recip), in_s));
-        const float w = sub(z1[3], mul(pbg, in_i));
-        const float u = tanhf(sub(in_i, mul(mul(w, k), q)));
-        float* v = sv + (i * os_n + st_i) * kStepFloats;
-        float prev = u;
+      if (REWALK && writer) {
+        float* e = sst + i * kStateFloats;
 #pragma unroll
         for (int m = 0; m < 4; ++m) {
-          const float p = sub(add(mul(prev, kC1), mul(kC2, z0[m])), z1[m]);
-          const float ft = add(mul(p, a), z1[m]);
-          if (writer) v[2 + m] = p;
-          z1[m] = ft;
-          z0[m] = prev;
-          prev = ft;
+          e[m] = z0[m];
+          e[4 + m] = z1[m];
         }
-        if (writer) {
-          v[0] = u;
-          v[1] = w;
-        }
+        e[8] = old;
       }
-      old = in_s;
+      float* v = writer && !REWALK ? sv + i * os_n * kStepFloats : nullptr;
+      const float decay =
+          forward_sample<OS>(z0, z1, old, s, v, os_n, recip, pbg, threshold, state_decay);
       if (writer) s[0] = decay;
     }
     // the cotangent leaving the chunk
@@ -212,13 +261,27 @@ __global__ void __launch_bounds__(32) ladder_bwd_chunks(
   const bool with_gy = FINAL || vec == kGroup - 1;
   for (int i = len - 1; i >= 0; --i) {
     const float* s = ss + i * kSampleFloats;
+    if (REWALK) {  // the sample's steps again, from its entering state
+      if (vec == kGroup - 1) {
+        const float* e = sst + i * kStateFloats;
+        float z0[4], z1[4], old = e[8];
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          z0[m] = e[m];
+          z1[m] = e[4 + m];
+        }
+        forward_sample<OS>(z0, z1, old, s, sv, os_n, recip, pbg, threshold, state_decay);
+      }
+      __syncwarp(walkers);
+    }
+    const float* sv_i = REWALK ? sv : sv + i * os_n * kStepFloats;
     const float a = s[3], q = s[4], k = s[5];
     const float gmix = mul(with_gy ? s[2] : 0.0f, os_recip);
     float g_in = g[8];  // the state's `old` after the sample is in_s
     float g_old = 0.0f, ga = 0.0f, gq = 0.0f, gk = 0.0f;
 #pragma unroll
     for (int st_i = os_n - 1; st_i >= 0; --st_i) {
-      const float* v = sv + (i * os_n + st_i) * kStepFloats;
+      const float* v = sv_i + st_i * kStepFloats;
       const float u = v[0], w = v[1];
       float gft[4];
 #pragma unroll
@@ -249,6 +312,7 @@ __global__ void __launch_bounds__(32) ladder_bwd_chunks(
       g_old = add(g_old, mul((float)(st_i * recip), gi));
       g_in = add(g_in, mul((float)(1.0 - st_i * recip), gi));
     }
+    if (REWALK) __syncwarp(walkers);  // the buffer is the next sample's
     const float decay = s[0];
 #pragma unroll
     for (int r = 0; r < 8; ++r) g[r] = mul(g[r], decay);
@@ -352,38 +416,42 @@ cudaError_t allow_shared(Kernel kernel, int bytes, int& allowed) {
   return err;
 }
 
-template <int OS>
+template <int OS, bool REWALK>
 cudaError_t launch_all(const float* x, const float* al, const float* qa, const float* ki,
                        const float* dsc, const float* ckpt, const float* gy,
                        const float* gstate, float* gx, float* gstate_in, float* transfers,
-                       float* g_end, float* part, int T, int C, int K, int os_n, float pbg,
-                       int mode, float threshold, float decay, cudaStream_t stream) {
+                       float* g_end, float* part, float* steps, int T, int C, int K, int os_n,
+                       int per, float pbg, int mode, float threshold, float decay,
+                       cudaStream_t stream) {
   const int n = (T + K - 1) / K;
-  const int smem = kPerWarp * item_floats(K, os_n) * (int)sizeof(float);
-  if (smem > kMaxShared) return cudaErrorInvalidValue;
+  const long smem_l = (long)per * item_floats(K, os_n, REWALK, steps != nullptr) * 4;
+  if (per < 1 || per > kMaxPerWarp || smem_l > kMaxShared || (steps && !REWALK))
+    return cudaErrorInvalidValue;
+  const int smem = (int)smem_l;
   cudaError_t err;
   if (n > 1) {
     static int allowed_transfers = 0;
-    if ((err = allow_shared(ladder_bwd_chunks<OS, false>, smem, allowed_transfers)) !=
+    if ((err = allow_shared(ladder_bwd_chunks<OS, false, REWALK>, smem, allowed_transfers)) !=
         cudaSuccess)
       return err;
     const long items = (long)(n - 1) * C;
-    ladder_bwd_chunks<OS, false><<<(unsigned)((items + kPerWarp - 1) / kPerWarp), 32, smem,
-                                   stream>>>(x, al, qa, ki, dsc, ckpt, gy, gstate, g_end,
-                                             transfers, gx, part, gstate_in, T, C, K, os_n,
-                                             pbg, mode, threshold, decay);
+    ladder_bwd_chunks<OS, false, REWALK><<<(unsigned)((items + per - 1) / per), 32, smem,
+                                           stream>>>(
+        x, al, qa, ki, dsc, ckpt, gy, gstate, g_end, transfers, gx, part, gstate_in, steps, T,
+        C, K, os_n, per, pbg, mode, threshold, decay);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     ladder_bwd_carry<<<C, 32, 0, stream>>>(transfers, gstate, g_end, n, C);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   static int allowed_final = 0;
-  if ((err = allow_shared(ladder_bwd_chunks<OS, true>, smem, allowed_final)) != cudaSuccess)
+  if ((err = allow_shared(ladder_bwd_chunks<OS, true, REWALK>, smem, allowed_final)) !=
+      cudaSuccess)
     return err;
   const long items = (long)n * C;
-  ladder_bwd_chunks<OS, true><<<(unsigned)((items + kPerWarp - 1) / kPerWarp), 32, smem,
-                                stream>>>(x, al, qa, ki, dsc, ckpt, gy, gstate, g_end,
-                                          transfers, gx, part, gstate_in, T, C, K, os_n, pbg,
-                                          mode, threshold, decay);
+  ladder_bwd_chunks<OS, true, REWALK><<<(unsigned)((items + per - 1) / per), 32, smem,
+                                        stream>>>(
+      x, al, qa, ki, dsc, ckpt, gy, gstate, g_end, transfers, gx, part, gstate_in, steps, T, C,
+      K, os_n, per, pbg, mode, threshold, decay);
   return cudaGetLastError();
 }
 
@@ -397,23 +465,32 @@ extern "C" {
 // ckpt (ceil(T / K), 9, C) f32, the forward's checkpoints every K samples;
 // gstate / gstate_in (9, C) f32; gcols (4, T) f32, the cotangents of al,
 // qa, ki, dsc; scratch transfers (ceil(T / K) - 1, C, 96), g_end
-// (ceil(T / K) - 1, 9, C) and part (4, T, C) f32.
+// (ceil(T / K) - 1, 9, C) and part (4, T, C) f32; steps, null or (with
+// rewalk) (ceil(T / K) C, 6 os_n) f32, a sample's steps past shared
+// memory. The layout: `per` chunks a warp (1..3) and `rewalk`
+// (ops/ladder._bwd_layout); a layout past shared memory is refused.
 int ladder_scan_bwd_launch(const float* x, const float* al, const float* qa, const float* ki,
                            const float* dsc, const float* ckpt, const float* gy,
                            const float* gstate, float* gx, float* gcols, float* gstate_in,
-                           float* transfers, float* g_end, float* part, int T, int C, int K,
-                           int os_n, float pbg, int mode_index, float input_threshold,
-                           float state_decay, cudaStream_t stream) {
+                           float* transfers, float* g_end, float* part, float* steps, int T,
+                           int C, int K, int os_n, int per, int rewalk, float pbg,
+                           int mode_index, float input_threshold, float state_decay,
+                           cudaStream_t stream) {
   if (T < 1 || C < 1 || os_n < 1 || K < 1) return (int)cudaErrorInvalidValue;
-#define PGT_LADDER_BWD(OS)                                                                   \
-  launch_all<OS>(x, al, qa, ki, dsc, ckpt, gy, gstate, gx, gstate_in, transfers, g_end, part, \
-                 T, C, K, os_n, pbg, mode_index, input_threshold, state_decay, stream)
+#define PGT_LADDER_BWD(OS, RW)                                                                 \
+  launch_all<OS, RW>(x, al, qa, ki, dsc, ckpt, gy, gstate, gx, gstate_in, transfers, g_end,   \
+                     part, steps, T, C, K, os_n, per, pbg, mode_index, input_threshold,       \
+                     state_decay, stream)
   cudaError_t err;
-  switch (os_n) {
-    case 1: err = PGT_LADDER_BWD(1); break;
-    case 2: err = PGT_LADDER_BWD(2); break;
-    case 4: err = PGT_LADDER_BWD(4); break;
-    default: err = PGT_LADDER_BWD(0);
+  if (rewalk) {
+    err = PGT_LADDER_BWD(0, true);
+  } else {
+    switch (os_n) {
+      case 1: err = PGT_LADDER_BWD(1, false); break;
+      case 2: err = PGT_LADDER_BWD(2, false); break;
+      case 4: err = PGT_LADDER_BWD(4, false); break;
+      default: err = PGT_LADDER_BWD(0, false);
+    }
   }
 #undef PGT_LADDER_BWD
   if (err != cudaSuccess) return (int)err;

@@ -13,6 +13,7 @@ import torch
 from pygmu2_tpu_torch.core import prec
 from pygmu2_tpu_torch.core.extent import Extent
 from pygmu2_tpu_torch.core.processing_element import ProcessingElement
+from pygmu2_tpu_torch.ops import xla_math
 from pygmu2_tpu_torch.ops.phase import prefix_sum, wrapped_phase_accum
 
 TWO_PI = 6.283185307179586476925287
@@ -81,9 +82,11 @@ class SinePE(ProcessingElement):
         amp = ctx.param(self._amplitude, dtype=prec.AUDIO)[:, None]
 
         if not self._modulated():
-            # Closed-form wide phase, wrapped before the f32 cast.
+            # Closed-form wide phase, wrapped before the f32 cast. XLA makes
+            # the division by sr a product by 1 / sr and folds (2π f t) / sr
+            # into t times one constant.
             t = ctx.times(prec.WIDE)
-            phase = float(self._phase) + TWO_PI * float(self._frequency) * t / sr
+            phase = float(self._phase) + t * (TWO_PI * float(self._frequency) * (1.0 / sr))
             ph32 = torch.remainder(phase, TWO_PI).to(prec.AUDIO)
         else:
             freq = ctx.param(self._frequency, dtype=prec.WIDE)
@@ -109,10 +112,16 @@ class SinePE(ProcessingElement):
                 final = final + ph_in[-1]
             ctx.set_state(self, final)
 
-        samples = (amp * torch.sin(ph32[:, None])).to(prec.AUDIO)
+        # glibc's sinf, as XLA's CPU program calls it for jnp.sin (torch's
+        # float32 sin differs from it by an ulp in ~5 % of values)
+        sine = xla_math.sincosf(ph32[:, None])[0]
         if self._channels > 1:
-            samples = samples.repeat(1, self._channels)
-        return samples
+            sine = sine.repeat(1, self._channels)
+        # a MixPE may add the product unrounded; XLA folds a product by a
+        # constant ±1 away
+        if isinstance(self._amplitude, ProcessingElement) or abs(float(self._amplitude)) != 1.0:
+            ctx.keep_factors(amp, sine)
+        return amp * sine
 
     def __repr__(self) -> str:
         def s(p):

@@ -48,10 +48,32 @@ CHECKPOINT_EVERY = 32
 _MAX_SHARED = 232448  # bytes of shared memory a CUDA block may use
 
 
-def _bwd_shared_bytes(os_n: int, every: int) -> int:
-    """The backward kernel's shared memory: three chunks a CUDA block, each
-    (6 os_n + 7) floats a sample (csrc/ladder_scan_bwd.cu, item_floats)."""
-    return 3 * ((every * (6 * os_n + 7)) | 1) * 4
+def _bwd_shared_bytes(os_n: int, every: int, per: int = 3, rewalk: bool = False,
+                      steps_global: bool = False) -> int:
+    """The backward kernel's shared memory (csrc/ladder_scan_bwd.cu,
+    item_floats): ``per`` chunks a CUDA block, each (6 os_n + 7) floats a
+    sample; with ``rewalk`` 16 floats a sample (its inputs and entering
+    state) and one sample's steps, 6 os_n floats, unless those are in
+    device memory (``steps_global``)."""
+    if rewalk:
+        item = every * 16 + (0 if steps_global else 6 * os_n)
+    else:
+        item = every * (6 * os_n + 7)
+    return per * (item | 1) * 4
+
+
+def _bwd_layout(os_n: int, every: int) -> tuple[int, bool, bool]:
+    """The backward kernel's layout, (chunks a CUDA block, rewalk,
+    steps_global): the first that fits in shared memory of three chunks
+    keeping their steps (os_n up to 99 at 32 samples a chunk), one chunk
+    keeping them (to 301), three chunks re-walking each sample's steps from
+    its entering state (to ~3100), one (to ~9600), and past that one chunk
+    with a sample's steps in device memory. Every layout gives the same
+    bits."""
+    for per, rewalk in ((3, False), (1, False), (3, True), (1, True)):
+        if _bwd_shared_bytes(os_n, every, per, rewalk) <= _MAX_SHARED:
+            return per, rewalk, False
+    return 1, True, True
 
 
 _C1, _C2 = 0.76923077, 0.23076923  # the stages' trapezoidal weights
@@ -312,6 +334,33 @@ def ladder_scan_bwd_chunked(x, al, qa, ki, dsc, state, gy, gstate, checkpoints=N
 
     On the card the kernel equals this bit for bit (torch's CUDA tanh is
     tanhf); on the CPU torch's tanh rounds otherwise."""
+    gx, parts, gstate_in = ladder_scan_bwd_parts(
+        x, al, qa, ki, dsc, state, gy, gstate, checkpoints, every=every, os_n=os_n, pbg=pbg,
+        mode_index=mode_index, input_threshold=input_threshold, state_decay=state_decay)
+    return (gx, *channel_sums(parts), gstate_in)
+
+
+def channel_sums(parts, lo: int = 0, hi: int | None = None):
+    """The columns' cotangents: ``parts`` (4, T, C) summed over channels
+    ``lo`` to ``hi`` in channel order, from zero (csrc/channel_sum.cuh's
+    order)."""
+    hi = parts.shape[2] if hi is None else hi
+    cols = []
+    for part in parts:
+        acc = torch.zeros(part.shape[0], dtype=torch.float32, device=part.device)
+        for c in range(lo, hi):
+            acc = acc + part[:, c]
+        cols.append(acc)
+    return cols
+
+
+def ladder_scan_bwd_parts(x, al, qa, ki, dsc, state, gy, gstate, checkpoints=None, *,
+                          every=CHECKPOINT_EVERY, os_n, pbg, mode_index, input_threshold,
+                          state_decay):
+    """:func:`ladder_scan_bwd_chunked` before its channel sum: (gx (T, C),
+    the columns' per-channel parts (4, T, C), gstate_in (9, C)). Channels
+    are independent but for that sum, so calls that share their columns
+    can run as one, each summing its own channels (:func:`channel_sums`)."""
     kw = dict(os_n=os_n, pbg=pbg, input_threshold=input_threshold, state_decay=state_decay)
     T, C = x.shape
     dev = x.device
@@ -355,13 +404,7 @@ def ladder_scan_bwd_chunked(x, al, qa, ki, dsc, state, gy, gstate, checkpoints=N
     g_start, gx, parts = _adjoint(list(g_end.unbind(1)), gys, decays, steps, xs, cs, valid,
                                   **adj, lanes=False)
     gx = gx.reshape(n * every, C)[:T]
-    cols = []
-    for part in parts.reshape(4, n * every, C)[:, :T]:
-        acc = torch.zeros(T, dtype=torch.float32, device=dev)
-        for c in range(C):  # csrc/channel_sum.cuh's order
-            acc = acc + part[:, c]
-        cols.append(acc)
-    return (gx, *cols, torch.stack([v[0] for v in g_start]))
+    return gx, parts.reshape(4, n * every, C)[:, :T], torch.stack([v[0] for v in g_start])
 
 
 # ---- the launches ----
@@ -403,9 +446,11 @@ def _launch_recorded(*args, **kw):
 
 
 def _launch_bwd(x, al, qa, ki, dsc, ckpt, gy, gstate, *, os_n, pbg, mode_index,
-                input_threshold, state_decay, every=CHECKPOINT_EVERY):
+                input_threshold, state_decay, every=CHECKPOINT_EVERY, layout=None):
     """The backward kernel's launches on checkpoints written every
-    ``every`` samples: (gx, gal, gqa, gki, gdsc, gstate_in)."""
+    ``every`` samples: (gx, gal, gqa, gki, gdsc, gstate_in). ``layout``
+    (chunks a CUDA block, rewalk, steps_global) overrides
+    :func:`_bwd_layout`'s choice (tests: every layout gives the same bits)."""
     dev = x.device
     if x.dim() != 2 or x.shape[0] < 1 or x.shape[1] < 1:
         raise ValueError(f"x must be (T, C) with T, C >= 1, got {tuple(x.shape)}")
@@ -416,10 +461,12 @@ def _launch_bwd(x, al, qa, ki, dsc, ckpt, gy, gstate, *, os_n, pbg, mode_index,
     gy = _ext.checked(gy, "gy", (T, C), dev)
     ckpt = _ext.checked(ckpt, "checkpoints", (n, 9, C), dev)
     gstate = _ext.checked(gstate, "gstate", (9, C), dev)
-    if os_n < 1 or _bwd_shared_bytes(os_n, every) > _MAX_SHARED or mode_index not in range(6):
-        raise ValueError(f"unsupported os_n={os_n} (the backward kernel keeps a chunk's "
-                         f"steps in shared memory: os_n up to 99 at {CHECKPOINT_EVERY} "
-                         f"samples a chunk) mode_index={mode_index}")
+    if os_n < 1 or mode_index not in range(6):
+        raise ValueError(f"unsupported os_n={os_n} mode_index={mode_index}")
+    per, rewalk, steps_global = layout or _bwd_layout(os_n, every)
+    if _bwd_shared_bytes(os_n, every, per, rewalk, steps_global) > _MAX_SHARED:
+        raise ValueError(f"layout {(per, rewalk, steps_global)} exceeds shared memory at "
+                         f"os_n={os_n}")
     gx = torch.empty((T, C), dtype=torch.float32, device=dev)
     gcols = torch.empty((4, T), dtype=torch.float32, device=dev)
     gstate_in = torch.empty((9, C), dtype=torch.float32, device=dev)
@@ -429,12 +476,16 @@ def _launch_bwd(x, al, qa, ki, dsc, ckpt, gy, gstate, *, os_n, pbg, mode_index,
     transfers = torch.empty((max(n - 1, 1), C, 96), dtype=torch.float32, device=dev)
     g_end = torch.empty((max(n - 1, 1), 9, C), dtype=torch.float32, device=dev)
     part = torch.empty((4, T, C), dtype=torch.float32, device=dev)
+    # past shared memory, a sample's steps: a slice of 6 os_n floats an item
+    steps = (torch.empty((n * C, 6 * os_n), dtype=torch.float32, device=dev)
+             if steps_global else None)
     lib = _ext.load()
     with torch.cuda.device(dev):
         err = lib.ladder_scan_bwd_launch(
             x.data_ptr(), *(c.data_ptr() for c in cols), ckpt.data_ptr(), gy.data_ptr(),
             gstate.data_ptr(), gx.data_ptr(), gcols.data_ptr(), gstate_in.data_ptr(),
-            transfers.data_ptr(), g_end.data_ptr(), part.data_ptr(), T, C, every, os_n,
+            transfers.data_ptr(), g_end.data_ptr(), part.data_ptr(),
+            steps.data_ptr() if steps_global else None, T, C, every, os_n, per, int(rewalk),
             float(pbg), mode_index, float(input_threshold), float(state_decay),
             torch.cuda.current_stream(dev).cuda_stream,
         )

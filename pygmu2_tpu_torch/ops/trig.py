@@ -15,6 +15,7 @@ import math
 import torch
 
 from pygmu2_tpu_torch.core import prec
+from pygmu2_tpu_torch.ops import xla_math
 
 
 def sinpi_folded(x):
@@ -28,7 +29,7 @@ def sinpi_folded(x):
     r = (x - k).to(prec.AUDIO)
     # (−1)^k without integer conversion: k mod 2 ∈ {0, 1} exactly.
     sign = (1.0 - 2.0 * torch.remainder(k, 2.0)).to(prec.AUDIO)
-    return sign * torch.sin(math.pi * r)
+    return sign * xla_math.sincosf(math.pi * r)[0]  # glibc's sinf, as XLA's jnp.sin
 
 
 def dirichlet_blit(phase, m, P):

@@ -7,8 +7,9 @@ PyTorch versions) block by block through
 :func:`pygmu2_tpu_torch.core.engine.render_scan`. ``play`` streams a graph
 through :class:`~pygmu2_tpu_torch.core.audio_renderer.AudioRenderer`
 (rendered on ``device``), and ``play_offline`` renders to a WAV file and
-plays that back. The JAX package's ``browse`` (a jog/shuttle player in a
-separate process) has no counterpart yet.
+plays that back. ``browse`` renders to a WAV file and opens it in the
+port's jog/shuttle player (:mod:`pygmu2_tpu_torch.utils.jogshuttle`) in a
+separate process.
 """
 
 from __future__ import annotations
@@ -129,3 +130,36 @@ def play_offline(
             os.remove(tmp_path)
         except FileNotFoundError:
             pass
+
+
+def browse(
+    source: ProcessingElement,
+    sample_rate: int | None = None,
+    path: str | None = None,
+    *,
+    device="cuda",
+) -> None:
+    """Render to a WAV file on ``device`` and open it in the jog/shuttle
+    player, ``python -m pygmu2_tpu_torch.utils.jogshuttle`` (a separate
+    process; returns at once). With ``path=None`` the player deletes its
+    temp file when it closes."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    sr = _resolve_sample_rate(sample_rate)
+    extent = source.extent()
+    if extent.start is None or extent.end is None:
+        raise RuntimeError("Cannot browse: source has infinite extent.")
+
+    delete_on_close = path is None
+    if path is None:
+        fd, path = tempfile.mkstemp(suffix=".wav")
+        os.close(fd)
+    path = str(Path(path).resolve())
+    render_to_file(source, path, sample_rate=sr, extent=extent, device=device)
+
+    cmd = [sys.executable, "-m", "pygmu2_tpu_torch.utils.jogshuttle", path]
+    if delete_on_close:
+        cmd.append("--delete-on-close")
+    subprocess.Popen(cmd)

@@ -770,6 +770,32 @@ def test_ladder_backward_kernel_equals_chunked_order(cuda, T, C, os_n, mode):
         assert torch.equal(g, w), f"output {i} off by {float((g - w).abs().max())}"
 
 
+@pytest.mark.parametrize("T,C,os_n,layout", [
+    (1024, 1, 99, None), (1024, 4, 100, None), (1024, 1, 128, None), (256, 4, 320, None),
+    (256, 4, 320, (1, True, False)), (96, 3, 320, (1, True, True)),
+    (200, 33, 100, (3, True, False)), (70, 2, 7, (1, False, False))])
+def test_ladder_backward_past_shared_memory_equals_chunked_order(cuda, T, C, os_n, layout):
+    """Past os_n = 99 a chunk's steps do not fit three to a CUDA block:
+    one chunk a block keeps them to os_n = 301, then each sample's steps
+    are re-walked from its entering state, in shared memory or (forced
+    here, past ~9600 by default) in device memory. Every layout bit for bit
+    with ``ladder_scan_bwd_chunked``, two launches the same bits."""
+    from pygmu2_tpu_torch.ops import ladder
+
+    args, gy, gs, kw = _ladder_bwd_case(cuda, T, C, os_n, os_n % 6, T + os_n)
+    ckpt = ladder._launch(*args, **kw, checkpoints=True)[2]
+    before = ladder.ladder_scan_bwd.launches
+    got = (ladder.ladder_scan_bwd(*args, gy, gs, ckpt, **kw) if layout is None
+           else ladder._launch_bwd(*args[:5], ckpt, gy, gs, **kw, layout=layout))
+    again = ladder._launch_bwd(*args[:5], ckpt, gy, gs, **kw, layout=layout)
+    want = ladder.ladder_scan_bwd_chunked(*args, gy, gs, ckpt, **kw)
+    torch.cuda.synchronize()
+    assert ladder.ladder_scan_bwd.launches == before + 2
+    for i, (g, a, w) in enumerate(zip(got, again, want)):
+        assert torch.equal(g, a), f"output {i}: two launches differ"
+        assert torch.equal(g, w), f"output {i} off by {float((g - w).abs().max())}"
+
+
 @pytest.mark.parametrize("T,C,freq,sf", [(300, 23, 220.0, -1.0), (300, 1, "sweep", 230.0),
                                          (40, 23, "sweep", 230.0), (300, 23, 8000.0, 8000.0)])
 def test_comb_backward_kernel_matches_plain(cuda, T, C, freq, sf):

@@ -162,13 +162,14 @@ def test_streaming_synth_on_a_missing_card_raises():
 
 
 def test_port_exports_cover_the_jax_package():
-    """Every public name of the JAX package but ``browse`` (its player is
-    not ported yet) is exported by the port, and resolves."""
+    """Every public name of the JAX package is exported by the port
+    (``browse`` since its player became a module of the port), and
+    resolves."""
     import pygmu2_tpu
     import pygmu2_tpu_torch
 
     missing = set(pygmu2_tpu.__all__) - set(pygmu2_tpu_torch.__all__)
-    assert missing == {"browse"}
+    assert missing == set()
     assert len(set(pygmu2_tpu_torch.__all__)) == len(pygmu2_tpu_torch.__all__)
     for name in pygmu2_tpu_torch.__all__:
         assert hasattr(pygmu2_tpu_torch, name), name

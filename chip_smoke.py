@@ -61,7 +61,8 @@ Drives the port's main paths through their user entry points:
    feedback, 64-sample (min_block) blocks, and a call that starts
    mid-period with a previous block and a pitch line of noise. At the
    main path's block, T = 16384, on the arguments that are timed (the string at
-   L = 535 and 133; the follower and the echo at C in {1, 128}, the echo
+   L = 535 and 133, its per-sample order's plain loop run on the host on
+   copies of the card's arguments; the follower and the echo at C in {1, 128}, the echo
    replaying a 0.3 s block from its first sample; the slew limiter in
    both modes), each is held to its plain version again and timed (CUDA
    events, mean of 10 after a warm-up; the plain version's one call),
@@ -187,7 +188,8 @@ Drives the port's main paths through their user entry points:
    1100 Hz and 0.45: the loss must fall; per step the wall time, the
    device span (CUDA events), the launches (27 of each kernel) and the
    peak memory; one T = 16384 launch of each backward kernel against
-   autograd of its plain version (on the host, in a second process).
+   autograd of its plain version (on the host, in a second process that
+   runs on beside phases 16 and 17; its results are checked after them).
    (c) The fit bank, 2 s of 128 channels at block 16384 (6 blocks), 3
    Adam steps on the BiquadPE's and the SVFilterPE's sweep centres: 12
    launches of the scan's backward a step, the loss must fall, one
@@ -361,8 +363,12 @@ LADDER_OPS = 82
 COMB_OPS_SAMPLE, COMB_OPS_CHANNEL = 13, 2
 # ADSR per sample: current value 6, edge logic 6, segment step 18
 ADSR_OPS = 30
+# the clock branch a sample: the trigger read, the envelope written (the
+# state, 20 bytes, in and out); a float64 add, a compare and a conversion
+CLOCK_BYTES_SAMPLE, CLOCK_BYTES_STATE, CLOCK_OPS = 8, 40, 3
 # Karplus-Strong per sample: two-point average 3, allpass 4
 KS_OPS = 7
+CHAIN_LS = (535, 401, 300, 225, 178, 133)  # the chain's six strings at 44.1 kHz
 # envelope follower per (sample, channel): compare, subtract, multiply, add
 ENV_OPS = 4
 # slew limiter per sample: subtract, clamp (2) or compare and multiply, add
@@ -462,7 +468,9 @@ def main() -> None:
         print_ok()
         return
     if only_training:
-        training(dev, card)
+        with contextlib.ExitStack() as keep:
+            _, host_checks = training(dev, card, keep)
+            host_checks()
         print_ok()
         return
     if only_chain:
@@ -642,31 +650,46 @@ def main() -> None:
     print(f"3 s chord, small font, pipeline=4: {n_piped} kernel launches; max abs err vs the "
           f"one-pass render {err:.3g}")
 
-    serial = serial_kernels(dev, card, device_ms)
-    pe_launches = pe_graph(dev, card)
-    serial.update(fx_kernels(dev, card, device_ms))
-    pe_launches.update(fx_graph(dev, card))
-    serial.update(scan_kernels(dev, card, device_ms))
-    pe_launches.update(filter_graph(dev, card))
-    pe_launches.update(high_score(dev, card, device_ms))
-    stream = streaming_synth(dev, card)
+    print(f"phases 1-4 took {time.perf_counter() - t0:.1f} s")
+
+    def phase(n, fn, *args):
+        """Phase n, its seconds printed."""
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {n} took {time.perf_counter() - t:.1f} s "
+              f"({time.perf_counter() - t0:.1f} s since the build began)")
+        return out
+
+    serial = phase(5, serial_kernels, dev, card, device_ms)
+    pe_launches = phase(6, pe_graph, dev, card)
+    serial.update(phase(7, fx_kernels, dev, card, device_ms))
+    pe_launches.update(phase(8, fx_graph, dev, card))
+    serial.update(phase(9, scan_kernels, dev, card, device_ms))
+    pe_launches.update(phase(10, filter_graph, dev, card))
+    pe_launches.update(phase(11, high_score, dev, card, device_ms))
+    stream = phase(12, streaming_synth, dev, card)
     pe_launches["affine_scan_2"] += stream["affine_scan_2"]
-    pe_launches["envelope_ar_scan"] += studio(dev, card, studio_inputs)["envelope_ar_scan"]
-    for name, n in perform(dev, card).items():
+    pe_launches["envelope_ar_scan"] += phase(13, studio, dev, card,
+                                             studio_inputs)["envelope_ar_scan"]
+    for name, n in phase(14, perform, dev, card).items():
         pe_launches[name] += n
-    backward = training(dev, card)
-    backward += training_chain(dev, card)
-    string_entries, string_launches = training_string_vmap(dev, card)
+    # phase 15's host processes run on beside phases 16 and 17 (the plain
+    # ladder's autograd at T = 16384 takes 70-90 s); its checks end after them
+    with contextlib.ExitStack() as keep:
+        backward, host_checks = phase(15, training, dev, card, keep)
+        backward += phase(16, training_chain, dev, card)
+        string_entries, string_launches = phase(17, training_string_vmap, dev, card)
+        phase("15's host checks", host_checks)
     backward += string_entries
     for name, n in string_launches.items():
         pe_launches[name] += n
     osc_entries[0]["launches"] += stream["osc_filter_gain_mix"]  # the small font's
-    for name, n in sharded(dev, card).items():
+    for name, n in phase(18, sharded, dev, card).items():
         if name.startswith("osc_"):
             next(e for e in osc_entries if e["name"] == name)["launches"] += n
         else:
             pe_launches[name] += n
-    ladder_past, more, ladder_bwd_at_99 = examples_and_players(dev, card)
+    ladder_past, more, ladder_bwd_at_99 = phase(19, examples_and_players, dev, card)
     for name, n in more.items():
         pe_launches[name] = pe_launches.get(name, 0) + n
     next(e for e in backward if e["name"] == "ladder_scan_bwd")["launches"] += ladder_bwd_at_99
@@ -1029,15 +1052,79 @@ def serial_kernels(dev, card, device_ms) -> dict:
         print(f"adsr_scan T={BLOCK} {what}: kernel {times[what][0]:.4f} ms (CUDA events over "
               f"calls: {times[what][2]:.4f} ms)"
               + (f", plain {plain:.1f} ms" if plain is not None else "") + f" [{card}]")
-    args = clock_args(BLOCK, 0, 0.0, 0)
-    kw = dict(adsr_kw, t0=0, sustain_samples=0)
-    ref, clock_plain = timed_plain(lambda: adsr.adsr_clock_scan_ref(*args, **kw))
-    got = adsr.adsr_clock_scan(*args, **kw)
-    errs.append(compare("adsr_clock_scan", [got[0], *got[1]], [ref[0], *ref[1]], 0.0,
-                        f"sustain_samples=0 T={BLOCK}"))
-    clock_ms = device_ms(lambda: adsr.adsr_clock_scan(*args, **kw), 10)
-    print(f"adsr_clock_scan T={BLOCK}: kernel {clock_ms:.4f} ms, plain {clock_plain:.1f} ms "
-          f"[{card}]")
+    # the clock kernel's two walks at the main path's block, each input on
+    # the walk its trigger count picks and forced onto the other: a pluck's
+    # four triggers (the run walk: tens of runs), a trigger every 97 samples
+    # (hundreds of runs), a gate held high (a trigger every sample: the
+    # per-sample walk); from IDLE and mid-sustain, sustains of 0 and
+    # 2**24 - 1 samples; float32, float64 and int64 bits as the plain loop's
+    def clock_trig(kind):
+        g = torch.zeros(BLOCK, device=dev)
+        if kind == "four triggers":
+            g[[10, 5000, 9000, 15000]] = 1.0
+        elif kind == "a trigger every 97 samples":
+            g[::97] = 0.5
+        else:
+            g[:] = 1.0
+        return g
+
+    clock_kinds = ("four triggers", "a trigger every 97 samples", "a trigger every sample")
+    clock_times, dense_above = {}, adsr.CLOCK_DENSE_ABOVE
+    for kind in clock_kinds:
+        g = clock_trig(kind)
+        for S, state in ((0, (0, 0.0, 0)), (1 << 24, (3, 0.6, 5000 + 700))):
+            kw = dict(adsr_kw, t0=5000, sustain_samples=S - 1 if S else 0)
+            args = (g, torch.full((), state[0], dtype=torch.int32, device=dev),
+                    torch.full((), state[1], dtype=torch.float64, device=dev),
+                    torch.full((), state[2], dtype=torch.int64, device=dev))
+            ref = adsr.adsr_clock_scan_ref(*args, **kw)
+            for walk, above in (("as chosen", dense_above), ("run walk", 1 << 30),
+                                ("per-sample walk", -1)):
+                adsr.CLOCK_DENSE_ABOVE = above
+                try:
+                    got = adsr.adsr_clock_scan(*args, **kw)
+                    torch.cuda.synchronize()
+                finally:
+                    adsr.CLOCK_DENSE_ABOVE = dense_above
+                errs.append(compare("adsr_clock_scan", [got[0], *got[1]], [ref[0], *ref[1]],
+                                    0.0, f"{kind}, sustain {kw['sustain_samples']}, {walk}"))
+                check(torch.equal(got[0].view(torch.int32), ref[0].view(torch.int32))
+                      and torch.equal(got[1][1].view(torch.int64), ref[1][1].view(torch.int64)),
+                      f"adsr_clock_scan {kind} ({walk}): not bit for bit")
+        args = (g, torch.zeros((), dtype=torch.int32, device=dev),
+                torch.zeros((), dtype=torch.float64, device=dev),
+                torch.zeros((), dtype=torch.int64, device=dev))
+        kw = dict(adsr_kw, t0=0, sustain_samples=0)
+        ref, plain = timed_plain(lambda: adsr.adsr_clock_scan_ref(*args, **kw))
+        clock_times[kind] = (kernel_ms(lambda: adsr.adsr_clock_scan(*args, **kw), "adsr_clock"),
+                             device_ms(lambda: adsr.adsr_clock_scan(*args, **kw), 10), plain)
+        print(f"adsr_clock_scan T={BLOCK} {kind} ({int((g > 0).sum())} triggers, from IDLE, "
+              f"sustain 0): kernel alone {clock_times[kind][0]:.4f} ms (CUDA events over calls "
+              f"{clock_times[kind][1]:.4f} ms), plain {plain:.1f} ms [{card}]")
+    clock_ms, clock_events_ms, clock_plain = clock_times["four triggers"]
+    # the clock branch on a driven path: AdsrTriggeredPE with a sustain of 0
+    # samples (a pluck) through render_to_array on the card, against the
+    # port's CPU render bit for bit; its launches counted from 0
+    import pygmu2_tpu_torch as pg
+
+    def pluck():
+        return pg.CropPE(pg.AdsrTriggeredPE(pg.PeriodicTrigger(hz=7.0), 0.004, 0.02, 0.0,
+                                            0.6, 0.03), 0, 3 * BLOCK)
+
+    pg.set_sample_rate(SR)
+    adsr.adsr_clock_scan.launches = 0  # the clock's driven path starts here
+    on_card = pg.render_to_array(pluck(), device=dev)
+    clock_launches = adsr.adsr_clock_scan.launches
+    check(clock_launches == 3, f"AdsrTriggeredPE(sustain_time=0): {clock_launches} clock "
+          "launches for 3 blocks")
+    on_cpu = pg.render_to_array(pluck(), device="cpu")
+    check(np.abs(on_cpu).max() == 1.0 and np.array_equal(on_card.view(np.int32),
+                                                          on_cpu.view(np.int32)),
+          "AdsrTriggeredPE(sustain_time=0): the card's render is not the CPU's bit for bit")
+    print(f"AdsrTriggeredPE(sustain_time=0), 3 blocks of {BLOCK}: {clock_launches} clock "
+          f"launches, bit for bit with the port's CPU render [{card}]")
+    clock_bound, clock_by = bound(CLOCK_BYTES_SAMPLE * BLOCK + CLOCK_BYTES_STATE,
+                                  CLOCK_OPS * BLOCK)
     ms_bound, by = bound(4 * (2 * BLOCK + 8), ADSR_OPS * BLOCK)
     ms, plain, events_ms = times["the patch's gate"]
     out["adsr_scan"] = {
@@ -1049,7 +1136,12 @@ def serial_kernels(dev, card, device_ms) -> dict:
         "ms_many_edges": times["many edges"][0],
         "ms_every_sample": times["an edge every sample"][0],
         "events_ms": events_ms,
-        "clock_ms": clock_ms, "clock_plain_ms": clock_plain,
+        "clock_ms": clock_ms, "clock_plain_ms": clock_plain, "clock_events_ms": clock_events_ms,
+        "clock_ms_many": clock_times["a trigger every 97 samples"][0],
+        "clock_ms_every_sample": clock_times["a trigger every sample"][0],
+        "clock_bound_ms": clock_bound, "clock_bound_by": clock_by,
+        "clock_launches": clock_launches,
+        "clock_replaces": "pygmu2_tpu/models/envelopes.py:420 (AdsrTriggeredPE's lax.scan)",
     }
     return out
 
@@ -1222,12 +1314,23 @@ def fx_kernels(dev, card, device_ms) -> dict:
         cut = 100 + (3 if 100 + 3 * w < T else 1) * w
         got, ref = handoff(ks.ks_scan, ks.ks_scan_ref, args, cut, 4, kw)
         errs.append(compare("ks_scan", got, ref, 0.0, f"L={L} two-call hand-off at {cut}"))
-    ms_133_serial, _ = timed("ks_scan", ks.ks_scan, ks.ks_scan_ref,
-                             ks_args(BLOCK, 133, seed=2), dict(L=133, allpass_c=0.35), 0.0,
-                             "L=133 (per-sample order)", errs)
-    ms_serial, plain_serial = timed("ks_scan", ks.ks_scan, ks.ks_scan_ref,
-                                    ks_args(BLOCK, 535, seed=1), dict(L=535, allpass_c=0.35),
-                                    0.0, "L=535 (per-sample order)", errs)
+    # the per-sample order at the main path's block (the string fit's
+    # L = 535, and 133), bit for bit with its plain loop run on the host on
+    # copies of the same arguments (~2.5 s there, ~12 s on the card), then
+    # timed
+    serial, plain_host = {}, {}
+    for L in (133, 535):
+        args, kw = ks_args(BLOCK, L, seed=1 if L == 535 else 2), dict(L=L, allpass_c=0.35)
+        t = time.perf_counter()
+        ref = ks.ks_scan_ref(*(a.cpu() for a in args), **kw)
+        plain_host[L] = (time.perf_counter() - t) * 1e3
+        got = ks.ks_scan(*_copies(args), **kw)
+        errs.append(compare("ks_scan", got, [r.to(dev) for r in ref], 0.0,
+                            f"L={L} T={BLOCK} act start (per-sample order; plain on the host)"))
+        serial[L] = device_ms(lambda: ks.ks_scan(*args, **kw), 10)
+        print(f"ks_scan T={BLOCK} L={L} (per-sample order): kernel {serial[L]:.4f} ms, plain "
+              f"on the host {plain_host[L]:.1f} ms [{card}]")
+    ms_133_serial, ms_serial = serial[133], serial[535]
 
     # the blocked order, every sample active (the chain's strings: the JAX
     # KarplusStrongPE's ks_blocked), bit for bit, with a hand-off mid-block
@@ -1237,16 +1340,28 @@ def fx_kernels(dev, card, device_ms) -> dict:
     def blocked_ref(rho, act, buf, r, ai, ao, **kw):
         return ks.ks_blocked_ref(rho, buf, r, ai, ao, **kw)
 
-    for L in (16, 133, 535, ks.MAX_KERNEL_L + 1):
+    # the chain's six strings (82.41-329.63 Hz: L = 535 .. 133), the shortest
+    # blocked string, and one past shared memory; each at its layout
+    # (ops/ks.blocked_layout: R rows a run, a cluster of CTAs)
+    for L in (16,) + CHAIN_LS + (ks.MAX_KERNEL_L + 1,):
         kw = dict(L=L, allpass_c=0.35)
         args = ks_args(T, L, seed=L + 7, act="all")
         err, _plain, _ref = held("ks_scan", blocked, blocked_ref, args, kw, 0.0,
-                                 f"blocked L={L} T={T}")
+                                 f"blocked L={L} T={T} layout {ks.launch_layout(L)}")
         errs.append(err)
         # blocks start at each call's first sample: two calls against two
         got, _ = handoff(blocked, None, args, 1000, 4, kw, ref=())
         ref, _ = handoff(blocked_ref, None, args, 1000, 4, kw, ref=())
         errs.append(compare("ks_scan", got, ref, 0.0, f"blocked L={L} two-call hand-off"))
+    # the blocked kernel alone (torch.profiler) at each chain string, beside
+    # CUDA events over calls; held to plain at 535 and 133 below
+    by_L = {}
+    for L in CHAIN_LS:
+        args, kw = ks_args(BLOCK, L, seed=L, act="all"), dict(L=L, allpass_c=0.35)
+        by_L[L] = (kernel_ms(lambda: blocked(*args, **kw), "ks_blocked"),
+                   device_ms(lambda: blocked(*args, **kw), 10))
+        print(f"ks_scan T={BLOCK} L={L} blocked (layout {ks.launch_layout(L)}): kernel alone "
+              f"{by_L[L][0]:.4f} ms, CUDA events over calls {by_L[L][1]:.4f} ms [{card}]")
     ms_133, plain_133 = timed("ks_scan", blocked, blocked_ref, ks_args(BLOCK, 133, seed=2, act="all"),
                               dict(L=133, allpass_c=0.35), 0.0, "L=133 blocked", errs)
     L, kw = 535, dict(L=535, allpass_c=0.35)
@@ -1263,7 +1378,11 @@ def fx_kernels(dev, card, device_ms) -> dict:
         4 * BLOCK + 4 * (2 * L + 6) + 8 * B, gemv_ops + 14 * BLOCK,
         f"T={BLOCK} L={L} C=1, every sample active (the blocked order)")
     out["ks_scan"].update(ms_L133=ms_133, plain_ms_L133=plain_133, ms_serial=ms_serial,
-                          plain_ms_serial=plain_serial, ms_serial_L133=ms_133_serial)
+                          ms_serial_L133=ms_133_serial, plain_host_ms_serial=plain_host[535],
+                          plain_host_ms_serial_L133=plain_host[133],
+                          blocked_alone_ms={str(k): v[0] for k, v in by_L.items()},
+                          blocked_events_ms={str(k): v[1] for k, v in by_L.items()},
+                          blocked_layouts={str(k): list(ks.launch_layout(k)) for k in CHAIN_LS})
 
     # ---- envelope follower: the wah's attack and release ----
     env_kw = dict(atk=1.0 - np.exp(-1.0 / (0.005 * SR)), rel=1.0 - np.exp(-1.0 / (0.08 * SR)))
@@ -1390,6 +1509,41 @@ def fx_kernels(dev, card, device_ms) -> dict:
     out["reverse_echo_scan"] = entry(
         "reverse_echo_scan.cu", "pygmu2_tpu/ops/reverse_echo_pallas.py:338", errs, *times[C],
         *echo_work(C), f"T={BLOCK} C={C} cap={cap}")
+
+    # the backward past a pitch line of 20225 rows (its readers' index in
+    # device memory; once refused): a recorded forward launch at a 20480-row
+    # line (2.15 Hz) and its backward, bit for bit with its order in torch
+    # ops, a second launch the same bits, within EFFECTS_BWD_TOL of the
+    # plain adjoint; C = 1 and 4 (16-byte pieces)
+    long_kw = dict(echo_kw, plen=20480)
+    long_errs = []
+    for C in (1, 4):
+        args = echo_args(T, C, seed=40 + C, block_s=0.01, alt=1.0, modulated=True)
+        x, blk, ratio, fb, alt, ba, bb, _pb, misc = args
+        (pb,) = _seeded(dev, 50 + C, (long_kw["plen"], C), lo=-0.3, hi=0.3)
+        y, _, _, _, _, *res = reverse_echo._launch(x, blk, ratio, fb, alt, ba.clone(),
+                                                   bb.clone(), pb, misc, **long_kw,
+                                                   residuals=True)
+        gy, gba, gbb, gpb, gm = _seeded(dev, 60 + C, (T, C), (cap, C), (cap, C),
+                                        (long_kw["plen"], C), (9,))
+        bwd_args = (x, blk, ratio, fb, alt, pb, misc, y, gy, gba, gbb, gpb, gm)
+        check(reverse_echo.index_in_device_memory(long_kw["plen"]), "the long line's index")
+        got = reverse_echo.reverse_echo_scan_bwd(*bwd_args, tuple(res), **long_kw)
+        again = reverse_echo.reverse_echo_scan_bwd(*bwd_args, tuple(res), **long_kw)
+        order = reverse_echo.reverse_echo_scan_bwd_periods(*bwd_args, tuple(res), **long_kw)
+        want = reverse_echo.reverse_echo_scan_bwd_ref(*bwd_args, **long_kw)
+        torch.cuda.synchronize()
+        for i, (g, a, o) in enumerate(zip(got, again, order)):
+            check(torch.equal(g, a), f"echo backward plen=20480 C={C}: output {i}, two launches")
+            check(torch.equal(g, o), f"echo backward plen=20480 C={C}: output {i} off its order "
+                  f"by {float((g - o).abs().max())}")
+        err = _check_bwd("reverse_echo_scan_bwd", _bwd_errors(list(got), want),
+                         f"plen=20480 C={C}", EFFECTS_BWD_TOL)
+        long_errs.append(err)
+        print(f"reverse_echo_scan_bwd T={T} C={C} plen=20480 (the index in device memory): bit "
+              f"for bit with reverse_echo_scan_bwd_periods, two launches the same bits, max abs "
+              f"err {err:.3g} off the plain adjoint [{card}]")
+    out["reverse_echo_scan"]["bwd_plen_20480_max_abs_err"] = max(long_errs)
     return out
 
 
@@ -2593,24 +2747,27 @@ def order_checks(bwd, rec_l, rec_c, what):
           f"same bits")
 
 
-def training(dev, card) -> list:
+def training(dev, card, keep: contextlib.ExitStack):
     """Phase 15: the training path, ``torch.autograd`` through
     ``render_functional`` with ParamPE bindings on the card; returns the
-    three backward kernels' JSON entries. Host work (the probe on the CPU,
-    the plain backward versions of two T = 16384 launches) runs in two
-    more processes while the card works; they are stopped on the way out,
-    whatever happens."""
+    three backward kernels' JSON entries and a function that checks the
+    plain backward versions of two T = 16384 launches on the host and
+    raises their errors into those entries. Host work (the probe on the
+    CPU, those plain versions) runs in two more processes while the card
+    works; ``keep`` stops them on its way out, whatever happens."""
     pool = concurrent.futures.ProcessPoolExecutor(
         2, mp_context=multiprocessing.get_context("spawn"))
-    try:
-        return _training(dev, card, pool)
-    finally:
+
+    def stop():
         for proc in list(getattr(pool, "_processes", {}).values()):
             proc.terminate()
         pool.shutdown(wait=True, cancel_futures=True)
 
+    keep.callback(stop)
+    return _training(dev, card, pool)
 
-def _training(dev, card, pool) -> list:
+
+def _training(dev, card, pool) -> tuple:
     import pygmu2_tpu_torch as pg
     from pygmu2_tpu_torch import fit_workload as fw
     from pygmu2_tpu_torch.core import engine
@@ -2858,14 +3015,6 @@ def _training(dev, card, pool) -> list:
                                   sum(v for k, v in scan_items.items()
                                       if "affine_scan_2" in k or "channel_sum" in k))
 
-    # ---- the host's results ----
-    for name, job in host_jobs.items():
-        got, secs = job.result()
-        T = patch_calls[name][0][0].shape[0]
-        errs[name] = max(errs[name], _check_bwd(name, got, f"fit patch launch (T={T})"))
-        print(f"fit patch: a {name} launch at T={T} against autograd of the plain version on "
-              f"the host ({secs:.1f} s): max abs err {max(e for e, _ in got):.3g} (largest "
-              f"plain cotangent {max(s for _, s in got):.3g})")
     cpu_loss, cpu_grads, cpu_s = cpu_job.result()
     for k, g in cpu_grads.items():
         rel = abs(grads[k].item() - g) / abs(g)
@@ -2973,7 +3122,21 @@ def _training(dev, card, pool) -> list:
     print(f"ladder_scan_bwd at T={fT} C=1 by checkpoint interval, launches alone: " + ", ".join(
         f"K={k} {v:.4f} ms" for k, v in by_k.items()) + f" [{card}]")
     print(f"training: phase took {time.perf_counter() - t0:.1f} s")
-    return entries
+
+    def host_checks():
+        """The host's plain backward versions of the fit patch's T = 16384
+        launches, their errors raised into the entries."""
+        for name, job in host_jobs.items():
+            got, secs = job.result()
+            T = patch_calls[name][0][0].shape[0]
+            err = _check_bwd(name, got, f"fit patch launch (T={T})")
+            entry = next(e for e in entries if e["name"] == name)
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            print(f"fit patch: a {name} launch at T={T} against autograd of the plain version "
+                  f"on the host ({secs:.1f} s): max abs err {max(e for e, _ in got):.3g} "
+                  f"(largest plain cotangent {max(s for _, s in got):.3g})")
+
+    return entries, host_checks
 
 
 # ---- 16. training through the effects chain ----

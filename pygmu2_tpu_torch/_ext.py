@@ -118,8 +118,8 @@ def load() -> ctypes.CDLL:
         # sustain_samples (-1: gated), stream
         "adsr_scan_launch": [p] * 5 + [i, f, f, f, f, i, p],
         # trig, stage_in, env_in, ends_in, y, stage_out, env_out, ends_out,
-        # T, t0, dA, dD, dR, sus, sustain_samples, stream
-        "adsr_clock_launch": [p] * 8 + [i, q, d, d, d, d, q, p],
+        # T, t0, dA, dD, dR, sus, sustain_samples, dense_above, stream
+        "adsr_clock_launch": [p] * 8 + [i, q, d, d, d, d, q, i, p],
         # rho, act, buf_in, r_in, ap_in_in, ap_out_in, y, buf_out, r_out,
         # ap_in_out, ap_out_out, idx, rho_c, T, L, allpass_c, stream
         "ks_scan_launch": [p] * 13 + [i, i, f, p],
@@ -127,8 +127,8 @@ def load() -> ctypes.CDLL:
         # gap_in, gap_out, idx, comp, ring_global, T, L, W, allpass_c, stream
         "ks_scan_bwd_launch": [p] * 16 + [i, i, i, f, p],
         # rho, buf_in, r_in, ap_in_in, ap_out_in, diag, powv, y, buf_out,
-        # r_out, ap_in_out, ap_out_out, T, L, B, allpass_c, stream
-        "ks_blocked_launch": [p] * 12 + [i, i, i, f, p],
+        # r_out, ap_in_out, ap_out_out, T, L, B, R, ncta, allpass_c, stream
+        "ks_blocked_launch": [p] * 12 + [i, i, i, i, i, f, p],
         # x, env0, env, env_final, T, C, atk, rel, stream
         "envelope_ar_scan_launch": [p] * 4 + [i, i, f, f, p],
         # x, cur_in, y, cur_out, T, linear, p_rise, p_fall, stream
@@ -147,9 +147,9 @@ def load() -> ctypes.CDLL:
         "adsr_clock_bwd_launch": [p] * 6 + [i, d, d, d, d, p],
         # x, fb, y, gy, tab, bounds, n_periods, gbuf_a, gbuf_b, gmisc, lam_a,
         # lam_b, pb_in, gpb_out, gline, gfb, gratio, gm, gp, gcs, gfb_part,
-        # gp_part, first, count, list, T, C, cap, plen, tile_cap, inv_half,
-        # decay, stream
-        "reverse_echo_scan_bwd_launch": [p] * 25 + [i, i, i, i, i, f, f, p],
+        # gp_part, first, count, list, rows (or null), T, C, cap, plen,
+        # tile_cap, inv_half, decay, stream
+        "reverse_echo_scan_bwd_launch": [p] * 26 + [i, i, i, i, i, f, f, p],
         # x, blk, ratio, fb, alt, buf_a, buf_b, pb_in, misc_in, y, pb_out,
         # misc_out, tab, bounds, n_periods, T, C, sr, plen, cap, min_block,
         # max_block, smooth_alpha, inv_plen, half, inv_half, stream

@@ -75,10 +75,9 @@
 // linear step in float64 (attack clips at 1, decay at sus, release at 0);
 // entering SUSTAIN from DECAY arms an absolute deadline, now +
 // sustain_samples, in int64 samples; SUSTAIN at now >= deadline becomes
-// RELEASE. One thread, float64 state in registers (the card's float64
-// adds are exact IEEE operations, as the plain version's Python floats).
-// It accumulates its envelope sample by sample, so the closed form above
-// does not apply to it.
+// RELEASE. It accumulates its envelope sample by sample in float64, so the
+// closed form above does not apply to it; its own design (runs within a
+// binade) is set out before it, below.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -453,48 +452,300 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-__global__ void adsr_clock(const float* __restrict__ trig,
-                           const int* __restrict__ stage_in,
-                           const double* __restrict__ env_in,
-                           const long long* __restrict__ ends_in,
-                           float* __restrict__ y, int* __restrict__ stage_out,
-                           double* __restrict__ env_out,
-                           long long* __restrict__ ends_out, int T, long long t0,
-                           double dA, double dD, double dR, double sus,
-                           long long sustain_samples) {
-  enum { kI = 0, kA = 1, kD = 2, kS = 3, kR = 4 };
-  int stage = *stage_in;
-  double env = *env_in;
-  long long ends = *ends_in;
-#pragma unroll 4
-  for (int t = 0; t < T; ++t) {
-    const long long now = t0 + t;
-    y[t] = __double2float_rn(env);
-    if (trig[t] > 0.0f) stage = kA;
-    double env2 = env;
-    int stage2 = stage;
-    if (stage == kI) {
-      env2 = 0.0;
-    } else if (stage == kA) {
-      env2 = __dadd_rn(env, dA);
-      if (env2 >= 1.0) { env2 = 1.0; stage2 = kD; }
-    } else if (stage == kD) {
-      env2 = __dadd_rn(env, dD);
-      if (env2 <= sus) { env2 = sus; stage2 = kS; }
-    } else if (stage == kS) {
-      env2 = sus;
-    } else {
-      env2 = __dadd_rn(env, dR);
-      if (env2 <= 0.0) { env2 = 0.0; stage2 = kI; }
-    }
-    if (stage == kD && stage2 == kS) ends = now + sustain_samples;
-    if (stage2 == kS && now >= ends) stage2 = kR;
-    stage = stage2;
-    env = env2;
+// ---- the absolute-clock machine ----
+//
+// What bounds it on this card: at the main path's block (T = 16384) it
+// moves 64 KB (0.02 us at 3.35 TB/s). The first design walked every sample
+// on one thread: a global load, a five-way branch and a dependent float64
+// add a sample, ~150 cycles (1.38 ms a block). But e <- fl(e + d) is
+// integer arithmetic within a binade: with u the ulp of the binade
+// [2^E, 2^(E+1)), every envelope there is m u (m an integer in
+// [2^52, 2^53)), and each update whose exact sum stays in the binade gives
+// (m + n) u, n = d / u rounded: the same n on every update, but where d / u
+// ends in exactly one half (a tie, to an even m), whose first update may
+// round the other way. So a ramp is a short list of runs, one or two a
+// binade crossed (tens a phase, not thousands of samples), each sample of a
+// run e0 + j delta, exact in float64; IDLE and SUSTAIN are flat runs.
+//
+// What the design does about it: one CUDA block of 512 threads, in tiles
+// of 8192 samples (the state after each tile enters the next):
+// A. all threads stage the tile's trigger into shared memory (16-byte
+//    loads where aligned) and compact the triggers' samples in order (the
+//    edge kernel's rows, ballots and prefix count);
+// B. thread 0 walks the events and the runs (ops/adsr.py:adsr_clock_runs,
+//    the same steps): at each trigger the attack restarts; a ramp's run
+//    starts where two updates agree (e1 - e0 = e2 - e1, the tie's first
+//    update taken alone), its length the integer bound of the binade (its
+//    results in [2^52 + 1, 2^53 - 1] u, rounded as in the binade whatever
+//    side of it the exact sum falls) and, in DECAY, of sus; the update
+//    that ends a run (a clip level reached, a binade left) is the plain
+//    version's own __dadd_rn; SUSTAIN's deadline (armed on entering it,
+//    expiring at now >= deadline) in int64 samples. It writes records
+//    (first sample, e0, delta) to shared memory, at most kClockRecords a
+//    walk (a tile may take several walks);
+// C. every sample from its record (a binary search a thread's four
+//    samples), __double2float_rn(e0 + j delta), into the staged tile,
+//    stored by 16-byte pieces.
+// A tile with more than dense_above triggers (a gate held high restarts
+// the attack every sample) is walked sample by sample by thread 0 from
+// the staged tile instead (the plain version's loop), its outputs written
+// over the triggers it has read. Every float64 op is the plain version's
+// or exact (a scaling by a power of two, a product and a sum whose result
+// is representable), so the kernel equals adsr_clock_scan_ref bit for bit.
+
+constexpr int kClockThreads = 512;
+constexpr int kClockWarps = kClockThreads / 32;
+constexpr int kClockTile = 8192;
+constexpr int kClockPer = kClockTile / kClockThreads;  // rows of a tile in pass A
+constexpr int kClockRecords = 2048;
+constexpr size_t kClockSmem = sizeof(float) * kClockTile + sizeof(int) * kClockTile +
+                              2 * sizeof(double) * kClockRecords + sizeof(int) * kClockRecords;
+enum { kCI = 0, kCA = 1, kCD = 2, kCS = 3, kCR = 4 };
+
+struct Clock {
+  double dA, dD, dR, sus;
+  long long ss;  // sustain_samples
+};
+
+// One update of the machine, its trigger applied, at absolute sample now:
+// the plain version's branches as selects (one thread walks it: a branch
+// would wait on its compare).
+__device__ __forceinline__ void clock_step(const Clock& p, int& st, double& e, long long& end,
+                                           long long now) {
+  const bool is_i = st == kCI, is_a = st == kCA, is_d = st == kCD, is_s = st == kCS;
+  const bool is_r = !(is_i || is_a || is_d || is_s);  // RELEASE, or any other code
+  const double e2 = __dadd_rn(e, is_a ? p.dA : (is_d ? p.dD : p.dR));
+  const bool hit = is_a ? e2 >= 1.0 : (is_d ? e2 <= p.sus : e2 <= 0.0);
+  double en = (is_a && hit) ? 1.0 : e2;
+  en = ((is_d && hit) || is_s) ? p.sus : en;
+  en = (is_i || (is_r && hit)) ? 0.0 : en;
+  int sn = (is_a && hit) ? kCD : st;
+  sn = (is_d && hit) ? kCS : sn;
+  sn = (is_r && hit) ? kCI : sn;
+  end = (is_d && hit) ? now + p.ss : end;  // entering SUSTAIN arms the deadline
+  st = (sn == kCS && now >= end) ? kCR : sn;
+  e = en;
+}
+
+// min(floor(a / b), cap) for 0 <= a, 0 < b < 2^53, 0 <= cap <= 2^14: a run
+// longer than its tile is cut there anyway, so only quotients below ~2^14
+// need their exact floor: a float reciprocal's estimate (within one of it)
+// corrected by integer products (q b <= a + 2b < 2^55)
+__device__ __forceinline__ long long floor_div_capped(long long a, long long b, long long cap) {
+  if ((double)a >= __dmul_rn((double)b, (double)(cap + 2))) return cap;  // a / b >= cap + 1
+  long long q = (long long)__fmul_rz((float)a, __frcp_rn((float)b));
+  while (q > 0 && q * b > a) --q;
+  while ((q + 1) * b <= a) ++q;
+  return min(q, cap);
+}
+
+// The samples a ramp starting at e emits on a steady run, at most limit
+// (ops/adsr.py:_ramp_run): n with sample j emitting e + j delta for j < n;
+// 1 (delta 0) where no run starts. The binade from e's bits: its exponent
+// field `top`, its integer significand m = 2^52 + the mantissa, and an
+// update's result in the binade and above its bottom (the run's bounds)
+// where it has the same field and a nonzero mantissa.
+__device__ long long ramp_run(const Clock& p, int st, double e, long long limit,
+                              double& delta) {
+  constexpr long long kMant = (1LL << 52) - 1;
+  delta = 0.0;
+  const long long be = __double_as_longlong(e);
+  const long long top = be >> 52;  // e > 0: the exponent field
+  if (limit < 2 || !(e > 0.0) || top >= 0x7ff || top < 22) return 1;  // near the subnormals
+  const double d = st == kCA ? p.dA : (st == kCD ? p.dD : p.dR);
+  const double e1 = __dadd_rn(e, d), e2 = __dadd_rn(e1, d);
+  const bool hit1 = st == kCA ? e1 >= 1.0 : (st == kCD ? e1 <= p.sus : e1 <= 0.0);
+  const bool hit2 = st == kCA ? e2 >= 1.0 : (st == kCD ? e2 <= p.sus : e2 <= 0.0);
+  const long long b1 = __double_as_longlong(e1), b2 = __double_as_longlong(e2);
+  if (hit1 || hit2 || (b1 >> 52) != top || (b2 >> 52) != top || !(b1 & kMant) || !(b2 & kMant))
+    return 1;
+  const long long m0 = (be & kMant) | (1LL << 52), m1 = (b1 & kMant) | (1LL << 52);
+  const long long m2 = (b2 & kMant) | (1LL << 52);
+  if (m2 - m1 != m1 - m0) return 1;
+  const long long n = m1 - m0;
+  if (n == 0) return limit;
+  // the steady updates a run may take, capped at limit - 1 (all it can use)
+  long long jmax = n > 0 ? floor_div_capped((1LL << 53) - 1 - m0, n, limit - 1)
+                         : floor_div_capped(m0 - (1LL << 52) - 1, -n, limit - 1);
+  const int ex = (int)top - 1022;  // e = f 2^ex, 0.5 <= f < 1
+  if (st == kCD && n < 0 && isfinite(p.sus)) {  // results above sus (sus below e: finite)
+    const double sq = floor(ldexp(p.sus, 53 - ex));
+    if (sq >= (double)m0) return 1;
+    if (sq >= 4503599627370496.0)  // in the binade; below it the binade's bound is the smaller
+      jmax = min(jmax, floor_div_capped(m0 - (long long)sq - 1, -n, limit - 1));
   }
-  *stage_out = stage;
-  *env_out = env;
-  *ends_out = ends;
+  // u = 2^(ex - 53), a subnormal below exponent field 53
+  const double u = __longlong_as_double(top > 52 ? (top - 52) << 52 : 1LL << (top - 1));
+  delta = __dmul_rn((double)n, u);  // exact
+  return min(limit, jmax + 1);
+}
+
+// Thread 0's walk of samples [s, n) of a tile (trigger values s_trig, their
+// samples s_ev[k..K)): records into s_start / s_v0 / s_dl; returns the
+// sample it stopped at (n, or where the records ran out).
+__device__ int clock_walk(const Clock& p, const float* s_trig, const int* s_ev, int K,
+                          int& k, int s, int n, long long t0, int& st, double& e,
+                          long long& end, int* s_start, double* s_v0, double* s_dl,
+                          int& nrec) {
+  nrec = 0;
+  while (s < n && nrec + 2 <= kClockRecords) {
+    if (s_trig[s] > 0.0f) st = kCA;
+    while (k < K && s_ev[k] <= s) ++k;
+    const int nt = k < K ? s_ev[k] : n;  // the next trigger
+    s_start[nrec] = s, s_v0[nrec] = e, s_dl[nrec++] = 0.0;
+    if (st == kCI) {
+      if (nt > s + 1) s_start[nrec] = s + 1, s_v0[nrec] = 0.0, s_dl[nrec++] = 0.0;
+      e = 0.0;
+      s = nt;
+    } else if (st == kCS) {
+      const long long x = max((long long)s, end - t0);  // the sample whose update expires
+      const int last = (int)min(x, (long long)nt - 1);
+      if (last > s) s_start[nrec] = s + 1, s_v0[nrec] = p.sus, s_dl[nrec++] = 0.0;
+      e = p.sus;
+      if (last == x) st = kCR;
+      s = last + 1;
+    } else {
+      double delta;
+      const long long len = ramp_run(p, st, e, nt - s, delta);
+      s_dl[nrec - 1] = delta;
+      e = __dadd_rn(e, __dmul_rn((double)(len - 1), delta));  // exact: the run's last
+      s += (int)len;
+      clock_step(p, st, e, end, t0 + s - 1);
+    }
+  }
+  return s;
+}
+
+__global__ void __launch_bounds__(kClockThreads, 1) adsr_clock(
+    const float* __restrict__ trig, const int* __restrict__ stage_in,
+    const double* __restrict__ env_in, const long long* __restrict__ ends_in,
+    float* __restrict__ y, int* __restrict__ stage_out, double* __restrict__ env_out,
+    long long* __restrict__ ends_out, int T, long long t0, double dA, double dD, double dR,
+    double sus, long long sustain_samples, int dense_above) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* s_trig = reinterpret_cast<float*>(smem);  // the tile's triggers, then its envelope
+  int* s_ev = reinterpret_cast<int*>(s_trig + kClockTile);  // the triggers' samples
+  double* s_v0 = reinterpret_cast<double*>(s_ev + kClockTile);  // per record
+  double* s_dl = s_v0 + kClockRecords;
+  int* s_start = reinterpret_cast<int*>(s_dl + kClockRecords);
+  __shared__ int s_rows[kClockPer * kClockWarps];
+  __shared__ int s_count, s_nrec, s_stop, s_st;
+  __shared__ double s_e;
+  __shared__ long long s_end;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const Clock p{dA, dD, dR, sus, sustain_samples};
+  if (tid == 0) s_st = *stage_in, s_e = *env_in, s_end = *ends_in;
+  const bool vec_in = (reinterpret_cast<uintptr_t>(trig) & 15) == 0;
+  const bool vec_out = (reinterpret_cast<uintptr_t>(y) & 15) == 0;
+
+  for (int base = 0; base < T; base += kClockTile) {
+    const int n = min(kClockTile, T - base);
+    // ---- A. stage the triggers; compact their samples ----
+    if (vec_in) {
+      for (int i = tid; i < n / 4; i += kClockThreads)
+        reinterpret_cast<float4*>(s_trig)[i] =
+            __ldg(reinterpret_cast<const float4*>(trig + base) + i);
+      for (int i = (n / 4) * 4 + tid; i < n; i += kClockThreads) s_trig[i] = trig[base + i];
+    } else {
+      for (int i = tid; i < n; i += kClockThreads) s_trig[i] = trig[base + i];
+    }
+    __syncthreads();
+    unsigned mine = 0, masks[kClockPer];
+#pragma unroll
+    for (int r = 0; r < kClockPer; ++r) {
+      const int j = r * kClockThreads + tid;
+      const bool ev = j < n && s_trig[j] > 0.0f;
+      masks[r] = __ballot_sync(0xffffffffu, ev);
+      if (lane == 0) s_rows[r * kClockWarps + warp] = __popc(masks[r]);
+      mine |= (unsigned)ev << r;
+    }
+    __syncthreads();
+    if (warp == 0) {  // the rows' exclusive prefix counts, in sample order
+      constexpr int kEach = kClockPer * kClockWarps / 32;
+      int v[kEach], sum = 0;
+#pragma unroll
+      for (int i = 0; i < kEach; ++i) sum += v[i] = s_rows[lane * kEach + i];
+      int incl = sum;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int u = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += u;
+      }
+      int run = incl - sum;
+#pragma unroll
+      for (int i = 0; i < kEach; ++i) s_rows[lane * kEach + i] = run, run += v[i];
+      if (lane == 31) s_count = incl;
+    }
+    __syncthreads();
+    const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+    for (int r = 0; r < kClockPer; ++r)
+      if (mine >> r & 1u)
+        s_ev[s_rows[r * kClockWarps + warp] + __popc(masks[r] & below)] = r * kClockThreads + tid;
+    const int K = s_count;
+    __syncthreads();
+
+    if (K > dense_above) {  // ---- one thread, every sample ----
+      if (tid == 0) {
+        int st = s_st;
+        double e = s_e;
+        long long end = s_end;
+        const long long now0 = t0 + base;
+#pragma unroll 8
+        for (int t = 0; t < n; ++t) {
+          const float g = s_trig[t];
+          s_trig[t] = __double2float_rn(e);
+          st = g > 0.0f ? kCA : st;
+          clock_step(p, st, e, end, now0 + t);
+        }
+        s_st = st, s_e = e, s_end = end;
+      }
+      __syncthreads();
+    } else {
+      int k = 0;  // thread 0's next trigger
+      for (int s = 0; s < n;) {
+        // ---- B. thread 0 walks the events and the runs ----
+        if (tid == 0) {
+          int st = s_st, nrec;
+          double e = s_e;
+          long long end = s_end;
+          s_stop = clock_walk(p, s_trig, s_ev, K, k, s, n, t0 + base, st, e, end, s_start,
+                              s_v0, s_dl, nrec);
+          s_nrec = nrec;
+          s_st = st, s_e = e, s_end = end;
+        }
+        __syncthreads();
+        // ---- C. every sample of [s, stop) from its record ----
+        const int stop = s_stop, nrec = s_nrec;
+        for (int j0 = s + 4 * tid; j0 < stop; j0 += 4 * kClockThreads) {
+          int lo = 0, hi = nrec - 1;  // the last record starting at or before j0
+          while (lo < hi) {
+            const int mid = (lo + hi + 1) >> 1;
+            if (s_start[mid] <= j0) lo = mid; else hi = mid - 1;
+          }
+          for (int j = j0; j < min(j0 + 4, stop); ++j) {
+            while (lo + 1 < nrec && s_start[lo + 1] <= j) ++lo;
+            const double dl = s_dl[lo];
+            const double v = dl == 0.0 ? s_v0[lo]
+                                       : __dadd_rn(s_v0[lo], __dmul_rn((double)(j - s_start[lo]), dl));
+            s_trig[j] = __double2float_rn(v);
+          }
+        }
+        __syncthreads();
+        s = stop;
+      }
+    }
+    // the tile's envelope out, 16-byte pieces where aligned
+    if (vec_out) {
+      for (int i = tid; i < n / 4; i += kClockThreads)
+        reinterpret_cast<float4*>(y + base)[i] = reinterpret_cast<const float4*>(s_trig)[i];
+      for (int i = (n / 4) * 4 + tid; i < n; i += kClockThreads) y[base + i] = s_trig[i];
+    } else {
+      for (int i = tid; i < n; i += kClockThreads) y[base + i] = s_trig[i];
+    }
+    __syncthreads();  // the next tile reuses the shared arrays
+  }
+  if (tid == 0) *stage_out = s_st, *env_out = s_e, *ends_out = s_end;
 }
 
 }  // namespace
@@ -530,18 +781,32 @@ int adsr_scan_launch(const float* gate, const float* state_in, float* env,
   return (int)cudaGetLastError();
 }
 
-// Enqueues one launch of the absolute-clock machine (one thread); returns
-// its cudaError_t. Device pointers: trig / y (T,) f32, stage () i32, env
-// () f64, ends () i64, in and out. t0: the absolute index of trig[0].
+// Enqueues one launch of the absolute-clock machine (one block of 512
+// threads); returns its cudaError_t. Device pointers: trig / y (T,) f32,
+// stage () i32, env () f64, ends () i64, in and out. t0: the absolute
+// index of trig[0]. A tile with more than dense_above triggers is walked
+// sample by sample (-1: every tile; a large value: none).
 int adsr_clock_launch(const float* trig, const int* stage_in,
                       const double* env_in, const long long* ends_in, float* y,
                       int* stage_out, double* env_out, long long* ends_out,
                       int T, long long t0, double dA, double dD, double dR,
-                      double sus, long long sustain_samples,
+                      double sus, long long sustain_samples, int dense_above,
                       cudaStream_t stream) {
-  adsr_clock<<<1, 1, 0, stream>>>(trig, stage_in, env_in, ends_in, y, stage_out,
-                                  env_out, ends_out, T, t0, dA, dD, dR, sus,
-                                  sustain_samples);
+  static unsigned long long opted_in;  // a bit per device: the attribute is set
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (!(opted_in & bit)) {
+    err = cudaFuncSetAttribute(adsr_clock, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kClockSmem);
+    if (err != cudaSuccess) return (int)err;
+    opted_in |= bit;
+  }
+  adsr_clock<<<1, kClockThreads, kClockSmem, stream>>>(trig, stage_in, env_in, ends_in, y,
+                                                       stage_out, env_out, ends_out, T, t0,
+                                                       dA, dD, dR, sus, sustain_samples,
+                                                       dense_above);
   return (int)cudaGetLastError();
 }
 

@@ -58,7 +58,10 @@
 // forming the next window take as long as the chain, ~16.4 cycles a
 // sample each, the barriers and each window's set-up in between.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -307,116 +310,347 @@ __global__ void __launch_bounds__(kThreads) ks_scan(
 //   out[j] = rho[j] * (W[j] + W[j + 1]) * 0.5
 //   u[0]   = fma(c, out[0], ap_in);  u[j] = c * out[j] + out[j - 1]
 //   ap[j]  = fma((-c)^(j+1), ap_out, sum_k (-c)^(j-k) u[k])
-// the sum in XLA's GEMV order: eight lanes (k mod 8, below B - B % 8) of
-// fused multiply-adds from 0, summed pairwise (rows below B - B % 8:
+// the sum in XLA's GEMV order: eight lanes (k mod 8, below K8 = B - B % 8)
+// of fused multiply-adds from 0, summed pairwise (rows below K8:
 // ((l0+l1)+(l2+l3))+((l4+l5)+(l6+l7)); the rest: ((l0+l4)+(l2+l6))+
 // ((l1+l5)+(l3+l7))), then the B % 8 last columns' fused multiply-adds
-// from 0 added. A term with k > j is a product by 0 and adds nothing, so
-// row j walks k <= j only. Then ap_in = out[B - 1], ap_out = ap[B - 1], and
-// the block's outputs become the string's newest B values.
+// from 0 added. A term with k > j is a product by 0: a chain that starts
+// at +0 and adds only such products and others stays as it is, so the
+// kernel may add more of them than the row has (ops/ks.ks_blocked_plan
+// holds that to ks_blocked_ref bit for bit). Then ap_in = out[B - 1],
+// ap_out = ap[B - 1], and the block's outputs become the string's newest B.
 //
-// The design: one CUDA block, a thread per row of the block (B <= 512), the
-// string in shared memory (or in buf_out beyond MAX_KERNEL_L), the diagonals
-// (-c)^d and (-c)^(j+1) in shared memory. Three barriers a block: the
-// averages, the u row, then every row's sum at once (row j: j + 1 fused
-// multiply-adds on eight independent chains). The sums read u and the
-// diagonals as 16-byte vectors, four terms a load: u is one broadcast row;
-// the diagonals are kept reversed in four copies shifted by one, so every
-// row's run of terms starts 16-byte aligned in one of them.
+// What bounds it on this card: one block's critical path. A block of 512
+// rows is ~131k multiply-adds, row j's eight chains ~j / 8 dependent each;
+// blocks are serial (block n + 1 reads what block n wrote whenever
+// 2B + 1 > L). On one SM the chains are bound by shared-memory loads: a
+// 32-lane scalar load costs a warp ~4.5 cycles of its SMSP's share of the
+// SM's 128 bytes a cycle (cycle_probe.py's microbenchmark, H100), so a step
+// of a run of R rows costs ~(min(R, 8) + 1) loads for R multiply-adds. A
+// small block is bound by its fixed costs instead (the barriers, the
+// butterflies, the outputs: ~1,500 cycles a block). The first design (a
+// thread a row, three barriers a block, the diagonals read per lane at
+// distinct offsets, the last warp 16x the first's work) took ~9.4k cycles
+// a block of 512, 0.17 ms at T = 16384.
+//
+// The design:
+// - a lane holds one chain (k = l mod 8) of a run of R consecutive rows:
+//   one u[k] load serves R multiply-adds, and the diagonals of
+//   neighbouring rows are the same values shifted by one, so a lane loads
+//   min(R, 8) of them a step (for R = 16 the run's upper half is the step
+//   before's lower half), into registers two steps ahead; the eight lanes
+//   of a run read neighbouring words (a second copy of the diagonals
+//   shifted by eight banks keeps R = 16's four runs a warp off each
+//   other's banks); a quad's steps are rounded up to the loop's unroll
+//   (products by zero), so the loop has no branch;
+// - four runs a warp (a quad of 4R rows): a quad a warp where the cluster
+//   has a warp for each, else a short quad and a long one (q and Q - 1 -
+//   q), the triangle's area shared out evenly;
+// - the warps over a cluster of ncta CTAs (1 or 8; R and ncta chosen by
+//   the wrapper from a sweep on the card, ops/ks.blocked_layout), a CTA
+//   only as many warps as it has quads or rows: every CTA forms all of
+//   the block's averages and u from its own copy of the string, each
+//   row's output is written into every CTA's copy through distributed
+//   shared memory, and one cluster barrier a block orders them (a relaxed
+//   arrive after the averages, waited on before the first remote write);
+// - the averages and u one pass, a row a thread without a barrier between
+//   them (a thread forms out[j - 1] beside out[j]), rho loaded a block
+//   ahead; a lane's eight-lane sums by a butterfly of shuffles (fadd
+//   commutes: XLA's pairwise order whatever lane keeps the sum); the B % 8
+//   last rows' own terms formed before the chains, their lanes summed
+//   through shared memory in their own order;
+// - y staged in CTA 0's shared memory (a cluster's rows written there
+//   through distributed shared memory) and stored in 16-byte pieces once
+//   every few blocks (before the next block could wrap the stage), not a
+//   scalar store a row.
+// (One barrier a block, each warp forming the u its chains read, and a
+// thread a row measured slower at every chain string: PERF.md row 7.)
+// The string lives in shared memory up to 51200 samples (every CTA a
+// copy; the kernel is built for each address space), beyond that in
+// buf_out (one CTA, R = 16).
 
 constexpr int kBlockedMaxB = 512;
-constexpr int kRevLen = kBlockedMaxB + 8;  // a reversed diagonal, padded
+constexpr int kBlockedMaxThreads = 512;  // a row a thread for the averages (B <= 512)
+constexpr int kBlockedWarps = kBlockedMaxThreads / 32;
+// zeros below diagonal 0: a lane's steps reach 8 (64 + 3 + 2) + 7 below its
+// first row (a long quad's steps, rounded up, and two loaded ahead)
+constexpr int kDiagPad = 576;
+constexpr int kDiagLen = 1120;           // kDiagPad + 512 + 32, a multiple of 32 words
+constexpr int kDiagShift = kDiagLen + 8; // the second copy: eight banks on
+constexpr int kULen = kBlockedMaxB + 64; // u with zeros past K8 (the same steps)
+constexpr int kYLen = 2048;              // y's stage: stored before a block could wrap it
 
-__global__ void __launch_bounds__(kBlockedMaxB) ks_blocked(
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// One lane's chain over a run of R rows from row j0, chain l, `steps`
+// steps: acc[i] += D[j0 + i - k] u[k], k = 8s + l (D, u zero-padded).
+// Each step's new diagonals and u are loaded two steps ahead (one warp an
+// SMSP: no other warp hides a load's latency).
+template <int R>
+__device__ __forceinline__ void run_chain(const float* __restrict__ D,
+                                          const float* __restrict__ uz, int j0, int l,
+                                          int steps, float (&acc)[R]) {
+  constexpr int V = R < 8 ? R : 8;            // new diagonal values a step
+  constexpr int P = 2;                        // steps loaded ahead
+  constexpr int NB = P + (R > 8 ? 2 : 1);     // windows in registers
+  float win[NB][V], uu[NB];
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] = 0.0f;
+  const int b0 = j0 - l;  // step s's window starts at D[b0 - 8 s]
+  auto load = [&](int slot, int s) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) win[slot][v] = D[b0 - 8 * s + v];
+    uu[slot] = uz[8 * s + l];
+  };
+  if (R > 8) {
+#pragma unroll
+    for (int v = 0; v < 8; ++v) win[NB - 1][v] = D[b0 + 8 + v];  // rows 8..15 of step 0
+  }
+#pragma unroll
+  for (int k = 0; k < P; ++k) load(k, k);
+  for (int s = 0; s < steps; s += NB) {  // steps: a multiple of NB (blocked_steps)
+#pragma unroll
+    for (int ph = 0; ph < NB; ++ph) {
+      load((ph + P) % NB, s + ph + P);  // padded past the end
+      const int cur = ph, prv = (ph + NB - 1) % NB;
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+        acc[i] = __fmaf_rn(i < 8 ? win[cur][i < 8 ? i : 0] : win[prv][i < 8 ? 0 : i - 8], uu[cur],
+                           acc[i]);
+    }
+  }
+}
+
+// A quad's steps: its rows' chains below K8, rounded up to run_chain's
+// unroll (the steps past a row's own terms add products by 0)
+template <int R>
+__device__ __forceinline__ int quad_steps(int q, int K8) {
+  constexpr int NB = R > 8 ? 4 : 3;
+  return (min(4 * R * (q + 1), K8) / 8 + NB - 1) / NB * NB;
+}
+
+// The eight lanes' sums of R rows by a butterfly (masks 1, 2, 4): lane l
+// keeps max(R / 8, 1) of them, rows first_row(l) + i; a step with one
+// value left adds it to its partner's on both lanes.
+template <int R>
+__device__ __forceinline__ void butterfly(float (&v)[R], int l) {
+  int n = R;
+#pragma unroll
+  for (int m = 1; m < 8; m <<= 1) {
+    const bool upper = l & m;
+    if (n > 1) {
+#pragma unroll
+      for (int i = 0; i < R / 2; ++i) {
+        if (i < n / 2) {
+          const float send = upper ? v[i] : v[i + n / 2];
+          const float keep = upper ? v[i + n / 2] : v[i];
+          v[i] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, m));
+        }
+      }
+      n /= 2;
+    } else {
+      v[0] = __fadd_rn(v[0], __shfl_xor_sync(0xffffffffu, v[0], m));
+    }
+  }
+}
+template <int R>
+__device__ __forceinline__ int first_row(int l) {
+  return (l & 1 ? R / 2 : 0) + (R >= 4 && (l & 2) ? R / 4 : 0) + (R >= 8 && (l & 4) ? R / 8 : 0);
+}
+template <int R>
+__device__ __forceinline__ bool row_writer(int l) {  // lanes holding a row alone, or the first of two
+  return (R >= 4 || !(l & 2)) && (R >= 8 || !(l & 4));
+}
+
+template <int R, bool kShared>
+__global__ void __launch_bounds__(kBlockedMaxThreads) ks_blocked(
     const float* __restrict__ rho, const float* __restrict__ buf_in,
     const int* __restrict__ r_in, const float* __restrict__ ap_in_in,
     const float* __restrict__ ap_out_in, const float* __restrict__ diag,
     const float* __restrict__ powv, float* __restrict__ y, float* buf_out,
     int* __restrict__ r_out, float* __restrict__ ap_in_out,
-    float* __restrict__ ap_out_out, int T, int L, int B, float c,
-    bool ring_in_shared) {
+    float* __restrict__ ap_out_out, int T, int L, int B, float c, int ncta) {
+  namespace cg = cooperative_groups;
   extern __shared__ float shared_ring[];
-  // s_rev[q][i] = (-c)^(511 - i - q): row j reads its terms k, k + 1, ...
-  // ascending from 16-byte aligned s_rev[(511 - j) & 3][511 - j - that + k]
-  __shared__ __align__(16) float s_rev[4][kRevLen];
-  __shared__ __align__(16) float s_u[kRevLen];
-  __shared__ float s_pow[kBlockedMaxB], s_out[kBlockedMaxB], s_ap[kBlockedMaxB];
-  const int j = threadIdx.x;
-  float* ring = ring_in_shared ? shared_ring : buf_out;
-  for (int l = j; l < L; l += blockDim.x) ring[l] = buf_in[l];
-  for (int i = j; i < 4 * kRevLen; i += blockDim.x) {
-    const int d = kBlockedMaxB - 1 - i % kRevLen - i / kRevLen;
-    s_rev[i / kRevLen][i % kRevLen] = d >= 0 && d < B ? diag[d] : 0.f;
+  __shared__ __align__(16) float s_D[kDiagShift + kDiagLen];  // two copies, zero-padded
+  __shared__ __align__(16) float s_uz[kULen];   // the lanes' u: zero past min(nb, K8)
+  __shared__ float s_u[kBlockedMaxB];           // u, for the B % 8 last rows' tail
+  __shared__ float s_pow[kBlockedMaxB];
+  __shared__ float s_tail[8][8];                // the last rows' eight lane sums
+  __shared__ float s_tail_e[8];                 // and their own terms
+  __shared__ float s_ai[2];
+  __shared__ __align__(16) float s_y[kYLen];    // y staged (CTA 0): a ring of kYLen samples
+  const int nthr = blockDim.x, tid = threadIdx.x, lane = tid & 31, l = lane & 7, g = lane >> 3;
+  const int rank = ncta > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  // the string's address space known to the compiler: shared-memory loads
+  float* ring = kShared ? shared_ring : buf_out;
+  for (int i = tid; i < L; i += nthr) ring[i] = buf_in[i];
+  for (int i = tid; i < kDiagLen; i += nthr) {
+    const int d = i - kDiagPad;
+    const float v = d >= 0 && d < B ? diag[d] : 0.0f;
+    s_D[i] = v;
+    s_D[kDiagShift + i] = v;
   }
-  if (j < B) s_pow[j] = powv[j];
+  for (int i = tid; i < kULen; i += nthr) s_uz[i] = 0.0f;
+  for (int i = tid; i < B; i += nthr) s_pow[i] = powv[i];
   const int r0 = *r_in;
   float ai = *ap_in_in, ao = *ap_out_in;
   const int K8 = B & ~7;
-  const int q_j = (kBlockedMaxB - 1 - j) & 3;
-  const float* rev = s_rev[q_j] + (kBlockedMaxB - 1 - j - q_j);  // rev[k] = (-c)^(j-k)
-  __syncthreads();
+  // this warp's quads (ops/ks.blocked_quads): global warp w = local * ncta + rank;
+  // a quad a warp where the cluster has a warp for each, else a short one
+  // and a long one
+  const int quads = ((B + R - 1) / R + 3) / 4;
+  const bool pair = quads > ncta * kBlockedWarps;
+  const int warps = pair ? (quads + 1) / 2 : quads;
+  const int w = (tid >> 5) * ncta + rank;
+  const int qa = w < warps ? w : -1;
+  const int qb = pair && w < warps && quads - 1 - w != w ? quads - 1 - w : -1;
+  // R = 16: the warp's runs 2 and 3 read the shifted copy
+  const float* D = s_D + (R == 16 && g >= 2 ? kDiagShift : 0) + kDiagPad;
+  // rho a block ahead: row j = tid's, and row j - 1's
+  float rho_j, rho_p;
+  auto fetch = [&](int n0) {
+    const int j = tid;
+    rho_j = j < B && n0 + j < T ? rho[n0 + j] : 0.0f;
+    rho_p = j >= 1 && j <= B && n0 + j - 1 < T ? rho[n0 + j - 1] : 0.0f;
+  };
+  fetch(0);
+  if (ncta > 1) {
+    cluster_arrive_release();  // every CTA running, its string loaded
+    cluster_wait();
+  } else {
+    __syncthreads();
+  }
+  float* y_stage = ncta > 1 ? cg::this_cluster().map_shared_rank(s_y, 0) : s_y;
   int sb = r0;  // the slot of the block's oldest value
-  for (int n0 = 0; n0 < T; n0 += B) {
+  int par = 0, flushed = 0;
+  for (int n0 = 0; n0 < T; n0 += B, par ^= 1) {
     const int nb = min(B, T - n0);
-    int s0 = sb + j;
-    if (s0 >= L) s0 -= L;  // j < B < L
-    if (j < nb) {
-      const int s1 = s0 + 1 == L ? 0 : s0 + 1;
-      s_out[j] = __fmul_rn(__fmul_rn(rho[n0 + j], __fadd_rn(ring[s0], ring[s1])), 0.5f);
-    }
-    __syncthreads();
-    if (j < nb)
-      s_u[j] = j == 0 ? __fmaf_rn(c, s_out[0], ai)
-                      : __fadd_rn(__fmul_rn(c, s_out[j]), s_out[j - 1]);
-    const float ai_next = s_out[nb - 1];
-    __syncthreads();
-    if (j < nb) {
-      float a[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      const int kend = min(j + 1, K8);
-      int k0 = 0;
-      for (; k0 + 8 <= kend; k0 += 8) {  // 16-byte loads: u broadcast, diagonals
-        const float4 u0 = *reinterpret_cast<const float4*>(s_u + k0);
-        const float4 u1 = *reinterpret_cast<const float4*>(s_u + k0 + 4);
-        const float4 d0 = *reinterpret_cast<const float4*>(rev + k0);
-        const float4 d1 = *reinterpret_cast<const float4*>(rev + k0 + 4);
-        a[0] = __fmaf_rn(d0.x, u0.x, a[0]);
-        a[1] = __fmaf_rn(d0.y, u0.y, a[1]);
-        a[2] = __fmaf_rn(d0.z, u0.z, a[2]);
-        a[3] = __fmaf_rn(d0.w, u0.w, a[3]);
-        a[4] = __fmaf_rn(d1.x, u1.x, a[4]);
-        a[5] = __fmaf_rn(d1.y, u1.y, a[5]);
-        a[6] = __fmaf_rn(d1.z, u1.z, a[6]);
-        a[7] = __fmaf_rn(d1.w, u1.w, a[7]);
+    // ---- the averages and u, all rows, each CTA ----
+    if (n0 > 0) ao = ring[sb == 0 ? L - 1 : sb - 1], ai = s_ai[par ^ 1];
+    {
+      const int j = tid;  // B <= nthr: a row a thread
+      if (j < nb) {
+        int s0 = sb + j;
+        if (s0 >= L) s0 -= L;  // j < B < L
+        const int s1 = s0 + 1 == L ? 0 : s0 + 1, sp = s0 == 0 ? L - 1 : s0 - 1;
+        const float out = __fmul_rn(__fmul_rn(rho_j, __fadd_rn(ring[s0], ring[s1])), 0.5f);
+        float u;
+        if (j == 0) {
+          u = __fmaf_rn(c, out, ai);
+        } else {
+          const float prev = __fmul_rn(__fmul_rn(rho_p, __fadd_rn(ring[sp], ring[s0])), 0.5f);
+          u = __fadd_rn(__fmul_rn(c, out), prev);
+        }
+        s_u[j] = u;
+        s_uz[j] = j < K8 ? u : 0.0f;
+        if (j == nb - 1) s_ai[par] = out;
+      } else if (j < B) {
+        s_uz[j] = 0.0f;  // a part block: its missing rows' terms are products by 0
       }
-#pragma unroll
-      for (int q = 0; q < 8; ++q)
-        if (k0 + q < kend) a[q] = __fmaf_rn(rev[k0 + q], s_u[k0 + q], a[q]);
-      const float h =
-          j < K8 ? __fadd_rn(__fadd_rn(__fadd_rn(a[0], a[1]), __fadd_rn(a[2], a[3])),
-                             __fadd_rn(__fadd_rn(a[4], a[5]), __fadd_rn(a[6], a[7])))
-                 : __fadd_rn(__fadd_rn(__fadd_rn(a[0], a[4]), __fadd_rn(a[2], a[6])),
-                             __fadd_rn(__fadd_rn(a[1], a[5]), __fadd_rn(a[3], a[7])));
-      float e = 0.f;
-      for (int k = K8; k <= j; ++k) e = __fmaf_rn(rev[k], s_u[k], e);
-      const float ap = __fmaf_rn(s_pow[j], ao, __fadd_rn(h, e));
-      s_ap[j] = ap;
-      y[n0 + j] = ap;
-      ring[s0] = ap;
     }
+    if (n0 + B < T) fetch(n0 + B);
     __syncthreads();
-    ai = ai_next;
-    ao = s_ap[nb - 1];
+    if (ncta > 1) cluster_arrive_relaxed();  // this CTA is done reading its string
+    auto emit = [&](int j, float ap) {  // row j's output: every CTA's string, y's stage
+      y_stage[(n0 + j) & (kYLen - 1)] = ap;
+      int slot = sb + j;
+      if (slot >= L) slot -= L;
+      if (ncta > 1) {
+        for (int r = 0; r < ncta; ++r) cg::this_cluster().map_shared_rank(ring, r)[slot] = ap;
+      } else {
+        ring[slot] = ap;
+      }
+    };
+    // ---- the B % 8 last rows' own terms (k >= K8), off the chains'
+    // path: lane l < B - K8 of the warp holding them ----
+    if (K8 < B && (qa == (K8 / (4 * R)) || qb == (K8 / (4 * R))) && lane < B - K8) {
+      const int j = K8 + lane;
+      float e = 0.0f;
+      for (int k = K8; k <= j; ++k) e = __fmaf_rn(D[j - k], s_u[k], e);
+      s_tail_e[lane] = e;
+    }
+    // ---- the rows: a run or two of R a lane ----
+    constexpr int H = R >= 8 ? R / 8 : 1;
+    float h[2][H];
+    int rows[2] = {-1, -1};
+#pragma unroll
+    for (int which = 0; which < 2; ++which) {
+      const int q = which ? qb : qa;
+      if (q >= 0) {  // warp-uniform
+        const int j0 = 4 * R * q + R * g;
+        float acc[R];
+        run_chain<R>(D, s_uz, j0, l, quad_steps<R>(q, K8), acc);
+#pragma unroll
+        for (int i = 0; i < R; ++i)  // the last rows: their lanes' raw sums
+          if (j0 + i >= K8 && j0 + i < B) s_tail[j0 + i - K8][l] = acc[i];
+        butterfly<R>(acc, l);
+#pragma unroll
+        for (int i = 0; i < H; ++i) h[which][i] = acc[i];
+        rows[which] = j0 + first_row<R>(l);
+      }
+    }
+    __syncwarp();
+    if (ncta > 1) cluster_wait();  // every CTA has read its string: safe to write into it
+    // ---- the outputs ----
+    if (row_writer<R>(l)) {
+#pragma unroll
+      for (int which = 0; which < 2; ++which) {
+        if (rows[which] >= 0) {
+#pragma unroll
+          for (int i = 0; i < H; ++i) {
+            const int j = rows[which] + i;
+            if (j >= nb) continue;
+            float hsum = h[which][i], e = 0.0f;
+            if (j >= K8) {  // the tail: its lanes' own pairwise order, then its own terms
+              const float* a = s_tail[j - K8];
+              hsum = __fadd_rn(__fadd_rn(__fadd_rn(a[0], a[4]), __fadd_rn(a[2], a[6])),
+                               __fadd_rn(__fadd_rn(a[1], a[5]), __fadd_rn(a[3], a[7])));
+              e = s_tail_e[j - K8];
+            }
+            emit(j, __fmaf_rn(s_pow[j], ao, __fadd_rn(hsum, e)));
+          }
+        }
+      }
+    }
+    if (ncta > 1) {
+      __syncwarp();
+      cluster_arrive_release();  // this block's outputs are in every CTA's string
+      cluster_wait();
+    } else {
+      __syncthreads();
+    }
+    // ---- y from its stage (CTA 0), in 16-byte pieces, before the next
+    // block could overwrite what is not yet stored ----
+    const int done = n0 + nb;
+    if (rank == 0 && (done == T || done - flushed + 2 * B > kYLen)) {
+      const int hi = done == T ? T : done & ~3, hi4 = hi & ~3;
+      for (int i = flushed + 4 * tid; i < hi4; i += 4 * nthr)  // flushed: a multiple of 4
+        *reinterpret_cast<float4*>(y + i) =
+            *reinterpret_cast<const float4*>(s_y + (i & (kYLen - 1)));
+      for (int i = hi4 + tid; i < hi; i += nthr) y[i] = s_y[i & (kYLen - 1)];
+      flushed = hi;
+    }
     sb += nb;
     if (sb >= L) sb -= L;
   }
-  if (j == 0) {
-    *r_out = sb;
-    *ap_in_out = ai;
-    *ap_out_out = ao;
+  if (rank == 0) {
+    if (tid == 0) {
+      *r_out = sb;
+      *ap_in_out = s_ai[par ^ 1];
+      *ap_out_out = ring[sb == 0 ? L - 1 : sb - 1];
+    }
+    if (kShared)
+      for (int i = tid; i < L; i += nthr) buf_out[i] = ring[i];
   }
-  __syncthreads();
-  if (ring_in_shared)
-    for (int l = j; l < L; l += blockDim.x) buf_out[l] = ring[l];
 }
 
 }  // namespace
@@ -448,30 +682,55 @@ int ks_scan_launch(const float* rho, const bool* act, const float* buf_in,
   return (int)cudaGetLastError();
 }
 
-// The blocked order (all samples active, L >= 16): one launch on `stream`;
-// returns its cudaError_t. diag (B,) f32: (-c)^d, d = 0 .. B - 1; powv (B,)
-// f32: (-c)^(j+1); B = min(L - 1, 512). Other pointers as ks_scan_launch.
+// The blocked order (all samples active, L >= 16): one launch on `stream`
+// of a cluster of ncta CTAs (1 or 8) of R rows a run (2 or 8;
+// ops/ks.blocked_layout); returns its cudaError_t. diag (B,) f32: (-c)^d,
+// d = 0 .. B - 1; powv (B,) f32: (-c)^(j+1); B = min(L - 1, 512); y
+// 16-byte aligned. Other pointers as ks_scan_launch. A string past shared
+// memory takes ncta = 1 and R = 16.
 int ks_blocked_launch(const float* rho, const float* buf_in, const int* r_in,
                       const float* ap_in_in, const float* ap_out_in,
                       const float* diag, const float* powv, float* y,
                       float* buf_out, int* r_out, float* ap_in_out,
-                      float* ap_out_out, int T, int L, int B, float allpass_c,
-                      cudaStream_t stream) {
+                      float* ap_out_out, int T, int L, int B, int R, int ncta,
+                      float allpass_c, cudaStream_t stream) {
   if (L < 16 || B < 1 || B > kBlockedMaxB || B > L - 1) return (int)cudaErrorInvalidValue;
   const size_t ring_bytes = (size_t)L * sizeof(float);
   const bool shared = ring_bytes <= (size_t)kMaxSharedBytes;
+  if (!(ncta == 1 || ncta == 8) || (shared ? !(R == 2 || R == 8) : ncta != 1 || R != 16) ||
+      reinterpret_cast<uintptr_t>(y) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int quads = ((B + R - 1) / R + 3) / 4;
+  const int warps = quads > ncta * kBlockedWarps ? (quads + 1) / 2 : quads;
+  if (warps > ncta * kBlockedWarps) return (int)cudaErrorInvalidValue;
   const size_t smem = shared ? ring_bytes : 0;
-  if (smem > 16 * 1024) {  // beside the 16.5 KB of static shared memory
-    const cudaError_t err = cudaFuncSetAttribute(
-        ks_blocked, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // a row a thread for the averages, and a warp for each of the CTA's quads
+  const int threads = 32 * max((B + 31) / 32, (warps + ncta - 1) / ncta);
+  const void* kernel = !shared ? (const void*)ks_blocked<16, false>
+                       : R == 8 ? (const void*)ks_blocked<8, true>
+                                : (const void*)ks_blocked<2, true>;
+  if (smem > 24 * 1024) {  // beside the ~24 KB of static shared memory
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const int threads = (B + 31) / 32 * 32;
-  ks_blocked<<<1, threads, smem, stream>>>(rho, buf_in, r_in, ap_in_in, ap_out_in,
-                                           diag, powv, y, buf_out, r_out,
-                                           ap_in_out, ap_out_out, T, L, B,
-                                           allpass_c, shared);
-  return (int)cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ncta);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ncta;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  void* args[] = {(void*)&rho, (void*)&buf_in, (void*)&r_in, (void*)&ap_in_in,
+                  (void*)&ap_out_in, (void*)&diag, (void*)&powv, (void*)&y,
+                  (void*)&buf_out, (void*)&r_out, (void*)&ap_in_out, (void*)&ap_out_out,
+                  (void*)&T, (void*)&L, (void*)&B, (void*)&allpass_c, (void*)&ncta};
+  return (int)cudaLaunchKernelExC(&cfg, kernel, args);
 }
 
 }  // extern "C"

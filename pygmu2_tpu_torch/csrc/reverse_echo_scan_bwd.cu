@@ -46,7 +46,10 @@
 //    may read them reads, and ranks them a chunk of 256 at a time in that
 //    order: a warp's equal rows found by __match_any_sync, the warps'
 //    counts summed in warp order (a stable counting sort, two passes: the
-//    counts, then the places);
+//    counts, then the places). Which row each candidate reads takes 5 x 2
+//    bytes a sample of the plen + 255: in shared memory up to 200 KB (a
+//    pitch line of 20225 rows), past that in device scratch the wrapper
+//    allocates, a slice a CUDA block (the same passes, the same order);
 // 2. echo_walk, a cooperative launch over the whole card (grid sized by
 //    the occupancy API): the periods in reverse, each period's samples and
 //    channels spread over every thread (four channels a lane in 16-byte
@@ -96,10 +99,11 @@ __device__ __forceinline__ int reader_time(const Tab& s, int t, int kind, int pl
 __global__ void __launch_bounds__(kIndexThreads) echo_index(
     const Tab* __restrict__ tab, const int* __restrict__ bounds,
     const int* __restrict__ n_periods, int* __restrict__ first, int* __restrict__ count,
-    int* __restrict__ list, int T, int plen, int tile_cap) {
+    int* __restrict__ list, short* __restrict__ rows_g, int T, int plen, int tile_cap) {
   // each candidate reader's row in the tile (-1: another tile's), by kind
-  // and sample: s_row[kind * n_cap + t - ta]
-  extern __shared__ short s_row[];
+  // and sample: s_row[kind * n_cap + t - ta]; in shared memory, or in this
+  // CUDA block's slice of rows_g (a pitch line past 20225 rows)
+  extern __shared__ short s_row_shared[];
   __shared__ int s_warp[kIndexWarps][kTileRows];  // a chunk's readers per warp and row
   __shared__ int s_run[kTileRows], s_off[kTileRows], s_sum[kIndexWarps];
   __shared__ int s_p[2];
@@ -107,6 +111,7 @@ __global__ void __launch_bounds__(kIndexThreads) echo_index(
   const int s0 = blockIdx.x * kTileRows - plen;  // the tile's first input time
   const int ta = max(s0, 0), tb = min(s0 + kTileRows + plen - 1, T);  // its readers' samples
   const int n_cap = kTileRows + plen - 1;
+  short* s_row = rows_g ? rows_g + (long)blockIdx.x * 5 * n_cap : s_row_shared;
   int* out = list + (long)blockIdx.x * tile_cap;
   for (int t = ta + tid; t < tb; t += kIndexThreads) {
     const Tab s = tab[t];
@@ -445,7 +450,10 @@ extern "C" {
 // 1) and x; gfb / gratio (T,) f32, the feedback's and the ratio's; gm (9,)
 // f32, misc's. Scratch: gcs, gfb_part, gp_part (T, C) f32, gp (T,) f32,
 // first / count (T + plen,) i32, list (ceil((T + plen) / 256), tile_cap)
-// i32 with tile_cap = 4 (plen + 256). decay: float32((1 - alpha)^T).
+// i32 with tile_cap = 4 (plen + 256); rows: null, or (ceil((T + plen) /
+// 256), 5 (plen + 255)) i16, the readers' rows in device memory (needed
+// past a pitch line of 20225 rows, where they outgrow shared memory).
+// decay: float32((1 - alpha)^T).
 int reverse_echo_scan_bwd_launch(const float* x, const float* fb, const float* y,
                                  const float* gy, const float* tab, const int* bounds,
                                  const int* n_periods, const float* gbuf_a,
@@ -453,8 +461,8 @@ int reverse_echo_scan_bwd_launch(const float* x, const float* fb, const float* y
                                  float* lam_b, const float* pb_in, const float* gpb_out,
                                  float* gline, float* gfb, float* gratio, float* gm, float* gp,
                                  float* gcs, float* gfb_part, float* gp_part, int* first,
-                                 int* count, int* list, int T, int C, int cap, int plen,
-                                 int tile_cap, float inv_half, float decay,
+                                 int* count, int* list, short* rows, int T, int C, int cap,
+                                 int plen, int tile_cap, float inv_half, float decay,
                                  cudaStream_t stream) {
   if (T < 1 || C < 1 || plen < 2 || tile_cap < 4 * (plen + kTileRows - 1))
     return (int)cudaErrorInvalidValue;
@@ -466,14 +474,17 @@ int reverse_echo_scan_bwd_launch(const float* x, const float* fb, const float* y
   if (err != cudaSuccess) return (int)err;
   const int tiles = (T + plen + kTileRows - 1) / kTileRows;
   const size_t rows_bytes = (size_t)5 * (kTileRows + plen - 1) * sizeof(short);
-  if (rows_bytes > 200 * 1024) return (int)cudaErrorInvalidValue;  // plen up to ~20000
-  if (rows_bytes > 32 * 1024) {  // beside the 10 KB of static shared memory
+  // shared memory up to 200 KB (a pitch line of 20225 rows); the rows in
+  // device memory when the caller gives them
+  if (rows == nullptr && rows_bytes > 200 * 1024) return (int)cudaErrorInvalidValue;
+  const size_t smem = rows == nullptr ? rows_bytes : 0;
+  if (smem > 32 * 1024) {  // beside the 10 KB of static shared memory
     err = cudaFuncSetAttribute(echo_index, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)rows_bytes);
+                               (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  echo_index<<<tiles, kIndexThreads, rows_bytes, stream>>>(table, bounds, n_periods, first,
-                                                           count, list, T, plen, tile_cap);
+  echo_index<<<tiles, kIndexThreads, smem, stream>>>(table, bounds, n_periods, first, count,
+                                                     list, rows, T, plen, tile_cap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // four channels a lane where every (T, C) and (rows, C) array's rows are 16-byte pieces

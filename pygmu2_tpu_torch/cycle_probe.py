@@ -42,6 +42,14 @@ Each measurement prints one JSON line with the card's name:
    the patch's gate, the many-edges gate, an edge every eight samples and
    every sample; as built, and with the tile's path forced to the edge
    walk and to the per-sample walk (``ADSR_PATHS``).
+6. ``blocked``: a copy of ``csrc/ks_scan.cu`` with ``clock64()`` around each
+   part of ``ks_blocked``'s block (``BLOCKED_PHASES``), cycles a block for
+   warps 0 and 3 of the first CTA, at T = 16384, L = 535 and 133, on each
+   layout of ``ops/ks.BLOCKED_LAYOUTS`` that fits.
+7. ``clock``: a copy of ``csrc/adsr_scan.cu`` with ``clock64()`` around
+   ``adsr_clock``'s passes (``CLOCK_PHASES``), at T = 16384 on four
+   triggers, a trigger every 97 samples and every sample, on the run walk
+   and forced to the per-sample walk: cycles a run record and a sample.
 
 Builds into ``build/cycle_probe/`` beside the package with ``nvcc``; the
 kernels' own library is untouched.
@@ -610,6 +618,179 @@ def adsr_passes(card: str) -> dict:
     return result
 
 
+BLOCKED_PHASES = ("the state's loads", "averages and u", "rho's prefetch and barrier", "chains",
+                  "butterflies", "cluster wait", "outputs", "last barrier and y's stores")
+
+
+def ks_blocked_phases_source() -> str:
+    """``csrc/ks_scan.cu`` with ``clock64()`` stamps in ``ks_blocked`` (lane
+    0 of warps 0 and 3 of CTA 0, summed over the blocks): each part of a
+    block (``BLOCKED_PHASES``): the entering state's loads, the averages
+    and u, rho's prefetch with the barrier, the warp's two chains, their
+    butterflies and the last rows' lane sums, the wait on the cluster
+    before the first remote write, the outputs, the block's last barrier
+    with y's stores from its stage (one CTA)."""
+    s = (_PKG / "csrc" / "ks_scan.cu").read_text()
+    s = _replace(s, "namespace {", _READ + "namespace {")
+    s = _replace(s, "  int par = 0, flushed = 0;\n",
+                 "  long long q[8] = {0, 0, 0, 0, 0, 0, 0, 0}, c_at = clock64(), c_now;\n"
+                 "  auto lap = [&](int k) { c_now = clock64(); q[k] += c_now - c_at; c_at = c_now; };\n"
+                 "  int par = 0, flushed = 0;\n")
+    s = _replace(s, "    // ---- the averages and u, all rows, each CTA ----\n",
+                 "    c_at = clock64();\n    // ---- the averages and u, all rows, each CTA ----\n")
+    s = _replace(s, "    if (n0 > 0) ao = ring[sb == 0 ? L - 1 : sb - 1], ai = s_ai[par ^ 1];\n",
+                 "    if (n0 > 0) ao = ring[sb == 0 ? L - 1 : sb - 1], ai = s_ai[par ^ 1];\n"
+                 "    const float ao_used = ao;\n    lap(0);\n")
+    s = _replace(s, "    if (n0 + B < T) fetch(n0 + B);\n",
+                 "    lap(1);\n    if (n0 + B < T) fetch(n0 + B);\n")
+    s = _replace(s, "    if (ncta > 1) cluster_arrive_relaxed();  // this CTA is done reading its"
+                 " string\n",
+                 "    lap(2);\n    if (ncta > 1) cluster_arrive_relaxed();  // this CTA is done"
+                 " reading its string\n")
+    s = _replace(s, "        run_chain<R>(D, s_uz, j0, l, quad_steps<R>(q, K8), acc);\n",
+                 "        run_chain<R>(D, s_uz, j0, l, quad_steps<R>(q, K8), acc);\n"
+                 "        if (acc[0] == ao_used * 1e30f) c_at -= 1;  // the chain done\n"
+                 "        lap(3);\n")
+    s = _replace(s, "        rows[which] = j0 + first_row<R>(l);\n",
+                 "        rows[which] = j0 + first_row<R>(l);\n        lap(4);\n")
+    s = _replace(s, "    // ---- the outputs ----\n", "    lap(5);\n    // ---- the outputs ----\n")
+    s = _replace(s, "    if (ncta > 1) {\n      __syncwarp();\n      cluster_arrive_release();",
+                 "    lap(6);\n    if (ncta > 1) {\n      __syncwarp();\n      cluster_arrive_release();")
+    s = _replace(s, "    sb += nb;\n    if (sb >= L) sb -= L;\n  }\n  if (rank == 0) {",
+                 "    lap(7);\n    sb += nb;\n    if (sb >= L) sb -= L;\n  }\n"
+                 "  if (rank == 0 && lane == 0 && (tid >> 5 == 0 || tid >> 5 == 3)) {\n"
+                 "    const int k = tid >> 5 == 0 ? 0 : 8;\n"
+                 "    for (int i = 0; i < 8; ++i) g_cycles[k + i] = q[i];\n  }\n  if (rank == 0) {")
+    return s
+
+
+def ks_blocked_phases(card: str) -> dict:
+    """The blocked string at T = 16384 (every sample active) at L = 535 and
+    133 on each layout of ``ops/ks.BLOCKED_LAYOUTS`` that fits: each part's cycles
+    a block for warps 0 and 3 of CTA 0."""
+    from pygmu2_tpu_torch.ops import ks as ks_ops
+
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    T = 16384
+    lib = _build("ks_blocked_phases", ks_blocked_phases_source())
+    lib.ks_blocked_launch.argtypes = [p] * 12 + [i, i, i, i, i, f, p]
+    cycles = (ctypes.c_longlong * 16)()
+    result = {"probe": "ks_blocked phases", "card": card, "T": T}
+    for L in (535, 133):
+        B, tril, powv = ks_ops.blocked_tables(L, 0.35)
+        diag = torch.from_numpy(np.ascontiguousarray(tril[:, 0])).to(dev)
+        powv = torch.from_numpy(powv).to(dev)
+        ins = [torch.full((T,), 0.995, device=dev),
+               torch.from_numpy(rng.uniform(-0.3, 0.3, L).astype(np.float32)).to(dev),
+               torch.tensor(3, dtype=torch.int32, device=dev), torch.tensor(0.0, device=dev),
+               torch.tensor(0.0, device=dev), diag, powv]
+        outs = [torch.empty(T, device=dev), torch.empty(L, device=dev),
+                torch.empty((), dtype=torch.int32, device=dev), torch.empty((), device=dev),
+                torch.empty((), device=dev)]
+        for R, ncta in ks_ops.BLOCKED_LAYOUTS:
+            try:
+                ks_ops.blocked_quads(B, R, ncta)
+            except ValueError:
+                continue
+            lib.write_cycles((ctypes.c_longlong * 16)())
+            err = lib.ks_blocked_launch(*[t.data_ptr() for t in ins + outs], T, L, B, R, ncta,
+                                        0.35, torch.cuda.current_stream().cuda_stream)
+            torch.cuda.synchronize()
+            if err:
+                raise RuntimeError(f"cycle_probe: ks_blocked launch failed ({err})")
+            lib.read_cycles(cycles)
+            blocks = -(-T // B)
+            result[f"L={L} R={R} ncta={ncta}"] = {
+                f"warp {w}": {ph: round(cycles[8 * i + k] / blocks, 1)
+                              for k, ph in enumerate(BLOCKED_PHASES)}
+                for i, w in enumerate((0, 3))}
+    return result
+
+
+CLOCK_PHASES = ("A: stage and compact", "B: the run walk", "C: every sample from its run",
+                "the per-sample walk", "total", "records")
+
+
+def adsr_clock_phases_source() -> str:
+    """``csrc/adsr_scan.cu`` with ``clock64()`` stamps (thread 0) in
+    ``adsr_clock``, summed over the tiles (``CLOCK_PHASES``), and the run
+    records the walks wrote."""
+    s = (_PKG / "csrc" / "adsr_scan.cu").read_text()
+    s = _replace(s, "namespace {", _READ + "namespace {")
+    s = _replace(s, "  const Clock p{dA, dD, dR, sus, sustain_samples};\n",
+                 "  const Clock p{dA, dD, dR, sus, sustain_samples};\n"
+                 "  const long long q_begin = clock64();\n"
+                 "  long long q_mark = q_begin, qa = 0, qb = 0, qc = 0, qd = 0, recs = 0;\n")
+    s = _replace(s, "    // ---- A. stage the triggers; compact their samples ----\n",
+                 "    q_mark = clock64();\n"
+                 "    // ---- A. stage the triggers; compact their samples ----\n")
+    s = _replace(s, "    const int K = s_count;\n    __syncthreads();\n\n    if (K > dense_above) {",
+                 "    const int K = s_count;\n    __syncthreads();\n"
+                 "    qa += clock64() - q_mark;\n    q_mark = clock64();\n\n"
+                 "    if (K > dense_above) {")
+    s = _replace(s, "        s_st = st, s_e = e, s_end = end;\n      }\n      __syncthreads();\n"
+                 "    } else {",
+                 "        s_st = st, s_e = e, s_end = end;\n      }\n      __syncthreads();\n"
+                 "      qd += clock64() - q_mark;\n    } else {")
+    s = _replace(s, "        // ---- C. every sample of [s, stop) from its record ----\n",
+                 "        qb += clock64() - q_mark;\n        q_mark = clock64();\n"
+                 "        recs += s_nrec;\n"
+                 "        // ---- C. every sample of [s, stop) from its record ----\n")
+    s = _replace(s, "        __syncthreads();\n        s = stop;\n",
+                 "        __syncthreads();\n        qc += clock64() - q_mark;\n"
+                 "        q_mark = clock64();\n        s = stop;\n")
+    return _replace(s, "  if (tid == 0) *stage_out = s_st, *env_out = s_e, *ends_out = s_end;\n",
+                    "  if (tid == 0) *stage_out = s_st, *env_out = s_e, *ends_out = s_end;\n"
+                    "  if (tid == 0) g_cycles[0] = qa, g_cycles[1] = qb, g_cycles[2] = qc,"
+                    " g_cycles[3] = qd, g_cycles[4] = clock64() - q_begin,"
+                    " g_cycles[5] = recs;\n")
+
+
+def adsr_clock_phases(card: str) -> dict:
+    """The clock kernel at T = 16384 from IDLE (a pluck's slopes: attack
+    10 ms, decay 50 ms to 0.6, release 100 ms; sustain 0 samples): four
+    triggers, a trigger every 97 samples, and every sample, each on its
+    run walk and forced to the per-sample walk."""
+    p, i, q, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
+    dev = torch.device("cuda")
+    T, sr = 16384, 44100.0
+    lib = _build("adsr_clock_phases", adsr_clock_phases_source())
+    lib.adsr_clock_launch.argtypes = [p] * 8 + [i, q, d, d, d, d, q, i, p]
+    trigs = {"four triggers": np.isin(np.arange(T), [10, 5000, 9000, 15000]),
+             "a trigger every 97 samples": np.arange(T) % 97 == 0,
+             "every sample": np.ones(T, bool)}
+    cycles = (ctypes.c_longlong * 16)()
+    result = {"probe": "adsr_clock phases", "card": card, "T": T}
+    for name, g in trigs.items():
+        gd = torch.from_numpy(g.astype(np.float32)).to(dev)
+        ins = [gd, torch.tensor(0, dtype=torch.int32, device=dev),
+               torch.tensor(0.0, dtype=torch.float64, device=dev),
+               torch.tensor(0, dtype=torch.int64, device=dev)]
+        outs = [torch.empty(T, device=dev), torch.empty((), dtype=torch.int32, device=dev),
+                torch.empty((), dtype=torch.float64, device=dev),
+                torch.empty((), dtype=torch.int64, device=dev)]
+        for walk, above in (("run walk", 1 << 30), ("per-sample walk", -1)):
+            for _ in range(2):  # the second launch is the one kept
+                lib.write_cycles((ctypes.c_longlong * 16)())
+                err = lib.adsr_clock_launch(*[t.data_ptr() for t in ins + outs], T, 0,
+                                            1 / (0.01 * sr), -0.4 / (0.05 * sr),
+                                            -0.6 / (0.1 * sr), 0.6, 0, above,
+                                            torch.cuda.current_stream().cuda_stream)
+                torch.cuda.synchronize()
+                if err:
+                    raise RuntimeError(f"cycle_probe: adsr_clock launch failed ({err})")
+            lib.read_cycles(cycles)
+            out = {k: cycles[n] for n, k in enumerate(CLOCK_PHASES)}
+            out["triggers"] = int(g.sum())
+            if out["records"]:
+                out["walk cycles a record"] = round(out["B: the run walk"] / out["records"], 1)
+            out["per-sample walk cycles a sample"] = round(out["the per-sample walk"] / T, 2)
+            result[f"{name}, {walk}"] = out
+    return result
+
+
 # the SoundFont pass's roles, each summed over the CUDA blocks
 OSC_ROLES = ("producers: oscillator", "producers: earlier maps", "producers: barrier",
              "producers: mix", "producers: mix, waiting on run 2", "chain: run 1",
@@ -716,11 +897,14 @@ def instrumented_sources() -> dict:
            "follower roles": follower_roles_source(), "slew roles": slew_roles_source(),
            "osc roles": osc_roles_source()}
     out.update({f"adsr passes, {k}": adsr_passes_source(v) for k, v in ADSR_PATHS.items()})
+    out["ks_blocked phases"] = ks_blocked_phases_source()
+    out["adsr_clock phases"] = adsr_clock_phases_source()
     return out
 
 
 PROBES = {"chains": chains, "roles": roles, "follower": follower_roles, "slew": slew_roles,
-          "osc": osc_roles, "adsr": adsr_passes}
+          "osc": osc_roles, "adsr": adsr_passes, "blocked": ks_blocked_phases,
+          "clock": adsr_clock_phases}
 
 
 def main() -> None:

@@ -7,13 +7,19 @@ pass's kernels timed alone on one CUDA card, at the main path's shapes:
 this one), so that two trees are timed by the same script in turns (parent,
 change, change, parent: unpack the parent with ``git archive`` into a
 directory that ``.gitignore`` lists). ``PART`` picks sections (``scan``,
-``follower``, ``slew``, ``adsr``, ``comb``, ``unfused``; all by default).
+``follower``, ``slew``, ``adsr``, ``comb``, ``unfused``, ``ks``,
+``ks_layouts``, ``clock``; all by default). ``ks_layouts`` sweeps the
+blocked string kernel's layouts (``ops/ks.BLOCKED_LAYOUTS``, launched
+through ``ops/ks._launch_blocked``'s ``layout``): the trees since that
+sweep only.
 The calls are the same in both trees: ``ops.linrec_kernel.affine_scan_2_kernel``
 and ``_backward`` (the scan's backward as its autograd Function calls it,
 the channel sums of the shared columns included),
 ``ops.envelope.envelope_ar_scan_bwd``, ``ops.slew.slew_scan_bwd``,
 ``ops.adsr.adsr_scan_bwd``, ``ops.comb.comb_scan_bwd`` (on the control
-results of a forward launch) and ``soundfont.filter_kernels.filter_gain_mix``.
+results of a forward launch), ``soundfont.filter_kernels.filter_gain_mix``,
+``ops.ks.ks_scan`` (both orders) and ``ops.adsr.adsr_clock_scan`` with its
+backward ``adsr_clock_scan_bwd``.
 
 Inputs: the scan at T = 16384, C = 128, chunk 1024, once with the four
 matrix planes one column shared by the channels (the filter bank's
@@ -27,7 +33,16 @@ T = 1024 and at T = 16384 on ``chip_smoke.py`` phase 16's gate (each cut
 by the attack's hit after ~500 samples), and at T = 16384 on slow ramps
 (no cut: the whole call walked); the comb's at T = 16384, C = 1, L = 2206
 (the fit patch's); the unfused pass on the high-register score's rows (3
-s, large font: T = 133,120, P = 128, N = 1024). For each: CUDA events
+s, large font: T = 133,120, P = 128, N = 1024); the string at T = 16384,
+every sample active (the blocked order), at the effects chain's six
+lengths (L = 535 .. 133), and the per-sample order at 535 and 133; the
+same six strings at each layout of the blocked kernel that fits; the
+ADSR's clock branch at T = 16384 from IDLE (attack 10 ms, decay 50 ms to
+0.6, release 100 ms, sustain 0 samples) on four triggers, a trigger every
+97 samples and every sample, and its backward on the four triggers (its
+walk cut at the first sample: IDLE) and from RELEASE at 1.0 with no
+trigger and a release of 6 s (no cut: the whole call walked). For
+each: CUDA events
 around 10 back-to-back calls after a warm-up (these also count the
 wrapper's host enqueue), and torch.profiler's device events of 10 calls:
 the kernel alone, every kernel of a call summed (the unfused pass was
@@ -59,13 +74,19 @@ KERNEL_KEYS = {
     "adsr_scan_bwd": ("adsr_bwd",),
     "comb_scan_bwd": ("adjoint", "comb_bwd_windows", "channel_sum"),
     "filter_gain_mix": ("XtSource", "zero_state", "carry", "render"),
+    "ks_blocked": ("ks_blocked",),
+    "ks_scan": ("::ks_scan(",),
+    "adsr_clock": ("::adsr_clock(",),
+    "adsr_clock_bwd": ("adsr_clock_bwd",),
 }
 FOLLOWER_KW = dict(atk=0.05, rel=0.002)
 SLEW_KW = {"linear": dict(linear=True, p_rise=40000.0 / 44100, p_fall=8000.0 / 44100),
            "exponential": dict(linear=False, p_rise=0.05, p_fall=0.01)}
 ADSR_KW = dict(dA=1.0 / 220.5, dD=-0.4 / 441.0, dR=-0.6 / 441.0, sus=0.6)
 COMB_L = 2206
-PARTS = ("scan", "follower", "slew", "adsr", "comb", "unfused")
+KS_LS = (535, 401, 300, 225, 178, 133)  # the effects chain's six strings at 44.1 kHz
+CLOCK_KW = dict(dA=1.0 / 441.0, dD=-0.4 / 2205.0, dR=-0.6 / 4410.0, sus=0.6)
+PARTS = ("scan", "follower", "slew", "adsr", "comb", "unfused", "ks", "ks_layouts", "clock")
 
 
 def _seeded(dev, seed, *shapes, lo=-1.0, hi=1.0):
@@ -233,6 +254,82 @@ def main() -> None:
             lambda: comb.comb_scan_bwd(*args, tuple(residuals), **kw),
             KERNEL_KEYS["comb_scan_bwd"], comb.comb_scan_bwd_windows(*args, **kw),
             shape=f"T={T} C=1 L={COMB_L}")
+
+    if "ks" in parts:
+        from pygmu2_tpu_torch.ops import ks
+
+        for L in KS_LS:
+            (rho,) = _seeded(dev, 40 + L, (T,), lo=0.99, hi=0.9999)
+            (buf,) = _seeded(dev, 41 + L, (L,), lo=-0.3, hi=0.3)
+            state = (torch.tensor(3, dtype=torch.int32, device=dev),
+                     torch.tensor(0.05, device=dev), torch.tensor(-0.05, device=dev))
+            act = torch.ones(T, dtype=torch.bool, device=dev)
+            layout = getattr(ks, "blocked_layout", None)
+            result[f"string, blocked order, L={L}"] = _timed(
+                lambda: ks.ks_scan(rho, act, buf, *state, L=L, allpass_c=0.35, all_active=True),
+                KERNEL_KEYS["ks_blocked"], ks.ks_blocked_ref(rho, buf, *state, L=L, allpass_c=0.35),
+                shape=f"T={T} L={L}",
+                layout=None if layout is None else list(layout(min(L - 1, ks.BLOCKED_MAX_B))))
+            if L in (535, 133):
+                result[f"string, per-sample order, L={L}"] = _timed(
+                    lambda: ks.ks_scan(rho, act, buf, *state, L=L, allpass_c=0.35),
+                    KERNEL_KEYS["ks_scan"], shape=f"T={T} L={L}")
+
+    if "ks_layouts" in parts:
+        from pygmu2_tpu_torch.ops import ks
+
+        for L in KS_LS:
+            (rho,) = _seeded(dev, 40 + L, (T,), lo=0.99, hi=0.9999)
+            (buf,) = _seeded(dev, 41 + L, (L,), lo=-0.3, hi=0.3)
+            state = (torch.tensor(3, dtype=torch.int32, device=dev),
+                     torch.tensor(0.05, device=dev), torch.tensor(-0.05, device=dev))
+            ref = ks.ks_blocked_ref(rho, buf, *state, L=L, allpass_c=0.35)
+            B = min(L - 1, ks.BLOCKED_MAX_B)
+            for lay in ks.BLOCKED_LAYOUTS:
+                try:
+                    ks.blocked_quads(B, *lay)
+                except ValueError:
+                    continue
+                result[f"string, blocked order, L={L}, layout {lay}"] = _timed(
+                    lambda: ks._launch_blocked(rho, buf, *state, L=L, allpass_c=0.35, layout=lay),
+                    KERNEL_KEYS["ks_blocked"], ref, shape=f"T={T} L={L}",
+                    chosen=lay == ks.blocked_layout(B))
+
+    if "clock" in parts:
+        trigs = {"four triggers": [10, 5000, 9000, 15000],
+                 "a trigger every 97 samples": slice(None, None, 97),
+                 "every sample": slice(None)}
+        for label, where in trigs.items():
+            trig = torch.zeros(T, device=dev)
+            trig[where] = 1.0
+            state = (torch.zeros((), dtype=torch.int32, device=dev),
+                     torch.zeros((), dtype=torch.float64, device=dev),
+                     torch.zeros((), dtype=torch.int64, device=dev))
+            kw = dict(CLOCK_KW, t0=0, sustain_samples=0)
+            y_ref, _ = adsr.adsr_clock_scan_ref(trig.cpu(), *(v.cpu() for v in state), **kw)
+            result[f"clock, {label}"] = _timed(
+                lambda: adsr.adsr_clock_scan(trig, *state, **kw)[0],
+                KERNEL_KEYS["adsr_clock"], y_ref.to(dev), shape=f"T={T}, sustain 0",
+                triggers=int((trig > 0).sum()))
+            if label == "four triggers":  # the backward (as first written), timed once
+                (gy,) = _seeded(dev, 42, (T,))
+                genv = torch.tensor(0.25, dtype=torch.float64, device=dev)
+                bwd_kw = dict(CLOCK_KW)
+                result["clock backward, four triggers"] = _timed(
+                    lambda: adsr.adsr_clock_scan_bwd(trig, *state[:2], gy, genv, **bwd_kw),
+                    KERNEL_KEYS["adsr_clock_bwd"],
+                    adsr.adsr_clock_scan_bwd_ref(trig, *state[:2], gy, genv, **bwd_kw),
+                    shape=f"T={T}")
+                # no cut: from RELEASE at 1.0, no trigger, a 6 s release
+                quiet = torch.zeros(T, device=dev)
+                rel = (torch.tensor(adsr._R, dtype=torch.int32, device=dev),
+                       torch.tensor(1.0, dtype=torch.float64, device=dev))
+                long_kw = dict(CLOCK_KW, dR=-1.0 / (6.0 * 44100))
+                result["clock backward, a release through the call"] = _timed(
+                    lambda: adsr.adsr_clock_scan_bwd(quiet, *rel, gy, genv, **long_kw),
+                    KERNEL_KEYS["adsr_clock_bwd"],
+                    adsr.adsr_clock_scan_bwd_ref(quiet, *rel, gy, genv, **long_kw),
+                    shape=f"T={T}, no cut")
 
     if "unfused" in parts:
         seconds = 3.0

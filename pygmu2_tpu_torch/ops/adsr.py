@@ -42,7 +42,14 @@ absolute-clock machine with a float64 envelope and an int64 deadline:
 
 - ``adsr_clock_scan`` is its wrapper (kernel ``adsr_clock`` in the same
   ``csrc/adsr_scan.cu``, counted in ``adsr_clock_scan.launches``);
-- ``adsr_clock_scan_ref`` is its plain version.
+- ``adsr_clock_scan_ref`` is its plain version;
+- ``adsr_clock_scan_runs`` is the kernel's order in Python floats and torch
+  ops, equal to the plain version bit for bit: ``adsr_clock_runs`` walks
+  the triggers and the runs (within a binade of ulp u every envelope is
+  m u and each update adds the same n u, so a ramp is tens of runs
+  ``e0 + j delta``, exact in float64, not thousands of samples), every
+  sample evaluated from its run; a tile of many triggers walked sample by
+  sample.
 
 The backward of both: ``adsr_scan_bwd`` and ``adsr_clock_scan_bwd`` launch
 ``csrc/adsr_scan_bwd.cu`` for CUDA tensors (counted in their
@@ -744,6 +751,181 @@ def adsr_clock_scan_ref(trig, stage, env, ends, *, t0, dA, dD, dR, sus, sustain_
     )
 
 
+# the clock kernel's tiles: samples a tile, run records a walk holds, and
+# the triggers a tile past which one thread walks every sample instead (the
+# walks cross near 285 triggers a tile: the run walk ~1,100-1,200 cycles a
+# record, ~3 records a trigger when they are dense, against ~129 cycles a
+# sample; cycle_probe.py clock, H100)
+CLOCK_TILE = 8192
+CLOCK_RECORDS = 2048
+CLOCK_DENSE_ABOVE = 256
+_M_LO, _M_HI = 1 << 52, 1 << 53  # a binade's integer significands: [2**52, 2**53)
+
+
+def _clock_step(st, e, now, end, *, dA, dD, dR, sus, sustain_samples):
+    """One update of the clock machine, its trigger applied: (stage, envelope,
+    deadline) after the sample at absolute index ``now``; the plain version's
+    ops, Python floats being IEEE doubles."""
+    if st == _I:
+        return _I, 0.0, end
+    if st == _A:
+        e2 = e + dA
+        return (_D, 1.0, end) if e2 >= 1.0 else (_A, e2, end)
+    if st == _D:
+        e2 = e + dD
+        if e2 <= sus:  # entering SUSTAIN arms the deadline
+            end = now + sustain_samples
+            return (_R if now >= end else _S), sus, end
+        return _D, e2, end
+    if st == _S:
+        return (_R if now >= end else _S), sus, end
+    e2 = e + dR  # RELEASE, or any other code, which updates as RELEASE
+    return (_I, 0.0, end) if e2 <= 0.0 else (st, e2, end)
+
+
+def _ramp_run(st, e, limit, *, dA, dD, dR, sus):
+    """The samples a ramp (ATTACK, DECAY or RELEASE) starting at the envelope
+    ``e`` emits on a steady run, at most ``limit``: (n, delta) such that the
+    j-th sample's envelope is ``e + j * delta`` exactly for j < n, each
+    update between them a plain ``e + d`` that stays in one binade and does
+    not reach its clip level; (1, 0.0) where no run starts (the update is
+    then taken as it is). In the binade [2**E, 2**(E+1)) with ulp u, every
+    envelope is m u for an integer m in [2**52, 2**53), and e + d rounds to
+    (m + n) u with n = d / u rounded: the same n on every update, but where
+    d / u ends in one half (a tie, to an even m), whose first update may
+    round the other way; so the run starts where two updates agree. Its
+    length: updates whose results stay in [2**52 + 1, 2**53 - 1] u (rounded
+    as in the binade, whatever side of it the exact sum falls) and, in
+    DECAY, stay above sus; ATTACK's 1 and RELEASE's 0 lie outside every
+    binade the run can be in, so only those two bounds count."""
+    d = dA if st == _A else (dD if st == _D else dR)
+    if limit < 2 or not (e > 0.0 and math.isfinite(e)):
+        return 1, 0.0
+    _, ex = math.frexp(e)  # e = f 2**ex, 0.5 <= f < 1: the binade [2**(ex-1), 2**ex)
+    if ex < -1000:  # near the subnormals, whose spacing is not the binade's: no run
+        return 1, 0.0
+    u = math.ldexp(1.0, ex - 53)
+    e1 = e + d
+    e2 = e1 + d
+    hit = ((lambda v: v >= 1.0) if st == _A else
+           (lambda v: v <= sus) if st == _D else (lambda v: v <= 0.0))
+    if hit(e1) or hit(e2):
+        return 1, 0.0
+    m0, m1, m2 = e / u, e1 / u, e2 / u  # exact: powers of two
+    if not all(math.isfinite(m) and m == math.floor(m) for m in (m1, m2)):
+        return 1, 0.0
+    m0, m1, m2 = int(m0), int(m1), int(m2)
+    if not all(_M_LO < m < _M_HI for m in (m1, m2)) or m2 - m1 != m1 - m0:
+        return 1, 0.0
+    n = m1 - m0
+    if n == 0:
+        return limit, 0.0
+    jmax = (_M_HI - 1 - m0) // n if n > 0 else (m0 - _M_LO - 1) // -n
+    if st == _D and n < 0 and math.isfinite(sus):
+        # results above sus: m0 + j n > sus / u, an exact scaling
+        s_u = math.floor(sus / u)
+        if s_u >= m0:
+            return 1, 0.0
+        jmax = min(jmax, (m0 - s_u - 1) // -n)
+    return max(1, min(limit, jmax + 1)), n * u
+
+
+def adsr_clock_runs(trig, stage, env, ends, *, t0, dA, dD, dR, sus, sustain_samples,
+                    start=0, stop=None, records=CLOCK_RECORDS):
+    """The run walk of the clock kernel (``csrc/adsr_scan.cu`` ``adsr_clock``)
+    over ``trig[start:stop]``: at most ``records`` run records ``(sample,
+    envelope, delta)``, sample ``sample + j`` of a record (up to the next
+    record's) emitting float32(envelope + j delta), each exact in float64.
+    ``trig`` is a list of floats; the state (stage, env, ends) is Python
+    ints and floats. Returns (records, the sample the walk stopped at, the
+    state there). Triggers, a stage's end (a clip level reached, a binade
+    left, the sustain's deadline) and a tie's first update start records;
+    IDLE, SUSTAIN and an update too small to move the envelope run flat."""
+    stop = len(trig) if stop is None else stop
+    kw = dict(dA=dA, dD=dD, dR=dR, sus=sus, sustain_samples=sustain_samples)
+    st, e, end = int(stage), float(env), int(ends)
+    out = []
+    events = [i for i in range(start, stop) if trig[i] > 0.0]
+    nxt = 0
+    s = start
+    while s < stop and len(out) + 2 <= records:
+        if trig[s] > 0.0:
+            st = _A
+        while nxt < len(events) and events[nxt] <= s:
+            nxt += 1
+        nt = events[nxt] if nxt < len(events) else stop  # the next trigger
+        if st == _I:
+            out.append((s, e, 0.0))
+            if nt > s + 1:
+                out.append((s + 1, 0.0, 0.0))
+            e, s = 0.0, nt
+        elif st == _S:
+            x = max(s, end - t0)  # the sample whose update expires
+            out.append((s, e, 0.0))
+            last = min(x, nt - 1)
+            if last > s:
+                out.append((s + 1, sus, 0.0))
+            e = sus
+            if last == x:
+                st = _R
+            s = last + 1
+        else:
+            n, delta = _ramp_run(st, e, nt - s, dA=dA, dD=dD, dR=dR, sus=sus)
+            out.append((s, e, delta))
+            e = e + (n - 1) * delta  # exact: the run's last envelope
+            s += n
+            st, e, end = _clock_step(st, e, t0 + s - 1, end, **kw)
+    return out, s, (st, e, end)
+
+
+def _clock_eval(recs, lo, hi):
+    """float32 envelopes of samples lo .. hi - 1 from their run records."""
+    starts = torch.tensor([r[0] for r in recs] + [hi], dtype=torch.int64)
+    v0 = torch.tensor([r[1] for r in recs], dtype=torch.float64)
+    dl = torch.tensor([r[2] for r in recs], dtype=torch.float64)
+    n = starts[1:] - starts[:-1]
+    idx = torch.repeat_interleave(torch.arange(len(recs)), n)
+    j = torch.arange(lo, hi, dtype=torch.int64) - starts[:-1][idx]
+    v, dv = v0[idx], dl[idx]
+    # a flat record emits its value as it is (a signed zero kept)
+    return torch.where(dv == 0.0, v, v + j.to(torch.float64) * dv).to(torch.float32)
+
+
+def adsr_clock_scan_runs(trig, stage, env, ends, *, t0, dA, dD, dR, sus, sustain_samples,
+                         dense_above=CLOCK_DENSE_ABOVE, records=CLOCK_RECORDS):
+    """:func:`adsr_clock_scan_ref` in the clock kernel's order (same
+    arguments and result, equal bit for bit): tiles of ``CLOCK_TILE``
+    samples; a tile with more than ``dense_above`` triggers walked sample by
+    sample (the plain loop), else by :func:`adsr_clock_runs` in walks of at
+    most ``records`` records, every sample then evaluated from its record."""
+    dev = trig.device
+    g = trig.tolist()
+    T = len(g)
+    kw = dict(dA=float(dA), dD=float(dD), dR=float(dR), sus=float(sus),
+              sustain_samples=int(sustain_samples))
+    st, e, end = int(stage), float(env), int(ends)
+    ys = []
+    for base in range(0, T, CLOCK_TILE):
+        top = min(T, base + CLOCK_TILE)
+        if sum(v > 0.0 for v in g[base:top]) > dense_above:  # every sample
+            out = []
+            for i in range(base, top):
+                out.append(e)
+                st, e, end = _clock_step(_A if g[i] > 0.0 else st, e, t0 + i, end, **kw)
+            ys.append(torch.tensor(out, dtype=torch.float64).to(torch.float32))
+            continue
+        s = base
+        while s < top:
+            recs, s2, (st, e, end) = adsr_clock_runs(
+                g, st, e, end, t0=t0, start=s, stop=top, records=records, **kw)
+            ys.append(_clock_eval(recs, s, s2))
+            s = s2
+    y = torch.cat(ys) if ys else torch.zeros(0, dtype=torch.float32)
+    return y.to(dev), (torch.tensor(st, dtype=torch.int32, device=dev),
+                       torch.tensor(e, dtype=torch.float64, device=dev),
+                       torch.tensor(end, dtype=torch.int64, device=dev))
+
+
 def adsr_clock_scan(trig, stage, env, ends, *, t0, dA, dD, dR, sus, sustain_samples):
     """Triggered ADSR on an absolute clock, the JAX ``AdsrTriggeredPE``'s
     ``lax.scan`` branch, for any sustain length.
@@ -792,7 +974,7 @@ def _launch_clock(trig, stage, env, ends, *, t0, dA, dD, dR, sus, sustain_sample
             trig.data_ptr(), stage.data_ptr(), env.data_ptr(), ends.data_ptr(),
             y.data_ptr(), stage_out.data_ptr(), env_out.data_ptr(), ends_out.data_ptr(),
             T, int(t0), float(dA), float(dD), float(dR), float(sus), int(sustain_samples),
-            torch.cuda.current_stream(dev).cuda_stream,
+            int(CLOCK_DENSE_ABOVE), torch.cuda.current_stream(dev).cuda_stream,
         )
     _ext.raise_on_error(err, "adsr_clock_scan")
     adsr_clock_scan.launches += 1

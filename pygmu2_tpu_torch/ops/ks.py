@@ -23,6 +23,11 @@ inactive sample (before t = 0) outputs 0 and leaves the string alone.
   order of XLA's CPU program (``xla_gemv``: eight lanes of fused
   multiply-adds, their pairwise sum, a serial tail), so it equals the JAX
   render bit for bit. ``ks_scan(..., all_active=True)`` takes it.
+- ``ks_blocked_plan`` computes ``ks_blocked_ref`` in the order of the
+  card's blocked kernel (a lane a chain of a run of R rows, a short and a
+  long quad of rows a warp, a cluster of CTAs: ``blocked_layout``,
+  ``blocked_quads``, ``blocked_steps``), whose extra terms are products by
+  zero; equal to it bit for bit (tests only).
 - ``ks_scan_windows`` computes ``ks_scan_ref`` in the kernel's order
   (tests only): the active samples compacted, the two-point average of a
   window of them at once from the string as earlier windows left it, then
@@ -215,6 +220,129 @@ def ks_blocked_ref(rho, buf, r, ap_in, ap_out, *, L, allpass_c):
             torch.cat(outs)[T - 1], y[T - 1])
 
 
+# ---- the blocked order's kernel layout (csrc/ks_scan.cu ks_blocked) ----
+#
+# Row j of a block is eight chains (k mod 8) of fused multiply-adds; the
+# kernel gives each of 8 lanes one chain of a run of R consecutive rows
+# (the diagonals for neighbouring rows are the same values shifted by one,
+# so a lane loads min(R, 8) of them a step), four runs a warp (a quad), and
+# pairs a short quad with a long one on each warp (the triangle's area
+# shared out), its warps spread over a cluster of CTAs.
+BLOCKED_WARPS = 16  # warps a CTA at most
+# the kernel's (R, CTAs) for a string in shared memory: the rows a run and
+# the cluster sizes that blocked_layout picks, each with each; and its one
+# build for a string past shared memory
+BLOCKED_LAYOUTS = ((2, 1), (8, 1), (2, 8), (8, 8))
+GLOBAL_LAYOUT = (16, 1)
+
+
+def blocked_layout(B: int) -> tuple[int, int]:
+    """The kernel's (rows a run R, CTAs in a cluster) for a block of B
+    rows: the fastest of ``BLOCKED_LAYOUTS`` at each of the effects chain's
+    six strings on an H100 (``kernel_times.py ks_layouts``; PERF.md, row
+    7): past 256 rows (L = 535, 401, 300) two rows a run over a cluster of
+    eight CTAs (the chains are bound by shared-memory loads, which the
+    cluster spreads over eight SMs); below (225, 178, 133) eight rows a run
+    on one CTA, where a block's fixed costs (its barriers, the butterflies,
+    the outputs) outweigh the chains."""
+    return (2, 8) if B > 256 else (8, 1)
+
+
+def launch_layout(L: int) -> tuple[int, int]:
+    """The layout the wrapper launches for a string of L: ``blocked_layout``
+    of its block, or ``GLOBAL_LAYOUT`` for a string past shared memory."""
+    return blocked_layout(min(L - 1, BLOCKED_MAX_B)) if L <= MAX_KERNEL_L else GLOBAL_LAYOUT
+
+
+def blocked_quads(B: int, R: int, ncta: int) -> list[tuple[int, int]]:
+    """Each warp's runs of the kernel's layout, by global warp index (warp w
+    runs on CTA w % ncta as its warp w // ncta): (quad A, quad B), quad q
+    holding rows 4Rq .. 4R(q + 1) - 1 (-1: none). A quad a warp where the
+    cluster has a warp for each; else a short quad and a long one a warp.
+    Raises where the layout is not the kernel's (``BLOCKED_LAYOUTS``,
+    ``GLOBAL_LAYOUT``) or needs more warps than the cluster has."""
+    runs = -(-B // R)
+    quads = -(-runs // 4)
+    have = ncta * BLOCKED_WARPS
+    if (R, ncta) not in BLOCKED_LAYOUTS + (GLOBAL_LAYOUT,) or -(-quads // 2) > have:
+        raise ValueError(f"layout R={R} ncta={ncta} does not fit B={B}")
+    if quads <= have:
+        return [(w, -1) for w in range(quads)]
+    return [(w, quads - 1 - w if quads - 1 - w != w else -1) for w in range(-(-quads // 2))]
+
+
+def blocked_steps(B: int, R: int, q: int) -> int:
+    """The steps (eight terms of each chain a step) of quad q's lanes: its
+    rows' chains below K8 = B - B % 8, rounded up to a multiple of the
+    kernel's unroll (4 steps for R = 16, else 3): zero terms past a row's
+    own."""
+    unroll = 4 if R > 8 else 3
+    return -(-(min(4 * R * (q + 1), B - B % 8) // 8) // unroll) * unroll
+
+
+def ks_blocked_plan(rho, buf, r, ap_in, ap_out, *, L, allpass_c, layout=None):
+    """:func:`ks_blocked_ref` in the order of the card's kernel (same
+    arguments and result, equal bit for bit): each row's eight chains run
+    as many steps as its quad's lanes (:func:`blocked_steps`), adding the
+    terms past the row (a diagonal of 0) and past K8 (a u of 0): products
+    by zero, which leave a chain that starts at +0 as it is; the chains'
+    pairwise sums (the butterfly of the lanes, in XLA's order), the B % 8
+    last rows' tail, the entering state's term. ``layout``: (R, ncta), by
+    default :func:`blocked_layout`."""
+    dev = rho.device
+    f32 = torch.float32
+    T = rho.shape[0]
+    B, tril, powv = blocked_tables(L, float(allpass_c))
+    R, ncta = layout or blocked_layout(B)
+    K8 = B - B % 8
+    steps = torch.zeros(B, dtype=torch.int64)
+    for qa, qb in blocked_quads(B, R, ncta):
+        for q in (qa, qb):
+            if q >= 0:
+                steps[4 * R * q:4 * R * (q + 1)] = blocked_steps(B, R, q)
+    steps = steps.to(dev)
+    diag = torch.from_numpy(np.ascontiguousarray(tril[:, 0])).to(dev)
+    powv = torch.from_numpy(powv).to(dev)
+    c = torch.tensor(np.float32(allpass_c), device=dev)
+    rows = torch.arange(B, device=dev)
+    lanes = torch.arange(8, device=dev)
+    r0 = int(r)
+    W = buf.to(f32)[(r0 + torch.arange(L, device=dev)) % L]
+    ai = torch.as_tensor(ap_in, dtype=f32, device=dev).reshape(())
+    ao = torch.as_tensor(ap_out, dtype=f32, device=dev).reshape(())
+    aps = []
+    for n0 in range(0, T, B):
+        nb = min(B, T - n0)
+        out = (rho[n0:n0 + nb].to(f32) * (W[:nb] + W[1:nb + 1])) * 0.5
+        u = torch.cat([fmaf(c, out[:1], ai[None]), c * out[1:] + out[:-1]])
+        uz = torch.zeros(max(B, 8 * int(steps.max())) + 8, dtype=f32, device=dev)
+        uz[:min(nb, K8)] = u[:min(nb, K8)]
+        acc = torch.zeros((B, 8), dtype=f32, device=dev)
+        for s_ in range(int(steps.max()) if B else 0):
+            k = 8 * s_ + lanes
+            d = rows[:, None] - k[None, :]
+            dz = torch.where(d >= 0, diag[d.clamp(0, B - 1)], torch.zeros((), device=dev))
+            acc = torch.where((steps > s_)[:, None], fmaf(dz, uz[k][None, :], acc), acc)
+        a = acc.unbind(1)
+        h = torch.where(rows < K8,
+                        ((a[0] + a[1]) + (a[2] + a[3])) + ((a[4] + a[5]) + (a[6] + a[7])),
+                        ((a[0] + a[4]) + (a[2] + a[6])) + ((a[1] + a[5]) + (a[3] + a[7])))
+        e = torch.zeros(B, dtype=f32, device=dev)
+        for k in range(K8, nb):  # the tail: rows past K8, their own terms only
+            e = torch.where(rows >= k, fmaf(diag[(rows - k).clamp(0, B - 1)], u[k], e), e)
+        ap = fmaf(powv, ao, h + e)[:nb]
+        W = torch.cat([W[nb:], ap])
+        ai, ao = out[-1], ap[-1]
+        aps.append(ap)
+    y = torch.cat(aps)
+    r2 = (r0 + T) % L
+    if T >= L:
+        buf2 = torch.roll(y[T - L:], r2)
+    else:
+        buf2 = torch.index_put(buf.to(f32), ((r0 + torch.arange(T, device=dev)) % L,), y)
+    return y, buf2, torch.tensor(r2, dtype=torch.int32, device=dev), ai, y[T - 1]
+
+
 def ks_scan(rho, act, buf, r, ap_in, ap_out, *, L, allpass_c, all_active=False):
     """Karplus-Strong string over T samples.
 
@@ -282,7 +410,10 @@ def _launch(rho, act, buf, r, ap_in, ap_out, *, L, allpass_c):
 _DEVICE_TABLES: dict = {}
 
 
-def _launch_blocked(rho, buf, r, ap_in, ap_out, *, L, allpass_c):
+def _launch_blocked(rho, buf, r, ap_in, ap_out, *, L, allpass_c, layout=None):
+    """One launch of the blocked kernel; ``layout`` (R, CTAs) in place of
+    :func:`launch_layout`'s (``kernel_times.py``'s sweep of
+    ``BLOCKED_LAYOUTS``)."""
     dev = rho.device
     if rho.dim() != 1 or rho.shape[0] < 1 or L < BLOCKED_MIN_L:
         raise ValueError(f"unsupported shape rho={tuple(rho.shape)} L={L}")
@@ -301,6 +432,7 @@ def _launch_blocked(rho, buf, r, ap_in, ap_out, *, L, allpass_c):
         _DEVICE_TABLES[key] = (B, torch.from_numpy(np.ascontiguousarray(tril[:, 0])).to(dev),
                                torch.from_numpy(powv).to(dev))
     B, diag, powv = _DEVICE_TABLES[key]
+    R, ncta = layout or launch_layout(L)
     y = torch.empty((T,), dtype=torch.float32, device=dev)
     buf_out = torch.empty((L,), dtype=torch.float32, device=dev)
     r_out = torch.empty((), dtype=torch.int32, device=dev)
@@ -312,7 +444,7 @@ def _launch_blocked(rho, buf, r, ap_in, ap_out, *, L, allpass_c):
             rho.data_ptr(), buf.data_ptr(), r.data_ptr(), ap_in.data_ptr(),
             ap_out.data_ptr(), diag.data_ptr(), powv.data_ptr(), y.data_ptr(),
             buf_out.data_ptr(), r_out.data_ptr(), ai_out.data_ptr(), ao_out.data_ptr(),
-            T, L, B, float(allpass_c), torch.cuda.current_stream(dev).cuda_stream,
+            T, L, B, R, ncta, float(allpass_c), torch.cuda.current_stream(dev).cuda_stream,
         )
     _ext.raise_on_error(err, "ks_scan")
     ks_scan.launches += 1

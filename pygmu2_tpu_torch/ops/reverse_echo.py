@@ -660,19 +660,27 @@ def _launch(x, blk, ratio, fb, alt, buf_a, buf_b, pitch_buf, misc, *, sr, plen,
 
 # csrc/reverse_echo_scan_bwd.cu's index: a CUDA block ranks the readers of
 # 256 line rows, at most four a sample of the plen + 255 that may read them,
-# which row of its each reads kept in shared memory (5 x 2 bytes a sample,
-# at most 200 KB: a pitch line of sr / 60 up to a 1.2 MHz rate)
+# which row of its each reads kept in shared memory (5 x 2 bytes a sample)
+# up to 200 KB: a pitch line of 20225 rows (sr / 60 up to a 1.2 MHz rate);
+# past that in device scratch the wrapper allocates, a slice a CUDA block
 _TILE_ROWS = 256
-_MAX_BWD_PLEN = 200 * 1024 // 10 - _TILE_ROWS + 1
+SHARED_INDEX_MAX_PLEN = 200 * 1024 // 10 - _TILE_ROWS + 1
+# tests: the index in device memory at any pitch line
+FORCE_DEVICE_INDEX = False
+
+
+def index_in_device_memory(plen: int) -> bool:
+    """Whether the backward kernel's readers' index keeps its rows in
+    device memory (a pitch line past ``SHARED_INDEX_MAX_PLEN`` rows, or
+    ``FORCE_DEVICE_INDEX``); the same passes and bits either way."""
+    return FORCE_DEVICE_INDEX or plen > SHARED_INDEX_MAX_PLEN
 
 
 def _launch_bwd(x, blk, ratio, fb, alt, pitch_buf, misc, y, gy, gbuf_a, gbuf_b, gpb, gmisc,
                 tab, bounds, n_periods, *, sr, plen, cap, min_block, max_block, smooth_alpha):
     dev = x.device
-    if (x.dim() != 2 or x.shape[0] < 1 or x.shape[1] < 1 or not 2 <= plen <= _MAX_BWD_PLEN
-            or cap < 2):
-        raise ValueError(f"unsupported shape x={tuple(x.shape)} plen={plen} (the backward "
-                         f"kernel's index takes plen up to {_MAX_BWD_PLEN}) cap={cap}")
+    if x.dim() != 2 or x.shape[0] < 1 or x.shape[1] < 1 or plen < 2 or cap < 2:
+        raise ValueError(f"unsupported shape x={tuple(x.shape)} plen={plen} cap={cap}")
     T, C = x.shape
     x, y, gy = (_ext.checked(v, n, (T, C), dev) for v, n in ((x, "x"), (y, "y"), (gy, "gy")))
     fb = _ext.checked(fb, "fb", (T,), dev)
@@ -699,6 +707,10 @@ def _launch_bwd(x, blk, ratio, fb, alt, pitch_buf, misc, y, gy, gbuf_a, gbuf_b, 
     tiles = -(-(T + plen) // _TILE_ROWS)
     tile_cap = 4 * (plen + _TILE_ROWS)
     index = torch.empty((2 * (T + plen) + tiles * tile_cap,), dtype=torch.int32, device=dev)
+    # past a pitch line of SHARED_INDEX_MAX_PLEN rows: each CUDA block's
+    # readers' rows (5 x 2 bytes a sample of the plen + 255) in device memory
+    rows = (torch.empty((tiles * 5 * (plen + _TILE_ROWS - 1),), dtype=torch.int16, device=dev)
+            if index_in_device_memory(plen) else None)
     f, i = work.data_ptr(), index.data_ptr()
     lib = _ext.load()
     with torch.cuda.device(dev):
@@ -708,8 +720,9 @@ def _launch_bwd(x, blk, ratio, fb, alt, pitch_buf, misc, y, gy, gbuf_a, gbuf_b, 
             gbuf_a.data_ptr(), gbuf_b.data_ptr(), gmisc.data_ptr(), lam_a.data_ptr(),
             lam_b.data_ptr(), pitch_buf.data_ptr(), gpb.data_ptr(), gline.data_ptr(),
             gfb.data_ptr(), gratio.data_ptr(), gm.data_ptr(), f + 12 * T * C, f,
-            f + 4 * T * C, f + 8 * T * C, i, i + 4 * (T + plen), i + 8 * (T + plen), T, C, cap,
-            int(plen), tile_cap, 1.0 / (plen / 2.0), float((1.0 - smooth_alpha) ** T),
+            f + 4 * T * C, f + 8 * T * C, i, i + 4 * (T + plen), i + 8 * (T + plen),
+            None if rows is None else rows.data_ptr(), T, C, cap, int(plen), tile_cap,
+            1.0 / (plen / 2.0), float((1.0 - smooth_alpha) ** T),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _ext.raise_on_error(err, "reverse_echo_scan_bwd")

@@ -66,10 +66,10 @@ ECHO_CASES = {
 }
 
 
-def _echo_np(T, C, ratio, alt, mid, seed):
+def _echo_np(T, C, ratio, alt, mid, seed, kw=ECHO_KW):
     """Seeded numpy arguments of an echo call and cotangents of its outputs."""
     rng = np.random.default_rng(seed)
-    cap, plen, sr = ECHO_KW["cap"], ECHO_KW["plen"], ECHO_KW["sr"]
+    cap, plen, sr = kw["cap"], kw["plen"], kw["sr"]
 
     def n(*s):
         return rng.standard_normal(s).astype(np.float32)
@@ -96,24 +96,28 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-def echo_errors(T, C, ratio, alt, mid, seed=0):
+def echo_errors(T, C, ratio, alt, mid, seed=0, kw=ECHO_KW, plain=False):
     """The kernel order's largest relative errors per output against the
-    plain adjoint and against jax.vjp."""
-    args, cts = _echo_np(T, C, ratio, alt, mid, seed)
+    plain adjoint and against jax.vjp (``plain``: and the plain adjoint's
+    against jax.vjp)."""
+    args, cts = _echo_np(T, C, ratio, alt, mid, seed, kw)
     targs = [_t(a) for a in args]
     x, blk, r, fb, al, _, _, pb, misc = targs
-    y = re_.reverse_echo_scan_ref(*targs, **ECHO_KW)[0]
+    y = re_.reverse_echo_scan_ref(*targs, **kw)[0]
     call = (x, blk, r, fb, al, pb, misc, y, *map(_t, cts))
-    got = re_.reverse_echo_scan_bwd_periods(*call, **ECHO_KW)
-    want = re_.reverse_echo_scan_bwd_ref(*call, **ECHO_KW)
+    got = re_.reverse_echo_scan_bwd_periods(*call, **kw)
+    want = re_.reverse_echo_scan_bwd_ref(*call, **kw)
 
     def f(x, r, fb, ba, bb, pb, misc):
-        return jax_echo_ref(x, args[1], r, fb, args[4], ba, bb, pb, misc, **ECHO_KW)
+        return jax_echo_ref(x, args[1], r, fb, args[4], ba, bb, pb, misc, **kw)
 
     _, vjp = jax.vjp(f, *(jnp.asarray(args[i]) for i in (0, 2, 3, 5, 6, 7, 8)))
     want_jax = vjp(tuple(jnp.asarray(c) for c in cts))
-    return ([_rel(g, w) for g, w in zip(got, want)],
+    errs = ([_rel(g, w) for g, w in zip(got, want)],
             [_rel(g, w) for g, w in zip(got, want_jax)])
+    if plain:
+        errs += ([_rel(g, w) for g, w in zip(want, want_jax)],)
+    return errs
 
 
 @pytest.mark.parametrize("case", list(ECHO_CASES))
@@ -121,6 +125,28 @@ def test_echo_period_order_matches_plain_and_jax(case):
     plain, jax_ = echo_errors(*ECHO_CASES[case])
     assert max(plain) <= TOL, (case, plain)
     assert max(jax_) <= TOL, (case, jax_)
+
+
+# a pitch line past the card backward's shared-memory index (20225 rows),
+# where its readers' rows move to device memory: the plain adjoint and the
+# kernel's order against jax.vjp, a fifth up and modulated, at a small T
+ECHO_LONG_KW = dict(ECHO_KW, plen=20480)
+ECHO_LONG_CASES = {
+    "long line, fifth up, C=1": (200, 1, 1.5, 1.0, False),
+    "long line, modulated, C=3, reversed": (170, 3, "mod", 0.0, False),
+}
+
+
+@pytest.mark.parametrize("case", list(ECHO_LONG_CASES))
+def test_echo_long_pitch_line_matches_jax(case):
+    assert re_.index_in_device_memory(ECHO_LONG_KW["plen"])
+    assert not re_.index_in_device_memory(re_.SHARED_INDEX_MAX_PLEN)
+    assert re_.index_in_device_memory(re_.SHARED_INDEX_MAX_PLEN + 1)
+    order, order_jax, plain_jax = echo_errors(*ECHO_LONG_CASES[case], kw=ECHO_LONG_KW,
+                                              plain=True)
+    assert max(plain_jax) <= TOL, (case, plain_jax)
+    assert max(order) <= TOL, (case, order)
+    assert max(order_jax) <= TOL, (case, order_jax)
 
 
 def test_echo_period_order_joins_across_a_cut():
@@ -315,5 +341,7 @@ def test_string_window_is_the_forwards():
 if __name__ == "__main__":
     for name, case in ECHO_CASES.items():
         print("echo", name, *echo_errors(*case))
+    for name, case in ECHO_LONG_CASES.items():
+        print("echo", name, *echo_errors(*case, kw=ECHO_LONG_KW, plain=True))
     for case in STRING_CASES:
         print("string", case, *string_errors(*case))

@@ -635,6 +635,109 @@ def test_ks_blocked_kernel_matches_plain(cuda, L):
         torch.testing.assert_close(g, r, rtol=0, atol=0)
 
 
+def _bits_equal(a, b) -> bool:
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    if a.dtype == torch.float64:
+        return torch.equal(a.view(torch.int64), b.view(torch.int64))
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("L", [535, 401, 300, 225, 178, 133, 16, 17, 24, 513, 514, 51201])
+def test_ks_blocked_layouts_match_plain(cuda, L):
+    """The blocked kernel at the layout ``ops/ks.launch_layout`` picks for
+    L (these lengths take each of its choices: R rows a run, a cluster of
+    1 or 8 CTAs, a string past shared memory one CTA; y staged in the
+    first CTA and stored in 16-byte pieces): bit for bit with
+    ``ks_blocked_ref`` at T not a multiple of the block and at T below it,
+    a second launch the same bits, and two calls handed off against two
+    calls of the plain version."""
+    from pygmu2_tpu_torch.ops import ks
+
+    B = min(L - 1, ks.BLOCKED_MAX_B)
+    lay = ks.launch_layout(L)
+    state = (torch.tensor(L // 3, dtype=torch.int32, device=cuda),
+             torch.tensor(0.1, device=cuda), torch.tensor(-0.2, device=cuda))
+    kw = dict(L=L, allpass_c=0.35, all_active=True)
+    for T in (5, 2 * B + 37):  # the hand-off below: the second's arguments
+        (rho,) = _seeded(cuda, L + 3 + T, (T,), lo=0.99, hi=0.9999)
+        (buf,) = _seeded(cuda, L + 4, (L,))
+        act = torch.ones(T, dtype=torch.bool, device=cuda)
+        ref = ks.ks_blocked_ref(rho, buf, *state, L=L, allpass_c=0.35)
+        before = ks.ks_scan.blocked_launches
+        got = ks.ks_scan(rho, act, buf, *state, **kw)
+        again = ks.ks_scan(rho, act, buf, *state, **kw)
+        torch.cuda.synchronize()
+        assert ks.ks_scan.blocked_launches == before + 2
+        for i, (g, a, r) in enumerate(zip(got, again, ref)):
+            assert _bits_equal(g, a), f"layout {lay} T={T} output {i}: two launches differ"
+            assert _bits_equal(g, r), f"layout {lay} T={T} output {i}: off by {(g - r).abs().max()}"
+    cut = B // 2 + 3
+    first = ks.ks_scan(rho[:cut], act[:cut], buf, *state, **kw)
+    second = ks.ks_scan(rho[cut:], act[cut:], *first[1:], **kw)
+    ref1 = ks.ks_blocked_ref(rho[:cut], buf, *state, L=L, allpass_c=0.35)
+    ref2 = ks.ks_blocked_ref(rho[cut:], *ref1[1:], L=L, allpass_c=0.35)
+    for g, r in zip((*first, *second), (*ref1, *ref2)):
+        assert _bits_equal(g, r), f"layout {lay}: the hand-off differs"
+
+
+@pytest.mark.parametrize("trig", ["sparse", "many", "held", "none"])
+@pytest.mark.parametrize("walk", ["default", "runs", "samples"])
+@pytest.mark.parametrize("sustain_samples", [0, 300, 2**24 - 1])
+def test_adsr_clock_walks_match_plain(cuda, monkeypatch, trig, walk, sustain_samples):
+    """The clock kernel's run walk and its per-sample walk (forced each way
+    by ``CLOCK_DENSE_ABOVE``, and the default's choice) bit for bit with the
+    plain loop over two tiles from a mid-sustain state: the envelope's
+    float32 bits, the stage, the float64 envelope's bits, the deadline; a
+    second launch the same bits; one count a call."""
+    from pygmu2_tpu_torch.ops import adsr
+
+    T = 2 * adsr.CLOCK_TILE + 1001
+    g = torch.zeros(T)
+    if trig == "sparse":
+        g[[10, 5000, 9000, 15000]] = 1.0
+    elif trig == "many":
+        g[::97] = 0.5
+    elif trig == "held":
+        g[:] = 1.0
+    g = g.to(cuda)
+    state = (torch.tensor(3, dtype=torch.int32, device=cuda),
+             torch.tensor(0.6, dtype=torch.float64, device=cuda),
+             torch.tensor(12345 + 40, dtype=torch.int64, device=cuda))
+    kw = dict(t0=12345, dA=1 / 441.0, dD=-0.4 / 2205.0, dR=-0.6 / 4410.0, sus=0.6,
+              sustain_samples=sustain_samples)
+    if walk != "default":
+        monkeypatch.setattr(adsr, "CLOCK_DENSE_ABOVE", 1 << 30 if walk == "runs" else -1)
+    before = adsr.adsr_clock_scan.launches
+    y, st = adsr.adsr_clock_scan(g, *state, **kw)
+    y2, st2 = adsr.adsr_clock_scan(g, *state, **kw)
+    torch.cuda.synchronize()
+    assert adsr.adsr_clock_scan.launches == before + 2
+    y_ref, st_ref = adsr.adsr_clock_scan_ref(g.cpu(), *(v.cpu() for v in state), **kw)
+    assert _bits_equal(y, y2) and all(_bits_equal(a, b) for a, b in zip(st, st2))
+    assert _bits_equal(y.cpu(), y_ref), f"off by {float((y.cpu() - y_ref).abs().max())}"
+    assert all(_bits_equal(a.cpu(), b) for a, b in zip(st, st_ref))
+
+
+def test_adsr_clock_pe_on_card_matches_cpu(cuda):
+    """AdsrTriggeredPE with a sustain of 0 samples (its clock branch) on the
+    card against the port's CPU render, bit for bit, the kernel launched."""
+    import pygmu2_tpu_torch as pg
+    from pygmu2_tpu_torch.ops import adsr
+
+    def build():
+        return pg.CropPE(pg.AdsrTriggeredPE(pg.PeriodicTrigger(hz=7.0), 0.004, 0.02, 0.0,
+                                            0.6, 0.03), 0, 20000)
+
+    pg.set_sample_rate(44100)
+    before = adsr.adsr_clock_scan.launches
+    on_card = pg.render_to_array(build(), block=4096, device=cuda)
+    assert adsr.adsr_clock_scan.launches == before + 5
+    on_cpu = pg.render_to_array(build(), block=4096, device="cpu")
+    assert np.abs(on_cpu).max() == 1.0
+    assert np.array_equal(on_card.view(np.int32), on_cpu.view(np.int32))
+
+
 @pytest.fixture
 def plain_scan(monkeypatch):
     """A context in which the streaming engine takes the scan's plain
@@ -1312,13 +1415,13 @@ def test_reverse_echo_backward_kernel_matches_plain(cuda, C, ratio, alt, T):
     _bwd_close(joined, want, f"echo C={C} ratio={ratio} cut", BWD_TOL)
 
 
-def _echo_case(device, C, ratio, alt, T, seed_shift=0):
+def _echo_case(device, C, ratio, alt, T, seed_shift=0, plen=64):
     """A seeded echo call on the card: the backward's arguments (the
     forward's, its output, the cotangents), the keywords, and the recorded
     forward launch (its control results after its five outputs)."""
     from pygmu2_tpu_torch.ops import reverse_echo as re_
 
-    cap, plen, sr = 400, 64, 8000.0
+    cap, sr = 400, 8000.0
     x, fb, ba, bb, pb = _seeded(device, C + T + seed_shift, (T, C), (T,), (cap, C), (cap, C),
                                 (plen, C))
     if ratio == "mod":
@@ -1360,6 +1463,37 @@ def test_reverse_echo_backward_kernel_equals_period_order(cuda, C, ratio, alt, T
     for i, (g, a, w) in enumerate(zip(got, again, want)):
         assert torch.equal(g, a), f"output {i}: two launches differ"
         assert torch.equal(g, w), f"output {i}: off the period order by {(g - w).abs().max()}"
+
+
+@pytest.mark.parametrize("C,ratio,alt,T,plen", [(4, "mod", 1.0, 2500, 64),
+                                                (1, 1.5, 0.0, 999, 64),
+                                                (1, 1.5, 1.0, 600, 20480),
+                                                (4, "mod", 0.0, 300, 22050)])
+def test_reverse_echo_backward_device_index(cuda, monkeypatch, C, ratio, alt, T, plen):
+    """The readers' index kept in device memory: forced at a 64-row pitch
+    line, where it equals the shared-memory layout's launch, and needed past
+    20225 rows (once refused); both bit for bit with the period order, a
+    second launch the same bits, and within BWD_TOL of the plain adjoint."""
+    from pygmu2_tpu_torch.ops import reverse_echo as re_
+
+    args, kw, fwd = _echo_case(cuda, C, ratio, alt, T, seed_shift=2, plen=plen)
+    res = fwd(*args[:7])[5:]
+    if plen <= re_.SHARED_INDEX_MAX_PLEN:
+        shared = re_.reverse_echo_scan_bwd(*args, res, **kw)
+        monkeypatch.setattr(re_, "FORCE_DEVICE_INDEX", True)
+    assert re_.index_in_device_memory(plen)
+    before = re_.reverse_echo_scan_bwd.launches
+    got = re_.reverse_echo_scan_bwd(*args, res, **kw)
+    again = re_.reverse_echo_scan_bwd(*args, res, **kw)
+    torch.cuda.synchronize()
+    assert re_.reverse_echo_scan_bwd.launches == before + 2
+    want = re_.reverse_echo_scan_bwd_periods(*args, res, **kw)
+    for i, (g, a, w) in enumerate(zip(got, again, want)):
+        assert torch.equal(g, a), f"output {i}: two launches differ"
+        assert torch.equal(g, w), f"output {i}: off the period order by {(g - w).abs().max()}"
+        if plen <= re_.SHARED_INDEX_MAX_PLEN:
+            assert torch.equal(g, shared[i]), f"output {i}: the two index layouts differ"
+    _bwd_close(got, re_.reverse_echo_scan_bwd_ref(*args, **kw), f"echo plen={plen}", BWD_TOL)
 
 
 def test_reverse_echo_backward_source_has_no_atomics():

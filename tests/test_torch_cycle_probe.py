@@ -7,7 +7,7 @@ import pytest
 from pygmu2_tpu_torch import cycle_probe
 
 NAMES = ["comb roles", "ks roles", "ks bwd roles", "follower roles", "slew roles",
-         "osc roles"] + [
+         "osc roles", "ks_blocked phases", "adsr_clock phases"] + [
     f"adsr passes, {k}" for k in cycle_probe.ADSR_PATHS]
 
 
